@@ -25,7 +25,15 @@ version.  Phases; any failure exits non-zero:
   5. median CUDA-event times of each kernel, its plain version and
      ``torch.sparse.mm`` (cuSPARSE; a yardstick only, never on the path),
      each beside its least possible time on the card;
-  6. one ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``.
+  6. sorted output on ER s18: ``plan_spgemm(a, a, sorted_output=True)``
+     under ``algorithm="auto"`` must choose propagation blocking (``pb``);
+     ``plan.execute`` must launch the scatter and merge kernels once each,
+     no plain version and no inspection, and a repeat plan must hit the
+     cache.  The output is row-sorted, its structure bitwise equal to the
+     sorted hash route's, its values bitwise equal to the plain versions on
+     dyadic values and within 1 ulp per accumulated product otherwise;
+     then the same timings as phase 5;
+  7. one ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``.
 
 Usage: ``python3 chip_smoke.py`` (one card, no arguments).  A quick first
 check of a changed kernel at small sizes is
@@ -56,10 +64,13 @@ REPS = 7
 DYADIC = (0.5, 1.0, 1.5, 2.0)
 
 KERNEL_SOURCE = "src/repro_torch/kernels/spgemm_hash/csrc/spgemm_hash.cu"
+PB_SOURCE = "src/repro_torch/kernels/spgemm_pb/csrc/spgemm_pb.cu"
 REPLACES = {
     "numeric": "src/repro/kernels/spgemm_hash/kernel.py:266",
     "numeric_vector": "src/repro/kernels/spgemm_hash/kernel.py:87",
     "symbolic": "src/repro/kernels/spgemm_hash/kernel.py:235",
+    "scatter": "src/repro/kernels/spgemm_pb/kernel.py:84",
+    "merge": "src/repro/kernels/spgemm_pb/kernel.py:128",
 }
 
 
@@ -87,19 +98,29 @@ class Smoke:
         from repro_torch.data import rmat
         from repro_torch.kernels.spgemm_hash import kernel as K
         from repro_torch.kernels.spgemm_hash import ops, ref
+        from repro_torch.kernels.spgemm_pb import kernel as PK
+        from repro_torch.kernels.spgemm_pb import ops as pb_ops
+        from repro_torch.kernels.spgemm_pb import ref as pb_ref
         self.torch, self.core, self.CSR, self.rmat = torch, core, CSR, rmat
         self.K, self.ops, self.ref = K, ops, ref
+        self.PK, self.pb_ops, self.pb_ref = PK, pb_ops, pb_ref
         self.card = card
         self.dev = torch.device("cuda")
         self.rows = []          # the kernels line
+        self.library_ms = {}    # torch.sparse.mm time per input
 
     # ---- helpers ---------------------------------------------------------
     def counted(self, fn):
-        """Run ``fn`` between a counter reset and a read."""
+        """Run ``fn`` between a reset and a read of every launch counter
+        (the PB counters under ``pb_`` names)."""
         self.ops.reset_kernel_calls()
+        self.pb_ops.reset_kernel_calls()
         out = fn()
         self.torch.cuda.synchronize()
-        return out, self.ops.kernel_call_counts()
+        counts = self.ops.kernel_call_counts()
+        counts.update({f"pb_{k}": v for k, v in
+                       self.pb_ops.kernel_call_counts().items()})
+        return out, counts
 
     def time_ms(self, fn) -> float:
         torch = self.torch
@@ -149,6 +170,14 @@ class Smoke:
             check(not bool(bad.any()), f"{what}: {int(bad.sum())} values "
                   f"past 1 ulp per product (max abs diff {err})")
         return err
+
+    def expect(self, counts, want, what):
+        """Launch counts of one path: ``want``'s kernels as many times as
+        it says, every other counter (plain versions included) zero."""
+        plain = counts["plain"] + counts["pb_plain"]
+        check(plain == 0, f"{what}: ran a plain version {plain} times")
+        check(counts == {k: want.get(k, 0) for k in counts},
+              f"{what}: launches {counts}, want {want}")
 
     def operands(self, a):
         return (a.indptr, a.indptr, a.indices, a.data.float(), a.indices,
@@ -240,11 +269,7 @@ class Smoke:
         paths = {"numeric": {}, "numeric_vector": {}, "symbolic": {}}
 
         def expect(counts, want, path):
-            what = f"{label} {path}"
-            plain = counts.pop("plain")
-            check(plain == 0, f"{what}: ran the plain version {plain} times")
-            check(counts == {k: want.get(k, 0) for k in counts},
-                  f"{what}: launches {counts}, want {want}")
+            self.expect(counts, want, f"{label} {path}")
             for k, v in want.items():
                 paths[k][path] = v
 
@@ -384,7 +409,129 @@ class Smoke:
                 "bound_ms": bound_num if num else bound_sym,
                 "bound_by": bound_num_by if num else "bytes",
                 "library_ms": t["torch_sparse_mm"] if num else None})
+        self.library_ms[label] = t["torch_sparse_mm"]
         del plan, plan_o, c, c_d, c_o, c_p, c_s, pc, pv, pc_d, pv_d
+        core.clear_plan_cache()
+        torch.cuda.empty_cache()
+        return a, a_d, label
+
+    # ---- phase 6 -----------------------------------------------------------
+    def sorted_pb(self, a, a_d, label):
+        """Sorted output under the recipe: propagation blocking."""
+        torch, core, PK, pb_ref = self.torch, self.core, self.PK, self.pb_ref
+        core.clear_plan_cache()
+        self.pb_ops.reset_kernel_calls()
+        t0 = time.perf_counter()
+        plan = core.plan_spgemm(a, a, algorithm="auto", sorted_output=True)
+        torch.cuda.synchronize()
+        plan_s = time.perf_counter() - t0
+        check(plan.algorithm == "pb",
+              f"{label} sorted: recipe chose {plan.algorithm}, not pb")
+        check(self.pb_ops.kernel_call_counts()["inspect"] == 1,
+              f"{label} sorted: planning ran no PB inspection")
+        p = plan.pb_plan
+        flop, nnz_c, nb, cap = p.total_flop, p.nnz_c, p.n_buckets, \
+            p.bucket_cap
+        print(f"{label} sorted: recipe chose 'pb'; n_buckets {nb}, bucket_w "
+              f"{p.bucket_w}, bucket_cap {cap}, total flop {flop}, nnz(C) "
+              f"{nnz_c} (planned in {plan_s:.2f} s)", flush=True)
+
+        c, launches = self.counted(lambda: plan.execute(a, a))
+        self.expect(launches, {"pb_scatter": 1, "pb_merge": 1},
+                    f"{label} sorted plan.execute")
+        c_d, counts = self.counted(lambda: plan.execute(a_d, a_d))
+        self.expect(counts, {"pb_scatter": 1, "pb_merge": 1},
+                    f"{label} sorted plan.execute dyadic")
+        again, counts = self.counted(lambda: (
+            core.plan_spgemm(a, a, algorithm="auto", sorted_output=True),
+            core.plan_pb(a, a)))
+        self.expect(counts, {}, f"{label} sorted repeat plan")
+        check(again[0] is plan and again[1] is p,
+              f"{label} sorted: a repeat plan missed the cache")
+
+        # the output: row-sorted, structure of the sorted hash route
+        nnz = int(c.nnz)
+        check(c.sorted_cols and nnz == nnz_c, f"{label} sorted: nnz/flag")
+        keys = c.row_ids()[:nnz].long() * a.n_cols + c.indices[:nnz].long()
+        check(bool((keys[1:] > keys[:-1]).all()),
+              f"{label} sorted: rows are not sorted")
+        plan_h = core.plan_spgemm(a, a, algorithm="hash")
+        c_h = plan_h.execute(a, a, sorted_output=True)
+        check(torch.equal(c.indptr, c_h.indptr) and
+              torch.equal(c.indices, c_h.indices),
+              f"{label} sorted: structure differs from the hash route's")
+
+        # each kernel against its plain version on the main path's shapes
+        live = torch.arange(cap, device=self.dev)[None, :] < \
+            p.bucket_nnz[:, None]
+        counts_pp = torch.bincount(p.seg[live].long(), minlength=p.cap_c)
+        errs = {}
+        for vals, what in ((a_d.data, "dyadic"), (a.data, "rmat")):
+            pp = PK.scatter_call(p.bucket_nnz, p.src_a, p.src_b, vals, vals)
+            pp_plain = pb_ref.scatter_plain(p.bucket_nnz, p.src_a, p.src_b,
+                                            vals, vals)
+            check(torch.equal(pp, pp_plain),
+                  f"{label} scatter ({what}): not bitwise equal")
+            out = PK.merge_call(p.bucket_nnz, p.seg, pp, p.cap_c)
+            out_plain = pb_ref.merge_plain(p.bucket_nnz, p.seg, pp, p.cap_c)
+            diff = (out - out_plain).abs()
+            if what == "dyadic":
+                check(torch.equal(out, out_plain),
+                      f"{label} merge (dyadic): not bitwise equal")
+                check(torch.equal(c_d.data, out_plain),
+                      f"{label} plan.execute (dyadic): values differ from "
+                      f"the plain versions")
+                continue
+            ulp = torch.nextafter(out_plain.abs(), torch.full_like(
+                out_plain, float("inf"))) - out_plain.abs()
+            bad = diff > counts_pp.float() * ulp
+            check(not bool(bad.any()), f"{label} merge: {int(bad.sum())} "
+                  f"values past 1 ulp per product")
+            check(bool(((c.data - out_plain).abs()
+                        <= counts_pp.float() * ulp).all()),
+                  f"{label} plan.execute: values past 1 ulp per product")
+            errs["scatter"] = float((pp - pp_plain).abs().max())
+            errs["merge"] = float(diff.max())
+        print(f"{label} sorted: outputs match the plain versions and the "
+              f"hash route's structure; max abs diff merge "
+              f"{errs['merge']}, scatter {errs['scatter']}", flush=True)
+
+        # ---- timings ------------------------------------------------------
+        nnz_a = int(a.nnz)
+        by = {"scatter": 8 * flop + 4 * nnz_a + 4 * nnz_a + 4 * nb * cap
+              + 4 * nb,
+              "merge": 8 * flop + 4 * nnz_c + 4 * nb}
+        bound = {k: max(v / HBM_BYTES_PER_S, flop / FP32_FLOP_PER_S) * 1e3
+                 for k, v in by.items()}
+        t = {"scatter": self.time_ms(lambda: PK.scatter_call(
+                 p.bucket_nnz, p.src_a, p.src_b, a.data, a.data)),
+             "merge": self.time_ms(lambda: PK.merge_call(
+                 p.bucket_nnz, p.seg, pp, p.cap_c)),
+             "plain_scatter": self.time_ms(lambda: pb_ref.scatter_plain(
+                 p.bucket_nnz, p.src_a, p.src_b, a.data, a.data)),
+             "plain_merge": self.time_ms(lambda: pb_ref.merge_plain(
+                 p.bucket_nnz, p.seg, pp, p.cap_c)),
+             "execute_pb": self.time_ms(lambda: plan.execute(a, a)),
+             "execute_hash_sorted": self.time_ms(
+                 lambda: plan_h.execute(a, a, sorted_output=True)),
+             "torch_sparse_mm": self.library_ms[label]}
+        print(json.dumps({"timing": f"{label} sorted", "card": self.card,
+                          "n": a.n_rows, "nnz_a": nnz_a, "flop": flop,
+                          "nnz_c": nnz_c, "algorithm": "pb",
+                          "n_buckets": nb, "bucket_cap": cap, "ms": t,
+                          "bound_ms": bound, "bytes": by,
+                          "plan_s": plan_s}), flush=True)
+        for name in ("scatter", "merge"):
+            self.rows.append({
+                "name": f"spgemm_pb_{name}[{label}]", "route": "cuda",
+                "source": PB_SOURCE, "replaces": REPLACES[name],
+                "launches": launches[f"pb_{name}"],
+                "max_abs_err": errs[name], "ms": t[name],
+                "plain_ms": t[f"plain_{name}"], "bound_ms": bound[name],
+                "bound_by": "bytes" if by[name] / HBM_BYTES_PER_S >=
+                flop / FP32_FLOP_PER_S else "operations",
+                "library_ms": t["torch_sparse_mm"]})
+        del plan, plan_h, p, c, c_d, c_h, pp, out, again
         core.clear_plan_cache()
         torch.cuda.empty_cache()
 
@@ -404,21 +551,27 @@ def main() -> int:
     card = card_line()                                           # phase 1
     print(card, flush=True)
 
-    from repro_torch.kernels.spgemm_hash import kernel as K      # phase 2
-    info = K.build()
-    print(f"phase 2: built {info['path']} in {info['seconds']:.1f} s",
-          flush=True)
-    for line in info["ptxas"].splitlines():
-        if "registers" in line or "spill" in line:
-            print("  ptxas:", line.strip(), flush=True)
+    from repro_torch.kernels import _build                       # phase 2
+    from repro_torch.kernels.spgemm_hash import kernel as K
+    from repro_torch.kernels.spgemm_pb import kernel as PK
+    seconds = _build.compile_sources([K.SOURCE, PK.SOURCE])     # parallel
+    for mod in (K, PK):
+        info = mod.build()
+        print(f"phase 2: built {info['path']} in "
+              f"{seconds[mod.SOURCE]:.1f} s", flush=True)
+        for line in info["ptxas"].splitlines():
+            if "registers" in line or "spill" in line:
+                print("  ptxas:", line.strip(), flush=True)
 
     smoke = Smoke(torch, card)
     smoke.saturation()                                           # phase 3
-    smoke.one_input("ER", ER_SCALE)
+    er = smoke.one_input("ER", ER_SCALE)                         # 4, 5
+    smoke.sorted_pb(*er)                                         # phase 6
+    del er
     smoke.one_input("G500", G500_SCALE)
 
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
-    print(json.dumps({"kernels": smoke.rows}), flush=True)       # phase 6
+    print(json.dumps({"kernels": smoke.rows}), flush=True)       # phase 7
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

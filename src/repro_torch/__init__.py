@@ -2,7 +2,7 @@
 
 Laid out module for module like the JAX package:
     repro_torch.core     -- CSR, schedule, SpGEMM algorithms, recipe, planner
-    repro_torch.kernels  -- hand-written CUDA kernels (hash SpGEMM)
+    repro_torch.kernels  -- hand-written CUDA kernels (hash SpGEMM, PB)
     repro_torch.data     -- R-MAT generators
 
 Entry points put their tensors on ``cuda`` unless the caller passes

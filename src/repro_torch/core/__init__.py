@@ -12,6 +12,7 @@ from .recipe import (SpGEMMStats, measure_stats, model_costs, recommend,
                      choose_algorithm, choose_algorithm_from_stats)
 from .plan import (SpGEMMPlan, plan_spgemm, structure_key, plan_cache_stats,
                    clear_plan_cache, PLAN_KINDS)
+from .pb import PBPlan, plan_pb
 
 __all__ = [
     "CSR",
@@ -26,4 +27,5 @@ __all__ = [
     "choose_algorithm", "choose_algorithm_from_stats",
     "SpGEMMPlan", "plan_spgemm", "structure_key", "plan_cache_stats",
     "clear_plan_cache", "PLAN_KINDS",
+    "PBPlan", "plan_pb",
 ]

@@ -137,6 +137,9 @@ class SpGEMMPlan:
     k_width: int             # heap: max nnz(a_i*)
     #: where the choice came from: "explicit" or "heuristic"
     provenance: str = "explicit"
+    #: ``algorithm == "pb"`` only: the nested propagation-blocking plan
+    #: (:class:`repro_torch.core.pb.PBPlan`) the execute runs
+    pb_plan: object = dataclasses.field(default=None, repr=False)
 
     def check_structure(self, a: CSR, b: CSR, strict: bool = False) -> None:
         """Cheap (shapes/caps/nnz) or strict (re-hash) structure check."""
@@ -187,6 +190,9 @@ class SpGEMMPlan:
                     table_size=self.table_size,
                     schedule=(self.offsets, self.bin_tsize),
                     indptr_c=self.indptr_c)
+        elif algo == "pb":
+            from .pb import pad_output
+            out = pad_output(self.pb_plan.execute(a, b), self.cap_c)
         else:
             raise ValueError(f"plan holds unknown algorithm {algo!r}")
         so = self.sorted_output if sorted_output is None else sorted_output
@@ -209,8 +215,8 @@ def plan_spgemm(a: CSR, b: CSR, *, algorithm: str = "auto",
     cached plan.  ``bucket_caps=True`` rounds ``cap_c``, ``flop_cap`` and
     ``row_cap`` up to powers of two, so similar structures share shapes.
     ``a_row_nnz`` marks A as a chain intermediate (the recipe's A-side
-    statistics come from it).  ``autotune=True`` and the ``bcsr``/``pb``
-    algorithms are not ported yet and raise.
+    statistics come from it).  ``autotune=True`` and the ``bcsr``
+    algorithm are not ported yet and raise.
     """
     if autotune:
         raise NotImplementedError("autotune= is not ported yet")
@@ -272,10 +278,17 @@ def plan_spgemm(a: CSR, b: CSR, *, algorithm: str = "auto",
         if algorithm == "heap" and not (a.sorted_cols and b.sorted_cols):
             # the inputs cannot feed heap; hash keeps the unsorted contract
             algorithm = "hash"
-    if algorithm in ("bcsr", "pb"):
+    if algorithm == "bcsr":
         raise NotImplementedError(
-            f"the {algorithm} plan is not ported yet (recipe chose it for "
-            f"this input); plan esc/heap/hash instead")
+            "the bcsr plan is not ported yet (recipe chose it for this "
+            "input); plan esc/heap/hash/pb instead")
+    pb_plan = None
+    if algorithm == "pb":
+        # nest the propagation-blocking inspection under the shared LRU's
+        # "pb" kind; it handles every semiring and prunes masks itself
+        from .pb import plan_pb
+        pb_plan = plan_pb(a, b, semiring=sr.name, mask=mask,
+                          complement_mask=complement_mask, cache=cache)
 
     plan = SpGEMMPlan(
         key=key, algorithm=algorithm, semiring=sr.name,
@@ -285,7 +298,8 @@ def plan_spgemm(a: CSR, b: CSR, *, algorithm: str = "auto",
         flop=flop, total_flop=total_flop, flop_cap=flop_cap,
         offsets=offsets, bin_tsize=bin_tsize, table_size=table_size,
         row_nnz_c=row_nnz_c, indptr_c=indptr_c, nnz_c=nnz_c, cap_c=cap_c,
-        row_cap=row_cap, k_width=k_width, provenance=provenance)
+        row_cap=row_cap, k_width=k_width, provenance=provenance,
+        pb_plan=pb_plan)
     if cache:
         cache_store(key, plan)
     return plan

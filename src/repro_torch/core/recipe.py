@@ -11,8 +11,8 @@ Port of ``repro.core.recipe``.  Cost models (paper Eq. 1 / Eq. 2):
 The decision table and its thresholds are copied verbatim: they are
 Table 4's, calibrated on KNL, and the reference's block-density and
 propagation-blocking rows stay in place so both packages choose alike
-(the bcsr and pb executors are not ported yet; a plan that lands there
-raises).  The measured (autotune) mode is not ported yet.
+(the bcsr executor is not ported yet; a plan that lands there raises).
+The measured (autotune) mode is not ported yet.
 """
 from __future__ import annotations
 

@@ -135,3 +135,30 @@ def bin_table_sizes(tsize: torch.Tensor, n_cols: int, table_size: int,
     1 so linear probes end), clamped into ``[floor, table_size]``."""
     t = torch.clamp(tsize.to(torch.int32), max=n_cols) + 1
     return torch.clamp(lowest_p2_arr(t), max(floor, 1), table_size)
+
+
+#: default propagation-blocking bucket budget: the average number of
+#: partial products a column bucket should hold (the reference's value).
+PB_BUCKET_BUDGET = 2048
+
+
+def pb_bucket_layout(n_cols: int, n_buckets: int | None = None, *,
+                     total_flop: int | None = None,
+                     budget: int = PB_BUCKET_BUDGET) -> tuple:
+    """Column-bucket layout for propagation-blocking SpGEMM:
+    ``(bucket_w, n_buckets)``, ``bucket_w`` a power of two, column ``c`` in
+    bucket ``c // bucket_w``, and ``ceil(n_cols / bucket_w)`` buckets.
+
+    With ``n_buckets=None`` the count is the least that keeps the average
+    bucket at ``<= budget`` products (never more buckets than columns);
+    an explicit count is honoured up to the power-of-two rounding of
+    ``bucket_w``, which may return fewer buckets.
+    """
+    if n_cols < 1:
+        raise ValueError(f"n_cols must be at least 1, got {n_cols}")
+    if n_buckets is None:
+        want = max(1, -(-(total_flop or 0) // budget))
+        n_buckets = min(want, n_cols)
+    n_buckets = max(1, min(int(n_buckets), n_cols))
+    bucket_w = lowest_p2(-(-n_cols // n_buckets))
+    return bucket_w, -(-n_cols // bucket_w)

@@ -9,9 +9,11 @@ Algorithms, as Table 1 of the paper:
   ``heap``       1       k-way tournament merge      sorted / sorted
   ``hash``       2       hash table (CUDA kernel)    any / select
   ``hash_vector``2       chunked probing (CUDA)      any / select
+  ``pb``         2       column buckets (CUDA)       any / sorted
 
 Everything in this module is plain PyTorch, as the reference is plain jnp:
-the hand-written kernels live in ``repro_torch.kernels.spgemm_hash``.
+the hand-written kernels live in ``repro_torch.kernels.spgemm_hash`` and
+``repro_torch.kernels.spgemm_pb`` (planned by ``core.pb``).
 :func:`spgemm_hash_jnp` (the name kept from the reference) is the sort-based
 hash-order fallback that owns the semiring and masked generalizations.
 
@@ -402,9 +404,21 @@ def spgemm(a: CSR, b: CSR, cap_c: int | None = None,
         from repro_torch.kernels.spgemm_hash import ops as hash_ops
         out = hash_ops.spgemm_hash(a, b, cap_c,
                                    vector=(algorithm == "hash_vector"), **kw)
-    elif algorithm in ("bcsr", "pb"):
+    elif algorithm == "pb":
+        # propagation blocking: plans eagerly (the inspection needs the
+        # structure); repeat products should hold the PBPlan instead
+        from .pb import pad_output, plan_pb
+        pbp = plan_pb(a, b, semiring=sr.name, mask=mask,
+                      complement_mask=complement_mask,
+                      n_buckets=kw.pop("n_buckets", None),
+                      budget=kw.pop("budget", sched.PB_BUCKET_BUDGET),
+                      cache=kw.pop("cache", True))
+        if cap_c < pbp.nnz_c:
+            raise ValueError(f"cap_c={cap_c} < exact nnz(C)={pbp.nnz_c}")
+        out = pad_output(pbp.execute(a, b), cap_c)
+    elif algorithm == "bcsr":
         raise NotImplementedError(
-            f"the {algorithm} path is not ported yet; pick esc/heap/hash")
+            "the bcsr path is not ported yet; pick esc/heap/hash/pb")
     else:
         raise ValueError(f"unknown algorithm {algorithm!r}")
     return finalize(out, bool(sorted_output))

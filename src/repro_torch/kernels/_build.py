@@ -1,0 +1,111 @@
+"""Build and load the hand-written CUDA kernels (plain C interface).
+
+Each ``csrc/*.cu`` source is compiled with ``nvcc`` for ``sm_90a`` into a
+shared library under ``build/torch_ext/`` at the root of the checkout,
+named by a digest of the source, and loaded with ``ctypes``.  Nothing is
+compiled at import, so the package imports on a machine without CUDA.
+:func:`compile_sources` starts one ``nvcc`` per missing library, all at
+once, so a caller that needs several libraries waits for the slowest only.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_ext"
+
+#: source path -> {"lib", "seconds", "path", "ptxas"}, once loaded
+_LOADED: dict = {}
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                           "toolkit (set CUDA_HOME)")
+    return found
+
+
+def _library_path(source: Path) -> Path:
+    """Where the library of this source's current contents goes."""
+    digest = hashlib.sha256(source.read_bytes()).hexdigest()[:16]
+    return BUILD_DIR / f"{source.stem}_{digest}.so"
+
+
+def compile_sources(sources) -> dict:
+    """Compile every source whose library is not on disk yet, in parallel.
+
+    Returns ``{source: seconds}`` (0 for a library already built); raises
+    with the compiler's output if any ``nvcc`` fails.
+    """
+    t0 = time.perf_counter()
+    jobs = []
+    for src in sources:
+        path = _library_path(src)
+        if path.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), "-gencode=arch=compute_90a,code=sm_90a",
+               "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+               "-Xptxas", "-v", "-o", str(tmp), str(src)]
+        jobs.append((src, path, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    seconds = {src: 0.0 for src in sources}
+    failed = []
+    for src, path, tmp, proc in jobs:
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed on {src.name} "
+                          f"({proc.returncode}):\n{out}")
+            continue
+        path.with_suffix(".log").write_text(out)
+        os.replace(tmp, path)
+        seconds[src] = time.perf_counter() - t0
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return seconds
+
+
+def load(source: Path, functions: dict) -> dict:
+    """Compile ``source`` if needed, load it and declare ``functions``
+    (name -> ctypes argument types; every one returns a CUDA error code).
+
+    Returns ``{"lib", "seconds", "path", "ptxas"}``: the build time (0 when
+    the library was already on disk) and what ``ptxas -v`` said about
+    registers, shared memory and spills.  Later calls return the first
+    call's result.
+    """
+    hit = _LOADED.get(source)
+    if hit is not None:
+        return hit
+    seconds = compile_sources([source])[source]
+    path = _library_path(source)
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in functions.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    log = path.with_suffix(".log")
+    info = {"lib": lib, "seconds": seconds, "path": str(path),
+            "ptxas": log.read_text() if log.exists() else ""}
+    _LOADED[source] = info
+    return info
+
+
+def check_tensor(name, t, dtype, device) -> None:
+    """Raise ``ValueError`` unless ``t`` is a contiguous ``dtype`` tensor
+    on ``device`` -- what a kernel's plain C interface takes."""
+    if t.device != device or t.dtype != dtype or not t.is_contiguous():
+        raise ValueError(f"{name}: want a contiguous {dtype} tensor on "
+                         f"{device}, got {t.dtype} on {t.device}")

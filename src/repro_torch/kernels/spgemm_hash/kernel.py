@@ -18,15 +18,11 @@ launch failure is never answered with the plain version.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import time
 from pathlib import Path
 
 import torch
 
+from .. import _build
 from . import ref
 
 #: Vector probe width: slots compared per step in hash_vector mode.
@@ -43,66 +39,19 @@ SMEM_SLOTS = 16384
 #: Blocks that share the global-memory tables of a bin with larger tables.
 GLOBAL_BLOCKS = 264
 
-_SOURCE = Path(__file__).parent / "csrc" / "spgemm_hash.cu"
-_BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "torch_ext"
+SOURCE = Path(__file__).parent / "csrc" / "spgemm_hash.cu"
+_FUNCTIONS = {"spgemm_hash_launch":
+              [ctypes.c_int] * 9 + [ctypes.c_void_p] * 14}
 _lib = None
-_build_info = None
-
-
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
-    cand = Path(home) / "bin" / "nvcc"
-    if cand.exists():
-        return str(cand)
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
-                           "toolkit (set CUDA_HOME)")
-    return found
 
 
 def build() -> dict:
-    """Compile (if this source was not built yet) and load the library.
-
-    Returns ``{"seconds", "path", "ptxas"}``: the build time (near 0 when
-    a library of the same source was already on disk) and what ``ptxas
-    -v`` said about registers, shared memory and spills.  Later calls in
-    the process return the first call's result.
-    """
-    global _lib, _build_info
-    if _build_info is not None:
-        return _build_info
-    digest = hashlib.sha256(_SOURCE.read_bytes()).hexdigest()[:16]
-    path = _BUILD_DIR / f"spgemm_hash_{digest}.so"
-    log = path.with_suffix(".log")
-    t0 = time.perf_counter()
-    if not path.exists():
-        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), "-gencode=arch=compute_90a,code=sm_90a",
-               "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-               "-Xptxas", "-v", "-o", str(tmp), str(_SOURCE)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stdout}\n{proc.stderr}")
-        log.write_text(proc.stdout + proc.stderr)
-        os.replace(tmp, path)
-    seconds = time.perf_counter() - t0
-    lib = ctypes.CDLL(str(path))
-    fn = lib.spgemm_hash_launch
-    fn.argtypes = [ctypes.c_int] * 9 + [ctypes.c_void_p] * 14
-    fn.restype = ctypes.c_int
-    _lib = lib
-    _build_info = {"seconds": seconds, "path": str(path),
-                   "ptxas": log.read_text() if log.exists() else ""}
-    return _build_info
-
-
-def _check(name, t, dtype, device):
-    if t.device != device or t.dtype != dtype or not t.is_contiguous():
-        raise ValueError(f"{name}: want a contiguous {dtype} tensor on "
-                         f"{device}, got {t.dtype} on {t.device}")
+    """Compile (if this source was not built yet) and load the library;
+    returns :func:`repro_torch.kernels._build.load`'s record."""
+    global _lib
+    info = _build.load(SOURCE, _FUNCTIONS)
+    _lib = info["lib"]
+    return info
 
 
 def _ptr(t):
@@ -116,12 +65,12 @@ def _launch_bins(numeric, vector, offsets, bin_tsize, table_size, indptr_a,
     dev = a_idx.device
     for name, t in (("indptr_a", indptr_a), ("indptr_b", indptr_b),
                     ("a_idx", a_idx), ("b_idx", b_idx)):
-        _check(name, t, torch.int32, dev)
+        _build.check_tensor(name, t, torch.int32, dev)
     for name, t in (("a_val", a_val), ("b_val", b_val)):
-        _check(name, t, torch.float32, dev)
+        _build.check_tensor(name, t, torch.float32, dev)
     if indptr_c is not None:
-        _check("indptr_c", indptr_c, torch.int32, dev)
-    _check("errors", errors, torch.int32, dev)
+        _build.check_tensor("indptr_c", indptr_c, torch.int32, dev)
+    _build.check_tensor("errors", errors, torch.int32, dev)
     build()
     bounds = offsets.tolist()
     sizes = bin_tsize.tolist()

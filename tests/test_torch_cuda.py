@@ -1,4 +1,5 @@
-"""The hand-written CUDA hash kernels against their plain versions.
+"""The hand-written CUDA kernels (hash, propagation blocking) against
+their plain versions.
 
 Every test here needs an NVIDIA GPU (marker ``gpu``) and skips without one:
 the kernels have no CPU mode.  The module imports neither jax nor the
@@ -19,6 +20,9 @@ from repro_torch.core.formats import prefix_sum
 from repro_torch.data import rmat
 from repro_torch.kernels.spgemm_hash import kernel as K
 from repro_torch.kernels.spgemm_hash import ops, ref
+from repro_torch.kernels.spgemm_pb import kernel as PK
+from repro_torch.kernels.spgemm_pb import ops as pb_ops
+from repro_torch.kernels.spgemm_pb import ref as pb_ref
 
 DYADIC = np.array([0.5, 1.0, 1.5, 2.0], np.float32)
 CASES = [("ER", 9, 8, True), ("G500", 10, 16, False), ("G500", 12, 16, True)]
@@ -139,3 +143,75 @@ def test_table_too_small_raises(cuda, vector):
     with pytest.raises(RuntimeError, match="full-table"):
         ops.spgemm_hash(a, b, d, vector=vector, table_size=K.CHUNK,
                         schedule=(off, tsz), indptr_c=indptr_c)
+
+
+PB_CASES = [("ER", 10, 8), ("G500", 8, 16)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", PB_CASES, ids=lambda c: f"{c[0]}{c[1]}")
+def test_pb_kernels_match_plain_versions(cuda, case):
+    """Forced ``algorithm="pb"``: scatter bitwise (one rounding per
+    product), merge bitwise on dyadic values; ``plan.execute`` launches
+    each kernel once and no plain version."""
+    from repro_torch.core import plan_spgemm
+    a = operand(*case, True, cuda)
+    plan = plan_spgemm(a, a, algorithm="pb", sorted_output=True, cache=False)
+    p = plan.pb_plan
+    pp = PK.scatter_call(p.bucket_nnz, p.src_a, p.src_b, a.data, a.data)
+    assert torch.equal(pp, pb_ref.scatter_plain(p.bucket_nnz, p.src_a,
+                                                p.src_b, a.data, a.data))
+    data = PK.merge_call(p.bucket_nnz, p.seg, pp, p.cap_c)
+    assert torch.equal(data, pb_ref.merge_plain(p.bucket_nnz, p.seg, pp,
+                                                p.cap_c))
+    pb_ops.reset_kernel_calls()
+    c = plan.execute(a, a)
+    torch.cuda.synchronize()
+    assert pb_ops.kernel_call_counts() == {"inspect": 0, "scatter": 1,
+                                           "merge": 1, "plain": 0}
+    assert c.sorted_cols and torch.equal(c.indptr, plan.indptr_c)
+    h = plan_spgemm(a, a, algorithm="hash", cache=False).execute(
+        a, a, sorted_output=True)
+    assert torch.equal(c.indices, h.indices) and torch.equal(c.data, h.data)
+
+
+@pytest.mark.gpu
+def test_pb_kernels_clip_indices_and_zero_pad_lanes(cuda):
+    """Out-of-range gather and output slots clip as the TPU kernels' do;
+    pad lanes are 0 and never merged; a slot no lane names stays 0."""
+    i32 = dict(dtype=torch.int32, device=cuda)
+    bucket_nnz = torch.tensor([3, 0, 2], **i32)
+    src_a = torch.tensor([[0, 5, -2, 7], [1, 1, 1, 1], [2, 9, 0, 0]], **i32)
+    src_b = torch.tensor([[1, -1, 9, 3], [0, 0, 0, 0], [0, 2, 4, 4]], **i32)
+    seg = torch.tensor([[0, 1, 1, 9], [0, 0, 0, 0], [3, 7, 9, 9]], **i32)
+    a_data = torch.tensor([0.5, 1.5, 2.0], device=cuda)
+    b_data = torch.tensor([1.0, 2.0, 4.0], device=cuda)
+    pp = PK.scatter_call(bucket_nnz, src_a, src_b, a_data, b_data)
+    want = torch.tensor([[1.0, 2.0, 2.0, 0], [0, 0, 0, 0], [2.0, 8.0, 0, 0]],
+                        device=cuda)
+    assert torch.equal(pp, want)
+    data = PK.merge_call(bucket_nnz, seg, pp, 5)
+    assert torch.equal(data, torch.tensor([1.0, 4.0, 0.0, 2.0, 8.0],
+                                          device=cuda))
+    assert torch.equal(data, pb_ref.merge_plain(bucket_nnz, seg, pp, 5))
+
+
+@pytest.mark.gpu
+def test_pb_wrappers_reject_bad_operands(cuda):
+    i32 = dict(dtype=torch.int32, device=cuda)
+    bucket_nnz = torch.tensor([2], **i32)
+    src = torch.zeros((1, 8), **i32)
+    vals = torch.ones(4, device=cuda)
+    with pytest.raises(ValueError):              # CPU/CUDA mismatch
+        PK.scatter_call(bucket_nnz, src, src, vals.cpu(), vals)
+    with pytest.raises(ValueError):
+        PK.merge_call(bucket_nnz.cpu(), src, torch.zeros((1, 8),
+                                                         device=cuda), 4)
+    with pytest.raises(ValueError):              # wrong dtype
+        PK.scatter_call(bucket_nnz, src, src, vals.double(), vals)
+    with pytest.raises(ValueError):
+        PK.merge_call(bucket_nnz, src.long(), torch.zeros((1, 8),
+                                                          device=cuda), 4)
+    with pytest.raises(ValueError):              # shapes disagree
+        PK.scatter_call(bucket_nnz, src, torch.zeros((1, 4), **i32), vals,
+                        vals)

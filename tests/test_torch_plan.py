@@ -61,9 +61,9 @@ def assert_csr_equal(jc, tc):
                               getattr(tc, f).numpy()), f
 
 
-#: (preset, scale, ef): the recipe picks hash, hash_vector, heap or (pb,
-#: not ported yet) across these and the two sortednesses.
-FIXTURES = [("ER", 7, 12), ("G500", 7, 12), ("G500", 6, 4)]
+#: (preset, scale, ef): the recipe picks hash, hash_vector, heap or pb
+#: across these and the two sortednesses.
+FIXTURES = [("ER", 7, 12), ("G500", 7, 12), ("G500", 6, 4), ("ER", 8, 8)]
 
 
 @pytest.fixture(autouse=True)
@@ -84,12 +84,16 @@ def test_auto_plan_arrays_and_choice_bitwise(fx, sorted_output):
     got, _ = T.recommend(ta, ta, sorted_output=sorted_output)
     assert got == want
     jp = J.plan_spgemm(a, a, sorted_output=sorted_output, cache=False)
-    if jp.algorithm in ("bcsr", "pb"):
+    if jp.algorithm == "bcsr":
         with pytest.raises(NotImplementedError, match="not ported yet"):
             T.plan_spgemm(ta, ta, sorted_output=sorted_output, cache=False)
         return
     tp = T.plan_spgemm(ta, ta, sorted_output=sorted_output, cache=False)
     assert_plans_equal(jp, tp)
+    if jp.algorithm == "pb":
+        for f in ("src_a", "src_b", "seg", "bucket_nnz", "cols_c"):
+            assert np.array_equal(np.asarray(getattr(jp.pb_plan, f)),
+                                  getattr(tp.pb_plan, f).numpy()), f
 
 
 @pytest.mark.parametrize("bucket_caps", (False, True))
@@ -182,8 +186,7 @@ def test_cache_lru_bound_and_restore_refreshes_recency():
 
 def test_unported_plan_options_raise():
     ta = to_port(jrmat.rmat_csr(5, 4, "G500", seed=0))
-    for kw in ({"autotune": True}, {"algorithm": "bcsr"},
-               {"algorithm": "pb"}):
+    for kw in ({"autotune": True}, {"algorithm": "bcsr"}):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             T.plan_spgemm(ta, ta, cache=False, **kw)
 

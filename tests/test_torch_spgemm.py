@@ -172,7 +172,7 @@ def test_dispatcher_hash_family_and_finalize(sr):
                      T.finalize(c, True), "masked hash")
 
 
-@pytest.mark.parametrize("algo", ("bcsr", "pb"))
+@pytest.mark.parametrize("algo", ("bcsr",))
 def test_unported_paths_raise(algo):
     a, b, _ = operands()
     with pytest.raises(NotImplementedError, match="not ported yet"):
