@@ -4,8 +4,9 @@
 Drives the port's main path -- the planned hash SpGEMM of the paper --
 through the entry points a user calls, at the paper's own input sizes
 (R-MAT, edge factor 16, squared: ER at scale 18 and G500 at scale 16,
-seed 0), and holds every hand-written kernel against its plain PyTorch
-version.  Phases; any failure exits non-zero:
+seed 0), then the sorted-output (PB) and block-sparse (BCSR) routes, and
+holds every hand-written kernel against its plain PyTorch version.
+Phases; any failure exits non-zero:
 
   1. the card's name and power limit (``nvidia-smi``);
   2. build the CUDA kernels from the checkout's sources;
@@ -33,7 +34,24 @@ version.  Phases; any failure exits non-zero:
      sorted hash route's, its values bitwise equal to the plain versions on
      dyadic values and within 1 ulp per accumulated product otherwise;
      then the same timings as phase 5;
-  7. one ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``.
+  7. block-sparse products (BCSR, 8x8 tiles): an R-MAT pattern over the
+     block grid with every occupied tile dense -- ER at scale 13 (n =
+     65,536, 65,501 tiles, table in shared memory) and G500 at scale 10
+     (a 2,048-slot table in global memory), edge factor 8, seed 0.
+     ``plan_spgemm(a, a, algorithm="bcsr")`` must launch the hash symbolic
+     kernel once (the block-pattern inspection); ``plan.execute`` and
+     ``BCSRPlan.execute`` the block kernel once each, no plain version and
+     no inspection; repeat plans hit the cache; an explicit
+     ``plan_bcsr(vector=True)`` runs the chunked-probe modes.  Block rows
+     and their block-column sets equal the plain version's and the plan's
+     symbolic counts; tiles bitwise on dyadic values and within 1 ulp per
+     product on uniform ones; the CSR output has the scalar hash plan's
+     structure.  Then the timings (the execute's re-blocking and
+     flattening apart, the kernel's device time from a ``torch.profiler``
+     trace), beside the bound and ``torch.sparse.mm``.  Last, a small
+     block-clustered input (a 128 x 128 grid of 8x8 tiles) that
+     ``plan_spgemm(a, a)`` must route to ``bcsr`` by itself;
+  8. one ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``.
 
 Usage: ``python3 chip_smoke.py`` (one card, no arguments).  A quick first
 check of a changed kernel at small sizes is
@@ -63,15 +81,26 @@ REPS = 7
 #: dyadic values: exact float32 products and sums
 DYADIC = (0.5, 1.0, 1.5, 2.0)
 
+#: block-sparse inputs: (preset, R-MAT scale of the block grid, edge
+#: factor); tiles of BLOCK, every occupied tile dense
+BCSR_INPUTS = (("ER", 13, 8), ("G500", 10, 8))
+BLOCK = (8, 8)
+#: the automatic route's input: a GRID x GRID block grid (2^20 cells)
+AUTO_GRID, AUTO_DENSITY = 128, 0.03
+
 KERNEL_SOURCE = "src/repro_torch/kernels/spgemm_hash/csrc/spgemm_hash.cu"
 PB_SOURCE = "src/repro_torch/kernels/spgemm_pb/csrc/spgemm_pb.cu"
+BCSR_SOURCE = "src/repro_torch/kernels/spgemm_bcsr/csrc/spgemm_bcsr.cu"
 REPLACES = {
     "numeric": "src/repro/kernels/spgemm_hash/kernel.py:266",
     "numeric_vector": "src/repro/kernels/spgemm_hash/kernel.py:87",
     "symbolic": "src/repro/kernels/spgemm_hash/kernel.py:235",
     "scatter": "src/repro/kernels/spgemm_pb/kernel.py:84",
     "merge": "src/repro/kernels/spgemm_pb/kernel.py:128",
+    "bcsr_numeric": "src/repro/kernels/spgemm_bcsr/kernel.py:131",
 }
+#: the vector rows replace the chunked probe the Pallas kernels share
+REPLACES["bcsr_numeric_vector"] = REPLACES["numeric_vector"]
 
 
 def fail(msg: str) -> None:
@@ -101,9 +130,13 @@ class Smoke:
         from repro_torch.kernels.spgemm_pb import kernel as PK
         from repro_torch.kernels.spgemm_pb import ops as pb_ops
         from repro_torch.kernels.spgemm_pb import ref as pb_ref
+        from repro_torch.kernels.spgemm_bcsr import kernel as BK
+        from repro_torch.kernels.spgemm_bcsr import ops as bcsr_ops
+        from repro_torch.kernels.spgemm_bcsr import ref as bcsr_ref
         self.torch, self.core, self.CSR, self.rmat = torch, core, CSR, rmat
         self.K, self.ops, self.ref = K, ops, ref
         self.PK, self.pb_ops, self.pb_ref = PK, pb_ops, pb_ref
+        self.BK, self.bcsr_ops, self.bcsr_ref = BK, bcsr_ops, bcsr_ref
         self.card = card
         self.dev = torch.device("cuda")
         self.rows = []          # the kernels line
@@ -112,14 +145,17 @@ class Smoke:
     # ---- helpers ---------------------------------------------------------
     def counted(self, fn):
         """Run ``fn`` between a reset and a read of every launch counter
-        (the PB counters under ``pb_`` names)."""
+        (the PB and BCSR counters under ``pb_`` and ``bcsr_`` names)."""
         self.ops.reset_kernel_calls()
         self.pb_ops.reset_kernel_calls()
+        self.bcsr_ops.reset_kernel_calls()
         out = fn()
         self.torch.cuda.synchronize()
         counts = self.ops.kernel_call_counts()
         counts.update({f"pb_{k}": v for k, v in
                        self.pb_ops.kernel_call_counts().items()})
+        counts.update({f"bcsr_{k}": v for k, v in
+                       self.bcsr_ops.kernel_call_counts().items()})
         return out, counts
 
     def time_ms(self, fn) -> float:
@@ -137,6 +173,22 @@ class Smoke:
             times.append(t0.elapsed_time(t1))
         times.sort()
         return times[len(times) // 2]
+
+    def device_ms(self, fn, kernel: str):
+        """Device time in ms of the CUDA kernels whose name holds
+        ``kernel`` in one call of ``fn``, summed from a ``torch.profiler``
+        trace; None when the trace holds no device time for them."""
+        from torch.profiler import ProfilerActivity, profile
+        torch = self.torch
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        us = sum(getattr(e, "device_time_total", 0)
+                 for e in prof.key_averages() if kernel in e.key)
+        return us / 1e3 if us else None
 
     def sorted_rows(self, cols, vals, indptr, shape):
         c = self.CSR(indptr, cols, vals,
@@ -174,7 +226,7 @@ class Smoke:
     def expect(self, counts, want, what):
         """Launch counts of one path: ``want``'s kernels as many times as
         it says, every other counter (plain versions included) zero."""
-        plain = counts["plain"] + counts["pb_plain"]
+        plain = counts["plain"] + counts["pb_plain"] + counts["bcsr_plain"]
         check(plain == 0, f"{what}: ran a plain version {plain} times")
         check(counts == {k: want.get(k, 0) for k in counts},
               f"{what}: launches {counts}, want {want}")
@@ -536,6 +588,287 @@ class Smoke:
         torch.cuda.empty_cache()
 
 
+    # ---- phase 7 -----------------------------------------------------------
+    def block_csr(self, brow, bcol, g, seed):
+        """Scalar CSR operands on the card whose block pattern is
+        ``(brow, bcol)`` over a ``g x g`` grid of dense BLOCK tiles:
+        uniform values in [0.5, 1.5) and a dyadic-valued copy, both drawn
+        from seeded numpy generators."""
+        torch = self.torch
+        bm, bn = BLOCK
+        key = np.unique(brow.astype(np.int64) * g + bcol)
+        br, bc = key // g, key % g
+        ii, jj = np.meshgrid(np.arange(bm), np.arange(bn), indexing="ij")
+        rows = (br[:, None, None] * bm + ii).ravel()
+        cols = (bc[:, None, None] * bn + jj).ravel()
+        n = g * bm
+        order = np.argsort(rows * n + cols, kind="stable")
+        cols = cols[order]
+        indptr = np.zeros(n + 1, np.int64)
+        np.cumsum(np.bincount(rows, minlength=n), out=indptr[1:])
+        nnz = cols.shape[0]
+        uni = np.random.default_rng(seed).uniform(
+            0.5, 1.5, nnz).astype(np.float32)
+        dy = np.asarray(DYADIC, np.float32)[
+            np.random.default_rng(seed + 1).integers(0, 4, nnz)]
+        a = self.CSR.from_numpy(indptr, cols, uni, nnz, (n, n), True,
+                                device=self.dev)
+        a_d = self.CSR(a.indptr, a.indices, torch.from_numpy(dy).to(self.dev),
+                       a.nnz, a.shape, True)
+        return a, a_d, int(key.shape[0])
+
+    def bcsr_input(self, preset, scale, ef):
+        """The block-sparse route on an R-MAT block pattern."""
+        torch, core = self.torch, self.core
+        BK, bcsr_ops, bref, href = self.BK, self.bcsr_ops, self.bcsr_ref, \
+            self.ref
+        label = f"{preset}-pattern s{scale} ef{ef} {BLOCK[0]}x{BLOCK[1]}"
+        t0 = time.perf_counter()
+        br, bc = self.rmat.rmat_edges(scale, ef, preset, seed=0)
+        a, a_d, nnzb = self.block_csr(br, bc, 1 << scale, seed=1)
+        print(f"{label}: n={a.n_rows} nnzb(A)={nnzb} nnz(A)={int(a.nnz)} "
+              f"(built in {time.perf_counter() - t0:.1f} s)", flush=True)
+
+        core.clear_plan_cache()
+        t0 = time.perf_counter()
+        plan, plan_counts = self.counted(lambda: core.plan_spgemm(
+            a, a, algorithm="bcsr"))
+        plan_s = time.perf_counter() - t0
+        self.expect(plan_counts, {"symbolic": 1, "bcsr_symbolic": 1},
+                    f"{label} plan_spgemm(bcsr)")
+        bp = plan.bcsr_plan
+        smem = bp.table_size * 4 * (1 + BLOCK[0] * BLOCK[1]) <= BK.SMEM_BUDGET
+        print(f"{label}: block flop {bp.total_flop}, nnzb(C) {bp.nnzb_c}, "
+              f"nnz(C) {plan.nnz_c}, table_size {bp.table_size} "
+              f"({'shared' if smem else 'global'} memory), bin_tsize "
+              f"{bp.bin_tsize.tolist()}, offsets {bp.offsets.tolist()} "
+              f"(planned in {plan_s:.2f} s)", flush=True)
+        check(smem == (preset == "ER"), f"{label}: table_size "
+              f"{bp.table_size} not in the expected memory")
+        ab = core.csr_to_bcsr(a, BLOCK)
+        ab_d = core.csr_to_bcsr(a_d, BLOCK)
+        again, counts = self.counted(lambda: (
+            core.plan_spgemm(a, a, algorithm="bcsr"), core.plan_bcsr(ab, ab)))
+        self.expect(counts, {}, f"{label} repeat plans")
+        check(again[0] is plan and again[1] is bp,
+              f"{label}: a repeat plan missed the cache")
+        direct, direct_counts = self.counted(lambda: core.plan_bcsr(
+            ab, ab, cache=False))
+        self.expect(direct_counts, {"symbolic": 1, "bcsr_symbolic": 1},
+                    f"{label} plan_bcsr")
+        for f in ("flop", "offsets", "bin_tsize", "row_nnzb_c", "indptr_cb"):
+            check(torch.equal(getattr(direct, f), getattr(bp, f)),
+                  f"{label}: plan_bcsr {f} differs from the nested plan's")
+
+        paths = {}
+        c, counts = self.counted(lambda: plan.execute(a, a))
+        self.expect(counts, {"bcsr_numeric": 1}, f"{label} plan.execute")
+        paths["plan.execute"] = counts["bcsr_numeric"]
+        c_d, counts = self.counted(lambda: plan.execute(a_d, a_d))
+        self.expect(counts, {"bcsr_numeric": 1},
+                    f"{label} plan.execute dyadic")
+        cb, counts = self.counted(lambda: direct.execute(ab, ab))
+        self.expect(counts, {"bcsr_numeric": 1}, f"{label} BCSRPlan.execute")
+        paths["BCSRPlan.execute"] = counts["bcsr_numeric"]
+        cb_d, counts = self.counted(lambda: direct.execute(ab_d, ab_d))
+        self.expect(counts, {"bcsr_numeric": 1},
+                    f"{label} BCSRPlan.execute dyadic")
+        # chunked probing (the vector mode), planned explicitly
+        vplan, counts = self.counted(lambda: core.plan_bcsr(ab, ab,
+                                                            vector=True))
+        self.expect(counts, {"symbolic_vector": 1, "bcsr_symbolic": 1},
+                    f"{label} plan_bcsr(vector=True)")
+        for f in ("offsets", "bin_tsize", "row_nnzb_c", "indptr_cb"):
+            check(torch.equal(getattr(vplan, f), getattr(bp, f)),
+                  f"{label}: vector plan {f} differs from the scalar plan's")
+        vpaths = {}
+        cv, counts = self.counted(lambda: vplan.execute(ab, ab))
+        self.expect(counts, {"bcsr_numeric_vector": 1},
+                    f"{label} BCSRPlan(vector).execute")
+        vpaths["BCSRPlan(vector).execute"] = counts["bcsr_numeric_vector"]
+        cv_d, counts = self.counted(lambda: vplan.execute(ab_d, ab_d))
+        self.expect(counts, {"bcsr_numeric_vector": 1},
+                    f"{label} BCSRPlan(vector).execute dyadic")
+
+        # the structure: the symbolic counts against the plain version of
+        # the hash symbolic kernel on the block patterns
+        pat = (bp.offsets, bp.bin_tsize, ab.indptr, ab.indptr, ab.indices,
+               ab.valid_mask().float(), ab.indices, ab.valid_mask().float())
+        rows_plain = href.symbolic_plain(*pat, table_size=bp.table_size,
+                                         vector=False)
+        check(torch.equal(bp.row_nnzb_c, rows_plain) and torch.equal(
+            bp.indptr_cb, self.core.formats.prefix_sum(rows_plain).to(
+                torch.int32)), f"{label}: symbolic block counts differ from "
+              f"the plain version's")
+        sym_err = torch.zeros(1, dtype=torch.int32, device=self.dev)
+        rows_k = self.K.symbolic_call(*pat, table_size=bp.table_size,
+                                      vector=False, errors=sym_err)
+        torch.cuda.synchronize()
+        check(int(sym_err) == 0 and torch.equal(rows_k, rows_plain),
+              f"{label}: the hash symbolic kernel on the block patterns")
+
+        # the block kernel against its plain version, on the main path's
+        # arguments, both value sets
+        args = (bp.offsets, bp.bin_tsize, ab.indptr, ab.indptr, bp.indptr_cb,
+                ab.indices, ab.blocks, ab.indices, ab.blocks)
+        kw = dict(bcap_c=bp.bcap_c, table_size=bp.table_size, vector=False)
+        pairs = bref.products_per_block(ab.indptr, ab.indptr, bp.indptr_cb,
+                                        ab.indices, ab.indices, bp.bcap_c)
+        errs = {}
+        plain = {"dyadic": bref.numeric_plain(*args[:6], ab_d.blocks,
+                                              ab.indices, ab_d.blocks, **kw),
+                 "uniform": bref.numeric_plain(*args, **kw)}
+        for mode, values, out in (
+                ("numeric", "dyadic", cb_d), ("numeric", "uniform", cb),
+                ("numeric_vector", "dyadic", cv_d),
+                ("numeric_vector", "uniform", cv)):
+            what = f"{label} {mode} ({values})"
+            pc, pb = plain[values]
+            sc, sb = bref.sort_block_rows(out.indptr, out.indices, out.blocks)
+            check(torch.equal(out.indptr, bp.indptr_cb) and
+                  torch.equal(sc, pc), f"{what}: block columns differ from "
+                  f"the plain version's")
+            diff = (sb - pb).abs()
+            if values == "dyadic":
+                check(torch.equal(sb, pb), f"{what}: tiles not bitwise "
+                      f"equal (max abs diff {float(diff.max())})")
+                continue
+            ulp = torch.nextafter(pb.abs(), torch.full_like(
+                pb, float("inf"))) - pb.abs()
+            bad = diff > (pairs * BLOCK[1]).float()[:, None, None] * ulp
+            check(not bool(bad.any()), f"{what}: {int(bad.sum())} cells "
+                  f"past 1 ulp per product (max abs diff {float(diff.max())})")
+            errs[mode] = float(diff.max())
+
+        # the CSR output: the scalar hash plan's structure; on dyadic
+        # values every order sums exactly, so the values agree bitwise
+        check(int(c.nnz) == plan.nnz_c, f"{label}: nnz(C) {int(c.nnz)} != "
+              f"the plan's {plan.nnz_c}")
+        plan_h = core.plan_spgemm(a, a, algorithm="hash")
+        c_h = plan_h.execute(a, a, sorted_output=True)
+        c_hd = plan_h.execute(a_d, a_d, sorted_output=True)
+        check(c.sorted_cols and torch.equal(c.indptr, c_h.indptr) and
+              torch.equal(c.indices, c_h.indices),
+              f"{label}: CSR structure differs from the hash plan's")
+        check(torch.equal(c_d.data, c_hd.data),
+              f"{label}: dyadic CSR values differ from the hash plan's")
+        print(f"{label}: outputs match the plain versions and the hash "
+              f"plan's structure; max abs diff {errs}; launches "
+              f"{paths}, {vpaths}", flush=True)
+
+        # ---- timings ------------------------------------------------------
+        bm, bk = BLOCK
+        bn = BLOCK[1]
+        gm = ab.grid[0]
+        nnzb_c = bp.nnzb_c
+        by = (4 * bm * bk * nnzb + 4 * bk * bn * nnzb + 4 * bm * bn * nnzb_c
+              + 4 * ((gm + 1) * 3 + nnzb * 2 + nnzb_c))
+        ops_n = 2 * bp.total_flop * bm * bk * bn
+        bound = max(by / HBM_BYTES_PER_S, ops_n / FP32_FLOP_PER_S) * 1e3
+        # the symbolic pass over the block pattern reads no values: one row
+        # pointer, both index arrays and the row counts (as in phase 5)
+        by_sym = 4 * (gm + 1) + 8 * nnzb + 4 * gm
+        bound_sym = by_sym / HBM_BYTES_PER_S * 1e3
+        num_err = torch.zeros(1, dtype=torch.int32, device=self.dev)
+        nnz_a = int(a.nnz)
+        sp = torch.sparse_csr_tensor(a.indptr.long(),
+                                     a.indices[:nnz_a].long(),
+                                     a.data[:nnz_a], size=a.shape)
+        t = {"kernel": self.time_ms(lambda: BK.numeric_call(
+                 *args, **kw, errors=num_err)),
+             "kernel_vector": self.time_ms(lambda: BK.numeric_call(
+                 *args, **{**kw, "vector": True}, errors=num_err)),
+             "plain": self.time_ms(lambda: bref.numeric_plain(*args, **kw)),
+             "bcsr_execute": self.time_ms(lambda: direct.execute(ab, ab)),
+             "reblock": self.time_ms(lambda: core.csr_to_bcsr(
+                 a, BLOCK, bcap=bp.bcap_a)),
+             "flatten": self.time_ms(lambda: core.bcsr_to_csr(
+                 cb, cap=plan.cap_c)),
+             "execute": self.time_ms(lambda: plan.execute(a, a)),
+             "execute_hash": self.time_ms(lambda: plan_h.execute(a, a)),
+             "symbolic": self.time_ms(lambda: self.K.symbolic_call(
+                 *pat, table_size=bp.table_size, vector=False,
+                 errors=sym_err)),
+             "plain_symbolic": self.time_ms(lambda: href.symbolic_plain(
+                 *pat, table_size=bp.table_size, vector=False)),
+             "torch_sparse_mm": self.time_ms(lambda: torch.sparse.mm(sp, sp))}
+        # the kernel's own device time (every bin's launch), without the
+        # wrapper's host work and the gaps between launches
+        t["kernel_device"] = self.device_ms(lambda: BK.numeric_call(
+            *args, **kw, errors=num_err), "bcsr_rows_kernel")
+        torch.cuda.synchronize()
+        check(int(num_err) == 0 and int(sym_err) == 0,
+              f"{label}: kernel errors while timing")
+        print(json.dumps({"timing": label, "card": self.card,
+                          "n": a.n_rows, "nnzb_a": nnzb, "nnz_a": nnz_a,
+                          "block_flop": bp.total_flop,
+                          "scalar_flop": plan.total_flop, "nnzb_c": nnzb_c,
+                          "nnz_c": plan.nnz_c, "table_size": bp.table_size,
+                          "ms": t, "bound_ms": {"numeric": bound,
+                                                "symbolic": bound_sym},
+                          "bound_bytes": by, "bound_operations": ops_n,
+                          "plan_s": plan_s}), flush=True)
+        bound_by = "bytes" if by / HBM_BYTES_PER_S >= \
+            ops_n / FP32_FLOP_PER_S else "operations"
+        for mode, key, launches in (
+                ("numeric", "kernel", paths),
+                ("numeric_vector", "kernel_vector", vpaths)):
+            self.rows.append({
+                "name": f"spgemm_bcsr_{mode}[{label}]", "route": "cuda",
+                "source": BCSR_SOURCE,
+                "replaces": REPLACES[f"bcsr_{mode}"],
+                "launches": next(iter(launches.values())),
+                "launches_by_path": launches, "max_abs_err": errs[mode],
+                "ms": t[key], "plain_ms": t["plain"], "bound_ms": bound,
+                "bound_by": bound_by, "library_ms": t["torch_sparse_mm"]})
+        self.rows.append({
+            "name": f"spgemm_hash_symbolic[{label} block pattern]",
+            "route": "cuda", "source": KERNEL_SOURCE,
+            "replaces": REPLACES["symbolic"],
+            "launches": plan_counts["symbolic"],
+            "launches_by_path": {
+                "plan_spgemm(bcsr) inspection": plan_counts["symbolic"],
+                "plan_bcsr inspection": direct_counts["symbolic"]},
+            "max_abs_err": float((rows_k - rows_plain).abs().max()),
+            "ms": t["symbolic"], "plain_ms": t["plain_symbolic"],
+            "bound_ms": bound_sym, "bound_by": "bytes", "library_ms": None})
+        del plan, bp, direct, vplan, again, c, c_d, cb, cb_d, cv, cv_d, \
+            c_h, c_hd, plan_h, sp, plain
+        core.clear_plan_cache()
+        torch.cuda.empty_cache()
+
+    def bcsr_auto(self):
+        """A small block-clustered input: the recipe must route it to
+        ``bcsr`` by itself, and its execute must launch the block kernel."""
+        torch, core = self.torch, self.core
+        rng = np.random.default_rng(7)
+        occ = np.nonzero(rng.random((AUTO_GRID, AUTO_GRID)) < AUTO_DENSITY)
+        a, a_d, nnzb = self.block_csr(occ[0], occ[1], AUTO_GRID, seed=8)
+        core.clear_plan_cache()
+        plan = core.plan_spgemm(a_d, a_d)
+        check(plan.algorithm == "bcsr" and plan.provenance == "heuristic",
+              f"auto: the recipe chose {plan.algorithm}, not bcsr")
+        c, counts = self.counted(lambda: plan.execute(a_d, a_d))
+        self.expect(counts, {"bcsr_numeric": 1}, "auto plan.execute")
+        c_h = core.plan_spgemm(a_d, a_d, algorithm="hash").execute(
+            a_d, a_d, sorted_output=True)
+        check(torch.equal(c.indptr, c_h.indptr) and
+              torch.equal(c.indices, c_h.indices) and
+              torch.equal(c.data, c_h.data),
+              "auto: the bcsr output differs from the hash plan's")
+        print(f"auto: {AUTO_GRID}x{AUTO_GRID} grid of {BLOCK[0]}x{BLOCK[1]} "
+              f"tiles, nnzb {nnzb}: the recipe chose 'bcsr'; plan.execute "
+              f"launched the block kernel once and matches the hash plan",
+              flush=True)
+        for row in self.rows:
+            if row["name"].startswith("spgemm_bcsr_numeric["):
+                row["launches_by_path"][
+                    f"plan_spgemm(auto).execute [{AUTO_GRID}x{AUTO_GRID} "
+                    f"grid]"] = counts["bcsr_numeric"]
+        del plan, c, c_h
+        core.clear_plan_cache()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -554,8 +887,9 @@ def main() -> int:
     from repro_torch.kernels import _build                       # phase 2
     from repro_torch.kernels.spgemm_hash import kernel as K
     from repro_torch.kernels.spgemm_pb import kernel as PK
-    seconds = _build.compile_sources([K.SOURCE, PK.SOURCE])     # parallel
-    for mod in (K, PK):
+    from repro_torch.kernels.spgemm_bcsr import kernel as BK
+    seconds = _build.compile_sources([K.SOURCE, PK.SOURCE, BK.SOURCE])
+    for mod in (K, PK, BK):
         info = mod.build()
         print(f"phase 2: built {info['path']} in "
               f"{seconds[mod.SOURCE]:.1f} s", flush=True)
@@ -569,9 +903,12 @@ def main() -> int:
     smoke.sorted_pb(*er)                                         # phase 6
     del er
     smoke.one_input("G500", G500_SCALE)
+    for preset, scale, ef in BCSR_INPUTS:                        # phase 7
+        smoke.bcsr_input(preset, scale, ef)
+    smoke.bcsr_auto()
 
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
-    print(json.dumps({"kernels": smoke.rows}), flush=True)       # phase 7
+    print(json.dumps({"kernels": smoke.rows}), flush=True)       # phase 8
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

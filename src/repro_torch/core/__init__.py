@@ -1,5 +1,5 @@
 """Core sparse engine: the paper's contribution as PyTorch modules."""
-from .formats import CSR
+from .formats import CSR, BCSR, csr_to_bcsr, bcsr_to_csr
 from .semiring import (Semiring, SEMIRINGS, resolve_semiring, PLUS_TIMES,
                        BOOLEAN, MIN_PLUS, PLUS_FIRST)
 from .spgemm import (spgemm, spgemm_dense, spgemm_esc, spgemm_heap,
@@ -12,10 +12,11 @@ from .recipe import (SpGEMMStats, measure_stats, model_costs, recommend,
                      choose_algorithm, choose_algorithm_from_stats)
 from .plan import (SpGEMMPlan, plan_spgemm, structure_key, plan_cache_stats,
                    clear_plan_cache, PLAN_KINDS)
+from .bcsr import BCSRPlan, plan_bcsr, bcsr_structure_key
 from .pb import PBPlan, plan_pb
 
 __all__ = [
-    "CSR",
+    "CSR", "BCSR", "csr_to_bcsr", "bcsr_to_csr",
     "Semiring", "SEMIRINGS", "resolve_semiring", "PLUS_TIMES", "BOOLEAN",
     "MIN_PLUS", "PLUS_FIRST",
     "spgemm", "spgemm_dense", "spgemm_esc", "spgemm_heap", "spgemm_hash_jnp",
@@ -27,5 +28,6 @@ __all__ = [
     "choose_algorithm", "choose_algorithm_from_stats",
     "SpGEMMPlan", "plan_spgemm", "structure_key", "plan_cache_stats",
     "clear_plan_cache", "PLAN_KINDS",
+    "BCSRPlan", "plan_bcsr", "bcsr_structure_key",
     "PBPlan", "plan_pb",
 ]

@@ -1,4 +1,5 @@
-"""Static-capacity CSR for PyTorch (port of ``repro.core.formats``).
+"""Static-capacity CSR and block CSR for PyTorch (port of
+``repro.core.formats``).
 
 The paper (Nagasaka et al. 2018) stores matrices in CSR with exact-size
 allocations obtained from a *symbolic* phase.  The port keeps the JAX
@@ -10,6 +11,11 @@ tail slot holds ``indices == 0`` / ``data == 0``.
 Every builder takes an explicit ``device=``.  With no device given the
 tensors go to ``cuda``; with no CUDA present that raises -- nothing falls
 back to the CPU on its own.  The tests pass ``device="cpu"``.
+
+:class:`BCSR` keeps the same contract over ``(bm, bn)`` tiles at a fixed
+block capacity ``bcap``; :func:`csr_to_bcsr` and :func:`bcsr_to_csr`
+convert sparsely on the operand's device, where the reference converts
+on the host with numpy.
 """
 from __future__ import annotations
 
@@ -228,3 +234,230 @@ def sorted_keys_contain(keys: torch.Tensor, key: torch.Tensor) -> torch.Tensor:
     pos = torch.searchsorted(keys, key.contiguous(), right=False)
     hit = keys[pos.clamp(0, cap - 1)] == key
     return hit & (pos < cap)
+
+
+@dataclass(frozen=True)
+class BCSR:
+    """Block CSR: dense ``(bm, bn)`` tiles in a CSR layout over the block
+    grid (port of ``repro.core.formats.BCSR``).
+
+    The unit of sparsity is a tile, so a "row" of Gustavson's algorithm
+    becomes a *block row*, and the accumulator hashes block-column ids
+    while the kernel forms ``(bm x bk) @ (bk x bn)`` tile products.
+
+    Attributes:
+      indptr:  ``(n_brows + 1,) int32`` block-row pointer.
+      indices: ``(bcap,) int32`` block-column ids; padded with 0.
+      blocks:  ``(bcap, bm, bn)`` tiles; padded with zero tiles.
+      nnzb:    0-dim int32 tensor, the live prefix length.
+      shape:   static logical ``(n_rows, n_cols)``; a ragged edge lives in a
+        partial last block row/column (storage padding, cropped by
+        :meth:`to_dense`).
+      block:   static ``(bm, bn)``.
+    """
+    indptr: torch.Tensor
+    indices: torch.Tensor
+    blocks: torch.Tensor
+    nnzb: torch.Tensor
+    shape: Tuple[int, int]
+    block: Tuple[int, int]
+
+    @property
+    def bcap(self) -> int:
+        return self.indices.shape[0]
+
+    @property
+    def grid(self) -> Tuple[int, int]:
+        """Block grid, ceil-divided."""
+        bm, bn = self.block
+        return (-(-self.shape[0] // bm), -(-self.shape[1] // bn))
+
+    @property
+    def dtype(self):
+        return self.blocks.dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.indices.device
+
+    @staticmethod
+    def from_dense(x: torch.Tensor, block: Tuple[int, int],
+                   bcap: int | None = None) -> "BCSR":
+        """Tile a dense matrix on its own device; a tile is stored when any
+        of its cells is nonzero.  ``bcap`` defaults to the exact count."""
+        m, n = x.shape
+        bm, bn = block
+        gm, gn = -(-m // bm), -(-n // bn)
+        pm, pn = gm * bm - m, gn * bn - n
+        if pm or pn:
+            x = torch.nn.functional.pad(x, (0, pn, 0, pm))
+        tiles = x.reshape(gm, bm, gn, bn).permute(0, 2, 1, 3)
+        occ = (tiles != 0).reshape(gm * gn, bm * bn).any(dim=1)
+        nnzb = int(occ.sum())
+        if bcap is None:
+            bcap = max(nnzb, 1)
+        order = torch.argsort((~occ).to(torch.int8), stable=True)[:bcap]
+        valid = torch.arange(bcap, device=x.device) < nnzb
+        bcols = torch.where(valid, (order % max(gn, 1)).to(torch.int32), 0)
+        blocks = tiles.reshape(gm * gn, bm, bn)[order]
+        blocks = torch.where(valid[:, None, None], blocks, 0).to(x.dtype)
+        counts = occ.reshape(gm, gn).sum(dim=1)
+        return BCSR(prefix_sum(counts).to(torch.int32),
+                    bcols.to(torch.int32), blocks, _scalar(nnzb, x.device),
+                    (m, n), (bm, bn))
+
+    @staticmethod
+    def from_numpy(indptr, indices, blocks, nnzb, shape, block,
+                   device=None) -> "BCSR":
+        """Lossless builder from host arrays (the bridge to and from
+        ``repro.core.BCSR`` that the tests use)."""
+        dev = resolve_device(device)
+        return BCSR(
+            torch.from_numpy(np.array(indptr, np.int32)).to(dev),
+            torch.from_numpy(np.array(indices, np.int32)).to(dev),
+            torch.from_numpy(np.array(blocks)).to(dev),
+            _scalar(int(np.asarray(nnzb)), dev),
+            tuple(int(s) for s in shape), tuple(int(s) for s in block))
+
+    def to_numpy(self):
+        """``(indptr, indices, blocks, nnzb, shape, block)`` on the host."""
+        return (self.indptr.cpu().numpy(), self.indices.cpu().numpy(),
+                self.blocks.cpu().numpy(), int(self.nnzb), self.shape,
+                self.block)
+
+    def valid_mask(self) -> torch.Tensor:
+        return torch.arange(self.bcap, device=self.device) < self.nnzb
+
+    def brow_ids(self) -> torch.Tensor:
+        """Block-row id of every slot ``(bcap,)``; padded slots clamp to
+        the last block row."""
+        e = torch.arange(self.bcap, dtype=torch.int32, device=self.device)
+        r = torch.searchsorted(self.indptr, e, right=True) - 1
+        return r.clamp(0, max(self.grid[0] - 1, 0)).to(torch.int32)
+
+    def to_dense(self) -> torch.Tensor:
+        """Dense view, cropped to the logical shape (tests only)."""
+        gm, gn = self.grid
+        bm, bn = self.block
+        dense = torch.zeros((gm, gn, bm, bn), dtype=self.dtype,
+                            device=self.device)
+        v = torch.where(self.valid_mask()[:, None, None], self.blocks, 0)
+        dense.index_put_((self.brow_ids().long(), self.indices.long()),
+                         v.to(self.dtype), accumulate=True)
+        dense = dense.permute(0, 2, 1, 3).reshape(gm * bm, gn * bn)
+        return dense[:self.shape[0], :self.shape[1]]
+
+
+def _live_rows(indptr: torch.Tensor, n_rows: int, live: int) -> torch.Tensor:
+    """Row id of each of the first ``live`` slots of a row pointer."""
+    ip = indptr.long()
+    rows = torch.repeat_interleave(
+        torch.arange(n_rows, device=ip.device), ip.diff(),
+        output_size=int(ip[-1]))
+    return rows[:live]
+
+
+def csr_to_bcsr(a: CSR, block: Tuple[int, int],
+                bcap: int | None = None) -> BCSR:
+    """Re-tile a scalar CSR into block CSR on the CSR's device.
+
+    A sparse pass (no dense staging): each entry's block key
+    ``(row // bm) * gn + col // bn``, one sorted ``torch.unique`` for the
+    block ids and each entry's tile, and a scatter of the values into the
+    tiles.  Block columns come out sorted within block rows; unsorted input
+    rows give the same result.  ``bcap`` pins the capacity (default: the
+    exact block count) and raises ``ValueError`` when the blocks do not
+    fit.  Ragged shapes land in a ceil-divided grid.
+    """
+    bm, bn = block
+    m, n = a.shape
+    gm, gn = -(-m // bm), -(-n // bn)
+    nnz = int(a.nnz)
+    dev = a.device
+    rows = _live_rows(a.indptr, m, nnz)
+    cols = a.indices[:nnz].long()
+    vals = a.data[:nnz]
+    key = (rows // bm) * gn + cols // bn
+    uniq, inv = torch.unique(key, sorted=True, return_inverse=True)
+    nnzb = int(uniq.shape[0])
+    if bcap is None:
+        bcap = max(nnzb, 1)
+    if nnzb > bcap:
+        raise ValueError(f"block nnz {nnzb} exceeds capacity {bcap}")
+    blocks = torch.zeros((bcap, bm, bn),
+                         dtype=vals.dtype if nnz else torch.float32,
+                         device=dev)
+    if nnz:
+        blocks[inv, rows % bm, cols % bn] = vals
+    bcols = torch.zeros(bcap, dtype=torch.int32, device=dev)
+    bcols[:nnzb] = (uniq % gn).to(torch.int32)
+    counts = torch.bincount(uniq // gn, minlength=gm)[:gm]
+    return BCSR(prefix_sum(counts).to(torch.int32), bcols, blocks,
+                _scalar(nnzb, dev), (m, n), (bm, bn))
+
+
+def bcsr_to_csr(a: BCSR, cap: int | None = None, prune: bool = True) -> CSR:
+    """Flatten a block CSR to scalar CSR, sorted row-major, on its device.
+
+    Every in-tile cell of a stored block is emitted except cells past the
+    logical shape (ragged tile padding, always cropped) and, with
+    ``prune`` (the default), cells that hold zero -- so
+    ``bcsr_to_csr(csr_to_bcsr(a, block))`` keeps ``a``'s nnz.  With
+    ``prune=False`` every stored cell inside the shape becomes an entry.
+
+    The block columns are sorted within each block row (a product's come
+    out unsorted).  Each scalar row of a block row then spans a known run
+    of the row-major order, so the tiles are scattered straight to their
+    places, and one prefix sum of the keep mask gives the row pointer.
+    Each (block row, block column) is stored once, so no two cells meet
+    and nothing is summed.
+    """
+    bm, bn = a.block
+    m, n = a.shape
+    gm, gn = a.grid
+    nnzb = int(a.nnzb)
+    dev = a.device
+    tile = bm * bn
+    total = nnzb * tile
+    ip = a.indptr.long()
+    brows = _live_rows(a.indptr, gm, nnzb)
+    bcols = a.indices[:nnzb].long()
+    perm = torch.sort(brows * gn + bcols, stable=True)[1]
+    # first cell of scalar row r * bm + ii: block row r's strip starts at
+    # ip[r] * tile, and each of its rows is (its block count) * bn wide
+    ii = torch.arange(bm, device=dev)
+    row_start = (ip[:-1] * tile)[:, None] \
+        + ii[None, :] * (ip.diff() * bn)[:, None]
+    q = torch.arange(nnzb, device=dev) - ip[brows]
+    jj = torch.arange(bn, device=dev)
+    pos = ((row_start[brows] + (q * bn)[:, None])[:, :, None]
+           + jj).reshape(-1)
+    vals = torch.empty(total, dtype=a.dtype, device=dev)
+    vals[pos] = a.blocks[:nnzb][perm].reshape(-1)
+    cols = torch.empty(total, dtype=torch.int32, device=dev)
+    cols[pos] = ((bcols[perm] * bn)[:, None, None] + jj).expand(
+        nnzb, bm, bn).reshape(-1).to(torch.int32)
+    keep = vals != 0 if prune else torch.ones(total, dtype=torch.bool,
+                                              device=dev)
+    if gn * bn > n:
+        keep &= cols < n
+    bounds = torch.cat([row_start.reshape(-1),
+                        torch.full((1,), total, device=dev)])[:m + 1]
+    if gm * bm > m:                 # rows past m: ragged tile padding
+        keep[int(bounds[m]):] = False
+    kept = torch.zeros(total + 1, dtype=torch.long, device=dev)
+    torch.cumsum(keep, 0, out=kept[1:])     # kept cells before each cell
+    indptr = kept[bounds]
+    live = keep.nonzero().squeeze(1)
+    nnz = int(live.shape[0])
+    if cap is None:
+        cap = max(nnz, 1)
+    if nnz > cap:
+        raise ValueError(f"nnz {nnz} exceeds capacity {cap}")
+    indices = torch.zeros(cap, dtype=torch.int32, device=dev)
+    data = torch.zeros(cap, dtype=a.dtype if nnz else torch.float32,
+                       device=dev)
+    indices[:nnz] = cols[live]
+    data[:nnz] = vals[live]
+    return CSR(indptr.to(torch.int32), indices, data, _scalar(nnz, dev),
+               (m, n), True)

@@ -4,7 +4,9 @@
 equal-flop binning, per-bin hash-table sizing, the exact symbolic phase and
 the recipe's algorithm choice -- and freezes it in a :class:`SpGEMMPlan`.
 ``plan.execute(a, b)`` then runs only the numeric work; on the hash path
-that is one call of the hand-written numeric kernel.
+that is one call of the hand-written numeric kernel, on the ``bcsr`` path
+a re-blocking of the operands on their device, one call of the block
+kernel and a flattening back to CSR.
 
 Plans are cached under a structure key: a blake2b digest of each operand's
 ``(shape, cap, nnz, sorted_cols, indptr, indices)`` plus the request's
@@ -137,6 +139,11 @@ class SpGEMMPlan:
     k_width: int             # heap: max nnz(a_i*)
     #: where the choice came from: "explicit" or "heuristic"
     provenance: str = "explicit"
+    #: ``algorithm == "bcsr"`` only: the tile shape the CSR operands are
+    #: re-blocked into and the nested block plan
+    #: (:class:`repro_torch.core.bcsr.BCSRPlan`) the execute runs
+    block: Optional[Tuple[int, int]] = None
+    bcsr_plan: object = dataclasses.field(default=None, repr=False)
     #: ``algorithm == "pb"`` only: the nested propagation-blocking plan
     #: (:class:`repro_torch.core.pb.PBPlan`) the execute runs
     pb_plan: object = dataclasses.field(default=None, repr=False)
@@ -190,6 +197,15 @@ class SpGEMMPlan:
                     table_size=self.table_size,
                     schedule=(self.offsets, self.bin_tsize),
                     indptr_c=self.indptr_c)
+        elif algo == "bcsr":
+            # re-block sparsely on the device at the planned capacities
+            # (never through a dense matrix), run the frozen block plan,
+            # flatten back to CSR
+            from .formats import bcsr_to_csr, csr_to_bcsr
+            bp = self.bcsr_plan
+            ab = csr_to_bcsr(a, bp.block_a, bcap=bp.bcap_a)
+            bb = csr_to_bcsr(b, bp.block_b, bcap=bp.bcap_b)
+            out = bcsr_to_csr(bp.execute(ab, bb), cap=self.cap_c)
         elif algo == "pb":
             from .pb import pad_output
             out = pad_output(self.pb_plan.execute(a, b), self.cap_c)
@@ -207,7 +223,8 @@ def plan_spgemm(a: CSR, b: CSR, *, algorithm: str = "auto",
                 sorted_output: bool = False, use_case: Optional[str] = None,
                 n_bins: int = 8, cache: bool = True,
                 bucket_caps: bool = False, a_row_nnz=None,
-                autotune: bool = False) -> SpGEMMPlan:
+                autotune: bool = False,
+                block: Tuple[int, int] = (8, 8)) -> SpGEMMPlan:
     """Run the whole inspection once and freeze it as a
     :class:`SpGEMMPlan` on the operands' device.
 
@@ -215,8 +232,12 @@ def plan_spgemm(a: CSR, b: CSR, *, algorithm: str = "auto",
     cached plan.  ``bucket_caps=True`` rounds ``cap_c``, ``flop_cap`` and
     ``row_cap`` up to powers of two, so similar structures share shapes.
     ``a_row_nnz`` marks A as a chain intermediate (the recipe's A-side
-    statistics come from it).  ``autotune=True`` and the ``bcsr``
-    algorithm are not ported yet and raise.
+    statistics come from it).  ``block`` is the tile shape the ``bcsr``
+    route re-blocks the operands into (A tiles ``block``, B tiles
+    ``(block[1], block[1])``); it matters only when the resolved algorithm
+    is ``bcsr``, and the plan then nests a frozen
+    :class:`repro_torch.core.bcsr.BCSRPlan`.  ``autotune=True`` is not
+    ported yet and raises.
     """
     if autotune:
         raise NotImplementedError("autotune= is not ported yet")
@@ -226,8 +247,10 @@ def plan_spgemm(a: CSR, b: CSR, *, algorithm: str = "auto",
         arn_digest = hashlib.blake2b(
             np.asarray(torch.as_tensor(a_row_nnz).cpu()).tobytes(),
             digest_size=8).digest()
+    block = tuple(block)
     key = _plan_key(a, b, mask, sr.name, complement_mask, sorted_output,
-                    algorithm, use_case, n_bins) + (bucket_caps, arn_digest)
+                    algorithm, use_case, n_bins) + (bucket_caps, arn_digest,
+                                                    block)
     if cache:
         hit = cache_lookup(key)
         if hit is not None:
@@ -278,10 +301,20 @@ def plan_spgemm(a: CSR, b: CSR, *, algorithm: str = "auto",
         if algorithm == "heap" and not (a.sorted_cols and b.sorted_cols):
             # the inputs cannot feed heap; hash keeps the unsorted contract
             algorithm = "hash"
+    bcsr_plan = None
     if algorithm == "bcsr":
-        raise NotImplementedError(
-            "the bcsr plan is not ported yet (recipe chose it for this "
-            "input); plan esc/heap/hash/pb instead")
+        if sr.name != "plus_times" or mask is not None:
+            raise NotImplementedError(
+                "the bcsr block path supports plus_times unmasked "
+                "products only; plan esc/heap/hash instead")
+        # nest the block-granularity inspection under the shared LRU's
+        # "bcsr" kind: re-block the operand patterns once, freeze both
+        # levels together
+        from .bcsr import plan_bcsr
+        from .formats import csr_to_bcsr
+        bcsr_plan = plan_bcsr(csr_to_bcsr(a, block),
+                              csr_to_bcsr(b, (block[1], block[1])),
+                              n_bins=n_bins, cache=cache)
     pb_plan = None
     if algorithm == "pb":
         # nest the propagation-blocking inspection under the shared LRU's
@@ -299,6 +332,7 @@ def plan_spgemm(a: CSR, b: CSR, *, algorithm: str = "auto",
         offsets=offsets, bin_tsize=bin_tsize, table_size=table_size,
         row_nnz_c=row_nnz_c, indptr_c=indptr_c, nnz_c=nnz_c, cap_c=cap_c,
         row_cap=row_cap, k_width=k_width, provenance=provenance,
+        block=block if algorithm == "bcsr" else None, bcsr_plan=bcsr_plan,
         pb_plan=pb_plan)
     if cache:
         cache_store(key, plan)

@@ -10,8 +10,7 @@ Port of ``repro.core.recipe``.  Cost models (paper Eq. 1 / Eq. 2):
 
 The decision table and its thresholds are copied verbatim: they are
 Table 4's, calibrated on KNL, and the reference's block-density and
-propagation-blocking rows stay in place so both packages choose alike
-(the bcsr executor is not ported yet; a plan that lands there raises).
+propagation-blocking rows stay in place so both packages choose alike.
 The measured (autotune) mode is not ported yet.
 """
 from __future__ import annotations
@@ -43,7 +42,7 @@ class SpGEMMStats:
     row_skew: float            # max_row_flop / mean_row_flop (G500 vs ER)
     compression_ratio: float   # flop / nnz(C)  (paper section 5.4.4)
     density_ef: float          # nnz_a / n_rows == edge factor
-    #: mean occupancy of occupied 8x8 tiles (the reference's block path)
+    #: mean occupancy of occupied 8x8 tiles (the ``bcsr`` gate)
     block_density: float = 0.0
     #: nnz(mask) / (m * n), complement applied; 1.0 when unmasked
     mask_density: float = 1.0

@@ -10,10 +10,12 @@ Algorithms, as Table 1 of the paper:
   ``hash``       2       hash table (CUDA kernel)    any / select
   ``hash_vector``2       chunked probing (CUDA)      any / select
   ``pb``         2       column buckets (CUDA)       any / sorted
+  ``bcsr``       2       block-column hash (CUDA)    any / sorted
 
 Everything in this module is plain PyTorch, as the reference is plain jnp:
-the hand-written kernels live in ``repro_torch.kernels.spgemm_hash`` and
-``repro_torch.kernels.spgemm_pb`` (planned by ``core.pb``).
+the hand-written kernels live in ``repro_torch.kernels.spgemm_hash``,
+``repro_torch.kernels.spgemm_pb`` (planned by ``core.pb``) and
+``repro_torch.kernels.spgemm_bcsr`` (planned by ``core.bcsr``).
 :func:`spgemm_hash_jnp` (the name kept from the reference) is the sort-based
 hash-order fallback that owns the semiring and masked generalizations.
 
@@ -417,8 +419,22 @@ def spgemm(a: CSR, b: CSR, cap_c: int | None = None,
             raise ValueError(f"cap_c={cap_c} < exact nnz(C)={pbp.nnz_c}")
         out = pad_output(pbp.execute(a, b), cap_c)
     elif algorithm == "bcsr":
-        raise NotImplementedError(
-            "the bcsr path is not ported yet; pick esc/heap/hash/pb")
+        if general:
+            raise NotImplementedError(
+                "the bcsr path is (+, x)-only and unmasked; pick "
+                "esc/heap/hash")
+        # block path: dense (bm, bn) tiles with a block-column hash
+        # accumulator, CSR in and out.  The default bcap_c is the whole
+        # block grid of C; large products should pass bcap_c= (or plan)
+        from .formats import bcsr_to_csr, csr_to_bcsr
+        from repro_torch.kernels.spgemm_bcsr import ops as bcsr_ops
+        block = tuple(kw.pop("block", (8, 8)))
+        bcap_c = kw.pop("bcap_c", (-(-a.n_rows // block[0])) *
+                        (-(-b.n_cols // block[1])))
+        ab = csr_to_bcsr(a, block)
+        bb = csr_to_bcsr(b, (block[1], block[1]))
+        cb = bcsr_ops.spgemm_bcsr(ab, bb, bcap_c, **kw)
+        out = bcsr_to_csr(cb, cap=cap_c)
     else:
         raise ValueError(f"unknown algorithm {algorithm!r}")
     return finalize(out, bool(sorted_output))

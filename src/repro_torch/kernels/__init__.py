@@ -2,6 +2,7 @@
 
   spgemm_hash -- paper C2/C3: hash + vectorized-probe SpGEMM (CSR)
   spgemm_pb   -- propagation-blocking scatter/merge pair (low CF)
+  spgemm_bcsr -- block-row hash SpGEMM over BCSR tiles
 
 The other kernels of ``repro.kernels`` are not ported yet (ROADMAP.md,
 Queue 2).

@@ -1,0 +1,278 @@
+// Block-row hash SpGEMM over BCSR for Hopper (sm_90a).
+//
+// Replaces the Pallas TPU kernel numeric_call of
+// repro/kernels/spgemm_bcsr/kernel.py (_numeric_kernel, _block_row_loop,
+// and the _probe_scalar / _probe_vector probes it borrows from the hash
+// kernel).
+//
+// What it computes, per block row i of a bin whose table holds tsz slots
+// (tsz a power of two, the plan's min(bin_tsize[b], table_size)):
+//   for each A block j of block row i and each B block t of block row
+//   a_bcol[j], in that order, find the slot of block column b_bcol[t] in a
+//   table keyed by block column -- hashed as (uint32(col) * 0x9E3779B9) &
+//   (tsz - 1) with linear probing, or over tsz / 8 chunks of 8 slots when
+//   vector -- and add the tile product A_blk[j] (bm x bk) @ B_blk[t]
+//   (bk x bn) into the slot's (bm x bn) float32 accumulator; then flush
+//   the occupied slots in table order to out_bcol / out_blk at
+//   indptr_c[i] + cnt.  Block columns come out unsorted (C8).
+//
+// Design on this card:
+//   * The TPU grid walks 8 equal-flop bins in order on one core.  Here a
+//     launch covers one bin and one thread block owns one block row at a
+//     time, so the rows of a bin run concurrently across the 132 SMs.
+//   * One thread per output lane (r, c) of the tile: bm * bn <= 1024.
+//   * Thread 0 probes the row's keys alone, in the reference's (j, t)
+//     order, and records each pair's slot (and whether the pair opened
+//     it) in shared memory, a chunk of B blocks at a time; the other
+//     threads stage the chunk's block columns first.  Serial inserts in
+//     the reference's order give the TPU kernel's table layout, so the
+//     flushed block-column order is the reference's, and need no atomics.
+//   * Every lane then folds the chunk's pairs into its own accumulator
+//     element in the same order: sum_k __fmul_rn(a[r][k], b[k][c]) with
+//     __fadd_rn over k in order, then __fadd_rn into the accumulator.
+//     CUDA-core FP32 only: no FMA, no mma, no TF32.  Sums are
+//     deterministic and equal the plain version's on the CPU.
+//   * The pair that opens a slot adds into 0 instead of a reset tile, so
+//     only the keys are reset per row, not tsz tiles.
+//   * Tables of up to the wrapper's shared-memory budget (keys + tiles)
+//     live in dynamic shared memory; larger ones in a per-block table in
+//     global memory (workspace from the caller), each block looping over
+//     many rows.
+//   * The output is zeroed by the caller before launch: blocks run in no
+//     order, so nothing like the TPU kernel's "zero at bin 0" is possible.
+//   * The flush counts occupied slots with __ballot_sync/__popc and a
+//     block-wide prefix; a count that disagrees with indptr_c, or a probe
+//     that finds the table full, adds one to errors[0] and nothing is
+//     written outside the row's range.
+//
+// Bound: memory.  The least traffic reads A's and B's blocks once, writes
+// C's blocks once, plus the index arrays; the 2 * bm * bk * bn operations
+// per block pair are far below the FP32 rate on 8x8 tiles.
+//
+// Plain C interface, loaded with ctypes; every launch reports
+// cudaGetLastError().
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kEmpty = -1;
+constexpr unsigned kHashConst = 0x9E3779B9u;  // == -1640531527 mod 2^32
+constexpr int kChunk = 8;
+constexpr int kPairs = 256;      // B blocks staged per round
+constexpr int kMaxThreads = 1024;
+
+__device__ __forceinline__ unsigned hash_of(int col, unsigned mask) {
+  return (static_cast<unsigned>(col) * kHashConst) & mask;
+}
+
+// Linear probing (Fig. 8a) by one thread.  Returns the slot that holds
+// col (claiming the first EMPTY one on the way), or -1 when every slot
+// holds another key.
+__device__ __forceinline__ int probe_scalar(int* keys, int tsz, int col,
+                                            int* opened) {
+  const unsigned mask = static_cast<unsigned>(tsz) - 1u;
+  unsigned h = hash_of(col, mask);
+  *opened = 0;
+  for (int step = 0; step < tsz; ++step) {
+    const int k = keys[h];
+    if (k == col) return static_cast<int>(h);
+    if (k == kEmpty) {
+      keys[h] = col;
+      *opened = 1;
+      return static_cast<int>(h);
+    }
+    h = (h + 1u) & mask;
+  }
+  return -1;
+}
+
+// Chunked probing (Fig. 8b) by one thread: the hash names a chunk of
+// kChunk slots; the first lane holding col wins, else the first EMPTY
+// lane, else the next chunk.
+__device__ __forceinline__ int probe_vector(int* keys, int tsz, int col,
+                                            int* opened) {
+  const int n_chunks = tsz / kChunk;
+  const unsigned cmask = static_cast<unsigned>(n_chunks) - 1u;
+  unsigned c = hash_of(col, cmask);
+  *opened = 0;
+  for (int step = 0; step < n_chunks; ++step) {
+    const int base = static_cast<int>(c) * kChunk;
+    int empty = -1;
+    for (int l = 0; l < kChunk; ++l) {
+      const int k = keys[base + l];
+      if (k == col) return base + l;
+      if (k == kEmpty && empty < 0) empty = l;
+    }
+    if (empty >= 0) {
+      keys[base + empty] = col;
+      *opened = 1;
+      return base + empty;
+    }
+    c = (c + 1u) & cmask;
+  }
+  return -1;
+}
+
+template <bool kVector>
+__global__ void bcsr_rows_kernel(
+    int row_begin, int row_end, int tsz, int bcap_c, int bm, int bk, int bn,
+    const int* __restrict__ indptr_a, const int* __restrict__ a_bcol,
+    const float* __restrict__ a_blk, const int* __restrict__ indptr_b,
+    const int* __restrict__ b_bcol, const float* __restrict__ b_blk,
+    const int* __restrict__ indptr_c, int* __restrict__ out_bcol,
+    float* __restrict__ out_blk, int* __restrict__ errors, int* ws_keys,
+    float* ws_acc) {
+  extern __shared__ int smem[];
+  __shared__ int s_col[kPairs];
+  __shared__ int s_slot[kPairs];
+  __shared__ int s_open[kPairs];
+  __shared__ int s_flush[kMaxThreads];
+  __shared__ int s_warp[32];
+
+  const int tile = bm * bn;
+  int* keys;
+  float* acc;
+  if (ws_keys != nullptr) {
+    keys = ws_keys + static_cast<size_t>(blockIdx.x) * tsz;
+    acc = ws_acc + static_cast<size_t>(blockIdx.x) * tsz * tile;
+  } else {
+    keys = smem;
+    acc = reinterpret_cast<float*>(smem + tsz);
+  }
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const bool active = tid < tile;
+  const int r = active ? tid / bn : 0;
+  const int c = active ? tid % bn : 0;
+
+  for (int row = row_begin + blockIdx.x; row < row_end; row += gridDim.x) {
+    // Fig. 7: the table is reinitialised for each row, not reallocated;
+    // the tiles need no reset (the opening pair adds into 0)
+    for (int s = tid; s < tsz; s += blockDim.x) keys[s] = kEmpty;
+    __syncthreads();
+
+    const int a1 = indptr_a[row + 1];
+    for (int j = indptr_a[row]; j < a1; ++j) {
+      const int k = a_bcol[j];
+      const int t1 = indptr_b[k + 1];
+      const float* a_row = a_blk + (static_cast<size_t>(j) * bm + r) * bk;
+      for (int t0 = indptr_b[k]; t0 < t1; t0 += kPairs) {
+        const int n = min(kPairs, t1 - t0);
+        for (int q = tid; q < n; q += blockDim.x) s_col[q] = b_bcol[t0 + q];
+        __syncthreads();
+        if (tid == 0) {
+          for (int q = 0; q < n; ++q) {
+            int opened;
+            const int slot = kVector ? probe_vector(keys, tsz, s_col[q], &opened)
+                                     : probe_scalar(keys, tsz, s_col[q], &opened);
+            if (slot < 0) atomicAdd(errors, 1);
+            s_slot[q] = slot;
+            s_open[q] = opened;
+          }
+        }
+        __syncthreads();
+        if (active) {
+          for (int q = 0; q < n; ++q) {
+            const int slot = s_slot[q];
+            if (slot < 0) continue;
+            const float* b_col =
+                b_blk + static_cast<size_t>(t0 + q) * bk * bn + c;
+            float sum = __fmul_rn(a_row[0], b_col[0]);
+            for (int kk = 1; kk < bk; ++kk)
+              sum = __fadd_rn(sum, __fmul_rn(a_row[kk], b_col[kk * bn]));
+            float* dst = acc + static_cast<size_t>(slot) * tile + tid;
+            *dst = __fadd_rn(s_open[q] ? 0.0f : *dst, sum);
+          }
+        }
+        __syncthreads();
+      }
+    }
+
+    // flush in table order: unsorted block columns (C8)
+    const int base = indptr_c[row];
+    const int want = indptr_c[row + 1] - base;
+    int running = 0;
+    for (int s0 = 0; s0 < tsz; s0 += blockDim.x) {
+      const int s = s0 + tid;
+      const int key = s < tsz ? keys[s] : kEmpty;
+      const bool occupied = key != kEmpty;
+      const unsigned ballot = __ballot_sync(0xffffffffu, occupied);
+      if (lane == 0) s_warp[warp] = __popc(ballot);
+      __syncthreads();
+      int before = 0;
+      int total = 0;
+      for (int w = 0; w < nwarps; ++w) {
+        if (w < warp) before += s_warp[w];
+        total += s_warp[w];
+      }
+      if (occupied) {
+        const int e = before + __popc(ballot & ((1u << lane) - 1u));
+        s_flush[e] = s;
+        const int pos = running + e;
+        if (pos < want && base + pos < bcap_c) out_bcol[base + pos] = key;
+      }
+      __syncthreads();
+      if (active) {
+        for (int e = 0; e < total; ++e) {
+          const int pos = running + e;
+          if (pos >= want || base + pos >= bcap_c) break;
+          out_blk[static_cast<size_t>(base + pos) * tile + tid] =
+              acc[static_cast<size_t>(s_flush[e]) * tile + tid];
+        }
+      }
+      running += total;
+      __syncthreads();
+    }
+    if (tid == 0 && running != want) atomicAdd(errors, 1);
+    __syncthreads();
+  }
+}
+
+template <bool kVector>
+int launch(int row_begin, int row_end, int tsz, int bcap_c, int bm, int bk,
+           int bn, int grid, int block, int smem_bytes, const int* indptr_a,
+           const int* a_bcol, const float* a_blk, const int* indptr_b,
+           const int* b_bcol, const float* b_blk, const int* indptr_c,
+           int* out_bcol, float* out_blk, int* errors, int* ws_keys,
+           float* ws_acc, cudaStream_t stream) {
+  auto kernel = bcsr_rows_kernel<kVector>;
+  if (smem_bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  kernel<<<grid, block, smem_bytes, stream>>>(
+      row_begin, row_end, tsz, bcap_c, bm, bk, bn, indptr_a, a_bcol, a_blk,
+      indptr_b, b_bcol, b_blk, indptr_c, out_bcol, out_blk, errors, ws_keys,
+      ws_acc);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// One launch over block rows [row_begin, row_end) of one bin; writes
+// nothing at or past bcap_c.  block (threads) is a multiple of 32 with
+// bm * bn <= block <= 1024.  ws_keys/ws_acc null: the table lives in
+// shared memory (smem_bytes = tsz * (4 + 4 * bm * bn)); else a table of
+// tsz slots per thread block in global memory.
+extern "C" int spgemm_bcsr_launch(
+    int vector, int row_begin, int row_end, int tsz, int bcap_c, int bm,
+    int bk, int bn, int grid, int block, int smem_bytes, const int* indptr_a,
+    const int* a_bcol, const float* a_blk, const int* indptr_b,
+    const int* b_bcol, const float* b_blk, const int* indptr_c,
+    int* out_bcol, float* out_blk, int* errors, int* ws_keys, float* ws_acc,
+    void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (vector)
+    return launch<true>(row_begin, row_end, tsz, bcap_c, bm, bk, bn, grid,
+                        block, smem_bytes, indptr_a, a_bcol, a_blk, indptr_b,
+                        b_bcol, b_blk, indptr_c, out_bcol, out_blk, errors,
+                        ws_keys, ws_acc, s);
+  return launch<false>(row_begin, row_end, tsz, bcap_c, bm, bk, bn, grid,
+                       block, smem_bytes, indptr_a, a_bcol, a_blk, indptr_b,
+                       b_bcol, b_blk, indptr_c, out_bcol, out_blk, errors,
+                       ws_keys, ws_acc, s);
+}

@@ -215,3 +215,142 @@ def test_pb_wrappers_reject_bad_operands(cuda):
     with pytest.raises(ValueError):              # shapes disagree
         PK.scatter_call(bucket_nnz, src, torch.zeros((1, 4), **i32), vals,
                         vals)
+
+
+def block_operand(gm, gn, bm, bn, density, seed, device, dyadic=True):
+    """A block-clustered BCSR: occupied tiles dense, dyadic or uniform
+    values."""
+    from repro_torch.core import BCSR
+    rng = np.random.default_rng(seed)
+    occ = rng.random((gm, gn)) < density
+    vals = rng.choice(DYADIC, size=(gm * bm, gn * bn)) if dyadic else \
+        rng.uniform(0.5, 1.5, size=(gm * bm, gn * bn))
+    d = np.kron(occ, np.ones((bm, bn))) * vals
+    return BCSR.from_dense(torch.from_numpy(d.astype(np.float32)).to(device),
+                           (bm, bn))
+
+
+def check_bcsr(a, b, plan, bcol, blk, dyadic):
+    """The kernel's output against the plain version: block columns per
+    row bitwise after a per-row sort, tiles bitwise on dyadic values, else
+    within (block pairs x bk) ulp."""
+    from repro_torch.kernels.spgemm_bcsr import ref as bref
+    args = (plan.offsets, plan.bin_tsize, a.indptr, b.indptr, plan.indptr_cb,
+            a.indices, a.blocks, b.indices, b.blocks)
+    pc, pb = bref.numeric_plain(*args, bcap_c=plan.bcap_c,
+                                table_size=plan.table_size, vector=False)
+    sc, sb = bref.sort_block_rows(plan.indptr_cb, bcol, blk)
+    assert torch.equal(sc, pc)
+    if dyadic:
+        assert torch.equal(sb, pb)
+        return
+    k = bref.products_per_block(a.indptr, b.indptr, plan.indptr_cb,
+                                a.indices, b.indices, plan.bcap_c)
+    ulp = torch.nextafter(pb.abs(), torch.full_like(pb, float("inf"))) \
+        - pb.abs()
+    bound = (k * a.block[1])[:, None, None] * ulp
+    assert bool(((sb - pb).abs() <= bound).all())
+
+
+BCSR_CASES = [(2, 3, 4, 40, True), (8, 8, 8, 64, True), (8, 8, 8, 64, False),
+              (1, 1, 1, 96, True), (4, 2, 16, 24, False)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("vector", (False, True))
+@pytest.mark.parametrize("case", BCSR_CASES,
+                         ids=lambda c: f"{c[0]}x{c[1]}x{c[2]}-{c[4]}")
+def test_bcsr_kernel_matches_plain_version(cuda, case, vector):
+    from repro_torch.core import plan_bcsr
+    from repro_torch.kernels.spgemm_bcsr import kernel as BK
+    bm, bk, bn, g, dyadic = case
+    a = block_operand(g, g, bm, bk, 0.15, 1, cuda, dyadic)
+    b = block_operand(g, g, bk, bn, 0.15, 2, cuda, dyadic)
+    plan = plan_bcsr(a, b, vector=vector, cache=False)
+    errors = torch.zeros(1, dtype=torch.int32, device=cuda)
+    bcol, blk = BK.numeric_call(
+        plan.offsets, plan.bin_tsize, a.indptr, b.indptr, plan.indptr_cb,
+        a.indices, a.blocks, b.indices, b.blocks, bcap_c=plan.bcap_c,
+        table_size=plan.table_size, vector=vector, errors=errors)
+    torch.cuda.synchronize()
+    assert int(errors) == 0
+    check_bcsr(a, b, plan, bcol, blk, dyadic)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("vector", (False, True))
+def test_bcsr_global_memory_table(cuda, vector):
+    """One block row whose table (1,024 slots of 8x8 tiles, 1 MB) is past
+    the shared-memory budget: the kernel's global-memory path."""
+    from repro_torch.core import BCSR, plan_bcsr
+    from repro_torch.kernels.spgemm_bcsr import kernel as BK
+    from repro_torch.kernels.spgemm_bcsr import ops as bops
+    n_b = 700
+    rng = np.random.default_rng(3)
+    a = BCSR.from_dense(torch.from_numpy(rng.choice(DYADIC, (16, 8)).astype(
+        np.float32)).to(cuda), (8, 8))
+    b = BCSR.from_dense(torch.from_numpy(rng.choice(DYADIC, (8, 8 * n_b))
+                                         .astype(np.float32)).to(cuda),
+                        (8, 8))
+    plan = plan_bcsr(a, b, vector=vector, cache=False)
+    assert plan.table_size * 4 * (1 + 64) > BK.SMEM_BUDGET
+    bops.reset_kernel_calls()
+    c = plan.execute(a, b)
+    torch.cuda.synchronize()
+    key = "numeric_vector" if vector else "numeric"
+    assert bops.kernel_call_counts() == {"symbolic": 0, "numeric": 0,
+                                         "numeric_vector": 0, "plain": 0,
+                                         key: 1}
+    check_bcsr(a, b, plan, c.indices, c.blocks, True)
+
+
+@pytest.mark.gpu
+def test_bcsr_wrong_indptr_raises(cuda):
+    """An indptr_cb whose counts disagree with the product, and a table too
+    small for a block row, make the wrapper raise."""
+    from repro_torch.core import plan_bcsr
+    from repro_torch.kernels.spgemm_bcsr import kernel as BK
+    from repro_torch.kernels.spgemm_bcsr import ops as bops
+    a = block_operand(24, 24, 8, 8, 0.3, 4, cuda)
+    plan = plan_bcsr(a, a, cache=False)
+    wrong = plan.indptr_cb.clone()
+    wrong[1:] += 1                       # block row 0 one block too many
+    with pytest.raises(RuntimeError, match="flushed count"):
+        bops.spgemm_bcsr(a, a, plan.bcap_c + 1, table_size=plan.table_size,
+                         schedule=(plan.offsets, plan.bin_tsize),
+                         indptr_cb=wrong)
+    small = torch.full_like(plan.bin_tsize, 8)
+    with pytest.raises(RuntimeError, match="full-table"):
+        BK.numeric_call(plan.offsets, small, a.indptr, a.indptr,
+                        plan.indptr_cb, a.indices, a.blocks, a.indices,
+                        a.blocks, bcap_c=plan.bcap_c, table_size=8,
+                        vector=False)
+    with pytest.raises(ValueError):              # wrong dtype
+        BK.numeric_call(plan.offsets, plan.bin_tsize, a.indptr, a.indptr,
+                        plan.indptr_cb, a.indices, a.blocks.double(),
+                        a.indices, a.blocks, bcap_c=plan.bcap_c,
+                        table_size=plan.table_size, vector=False)
+
+
+@pytest.mark.gpu
+def test_bcsr_planned_execute_launches_only_the_kernel(cuda):
+    """plan_spgemm(algorithm="bcsr").execute on CUDA: one block-kernel
+    launch, no plain version, no inspection; the CSR output equals the
+    sorted hash route's."""
+    from repro_torch.core import csr_to_bcsr, bcsr_to_csr, plan_spgemm
+    from repro_torch.kernels.spgemm_bcsr import ops as bops
+    a = bcsr_to_csr(block_operand(32, 32, 8, 8, 0.2, 5, cuda))
+    plan = plan_spgemm(a, a, algorithm="bcsr", cache=False)
+    bops.reset_kernel_calls()
+    ops.reset_kernel_calls()
+    c = plan.execute(a, a)
+    torch.cuda.synchronize()
+    assert bops.kernel_call_counts() == {"symbolic": 0, "numeric": 1,
+                                         "numeric_vector": 0, "plain": 0}
+    assert set(ops.kernel_call_counts().values()) == {0}
+    h = plan_spgemm(a, a, algorithm="hash", cache=False).execute(
+        a, a, sorted_output=True)
+    assert torch.equal(c.indptr, h.indptr) and torch.equal(c.indices,
+                                                           h.indices)
+    assert torch.equal(c.data, h.data)
+    assert csr_to_bcsr(c, (8, 8)).block == (8, 8)

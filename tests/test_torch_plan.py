@@ -84,12 +84,12 @@ def test_auto_plan_arrays_and_choice_bitwise(fx, sorted_output):
     got, _ = T.recommend(ta, ta, sorted_output=sorted_output)
     assert got == want
     jp = J.plan_spgemm(a, a, sorted_output=sorted_output, cache=False)
-    if jp.algorithm == "bcsr":
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            T.plan_spgemm(ta, ta, sorted_output=sorted_output, cache=False)
-        return
     tp = T.plan_spgemm(ta, ta, sorted_output=sorted_output, cache=False)
     assert_plans_equal(jp, tp)
+    if jp.algorithm == "bcsr":
+        for f in ("flop", "offsets", "bin_tsize", "row_nnzb_c", "indptr_cb"):
+            assert np.array_equal(np.asarray(getattr(jp.bcsr_plan, f)),
+                                  getattr(tp.bcsr_plan, f).numpy()), f
     if jp.algorithm == "pb":
         for f in ("src_a", "src_b", "seg", "bucket_nnz", "cols_c"):
             assert np.array_equal(np.asarray(getattr(jp.pb_plan, f)),
@@ -186,9 +186,10 @@ def test_cache_lru_bound_and_restore_refreshes_recency():
 
 def test_unported_plan_options_raise():
     ta = to_port(jrmat.rmat_csr(5, 4, "G500", seed=0))
-    for kw in ({"autotune": True}, {"algorithm": "bcsr"}):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            T.plan_spgemm(ta, ta, cache=False, **kw)
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        T.plan_spgemm(ta, ta, cache=False, autotune=True)
+    assert T.plan_spgemm(ta, ta, cache=False,
+                         algorithm="bcsr").algorithm == "bcsr"
 
 
 @pytest.mark.parametrize("probe", (False, True))
