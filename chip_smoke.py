@@ -4,8 +4,9 @@
 Drives the port's main path -- the planned hash SpGEMM of the paper --
 through the entry points a user calls, at the paper's own input sizes
 (R-MAT, edge factor 16, squared: ER at scale 18 and G500 at scale 16,
-seed 0), then the sorted-output (PB) and block-sparse (BCSR) routes, and
-holds every hand-written kernel against its plain PyTorch version.
+seed 0), then the sorted-output (PB) and block-sparse (BCSR) routes, SpMM
+and the paper's graph workloads, and holds every hand-written kernel
+against its plain PyTorch version.
 Phases; any failure exits non-zero:
 
   1. the card's name and power limit (``nvidia-smi``);
@@ -51,7 +52,27 @@ Phases; any failure exits non-zero:
      trace), beside the bound and ``torch.sparse.mm``.  Last, a small
      block-clustered input (a 128 x 128 grid of 8x8 tiles) that
      ``plan_spgemm(a, a)`` must route to ``bcsr`` by itself;
-  8. one ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``.
+  8. SpMM (``core.spmm``, the CSR x dense kernel) on ER s18 ef16 and on
+     the graph of phase 9, X (n, 64) float32 from a seeded generator and
+     dyadic values, plus (on ER) k = 100 and a bfloat16 X: one launch per
+     call and no plain version; the kernel bitwise equal to its plain
+     version, and within 1 ulp per accumulated product of scipy's float64
+     ``A @ X`` (exactly equal on dyadic values).  Then its median time
+     beside the byte bound, the plain version and ``torch.sparse.mm(A,
+     X)``;
+  9. the paper's graph workloads (sections 5.5-5.6) on R-MAT G500 s16
+     ef16, seed 1, symmetrized: the triangle count (masked L.U) equal to
+     scipy's; dense (SpMM, one launch per hop) and masked-frontier BFS
+     from 64 sources over 6 hops equal to each other and to scipy's
+     ``shortest_path``; the repeat masked BFS plans nothing new.  One
+     timing line;
+ 10. the square x tall-skinny product of section 5.5 (2^6 columns of the
+     G500 s16 graph itself): ``plan_spgemm(a, b).execute`` launches the
+     hash numeric kernel once; structure and values as in phase 4;
+ 11. BCSR at 64x64 tiles (4,096 output lanes a tile, a global-memory
+     table): ``plan_spgemm(algorithm="bcsr", block=(64, 64)).execute``
+     against the plain version and the hash plan;
+ 12. one ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``.
 
 Usage: ``python3 chip_smoke.py`` (one card, no arguments).  A quick first
 check of a changed kernel at small sizes is
@@ -87,10 +108,20 @@ BCSR_INPUTS = (("ER", 13, 8), ("G500", 10, 8))
 BLOCK = (8, 8)
 #: the automatic route's input: a GRID x GRID block grid (2^20 cells)
 AUTO_GRID, AUTO_DENSITY = 128, 0.03
+#: tiles past 1,024 lanes: a GRID x GRID block grid of LARGE_BLOCK tiles
+LARGE_BLOCK, LARGE_GRID = (64, 64), 6
+
+#: SpMM: columns of X (the BFS sources), and the other width checked
+SPMM_K, SPMM_K_ODD = 64, 100
+#: the graph workloads (sections 5.5-5.6): R-MAT G500, the example's seed
+GRAPH_SCALE, GRAPH_SEED, BFS_SOURCES, BFS_HOPS = 16, 1, 64, 6
+#: the tall-skinny B: 2^TALL_K_SCALE columns of the graph (section 5.5)
+TALL_K_SCALE = 6
 
 KERNEL_SOURCE = "src/repro_torch/kernels/spgemm_hash/csrc/spgemm_hash.cu"
 PB_SOURCE = "src/repro_torch/kernels/spgemm_pb/csrc/spgemm_pb.cu"
 BCSR_SOURCE = "src/repro_torch/kernels/spgemm_bcsr/csrc/spgemm_bcsr.cu"
+SPMM_SOURCE = "src/repro_torch/kernels/spmm/csrc/spmm.cu"
 REPLACES = {
     "numeric": "src/repro/kernels/spgemm_hash/kernel.py:266",
     "numeric_vector": "src/repro/kernels/spgemm_hash/kernel.py:87",
@@ -98,6 +129,7 @@ REPLACES = {
     "scatter": "src/repro/kernels/spgemm_pb/kernel.py:84",
     "merge": "src/repro/kernels/spgemm_pb/kernel.py:128",
     "bcsr_numeric": "src/repro/kernels/spgemm_bcsr/kernel.py:131",
+    "spmm": "src/repro/kernels/spmm/kernel.py:44",
 }
 #: the vector rows replace the chunked probe the Pallas kernels share
 REPLACES["bcsr_numeric_vector"] = REPLACES["numeric_vector"]
@@ -133,7 +165,13 @@ class Smoke:
         from repro_torch.kernels.spgemm_bcsr import kernel as BK
         from repro_torch.kernels.spgemm_bcsr import ops as bcsr_ops
         from repro_torch.kernels.spgemm_bcsr import ref as bcsr_ref
+        from repro_torch.kernels.spmm import kernel as SK
+        from repro_torch.kernels.spmm import ops as spmm_ops
+        from repro_torch.kernels.spmm import ref as spmm_ref
+        from repro_torch.examples import graph_analytics
         self.torch, self.core, self.CSR, self.rmat = torch, core, CSR, rmat
+        self.SK, self.spmm_ops, self.spmm_ref = SK, spmm_ops, spmm_ref
+        self.ga = graph_analytics
         self.K, self.ops, self.ref = K, ops, ref
         self.PK, self.pb_ops, self.pb_ref = PK, pb_ops, pb_ref
         self.BK, self.bcsr_ops, self.bcsr_ref = BK, bcsr_ops, bcsr_ref
@@ -145,25 +183,27 @@ class Smoke:
     # ---- helpers ---------------------------------------------------------
     def counted(self, fn):
         """Run ``fn`` between a reset and a read of every launch counter
-        (the PB and BCSR counters under ``pb_`` and ``bcsr_`` names)."""
+        (the PB, BCSR and SpMM counters under ``pb_``, ``bcsr_`` and
+        ``spmm_`` names)."""
+        others = {"pb": self.pb_ops, "bcsr": self.bcsr_ops,
+                  "spmm": self.spmm_ops}
         self.ops.reset_kernel_calls()
-        self.pb_ops.reset_kernel_calls()
-        self.bcsr_ops.reset_kernel_calls()
+        for mod in others.values():
+            mod.reset_kernel_calls()
         out = fn()
         self.torch.cuda.synchronize()
         counts = self.ops.kernel_call_counts()
-        counts.update({f"pb_{k}": v for k, v in
-                       self.pb_ops.kernel_call_counts().items()})
-        counts.update({f"bcsr_{k}": v for k, v in
-                       self.bcsr_ops.kernel_call_counts().items()})
+        for prefix, mod in others.items():
+            counts.update({f"{prefix}_{k}": v for k, v in
+                           mod.kernel_call_counts().items()})
         return out, counts
 
-    def time_ms(self, fn) -> float:
+    def time_ms(self, fn, reps: int = REPS, warm: int = 2) -> float:
         torch = self.torch
-        fn()
-        fn()
+        for _ in range(warm):
+            fn()
         times = []
-        for _ in range(REPS):
+        for _ in range(reps):
             t0 = torch.cuda.Event(enable_timing=True)
             t1 = torch.cuda.Event(enable_timing=True)
             t0.record()
@@ -226,7 +266,8 @@ class Smoke:
     def expect(self, counts, want, what):
         """Launch counts of one path: ``want``'s kernels as many times as
         it says, every other counter (plain versions included) zero."""
-        plain = counts["plain"] + counts["pb_plain"] + counts["bcsr_plain"]
+        plain = counts["plain"] + counts["pb_plain"] + counts["bcsr_plain"] \
+            + counts["spmm_plain"]
         check(plain == 0, f"{what}: ran a plain version {plain} times")
         check(counts == {k: want.get(k, 0) for k in counts},
               f"{what}: launches {counts}, want {want}")
@@ -294,11 +335,7 @@ class Smoke:
         a = self.rmat.rmat_csr(scale, EDGE_FACTOR, preset, seed=0,
                                device=self.dev)
         nnz_a = int(a.nnz)
-        rng = np.random.default_rng(1)
-        dy = np.zeros(a.cap, np.float32)
-        dy[:nnz_a] = np.asarray(DYADIC, np.float32)[rng.integers(0, 4, nnz_a)]
-        a_d = self.CSR(a.indptr, a.indices, torch.from_numpy(dy).to(self.dev),
-                       a.nnz, a.shape, True)
+        a_d = self.dyadic_copy(a, 1)
         print(f"{label}: n={a.n_rows} nnz(A)={nnz_a} "
               f"(built in {time.perf_counter() - t0:.1f} s)", flush=True)
 
@@ -589,13 +626,13 @@ class Smoke:
 
 
     # ---- phase 7 -----------------------------------------------------------
-    def block_csr(self, brow, bcol, g, seed):
+    def block_csr(self, brow, bcol, g, seed, block=BLOCK):
         """Scalar CSR operands on the card whose block pattern is
-        ``(brow, bcol)`` over a ``g x g`` grid of dense BLOCK tiles:
+        ``(brow, bcol)`` over a ``g x g`` grid of dense ``block`` tiles:
         uniform values in [0.5, 1.5) and a dyadic-valued copy, both drawn
         from seeded numpy generators."""
         torch = self.torch
-        bm, bn = BLOCK
+        bm, bn = block
         key = np.unique(brow.astype(np.int64) * g + bcol)
         br, bc = key // g, key % g
         ii, jj = np.meshgrid(np.arange(bm), np.arange(bn), indexing="ij")
@@ -868,6 +905,300 @@ class Smoke:
         del plan, c, c_h
         core.clear_plan_cache()
 
+    # ---- phase 8 -----------------------------------------------------------
+    def spmm_input(self, a, a_d, label, paths, widths=True):
+        """The SpMM kernel on ``a`` (and its dyadic copy ``a_d``): the front
+        door's launches, the kernel against its plain version and scipy,
+        then the timings.  ``paths`` holds the launches of the runs that
+        reached the kernel through a workload (the dense BFS).  ``widths``
+        adds k = SPMM_K_ODD and a bfloat16 X (run on one input: the plain
+        version of a skewed graph takes a second a call)."""
+        import scipy.sparse as sps
+        torch, SK, sref = self.torch, self.SK, self.spmm_ref
+        m, n = a.shape
+        nnz = int(a.nnz)
+        host = a.to_numpy()
+        a_sp = sps.csr_matrix((host[2][:nnz].astype(np.float64),
+                               host[1][:nnz], host[0]), shape=a.shape)
+        row_nnz = torch.from_numpy(np.diff(host[0])).to(self.dev)
+        rng = np.random.default_rng(2)
+
+        def x_of(k, values="uniform"):
+            x = rng.uniform(0.5, 1.5, (n, k)) if values == "uniform" else \
+                np.asarray(DYADIC)[rng.integers(0, 4, (n, k))]
+            return torch.from_numpy(x.astype(np.float32)).to(self.dev)
+
+        def run(mat, x, what):
+            """Front door: one launch, no plain version; the kernel equals
+            its plain version bitwise.  Returns (y, plain)."""
+            y, counts = self.counted(lambda: self.core.spmm(mat, x))
+            self.expect(counts, {"spmm_spmm": 1}, f"{label} spmm {what}")
+            plain = sref.spmm_plain(mat.indptr, mat.indices,
+                                    mat.data.float(), x, mat.nnz)
+            check(y.dtype == x.dtype and torch.equal(y, plain),
+                  f"{label} spmm {what}: kernel not bitwise equal to its "
+                  f"plain version")
+            return y
+
+        x = x_of(SPMM_K)
+        y = run(a, x, f"k={SPMM_K}")
+        paths["core.spmm"] = 1
+        want = torch.from_numpy(a_sp @ x.double().cpu().numpy()).to(self.dev)
+        diff = (y.double() - want).abs()
+        ulp = (torch.nextafter(want.float().abs(), torch.full_like(
+            want.float(), float("inf"))) - want.float().abs()).double()
+        bad = diff > row_nnz[:, None].double() * ulp
+        check(not bool(bad.any()), f"{label} spmm: {int(bad.sum())} values "
+              f"past 1 ulp per product of scipy's")
+        err = float(diff.max())
+        if widths:
+            run(a, x_of(SPMM_K_ODD), f"k={SPMM_K_ODD}")
+            run(a, x.to(torch.bfloat16), "bf16")
+        x_d = x_of(SPMM_K, "dyadic")
+        y_d = run(a_d, x_d, "dyadic")
+        host_d = a_d.data[:nnz].double().cpu().numpy()
+        want_d = sps.csr_matrix((host_d, host[1][:nnz], host[0]),
+                                shape=a.shape) @ x_d.double().cpu().numpy()
+        check(torch.equal(y_d, torch.from_numpy(want_d.astype(
+            np.float32)).to(self.dev)),
+              f"{label} spmm dyadic: not equal to scipy's exact product")
+        cases = f"k={SPMM_K}, k={SPMM_K_ODD}, bf16, dyadic" if widths else \
+            f"k={SPMM_K}, dyadic"
+        print(f"{label} spmm: kernel bitwise equal to its plain version "
+              f"({cases}), within 1 ulp per product of scipy (max abs diff "
+              f"{err}), exact on dyadic values", flush=True)
+
+        # ---- timings ------------------------------------------------------
+        by = 4 * (m + 1) + 8 * nnz + 4 * n * SPMM_K + 4 * m * SPMM_K
+        ops_n = 2 * nnz * SPMM_K
+        bound = max(by / HBM_BYTES_PER_S, ops_n / FP32_FLOP_PER_S) * 1e3
+        data = a.data.float()
+        args = (a.indptr, a.indices, data, x, a.nnz)
+        sp = torch.sparse_csr_tensor(a.indptr.long(), a.indices[:nnz].long(),
+                                     data[:nnz], size=a.shape)
+        max_row = int(row_nnz.max())
+        slow = max_row > 1000           # one plain step per slot of a row
+        t = {"kernel": self.time_ms(lambda: SK.spmm_call(*args)),
+             "spmm": self.time_ms(lambda: self.core.spmm(a, x)),
+             "plain": self.time_ms(lambda: sref.spmm_plain(*args),
+                                   reps=1 if slow else REPS,
+                                   warm=0 if slow else 2),
+             "torch_sparse_mm": self.time_ms(lambda: torch.sparse.mm(sp, x))}
+        print(json.dumps({"timing": f"{label} spmm", "card": self.card,
+                          "m": m, "n": n, "nnz_a": nnz, "k": SPMM_K,
+                          "max_row_nnz": max_row, "ms": t,
+                          "bound_ms": bound, "bound_bytes": by,
+                          "bound_operations": ops_n}), flush=True)
+        self.rows.append({
+            "name": f"spmm[{label}]", "route": "cuda", "source": SPMM_SOURCE,
+            "replaces": REPLACES["spmm"],
+            "launches": next(iter(paths.values())),
+            "launches_by_path": paths, "max_abs_err": err,
+            "ms": t["kernel"], "plain_ms": t["plain"], "bound_ms": bound,
+            "bound_by": "bytes" if by / HBM_BYTES_PER_S >=
+            ops_n / FP32_FLOP_PER_S else "operations",
+            "library_ms": t["torch_sparse_mm"]})
+        torch.cuda.empty_cache()
+
+    def dyadic_copy(self, a, seed):
+        """``a`` with dyadic values drawn from a seeded generator."""
+        nnz = int(a.nnz)
+        dy = np.zeros(a.cap, np.float32)
+        dy[:nnz] = np.asarray(DYADIC, np.float32)[
+            np.random.default_rng(seed).integers(0, 4, nnz)]
+        return self.CSR(a.indptr, a.indices,
+                        self.torch.from_numpy(dy).to(self.dev), a.nnz,
+                        a.shape, a.sorted_cols)
+
+    # ---- phase 9 -----------------------------------------------------------
+    def graph(self):
+        """Sections 5.5-5.6 on the symmetrized R-MAT G500 graph: triangle
+        count and multi-source BFS, against scipy.  Returns the graph and
+        the launches of the dense BFS."""
+        import scipy.sparse as sps
+        from scipy.sparse.csgraph import shortest_path
+        torch, core, rmat, ga = self.torch, self.core, self.rmat, self.ga
+        label = f"graph G500 s{GRAPH_SCALE} ef{EDGE_FACTOR} seed {GRAPH_SEED}"
+        t0 = time.perf_counter()
+        a = rmat.rmat_csr(GRAPH_SCALE, EDGE_FACTOR, "G500", seed=GRAPH_SEED,
+                          device=self.dev)
+        g = rmat.symmetrize(a, cap=2 * a.cap, device=self.dev)
+        n, nnz = g.n_rows, int(g.nnz)
+        # scipy's own graph from the same edges
+        r, c = rmat.rmat_edges(GRAPH_SCALE, EDGE_FACTOR, "G500",
+                               seed=GRAPH_SEED)
+        s = sps.coo_matrix((np.ones(r.shape[0]), (r, c)), shape=(n, n))
+        s = ((s + s.T) > 0).astype(np.float64).tocsr()
+        s.setdiag(0)
+        s.eliminate_zeros()
+        s.sort_indices()
+        host = g.to_numpy()
+        check(np.array_equal(host[0], s.indptr) and
+              np.array_equal(host[1][:nnz], s.indices),
+              f"{label}: symmetrize differs from scipy's A | A^T")
+        print(f"{label}: n={n} nnz={nnz} max degree "
+              f"{int(np.diff(s.indptr).max())} (built and checked in "
+              f"{time.perf_counter() - t0:.1f} s)", flush=True)
+
+        # triangle count: masked L.U, the sum exact
+        core.clear_plan_cache()
+        t0 = time.perf_counter()
+        tri = ga.triangle_count(g)
+        torch.cuda.synchronize()
+        tri_s = time.perf_counter() - t0
+        deg = np.diff(s.indptr)
+        order = np.argsort(deg, kind="stable")
+        p = s[order][:, order]
+        want_tri = int(round((sps.tril(p, -1) @ sps.triu(p, 1))
+                             .multiply(p).sum() / 2))
+        check(tri == want_tri, f"{label}: triangle count {tri}, scipy "
+              f"{want_tri}")
+        L, U, adj = rmat.triangular_split(g, return_adjacency=True,
+                                          device=self.dev)
+        t0 = time.perf_counter()
+        plan = core.plan_spgemm(L, U, mask=adj, cache=False)
+        torch.cuda.synchronize()
+        plan_s = time.perf_counter() - t0
+        t = {"lu_execute": self.time_ms(lambda: plan.execute(L, U),
+                                        reps=3, warm=1)}
+        print(f"{label}: {tri} triangles, as scipy (masked L.U: "
+              f"{plan.algorithm}, flop {plan.total_flop}, nnz(C) "
+              f"{plan.nnz_c})", flush=True)
+        del L, U, adj, plan
+
+        # multi-source BFS: dense frontier stack (SpMM) and masked frontiers
+        sources = np.random.default_rng(0).choice(
+            n, BFS_SOURCES, replace=False).tolist()
+        dist, counts = self.counted(lambda: ga.multi_source_bfs(
+            g, sources, BFS_HOPS))
+        self.expect(counts, {"spmm_spmm": BFS_HOPS}, f"{label} dense BFS")
+        paths = {"multi_source_bfs": counts["spmm_spmm"]}
+        core.clear_plan_cache()
+        t0 = time.perf_counter()
+        dist_m, counts = self.counted(lambda: ga.multi_source_bfs_masked(
+            g, sources, BFS_HOPS))
+        t["masked_bfs_first_s"] = time.perf_counter() - t0
+        self.expect(counts, {}, f"{label} masked BFS")
+        before = core.plan_cache_stats()
+        t0 = time.perf_counter()
+        dist_r = ga.multi_source_bfs_masked(g, sources, BFS_HOPS)
+        torch.cuda.synchronize()
+        t["masked_bfs_repeat_s"] = time.perf_counter() - t0
+        after = core.plan_cache_stats()
+        check(after["misses"] == before["misses"],
+              f"{label}: the repeat masked BFS planned "
+              f"{after['misses'] - before['misses']} products")
+        sp_dist = shortest_path(s, unweighted=True, indices=sources)
+        want = np.where(sp_dist <= BFS_HOPS, sp_dist, -1).astype(np.int32).T
+        for name, d in (("dense", dist), ("masked", dist_m),
+                        ("masked repeat", dist_r)):
+            check(np.array_equal(d.cpu().numpy(), want),
+                  f"{label}: {name} BFS distances differ from scipy's")
+        reached = np.bincount(want[want > 0], minlength=BFS_HOPS + 1)[1:]
+        print(f"{label}: BFS from {BFS_SOURCES} sources over {BFS_HOPS} "
+              f"hops: dense == masked == scipy, newly reached per hop "
+              f"{reached.tolist()}; the repeat hit "
+              f"{after['hits'] - before['hits']} cached plans", flush=True)
+        t["dense_bfs"] = self.time_ms(lambda: ga.multi_source_bfs(
+            g, sources, BFS_HOPS), reps=3, warm=1)
+        t["triangle_count_s"] = tri_s
+        print(json.dumps({"timing": label, "card": self.card, "n": n,
+                          "nnz": nnz, "triangles": tri,
+                          "sources": BFS_SOURCES, "hops": BFS_HOPS,
+                          "ms": {k: v for k, v in t.items()
+                                 if not k.endswith("_s")},
+                          "s": {k: v for k, v in t.items()
+                                if k.endswith("_s")},
+                          "plan_s": plan_s}), flush=True)
+        del dist, dist_m, dist_r
+        core.clear_plan_cache()
+        torch.cuda.empty_cache()
+        return g, label, paths
+
+    # ---- phase 10 ----------------------------------------------------------
+    def tall_skinny(self, a, label):
+        """Section 5.5's square x tall-skinny product through the planner:
+        the hash numeric kernel, held against its plain version."""
+        torch, core, ref = self.torch, self.core, self.ref
+        rows, cols = self.rmat.rmat_edges(G500_SCALE, EDGE_FACTOR, "G500",
+                                          seed=0)
+        b = self.rmat.tall_skinny_from(rows, cols, a.n_rows, TALL_K_SCALE,
+                                       seed=3, device=self.dev)
+        core.clear_plan_cache()
+        t0 = time.perf_counter()
+        plan = core.plan_spgemm(a, b, use_case="tall_skinny")
+        torch.cuda.synchronize()
+        plan_s = time.perf_counter() - t0
+        check(plan.algorithm == "hash", f"tall-skinny: the recipe chose "
+              f"{plan.algorithm}, not hash")
+        c, counts = self.counted(lambda: plan.execute(a, b))
+        self.expect(counts, {"numeric": 1}, "tall-skinny plan.execute")
+        args = (plan.offsets, plan.bin_tsize, a.indptr, b.indptr,
+                plan.indptr_c, a.indices, a.data, b.indices, b.data)
+        pc, pv = ref.numeric_plain(*args, cap_c=plan.cap_c,
+                                   table_size=plan.table_size, vector=False)
+        check(torch.equal(c.indptr, plan.indptr_c), "tall-skinny: indptr")
+        err = self.compare("tall-skinny", c.indices, c.data, c.indptr,
+                           c.shape, pc, pv, ref.products_per_entry(
+                               a.indptr, b.indptr, plan.indptr_c, a.indices,
+                               b.indices, plan.cap_c))
+        ms = self.time_ms(lambda: plan.execute(a, b))
+        print(json.dumps({"timing": f"{label} x tall-skinny", "card":
+                          self.card, "k": b.n_cols, "nnz_b": int(b.nnz),
+                          "flop": plan.total_flop, "nnz_c": plan.nnz_c,
+                          "ms": {"execute": ms}, "max_abs_err": err,
+                          "plan_s": plan_s}), flush=True)
+        for row in self.rows:
+            if row["name"] == f"spgemm_hash_numeric[{label}]":
+                row["launches_by_path"][
+                    "plan_spgemm(A, B tall-skinny).execute"] = \
+                    counts["numeric"]
+        del plan, c, pc, pv
+        core.clear_plan_cache()
+
+    # ---- phase 11 ----------------------------------------------------------
+    def bcsr_large_tile(self):
+        """Tiles of 4,096 output lanes through ``plan_spgemm(algorithm=
+        "bcsr", block=(64, 64))``, against the plain version and the hash
+        plan; dyadic values, so everything is bitwise."""
+        torch, core, BK, bref = self.torch, self.core, self.BK, self.bcsr_ref
+        rng = np.random.default_rng(9)
+        occ = np.nonzero(rng.random((LARGE_GRID, LARGE_GRID)) < 0.5)
+        _, a, _ = self.block_csr(occ[0], occ[1], LARGE_GRID, seed=10,
+                                 block=LARGE_BLOCK)
+        label = (f"{LARGE_GRID}x{LARGE_GRID} grid of {LARGE_BLOCK[0]}x"
+                 f"{LARGE_BLOCK[1]} tiles")
+        core.clear_plan_cache()
+        plan = core.plan_spgemm(a, a, algorithm="bcsr", block=LARGE_BLOCK)
+        bp = plan.bcsr_plan
+        tile = LARGE_BLOCK[0] * LARGE_BLOCK[1]
+        check(bp.table_size * 4 * (1 + tile) > BK.SMEM_BUDGET,
+              f"{label}: expected a global-memory table")
+        c, counts = self.counted(lambda: plan.execute(a, a))
+        self.expect(counts, {"bcsr_numeric": 1}, f"{label} plan.execute")
+        ab = core.csr_to_bcsr(a, LARGE_BLOCK)
+        args = (bp.offsets, bp.bin_tsize, ab.indptr, ab.indptr, bp.indptr_cb,
+                ab.indices, ab.blocks, ab.indices, ab.blocks)
+        kw = dict(bcap_c=bp.bcap_c, table_size=bp.table_size, vector=False)
+        kc, kb = BK.numeric_call(*args, **kw)
+        pc, pb = bref.numeric_plain(*args, **kw)
+        check(torch.equal(kc, pc) and torch.equal(kb, pb),
+              f"{label}: the block kernel differs from its plain version")
+        c_h = core.plan_spgemm(a, a, algorithm="hash").execute(
+            a, a, sorted_output=True)
+        check(torch.equal(c.indptr, c_h.indptr) and
+              torch.equal(c.indices, c_h.indices) and
+              torch.equal(c.data, c_h.data),
+              f"{label}: the bcsr output differs from the hash plan's")
+        for row in self.rows:
+            if row["name"].startswith("spgemm_bcsr_numeric["):
+                row["launches_by_path"][f"plan.execute [{label}]"] = \
+                    counts["bcsr_numeric"]
+        print(f"{label}: plan.execute launched the block kernel once "
+              f"(global-memory table of {bp.table_size} slots); equal to "
+              f"the plain version and the hash plan", flush=True)
+        core.clear_plan_cache()
+
 
 def main() -> int:
     import torch
@@ -888,8 +1219,10 @@ def main() -> int:
     from repro_torch.kernels.spgemm_hash import kernel as K
     from repro_torch.kernels.spgemm_pb import kernel as PK
     from repro_torch.kernels.spgemm_bcsr import kernel as BK
-    seconds = _build.compile_sources([K.SOURCE, PK.SOURCE, BK.SOURCE])
-    for mod in (K, PK, BK):
+    from repro_torch.kernels.spmm import kernel as SK
+    seconds = _build.compile_sources([K.SOURCE, PK.SOURCE, BK.SOURCE,
+                                      SK.SOURCE])
+    for mod in (K, PK, BK, SK):
         info = mod.build()
         print(f"phase 2: built {info['path']} in "
               f"{seconds[mod.SOURCE]:.1f} s", flush=True)
@@ -901,14 +1234,21 @@ def main() -> int:
     smoke.saturation()                                           # phase 3
     er = smoke.one_input("ER", ER_SCALE)                         # 4, 5
     smoke.sorted_pb(*er)                                         # phase 6
+    smoke.spmm_input(*er, {})                                    # phase 8
     del er
-    smoke.one_input("G500", G500_SCALE)
+    g500, _, g500_label = smoke.one_input("G500", G500_SCALE)
     for preset, scale, ef in BCSR_INPUTS:                        # phase 7
         smoke.bcsr_input(preset, scale, ef)
     smoke.bcsr_auto()
+    graph, label, paths = smoke.graph()                          # phase 9
+    smoke.spmm_input(graph, smoke.dyadic_copy(graph, 3), label, paths,
+                     widths=False)
+    del graph
+    smoke.tall_skinny(g500, g500_label)                          # phase 10
+    smoke.bcsr_large_tile()                                      # phase 11
 
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
-    print(json.dumps({"kernels": smoke.rows}), flush=True)       # phase 8
+    print(json.dumps({"kernels": smoke.rows}), flush=True)       # phase 12
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -3,7 +3,8 @@ from .formats import CSR, BCSR, csr_to_bcsr, bcsr_to_csr
 from .semiring import (Semiring, SEMIRINGS, resolve_semiring, PLUS_TIMES,
                        BOOLEAN, MIN_PLUS, PLUS_FIRST)
 from .spgemm import (spgemm, spgemm_dense, spgemm_esc, spgemm_heap,
-                     spgemm_hash_jnp, symbolic, symbolic_flops, finalize)
+                     spgemm_hash_jnp, spmm, symbolic, symbolic_flops,
+                     finalize)
 from .schedule import (flops_per_row, rows_to_bins, bin_flop,
                        make_schedule_eager, lowbnd, lowest_p2, lowest_p2_arr,
                        bin_table_sizes, max_flop_per_bin_row,
@@ -20,7 +21,7 @@ __all__ = [
     "Semiring", "SEMIRINGS", "resolve_semiring", "PLUS_TIMES", "BOOLEAN",
     "MIN_PLUS", "PLUS_FIRST",
     "spgemm", "spgemm_dense", "spgemm_esc", "spgemm_heap", "spgemm_hash_jnp",
-    "symbolic", "symbolic_flops", "finalize",
+    "spmm", "symbolic", "symbolic_flops", "finalize",
     "flops_per_row", "rows_to_bins", "bin_flop", "make_schedule_eager",
     "lowbnd", "lowest_p2", "lowest_p2_arr", "bin_table_sizes",
     "max_flop_per_bin_row", "masked_row_bound", "guard_i32_flop",

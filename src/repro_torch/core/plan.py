@@ -238,6 +238,15 @@ def plan_spgemm(a: CSR, b: CSR, *, algorithm: str = "auto",
     is ``bcsr``, and the plan then nests a frozen
     :class:`repro_torch.core.bcsr.BCSRPlan`.  ``autotune=True`` is not
     ported yet and raises.
+
+    Caveat of the ``bcsr`` route, as in the reference: its execute
+    flattens the block product with ``bcsr_to_csr``, which prunes every
+    cell that computes to exactly 0.  With signed values whose products
+    cancel, the output then holds fewer entries than ``nnz_c`` and
+    ``indptr_c`` (and the hash route) count, and its structure depends on
+    the values.  Rounding differs from the reference's kernel, so a cell
+    that cancels only up to rounding can be 0 in one package and not in
+    the other.
     """
     if autotune:
         raise NotImplementedError("autotune= is not ported yet")

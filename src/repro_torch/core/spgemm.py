@@ -14,8 +14,9 @@ Algorithms, as Table 1 of the paper:
 
 Everything in this module is plain PyTorch, as the reference is plain jnp:
 the hand-written kernels live in ``repro_torch.kernels.spgemm_hash``,
-``repro_torch.kernels.spgemm_pb`` (planned by ``core.pb``) and
-``repro_torch.kernels.spgemm_bcsr`` (planned by ``core.bcsr``).
+``repro_torch.kernels.spgemm_pb`` (planned by ``core.pb``),
+``repro_torch.kernels.spgemm_bcsr`` (planned by ``core.bcsr``) and
+``repro_torch.kernels.spmm`` (behind :func:`spmm`).
 :func:`spgemm_hash_jnp` (the name kept from the reference) is the sort-based
 hash-order fallback that owns the semiring and masked generalizations.
 
@@ -341,6 +342,26 @@ def spgemm_heap(a: CSR, b: CSR, row_cap: int, k_width: int,
     return CSR(indptr_c, cols_c[:cap_c].clone(), data_c[:cap_c].clone(),
                torch.tensor(nnz_c, dtype=torch.int32, device=dev), (m, n),
                sorted_cols=True)
+
+
+# ----------------------------------------------------------------------------
+# SpMM: CSR x dense (square x tall-skinny use case, section 5.5)
+# ----------------------------------------------------------------------------
+
+def spmm(a: CSR, x: torch.Tensor) -> torch.Tensor:
+    """C = A @ X with dense X of shape (n, k); returns (m, k) in X's dtype.
+
+    On CUDA tensors this launches the hand-written kernel
+    (``repro_torch.kernels.spmm``); on CPU tensors it runs that kernel's
+    plain version (``kernels/spmm/ref.py``), not the reference's gather plus
+    segment sum.  Both accumulate in float32 in each row's nonzero order
+    and count padded slots as 0, as the reference does: values agree with
+    the reference bitwise on dyadic inputs and within one ulp per
+    accumulated product otherwise.  A bfloat16 or float16 X gives X's
+    dtype, where the reference promotes to float32.
+    """
+    from repro_torch.kernels.spmm.ops import spmm_kernel
+    return spmm_kernel(a, x)
 
 
 # ----------------------------------------------------------------------------

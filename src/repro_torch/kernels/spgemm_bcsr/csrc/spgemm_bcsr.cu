@@ -20,7 +20,10 @@
 //   * The TPU grid walks 8 equal-flop bins in order on one core.  Here a
 //     launch covers one bin and one thread block owns one block row at a
 //     time, so the rows of a bin run concurrently across the 132 SMs.
-//   * One thread per output lane (r, c) of the tile: bm * bn <= 1024.
+//   * One thread per output lane (r, c) of the tile up to 1,024 lanes.
+//     A larger tile (kMulti) gives each of the 1,024 threads the lanes
+//     tid, tid + 1024, ... below bm * bn, so any tile size runs; the
+//     one-lane variant keeps its A row pointer out of the pair loop.
 //   * Thread 0 probes the row's keys alone, in the reference's (j, t)
 //     order, and records each pair's slot (and whether the pair opened
 //     it) in shared memory, a chunk of B blocks at a time; the other
@@ -114,7 +117,26 @@ __device__ __forceinline__ int probe_vector(int* keys, int tsz, int col,
   return -1;
 }
 
-template <bool kVector>
+// Folds a chunk's n pairs into lane l's accumulators, in pair order:
+// sum_k __fmul_rn(a_row[k], b_lane[k * bn]) with __fadd_rn over k, then
+// __fadd_rn into the pair's slot (into 0 for the pair that opened it).
+__device__ __forceinline__ void fold_lane(int l, const float* a_row,
+                                          const float* b_lane, int n, int bk,
+                                          int bn, int tile, const int* s_slot,
+                                          const int* s_open, float* acc) {
+  for (int q = 0; q < n; ++q) {
+    const int slot = s_slot[q];
+    if (slot < 0) continue;
+    const float* b_col = b_lane + static_cast<size_t>(q) * bk * bn;
+    float sum = __fmul_rn(a_row[0], b_col[0]);
+    for (int kk = 1; kk < bk; ++kk)
+      sum = __fadd_rn(sum, __fmul_rn(a_row[kk], b_col[kk * bn]));
+    float* dst = acc + static_cast<size_t>(slot) * tile + l;
+    *dst = __fadd_rn(s_open[q] ? 0.0f : *dst, sum);
+  }
+}
+
+template <bool kVector, bool kMulti>
 __global__ void bcsr_rows_kernel(
     int row_begin, int row_end, int tsz, int bcap_c, int bm, int bk, int bn,
     const int* __restrict__ indptr_a, const int* __restrict__ a_bcol,
@@ -174,18 +196,14 @@ __global__ void bcsr_rows_kernel(
           }
         }
         __syncthreads();
-        if (active) {
-          for (int q = 0; q < n; ++q) {
-            const int slot = s_slot[q];
-            if (slot < 0) continue;
-            const float* b_col =
-                b_blk + static_cast<size_t>(t0 + q) * bk * bn + c;
-            float sum = __fmul_rn(a_row[0], b_col[0]);
-            for (int kk = 1; kk < bk; ++kk)
-              sum = __fadd_rn(sum, __fmul_rn(a_row[kk], b_col[kk * bn]));
-            float* dst = acc + static_cast<size_t>(slot) * tile + tid;
-            *dst = __fadd_rn(s_open[q] ? 0.0f : *dst, sum);
-          }
+        const float* b_chunk = b_blk + static_cast<size_t>(t0) * bk * bn;
+        if constexpr (kMulti) {
+          for (int l = tid; l < tile; l += blockDim.x)
+            fold_lane(l, a_blk + (static_cast<size_t>(j) * bm + l / bn) * bk,
+                      b_chunk + l % bn, n, bk, bn, tile, s_slot, s_open, acc);
+        } else if (active) {
+          fold_lane(tid, a_row, b_chunk + c, n, bk, bn, tile, s_slot, s_open,
+                    acc);
         }
         __syncthreads();
       }
@@ -215,13 +233,12 @@ __global__ void bcsr_rows_kernel(
         if (pos < want && base + pos < bcap_c) out_bcol[base + pos] = key;
       }
       __syncthreads();
-      if (active) {
-        for (int e = 0; e < total; ++e) {
-          const int pos = running + e;
-          if (pos >= want || base + pos >= bcap_c) break;
-          out_blk[static_cast<size_t>(base + pos) * tile + tid] =
-              acc[static_cast<size_t>(s_flush[e]) * tile + tid];
-        }
+      for (int e = 0; e < total; ++e) {
+        const int pos = running + e;
+        if (pos >= want || base + pos >= bcap_c) break;
+        for (int l = tid; l < tile; l += blockDim.x)
+          out_blk[static_cast<size_t>(base + pos) * tile + l] =
+              acc[static_cast<size_t>(s_flush[e]) * tile + l];
       }
       running += total;
       __syncthreads();
@@ -231,14 +248,14 @@ __global__ void bcsr_rows_kernel(
   }
 }
 
-template <bool kVector>
+template <bool kVector, bool kMulti>
 int launch(int row_begin, int row_end, int tsz, int bcap_c, int bm, int bk,
            int bn, int grid, int block, int smem_bytes, const int* indptr_a,
            const int* a_bcol, const float* a_blk, const int* indptr_b,
            const int* b_bcol, const float* b_blk, const int* indptr_c,
            int* out_bcol, float* out_blk, int* errors, int* ws_keys,
            float* ws_acc, cudaStream_t stream) {
-  auto kernel = bcsr_rows_kernel<kVector>;
+  auto kernel = bcsr_rows_kernel<kVector, kMulti>;
   if (smem_bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
@@ -254,10 +271,11 @@ int launch(int row_begin, int row_end, int tsz, int bcap_c, int bm, int bk,
 }  // namespace
 
 // One launch over block rows [row_begin, row_end) of one bin; writes
-// nothing at or past bcap_c.  block (threads) is a multiple of 32 with
-// bm * bn <= block <= 1024.  ws_keys/ws_acc null: the table lives in
-// shared memory (smem_bytes = tsz * (4 + 4 * bm * bn)); else a table of
-// tsz slots per thread block in global memory.
+// nothing at or past bcap_c.  block (threads) is a multiple of 32, at
+// most 1024; each thread owns every block-th lane of the bm * bn tile.
+// ws_keys/ws_acc null: the table lives in shared memory (smem_bytes =
+// tsz * (4 + 4 * bm * bn)); else a table of tsz slots per thread block in
+// global memory.
 extern "C" int spgemm_bcsr_launch(
     int vector, int row_begin, int row_end, int tsz, int bcap_c, int bm,
     int bk, int bn, int grid, int block, int smem_bytes, const int* indptr_a,
@@ -266,13 +284,12 @@ extern "C" int spgemm_bcsr_launch(
     int* out_bcol, float* out_blk, int* errors, int* ws_keys, float* ws_acc,
     void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (vector)
-    return launch<true>(row_begin, row_end, tsz, bcap_c, bm, bk, bn, grid,
-                        block, smem_bytes, indptr_a, a_bcol, a_blk, indptr_b,
-                        b_bcol, b_blk, indptr_c, out_bcol, out_blk, errors,
-                        ws_keys, ws_acc, s);
-  return launch<false>(row_begin, row_end, tsz, bcap_c, bm, bk, bn, grid,
-                       block, smem_bytes, indptr_a, a_bcol, a_blk, indptr_b,
-                       b_bcol, b_blk, indptr_c, out_bcol, out_blk, errors,
-                       ws_keys, ws_acc, s);
+  auto fn = launch<false, false>;
+  if (bm * bn > block)
+    fn = vector ? launch<true, true> : launch<false, true>;
+  else if (vector)
+    fn = launch<true, false>;
+  return fn(row_begin, row_end, tsz, bcap_c, bm, bk, bn, grid, block,
+            smem_bytes, indptr_a, a_bcol, a_blk, indptr_b, b_bcol, b_blk,
+            indptr_c, out_bcol, out_blk, errors, ws_keys, ws_acc, s);
 }

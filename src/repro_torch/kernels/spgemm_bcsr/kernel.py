@@ -35,8 +35,10 @@ KERNEL_CALLS = {"symbolic": 0, "numeric": 0, "numeric_vector": 0,
 SMEM_BUDGET = 128 * 1024
 #: Blocks that share the global-memory tables of a bin with larger tables.
 GLOBAL_BLOCKS = 264
-#: Most output lanes of a tile: one thread each.
-MAX_TILE = 1024
+#: Most threads per block; a larger tile gives each thread several lanes,
+#: so no tile size is refused (a bin's global tables, blocks x tsz x
+#: (1 + bm * bn) x 4 B, must fit on the card).
+MAX_THREADS = 1024
 
 SOURCE = Path(__file__).parent / "csrc" / "spgemm_bcsr.cu"
 _FUNCTIONS = {"spgemm_bcsr_launch":
@@ -75,10 +77,9 @@ def _check_operands(indptr_a, indptr_b, indptr_c, a_bcol, a_blk, b_bcol,
                          f"{tuple(b_blk.shape[1:])}")
     if indptr_c.shape != indptr_a.shape:
         raise ValueError("indptr_c and indptr_a must both be (gm + 1,)")
-    tile = a_blk.shape[1] * b_blk.shape[2]
-    if not 1 <= tile <= MAX_TILE:
-        raise ValueError(f"a (bm, bn) tile of {tile} lanes; the kernel "
-                         f"takes 1 to {MAX_TILE}")
+    if min(a_blk.shape[1:]) < 1 or b_blk.shape[2] < 1:
+        raise ValueError(f"empty tiles: A {tuple(a_blk.shape[1:])}, B "
+                         f"{tuple(b_blk.shape[1:])}")
 
 
 def _launch_bins(vector, offsets, bin_tsize, table_size, indptr_a,
@@ -88,7 +89,7 @@ def _launch_bins(vector, offsets, bin_tsize, table_size, indptr_a,
     bm, bk = a_blk.shape[1], a_blk.shape[2]
     bn = b_blk.shape[2]
     tile = bm * bn
-    threads = max(32, -(-tile // 32) * 32)
+    threads = min(MAX_THREADS, max(32, -(-tile // 32) * 32))
     build()
     bounds = offsets.tolist()
     sizes = bin_tsize.tolist()

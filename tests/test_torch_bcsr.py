@@ -591,3 +591,30 @@ def test_block_rmat_product_matches_reference(preset):
     assert jp.algorithm == tp.algorithm == "bcsr"
     assert_plans_equal(jp.bcsr_plan, tp.bcsr_plan)
     assert_csr_equal(jp.execute(a, a), tp.execute(ta, ta))
+
+
+def test_signed_cancellation_prunes_cells_in_both():
+    """Signed dyadic values whose products cancel exactly: row 3 of A
+    holds 1 at columns 0 and 1, and row 1 of B is minus row 0, so every
+    cell of C's row 3 computes to 0.  Both packages' bcsr execute prune
+    those cells (``bcsr_to_csr``): the same nnz and row pointer, below the
+    plan's ``nnz_c``, which counts the structure (plan_spgemm's docstring)."""
+    ad = block_clustered_dense(2, 2, 8, 8, 1.0, seed=51)
+    bd = block_clustered_dense(2, 2, 8, 8, 1.0, seed=52)
+    ad[3, :] = 0.0
+    ad[3, :2] = 1.0
+    bd[1, :] = -bd[0, :]
+    cd = ad @ bd
+    assert not cd[3].any()
+    a, b = csr_of(ad), csr_of(bd)
+    ta, tb = to_port(a), to_port(b)
+    jp = J.plan_spgemm(a, b, algorithm="bcsr", cache=False)
+    tp = T.plan_spgemm(ta, tb, algorithm="bcsr", cache=False)
+    assert tp.nnz_c == jp.nnz_c == 16 * 16
+    jc, tc = jp.execute(a, b), tp.execute(ta, tb)
+    nnz = int(np.count_nonzero(cd))
+    assert int(jc.nnz) == int(tc.nnz) == nnz < tp.nnz_c
+    assert np.array_equal(np.asarray(jc.indptr), tc.indptr.numpy())
+    assert not np.array_equal(tc.indptr.numpy(), tp.indptr_c.numpy())
+    assert_csr_equal(jc, tc)
+    assert np.array_equal(tc.to_dense().numpy(), cd)

@@ -1,5 +1,5 @@
-"""The hand-written CUDA kernels (hash, propagation blocking) against
-their plain versions.
+"""The hand-written CUDA kernels (hash, propagation blocking, BCSR, SpMM)
+against their plain versions.
 
 Every test here needs an NVIDIA GPU (marker ``gpu``) and skips without one:
 the kernels have no CPU mode.  The module imports neither jax nor the
@@ -354,3 +354,160 @@ def test_bcsr_planned_execute_launches_only_the_kernel(cuda):
                                                            h.indices)
     assert torch.equal(c.data, h.data)
     assert csr_to_bcsr(c, (8, 8)).block == (8, 8)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("block", ((64, 64, 64, True), (32, 16, 48, False)),
+                         ids=("64x64x64", "32x16x48"))
+@pytest.mark.parametrize("dyadic", (True, False))
+def test_bcsr_tiles_past_1024_lanes(cuda, block, dyadic):
+    """Tiles of 4,096 and 1,536 output lanes: each of the 1,024 threads
+    owns several lanes.  An 8-slot table of 64x64 tiles (131 KB) passes
+    the shared-memory budget (the global path); one of 32x48 tiles (49 KB)
+    stays in shared memory."""
+    from repro_torch.core import plan_bcsr
+    from repro_torch.kernels.spgemm_bcsr import kernel as BK
+    bm, bk, bn, global_table = block
+    a = block_operand(5, 5, bm, bk, 0.5, 11, cuda, dyadic)
+    b = block_operand(5, 5, bk, bn, 0.5, 12, cuda, dyadic)
+    plan = plan_bcsr(a, b, cache=False)
+    assert plan.table_size == 8
+    assert (8 * 4 * (1 + bm * bn) > BK.SMEM_BUDGET) == global_table
+    errors = torch.zeros(1, dtype=torch.int32, device=cuda)
+    bcol, blk = BK.numeric_call(
+        plan.offsets, plan.bin_tsize, a.indptr, b.indptr, plan.indptr_cb,
+        a.indices, a.blocks, b.indices, b.blocks, bcap_c=plan.bcap_c,
+        table_size=plan.table_size, vector=False, errors=errors)
+    torch.cuda.synchronize()
+    assert int(errors) == 0
+    check_bcsr(a, b, plan, bcol, blk, dyadic)
+
+
+@pytest.mark.gpu
+def test_bcsr_64x64_tile_shared_memory_table(cuda):
+    """A 64x64 tile with a 4-slot table (keys and tiles, 65.6 KB) in shared
+    memory: a 4 x 4 block grid has at most 4 block columns per row."""
+    from repro_torch.core import plan_bcsr
+    from repro_torch.kernels.spgemm_bcsr import kernel as BK
+    from repro_torch.kernels.spgemm_bcsr import ref as bref
+    a = block_operand(4, 4, 64, 64, 0.6, 13, cuda)
+    plan = plan_bcsr(a, a, cache=False)
+    tsz = torch.full_like(plan.bin_tsize, 4)
+    assert 4 * 4 * (1 + 64 * 64) <= BK.SMEM_BUDGET
+    args = (plan.offsets, tsz, a.indptr, a.indptr, plan.indptr_cb,
+            a.indices, a.blocks, a.indices, a.blocks)
+    kw = dict(bcap_c=plan.bcap_c, table_size=4, vector=False)
+    bcol, blk = BK.numeric_call(*args, **kw)
+    pc, pb = bref.numeric_plain(*args, **kw)
+    assert torch.equal(bcol, pc) and torch.equal(blk, pb)
+
+
+@pytest.mark.gpu
+def test_plan_spgemm_bcsr_64x64_matches_plain_version(cuda):
+    """plan_spgemm(algorithm="bcsr", block=(64, 64)) on CSR operands: one
+    block-kernel launch; the CSR equals the plain version's and the sorted
+    hash route's."""
+    from repro_torch.core import bcsr_to_csr, plan_spgemm
+    from repro_torch.kernels.spgemm_bcsr import ops as bops
+    a = bcsr_to_csr(block_operand(4, 4, 64, 64, 0.5, 14, cuda))
+    plan = plan_spgemm(a, a, algorithm="bcsr", block=(64, 64), cache=False)
+    bops.reset_kernel_calls()
+    c = plan.execute(a, a)
+    torch.cuda.synchronize()
+    assert bops.kernel_call_counts()["numeric"] == 1
+    assert bops.kernel_call_counts()["plain"] == 0
+    h_a = CSR(a.indptr.cpu(), a.indices.cpu(), a.data.cpu(), a.nnz.cpu(),
+              a.shape, a.sorted_cols)
+    p = plan_spgemm(h_a, h_a, algorithm="bcsr", block=(64, 64),
+                    cache=False).execute(h_a, h_a)
+    for f in ("indptr", "indices", "data", "nnz"):
+        assert torch.equal(getattr(c, f).cpu(), getattr(p, f)), f
+    h = plan_spgemm(a, a, algorithm="hash", cache=False).execute(
+        a, a, sorted_output=True)
+    assert torch.equal(c.indptr, h.indptr) and torch.equal(c.indices,
+                                                           h.indices)
+
+
+def spmm_operand(cuda, skewed=False, seed=21):
+    """G500 s10 with signed uniform values; ``skewed`` adds one row of
+    5,000 nonzeros (with repeated columns)."""
+    rng = np.random.default_rng(seed)
+    rows, cols = rmat.rmat_edges(10, 8, "G500", seed=seed)
+    if skewed:
+        rows = np.concatenate([rows, np.full(5000, 7)])
+        cols = np.concatenate([cols, rng.integers(0, 1024, 5000)])
+    order = np.lexsort((cols, rows))
+    rows, cols = rows[order], cols[order]
+    indptr = np.zeros(1025, np.int64)
+    np.cumsum(np.bincount(rows, minlength=1024), out=indptr[1:])
+    vals = rng.uniform(-1, 1, rows.shape[0]).astype(np.float32)
+    return CSR.from_numpy(indptr, cols, vals, rows.shape[0], (1024, 1024),
+                          device=cuda)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16,
+                                   torch.float16),
+                         ids=("f32", "bf16", "f16"))
+@pytest.mark.parametrize("k", (1, 8, 64, 100, 300))
+@pytest.mark.parametrize("skewed", (False, True), ids=("rmat", "skewed"))
+def test_spmm_kernel_matches_plain_version(cuda, skewed, k, dtype):
+    """Bitwise, on signed values: the kernel and the plain version round
+    each product and each add alike, in each row's order."""
+    from repro_torch.kernels.spmm import kernel as SK
+    from repro_torch.kernels.spmm import ops as sops
+    from repro_torch.kernels.spmm import ref as sref
+    a = spmm_operand(cuda, skewed)
+    x = torch.from_numpy(np.random.default_rng(k).uniform(
+        -1, 1, (1024, k)).astype(np.float32)).to(cuda).to(dtype)
+    sops.reset_kernel_calls()
+    y = sops.spmm_kernel(a, x)
+    torch.cuda.synchronize()
+    assert SK.KERNEL_CALLS == {"spmm": 1, "plain": 0}
+    assert y.dtype == dtype and tuple(y.shape) == (1024, k)
+    want = sref.spmm_plain(a.indptr, a.indices, a.data, x, a.nnz)
+    assert torch.equal(y, want)
+
+
+@pytest.mark.gpu
+def test_spmm_padding_and_front_door(cuda):
+    """Slots past nnz count as 0; ``core.spmm`` launches the kernel once
+    per call; the dense BFS launches it once per hop and agrees with the
+    masked BFS."""
+    from repro_torch.core import spmm
+    from repro_torch.data.rmat import symmetrize
+    from repro_torch.examples import graph_analytics as ga
+    from repro_torch.kernels.spmm import ops as sops
+    a = spmm_operand(cuda)
+    pad = CSR(a.indptr, torch.cat([a.indices, a.indices[:9]]),
+              torch.cat([a.data, torch.full((9,), 5.0, device=cuda)]),
+              a.nnz, a.shape)
+    x = torch.rand((1024, 16), device=cuda)
+    sops.reset_kernel_calls()
+    assert torch.equal(spmm(pad, x), spmm(a, x))
+    assert sops.kernel_call_counts() == {"spmm": 2, "plain": 0}
+    g = symmetrize(rmat.rmat_csr(8, 8, "G500", seed=1, device=cuda),
+                   device=cuda)
+    sops.reset_kernel_calls()
+    dense = ga.multi_source_bfs(g, [0, 17, 42, 100], 6)
+    assert sops.kernel_call_counts() == {"spmm": 6, "plain": 0}
+    assert torch.equal(dense, ga.multi_source_bfs_masked(
+        g, [0, 17, 42, 100], 6))
+
+
+@pytest.mark.gpu
+def test_spmm_wrapper_rejects_bad_operands(cuda):
+    from repro_torch.kernels.spmm import kernel as SK
+    a = spmm_operand(cuda)
+    x = torch.rand((1024, 8), device=cuda)
+    args = (a.indptr, a.indices, a.data, x, a.nnz)
+    with pytest.raises(ValueError):              # float64 X
+        SK.spmm_call(*args[:3], x.double(), a.nnz)
+    with pytest.raises(ValueError):              # int64 column ids
+        SK.spmm_call(a.indptr, a.indices.long(), *args[2:])
+    with pytest.raises(ValueError):              # operands on two devices
+        SK.spmm_call(a.indptr.cpu(), *args[1:])
+    with pytest.raises(ValueError):              # non-contiguous X
+        SK.spmm_call(*args[:3], x.t().contiguous().t(), a.nnz)
+    with pytest.raises(ValueError):              # nnz not 0-dim
+        SK.spmm_call(*args[:4], a.nnz.reshape(1))
