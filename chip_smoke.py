@@ -4,9 +4,9 @@
 Drives the port's main path -- the planned hash SpGEMM of the paper --
 through the entry points a user calls, at the paper's own input sizes
 (R-MAT, edge factor 16, squared: ER at scale 18 and G500 at scale 16,
-seed 0), then the sorted-output (PB) and block-sparse (BCSR) routes, SpMM
-and the paper's graph workloads, and holds every hand-written kernel
-against its plain PyTorch version.
+seed 0), then the sorted-output (PB) and block-sparse (BCSR) routes, SpMM,
+the paper's graph workloads and the batched fleet planner, and holds every
+hand-written kernel against its plain PyTorch version.
 Phases; any failure exits non-zero:
 
   1. the card's name and power limit (``nvidia-smi``);
@@ -72,7 +72,20 @@ Phases; any failure exits non-zero:
  11. BCSR at 64x64 tiles (4,096 output lanes a tile, a global-memory
      table): ``plan_spgemm(algorithm="bcsr", block=(64, 64)).execute``
      against the plain version and the hash plan;
- 12. one ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``.
+ 12. the batched fleet planner, ``plan_batch(pairs).execute``, on three
+     fleets: MoE dispatch at qwen3-moe-30b-a3b's routing widths (128
+     experts, top-8, d_model 2,048, 16,384 tokens, feature density 0.05,
+     one F shared by every expert); ``benchmarks/common.py``'s mixed
+     ``rmat_fleet(64, 10)`` (also pinned to ``hash_vector``); and two G500
+     s16 ef16 squares, whose 131,072-slot tables take the global-memory
+     branch.  Each execute must launch the batched numeric kernel once
+     per bin index holding rows, per class, and nothing else; every member
+     against the batched plain version and the per-product planned loop
+     (row pointers and columns bitwise, values within 1 ulp per product),
+     the MoE outputs bitwise against the gathered feature rows.  Timings:
+     the batched execute, the per-product loop, the kernels alone, the
+     plain version and a loop of ``torch.sparse.mm`` per member;
+ 13. one ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``.
 
 Usage: ``python3 chip_smoke.py`` (one card, no arguments).  A quick first
 check of a changed kernel at small sizes is
@@ -117,6 +130,13 @@ SPMM_K, SPMM_K_ODD = 64, 100
 GRAPH_SCALE, GRAPH_SEED, BFS_SOURCES, BFS_HOPS = 16, 1, 64, 6
 #: the tall-skinny B: 2^TALL_K_SCALE columns of the graph (section 5.5)
 TALL_K_SCALE = 6
+#: batched MoE dispatch at qwen3-moe-30b-a3b's routing widths
+#: (repro/configs/qwen3_moe_30b_a3b.py: 128 experts, top-8, d_model 2,048)
+#: over the 16,384 tokens of benchmarks/bench_moe_dispatch.py
+MOE_EXPERTS, MOE_TOP_K, MOE_D_MODEL, MOE_TOKENS = 128, 8, 2048, 16384
+MOE_DENSITY = 0.05
+#: the mixed G500/ER fleet of benchmarks/common.py's rmat_fleet
+FLEET_PRODUCTS, FLEET_SCALE = 64, 10
 
 KERNEL_SOURCE = "src/repro_torch/kernels/spgemm_hash/csrc/spgemm_hash.cu"
 PB_SOURCE = "src/repro_torch/kernels/spgemm_pb/csrc/spgemm_pb.cu"
@@ -130,6 +150,7 @@ REPLACES = {
     "merge": "src/repro/kernels/spgemm_pb/kernel.py:128",
     "bcsr_numeric": "src/repro/kernels/spgemm_bcsr/kernel.py:131",
     "spmm": "src/repro/kernels/spmm/kernel.py:44",
+    "batched": "src/repro/kernels/spgemm_hash/kernel.py:413",
 }
 #: the vector rows replace the chunked probe the Pallas kernels share
 REPLACES["bcsr_numeric_vector"] = REPLACES["numeric_vector"]
@@ -1199,6 +1220,267 @@ class Smoke:
               f"the plain version and the hash plan", flush=True)
         core.clear_plan_cache()
 
+    # ---- phase 12 ----------------------------------------------------------
+    def batch_args(self, cls, pairs):
+        """The batched kernel's arguments for one hash class, as the class
+        executor builds them (a shared operand passed once)."""
+        from repro_torch.core import batch
+        (M, K), (_, N) = cls.shape_a, cls.shape_b
+
+        def side(k, rows, cols, cap, shared):
+            ops = [pairs[i][k] for i in cls.members]
+            if shared:
+                return ops[0]
+            return batch._stack_csr(ops, cols, True,
+                                    batch._stack_index(ops, rows, cap))
+
+        a = side(0, M, K, cls.cap_a, cls.a_shared)
+        b = side(1, K, N, cls.cap_b, cls.b_shared)
+        off, bts, ic = cls.hash_sched
+        return (off, bts, a.indptr, b.indptr, ic, a.indices, a.data.float(),
+                b.indices, b.data.float()), a, b
+
+    def batch_fleet(self, label, pairs, gather_oracle=False,
+                    vector_too=False):
+        """``plan_batch(pairs).execute`` on the card: one batched kernel
+        launch per bin index holding rows, per hash class, no plain
+        version; every member against the batched plain version, the
+        port's per-product planned loop (and, for the MoE fleet, the
+        gathered feature rows); then the timings."""
+        torch, core, K, ref = self.torch, self.core, self.K, self.ref
+        core.clear_plan_cache()
+        t0 = time.perf_counter()
+        plan = core.plan_batch(pairs)
+        torch.cuda.synchronize()
+        plan_s = time.perf_counter() - t0
+        hash_cls = [c for c in plan.classes if c.hash_sched is not None]
+        check(len(hash_cls) == plan.n_classes,
+              f"{label}: the recipe chose {sorted(set(plan.algorithms))}, "
+              f"not the hash kernel, for some class")
+        n_bins = hash_cls[0].hash_sched[1].shape[1]
+
+        def want(vector):
+            return sum(len(K.batched_launches(*c.hash_host, c.table_size,
+                                              c.shape_a[0], vector=vector))
+                       for c in hash_cls)
+
+        outs, counts = self.counted(lambda: plan.execute(pairs))
+        launches = want(False)
+        self.expect(counts, {"batched_numeric": launches},
+                    f"{label} plan_batch.execute")
+        check(launches <= n_bins * len(hash_cls),
+              f"{label}: {launches} launches for {len(hash_cls)} classes")
+        outs2, counts = self.counted(lambda: plan.execute(pairs))
+        self.expect(counts, {"batched_numeric": launches},
+                    f"{label} repeat plan_batch.execute")
+
+        # the plain version per class, and each member's products per entry
+        plain, pp, class_args = {}, {}, []
+        for cls in hash_cls:
+            args, _, _ = self.batch_args(cls, pairs)
+            kw = dict(cap_c=cls.cap_c, table_size=cls.table_size,
+                      vector=False)
+            class_args.append((cls, args, kw))
+            pc, pv = ref.batched_numeric_plain(*args, **kw)
+            for e, i in enumerate(cls.members):
+                a, b = pairs[i]
+                plain[i] = (pc[e], pv[e])
+                pp[i] = ref.products_per_entry(a.indptr, b.indptr,
+                                               args[4][e], a.indices,
+                                               b.indices, cls.cap_c)
+            del pc, pv
+        err = 0.0
+        for i, (c, c2) in enumerate(zip(outs, outs2)):
+            check(c.shape == (pairs[i][0].n_rows, pairs[i][1].n_cols) and
+                  int(c.nnz) == plan.nnz_cs[i],
+                  f"{label} member {i}: shape or nnz")
+            err = max(err, self.compare(f"{label} member {i}", c.indices,
+                                        c.data, c.indptr, c.shape,
+                                        *plain[i], pp[i]))
+            self.compare(f"{label} member {i} repeat", c2.indices, c2.data,
+                         c2.indptr, c2.shape, *plain[i], pp[i])
+        del outs2
+
+        # the per-product planned loop: the same structure, values in the
+        # contract against the same plain version
+        loop_plans = [core.plan_spgemm(a, b, algorithm=plan.algorithms[i])
+                      for i, (a, b) in enumerate(pairs)]
+
+        def loop():
+            return [p.execute(a, b) for p, (a, b) in zip(loop_plans, pairs)]
+
+        loop_outs, counts = self.counted(loop)
+        self.expect(counts, {"numeric": len(pairs)},
+                    f"{label} per-product loop")
+        for i, (c, r) in enumerate(zip(outs, loop_outs)):
+            check(torch.equal(c.indptr, r.indptr) and
+                  int(c.nnz) == int(r.nnz),
+                  f"{label} member {i}: indptr/nnz differ from the loop's")
+            check(torch.equal(c.sort_rows().indices[:int(c.nnz)],
+                              r.sort_rows().indices[:int(r.nnz)]),
+                  f"{label} member {i}: column sets differ from the loop's")
+            self.compare(f"{label} member {i} loop", r.indices, r.data,
+                         r.indptr, r.shape, *plain[i], pp[i])
+        del loop_outs
+        if gather_oracle:
+            self.check_dispatch(label, pairs, outs)
+        del outs, plain, pp
+
+        vec = None
+        if vector_too:
+            plan_v = core.plan_batch(pairs, algorithm="hash_vector")
+            outs_v, counts = self.counted(lambda: plan_v.execute(pairs))
+            self.expect(counts, {"batched_numeric_vector": want(True)},
+                        f"{label} plan_batch(hash_vector).execute")
+            vec = {"launches": counts["batched_numeric_vector"], "err": 0.0}
+            for cls, args, kw in class_args:
+                pc, pv = ref.batched_numeric_plain(*args, **kw)
+                for e, i in enumerate(cls.members):
+                    a, b = pairs[i]
+                    c = outs_v[i]
+                    vec["err"] = max(vec["err"], self.compare(
+                        f"{label} vector member {i}", c.indices, c.data,
+                        c.indptr, c.shape, pc[e], pv[e],
+                        ref.products_per_entry(a.indptr, b.indptr,
+                                               args[4][e], a.indices,
+                                               b.indices, cls.cap_c)))
+            del outs_v, plan_v
+
+        # ---- timings ------------------------------------------------------
+        errors = torch.zeros(1, dtype=torch.int32, device=self.dev)
+
+        # the launch lists, as the class executors hold them
+        launches_of = {(id(cls), v): K.batched_launches(
+            *cls.hash_host, cls.table_size, cls.shape_a[0], v)
+            for cls, _, _ in class_args for v in (False, True)}
+
+        def kernels(vector):
+            for cls, args, kw in class_args:
+                K.batched_numeric_call(
+                    *args, **{**kw, "vector": vector}, errors=errors,
+                    launches=launches_of[(id(cls), vector)])
+
+        def plain_fleet():
+            for cls, args, kw in class_args:
+                ref.batched_numeric_plain(*args, **kw)
+
+        sparse = {}
+
+        def sp(x):
+            if id(x) not in sparse:
+                nnz = int(x.nnz)
+                sparse[id(x)] = torch.sparse_csr_tensor(
+                    x.indptr.long(), x.indices[:nnz].long(), x.data[:nnz],
+                    size=x.shape)
+            return sparse[id(x)]
+
+        sp_pairs = [(sp(a), sp(b)) for a, b in pairs]
+        t = {"execute": self.time_ms(lambda: plan.execute(pairs)),
+             "loop": self.time_ms(loop),
+             "kernel": self.time_ms(lambda: kernels(False)),
+             "plain": self.time_ms(plain_fleet, reps=3, warm=1),
+             "torch_sparse_mm_loop": self.time_ms(
+                 lambda: [torch.sparse.mm(x, y) for x, y in sp_pairs])}
+        if vector_too:
+            t["kernel_vector"] = self.time_ms(lambda: kernels(True))
+        torch.cuda.synchronize()
+        check(int(errors) == 0, f"{label}: {int(errors)} kernel errors")
+
+        # least time: every operand read once (an operand shared by a class
+        # once), each member's indptr_c read and C written once
+        nbytes = 0
+        for cls in hash_cls:
+            for k, shared in ((0, cls.a_shared), (1, cls.b_shared)):
+                ops = [pairs[i][k] for i in cls.members]
+                for x in ops[:1] if shared else ops:
+                    nbytes += 4 * (x.n_rows + 1) + 8 * int(x.nnz)
+        nbytes += sum(4 * (a.n_rows + 1) + 8 * nnz_c for (a, _), nnz_c in
+                      zip(pairs, plan.nnz_cs))
+        by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        by_ops = 2 * plan.total_flop / FP32_FLOP_PER_S * 1e3
+        bound = max(by_bytes, by_ops)
+        print(json.dumps({
+            "timing": f"batch {label}", "card": self.card,
+            "products": plan.n_products, "classes": plan.n_classes,
+            "algorithms": sorted(set(plan.algorithms)),
+            "total_flop": plan.total_flop, "nnz_c": plan.nnz_c,
+            "table_sizes": [c.table_size for c in plan.classes],
+            "launches": launches, "ms": t, "bound_ms": bound,
+            "bound_bytes": nbytes, "plan_s": plan_s}), flush=True)
+        print(f"batch {label}: {plan.n_products} products in "
+              f"{plan.n_classes} classes, {launches} batched launches; "
+              f"batched execute {t['execute']:.3f} ms, per-product loop "
+              f"{t['loop']:.3f} ms, torch.sparse.mm loop "
+              f"{t['torch_sparse_mm_loop']:.3f} ms", flush=True)
+        for name, ms, n_launch, e in (
+                ("batched_numeric", t["kernel"], launches, err),
+                ("batched_numeric_vector", t.get("kernel_vector"),
+                 vec and vec["launches"], vec and vec["err"])):
+            if ms is None:
+                continue
+            self.rows.append({
+                "name": f"spgemm_hash_{name}[{label}]", "route": "cuda",
+                "source": KERNEL_SOURCE, "replaces": REPLACES["batched"],
+                "launches": n_launch, "max_abs_err": e, "ms": ms,
+                "plain_ms": t["plain"], "bound_ms": bound,
+                "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+                "library_ms": t["torch_sparse_mm_loop"]})
+        del plan, loop_plans, class_args, sparse, sp_pairs
+        core.clear_plan_cache()
+        torch.cuda.empty_cache()
+
+    def check_dispatch(self, label, pairs, outs):
+        """Expert e's output holds, row by row, the feature rows of the
+        tokens routed to it (G_e's column ids), bitwise."""
+        torch = self.torch
+        for e, ((g, f), c) in enumerate(zip(pairs, outs)):
+            tok = g.indices[:int(g.nnz)].long()
+            starts = f.indptr[tok].long()
+            lens = f.indptr[tok + 1].long() - starts
+            total = int(lens.sum())
+            first = torch.cumsum(lens, 0) - lens
+            src = torch.repeat_interleave(starts - first, lens,
+                                          output_size=total) \
+                + torch.arange(total, device=self.dev)
+            s = c.sort_rows()
+            check(torch.equal((c.indptr[1:] - c.indptr[:-1]).long(), lens)
+                  and torch.equal(s.indices[:total], f.indices[src])
+                  and torch.equal(s.data[:total], f.data[src]),
+                  f"{label}: expert {e}'s rows differ from its gathered "
+                  f"feature rows")
+        print(f"batch {label}: every expert's dispatched rows equal its "
+              f"gathered feature rows", flush=True)
+
+    def batch(self):
+        """Phase 12: the batched fleet planner on three fleets."""
+        from repro_torch.examples.moe_dispatch_batch import \
+            build_dispatch_fleet
+        t0 = time.perf_counter()
+        pairs, _, _ = build_dispatch_fleet(
+            0, n_experts=MOE_EXPERTS, top_k=MOE_TOP_K, tokens=MOE_TOKENS,
+            d_model=MOE_D_MODEL, density=MOE_DENSITY, device=self.dev)
+        f = pairs[0][1]
+        label = (f"MoE dispatch {MOE_EXPERTS} experts top-{MOE_TOP_K} "
+                 f"T={MOE_TOKENS} d={MOE_D_MODEL}")
+        print(f"{label}: nnz(F)={int(f.nnz)} (built in "
+              f"{time.perf_counter() - t0:.1f} s)", flush=True)
+        self.batch_fleet(label, pairs, gather_oracle=True)
+        del pairs, f
+        pairs = []
+        for i in range(FLEET_PRODUCTS):
+            preset = "G500" if i % 2 else "ER"
+            a = self.rmat.rmat_csr(FLEET_SCALE, 1 + (i % 3), preset, seed=i,
+                                   device=self.dev)
+            b = self.rmat.rmat_csr(FLEET_SCALE, 1 + ((i + 1) % 4), "ER",
+                                   seed=100 + i, device=self.dev)
+            pairs.append((a, b))
+        self.batch_fleet(f"rmat_fleet({FLEET_PRODUCTS}, {FLEET_SCALE})",
+                         pairs, vector_too=True)
+        squares = [self.rmat.rmat_csr(G500_SCALE, EDGE_FACTOR, "G500",
+                                      seed=s, device=self.dev)
+                   for s in (0, 1)]
+        self.batch_fleet(f"G500 s{G500_SCALE} ef{EDGE_FACTOR} squares "
+                         f"(seeds 0, 1)", [(a, a) for a in squares])
 
 def main() -> int:
     import torch
@@ -1246,9 +1528,10 @@ def main() -> int:
     del graph
     smoke.tall_skinny(g500, g500_label)                          # phase 10
     smoke.bcsr_large_tile()                                      # phase 11
+    smoke.batch()                                                # phase 12
 
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
-    print(json.dumps({"kernels": smoke.rows}), flush=True)       # phase 12
+    print(json.dumps({"kernels": smoke.rows}), flush=True)       # phase 13
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

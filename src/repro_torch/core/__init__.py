@@ -10,11 +10,13 @@ from .schedule import (flops_per_row, rows_to_bins, bin_flop,
                        bin_table_sizes, max_flop_per_bin_row,
                        masked_row_bound, guard_i32_flop)
 from .recipe import (SpGEMMStats, measure_stats, model_costs, recommend,
-                     choose_algorithm, choose_algorithm_from_stats)
+                     choose_algorithm, choose_algorithm_from_stats,
+                     aggregate_stats)
 from .plan import (SpGEMMPlan, plan_spgemm, structure_key, plan_cache_stats,
                    clear_plan_cache, PLAN_KINDS)
 from .bcsr import BCSRPlan, plan_bcsr, bcsr_structure_key
 from .pb import PBPlan, plan_pb
+from .batch import BatchClass, BatchedPlan, plan_batch, spgemm_batch
 
 __all__ = [
     "CSR", "BCSR", "csr_to_bcsr", "bcsr_to_csr",
@@ -26,9 +28,10 @@ __all__ = [
     "lowbnd", "lowest_p2", "lowest_p2_arr", "bin_table_sizes",
     "max_flop_per_bin_row", "masked_row_bound", "guard_i32_flop",
     "SpGEMMStats", "measure_stats", "model_costs", "recommend",
-    "choose_algorithm", "choose_algorithm_from_stats",
+    "choose_algorithm", "choose_algorithm_from_stats", "aggregate_stats",
     "SpGEMMPlan", "plan_spgemm", "structure_key", "plan_cache_stats",
     "clear_plan_cache", "PLAN_KINDS",
     "BCSRPlan", "plan_bcsr", "bcsr_structure_key",
     "PBPlan", "plan_pb",
+    "BatchClass", "BatchedPlan", "plan_batch", "spgemm_batch",
 ]

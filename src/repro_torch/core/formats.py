@@ -19,6 +19,7 @@ on the host with numpy.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Tuple
 
@@ -201,6 +202,11 @@ class CSR:
         order = lexsort((self.indices, rows))
         return CSR(self.indptr, self.indices[order], self.data[order],
                    self.nnz, self.shape, sorted_cols=True)
+
+    def with_unsorted_flag(self) -> "CSR":
+        """Same arrays, ``sorted_cols=False``: the metadata downgrade that
+        asks for select-order handling (routes a product away from heap)."""
+        return dataclasses.replace(self, sorted_cols=False)
 
 
 def _scalar(v: int, device) -> torch.Tensor:

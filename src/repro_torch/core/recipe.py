@@ -11,7 +11,9 @@ Port of ``repro.core.recipe``.  Cost models (paper Eq. 1 / Eq. 2):
 The decision table and its thresholds are copied verbatim: they are
 Table 4's, calibrated on KNL, and the reference's block-density and
 propagation-blocking rows stay in place so both packages choose alike.
-The measured (autotune) mode is not ported yet.
+:func:`aggregate_stats` folds a fleet's member statistics into the one
+the batched planner (``core.batch``) chooses from.  The measured
+(autotune) mode is not ported yet.
 """
 from __future__ import annotations
 
@@ -132,6 +134,41 @@ def measure_stats(a: CSR, b: CSR, row_nnz_c=None,
         block_density=(block_density_of(a) if probe_blocks else 0.0),
         mask_density=mask_density, has_mask=mask is not None,
         eq1_heap_log=eq1, eq2_hash_sort=eq2)
+
+
+def aggregate_stats(stats_list) -> SpGEMMStats:
+    """Fleet-level statistics for a batch of products (``core.batch``).
+
+    Counts (``n_rows``, ``nnz_a``, ``flop``, ``nnz_c_est`` and the Eq. 1 /
+    Eq. 2 row sums) add up across the fleet, which runs as stacked rows of
+    one logical product; bounds (``max_row_flop``, ``n_cols``) take the
+    max; the ratios are recomputed from the aggregates, so one heavy
+    product dominates as one heavy row does within a product.
+    ``has_mask`` is true if any member is masked, ``mask_density`` is the
+    member mean, and ``block_density`` stays 0: the block path does not
+    run batched.
+    """
+    stats_list = list(stats_list)
+    assert stats_list, "aggregate_stats needs at least one member"
+    n_rows = sum(s.n_rows for s in stats_list)
+    nnz_a = sum(s.nnz_a for s in stats_list)
+    flop = sum(s.flop for s in stats_list)
+    nnz_c = sum(s.nnz_c_est for s in stats_list)
+    max_row_flop = max(s.max_row_flop for s in stats_list)
+    mean_flop = flop / max(n_rows, 1)
+    return SpGEMMStats(
+        n_rows=n_rows, n_cols=max(s.n_cols for s in stats_list),
+        nnz_a=nnz_a, flop=flop, nnz_c_est=max(nnz_c, 1.0),
+        max_row_flop=max_row_flop,
+        mean_row_nnz_a=nnz_a / max(n_rows, 1),
+        row_skew=max_row_flop / max(mean_flop, 1e-9),
+        compression_ratio=flop / max(nnz_c, 1.0),
+        density_ef=nnz_a / max(n_rows, 1), block_density=0.0,
+        mask_density=(sum(s.mask_density for s in stats_list)
+                      / len(stats_list)),
+        has_mask=any(s.has_mask for s in stats_list),
+        eq1_heap_log=sum(s.eq1_heap_log for s in stats_list),
+        eq2_hash_sort=sum(s.eq2_hash_sort for s in stats_list))
 
 
 # ---------------------------------------------------------------------------

@@ -4,6 +4,8 @@
 //   numeric_call  (_numeric_kernel, _row_loop(numeric=True), _probe_scalar)
 //   symbolic_call (_symbolic_kernel)
 //   _probe_vector (the hash_vector mode of both)
+//   batched_numeric_call (_batched_numeric_kernel: numeric_call over the
+//     grid (members, bins) of a fleet of products)
 //
 // What each computes, per output row i of a bin whose table holds tsz slots
 // (tsz a power of two, the plan's min(bin_tsize[b], table_size)):
@@ -39,6 +41,15 @@
 //     else the first EMPTY lane (claimed with atomicCAS), else the next
 //     chunk -- the TPU kernel's CHUNK = 8, so any plan table (>= 8 slots)
 //     is valid.
+//   * Batched (a fleet of products that share static capacities): one
+//     launch per bin index, blockIdx.y the member, the x blocks striding
+//     over that member's rows of the bin.  Every operand array takes a
+//     member stride, 0 for an operand all members share, so a shared B is
+//     read in place and never copied per member.  Each member probes its
+//     own table size, as the TPU kernel does; dynamic shared memory is
+//     sized for the largest table of the launch that fits, and members
+//     with larger tables use the global workspace.  The row body is the
+//     same code as the single-product kernel's.
 //
 // Bound: memory.  Each product reads one B index and value and does one
 // probe and one atomic in the table; the output is written once.  The
@@ -122,6 +133,109 @@ __device__ __forceinline__ int insert_vector(int* keys, int tsz, int col,
   return -1;
 }
 
+// One output row, by every thread of the block: fill the row's table of
+// tsz slots (reset first: Fig. 7 reinitialises the table per row, it does
+// not reallocate it), then write its count (symbolic) or flush it to
+// out[indptr_c[row] ...] (numeric).  s_count and s_warp are the block's
+// shared scratch.
+template <bool kNumeric, bool kVector>
+__device__ __forceinline__ void hash_row(
+    int row, int tsz, int cap_c, int* keys, float* vals,
+    const int* __restrict__ indptr_a, const int* __restrict__ a_idx,
+    const float* __restrict__ a_val, const int* __restrict__ indptr_b,
+    const int* __restrict__ b_idx, const float* __restrict__ b_val,
+    const int* __restrict__ indptr_c, int* __restrict__ out_cols,
+    float* __restrict__ out_vals, int* __restrict__ row_nnz,
+    int* __restrict__ errors, int* s_count, int* s_warp) {
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int nwarps = blockDim.x >> 5;
+
+  for (int s = tid; s < tsz; s += blockDim.x) {
+    keys[s] = kEmpty;
+    if (kNumeric) vals[s] = 0.0f;
+  }
+  if (tid == 0) *s_count = 0;
+  __syncthreads();
+
+  int mine = 0;
+  const int a1 = indptr_a[row + 1];
+  for (int j = indptr_a[row] + warp; j < a1; j += nwarps) {
+    const int k = a_idx[j];
+    const float av = kNumeric ? a_val[j] : 0.0f;
+    const int b1 = indptr_b[k + 1];
+    if (kVector) {
+      const int lane8 = lane & 7;
+      const int grp = lane >> 3;
+      const unsigned gmask = 0xffu << (grp * 8);
+      for (int t = indptr_b[k] + grp; t < b1; t += 4) {
+        int ins;
+        const int slot = insert_vector(keys, tsz, b_idx[t], gmask, lane8,
+                                       &ins);
+        if (slot < 0) {
+          if (lane8 == 0) atomicAdd(errors, 1);
+          continue;
+        }
+        mine += ins;
+        if (kNumeric && lane8 == 0)
+          atomicAdd(vals + slot, __fmul_rn(av, b_val[t]));
+      }
+    } else {
+      for (int t = indptr_b[k] + lane; t < b1; t += 32) {
+        int ins;
+        const int slot = insert_scalar(keys, tsz, b_idx[t], &ins);
+        if (slot < 0) {
+          atomicAdd(errors, 1);
+          continue;
+        }
+        mine += ins;
+        if (kNumeric) atomicAdd(vals + slot, __fmul_rn(av, b_val[t]));
+      }
+    }
+  }
+  if (mine) atomicAdd(s_count, mine);
+  __syncthreads();
+  const int count = *s_count;
+
+  if (!kNumeric) {
+    if (tid == 0) row_nnz[row] = count;
+  } else {
+    // flush in table order: unsorted columns (C8)
+    const int base = indptr_c[row];
+    const int want = indptr_c[row + 1] - base;
+    // the table was filled by atomics: read it past any stale L1 line
+    volatile const int* vkeys = keys;
+    volatile const float* vvals = vals;
+    int running = 0;
+    for (int s0 = 0; s0 < tsz; s0 += blockDim.x) {
+      const int s = s0 + tid;
+      const int key = s < tsz ? vkeys[s] : kEmpty;
+      const bool occupied = key != kEmpty;
+      const unsigned ballot = __ballot_sync(0xffffffffu, occupied);
+      if (lane == 0) s_warp[warp] = __popc(ballot);
+      __syncthreads();
+      int before = running;
+      int total = 0;
+      for (int w = 0; w < nwarps; ++w) {
+        if (w < warp) before += s_warp[w];
+        total += s_warp[w];
+      }
+      if (occupied) {
+        const int pos = before + __popc(ballot & ((1u << lane) - 1u));
+        if (pos < want && base + pos < cap_c) {
+          out_cols[base + pos] = key;
+          out_vals[base + pos] = vvals[s];
+        }
+      }
+      running += total;
+      __syncthreads();
+    }
+    if (tid == 0 && (running != want || count != want)) atomicAdd(errors, 1);
+  }
+  __syncthreads();
+}
+
 template <bool kNumeric, bool kVector>
 __global__ void hash_rows_kernel(
     int row_begin, int row_end, int tsz, int cap_c,
@@ -143,96 +257,63 @@ __global__ void hash_rows_kernel(
     keys = smem;
     if (kNumeric) vals = reinterpret_cast<float*>(smem + tsz);
   }
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int nwarps = blockDim.x >> 5;
+  for (int row = row_begin + blockIdx.x; row < row_end; row += gridDim.x)
+    hash_row<kNumeric, kVector>(row, tsz, cap_c, keys, vals, indptr_a, a_idx,
+                                a_val, indptr_b, b_idx, b_val, indptr_c,
+                                out_cols, out_vals, row_nnz, errors, &s_count,
+                                s_warp);
+}
 
-  for (int row = row_begin + blockIdx.x; row < row_end; row += gridDim.x) {
-    // Fig. 7: the table is reinitialised for each row, not reallocated
-    for (int s = tid; s < tsz; s += blockDim.x) {
-      keys[s] = kEmpty;
-      if (kNumeric) vals[s] = 0.0f;
-    }
-    if (tid == 0) s_count = 0;
-    __syncthreads();
-
-    int mine = 0;
-    const int a1 = indptr_a[row + 1];
-    for (int j = indptr_a[row] + warp; j < a1; j += nwarps) {
-      const int k = a_idx[j];
-      const float av = kNumeric ? a_val[j] : 0.0f;
-      const int b1 = indptr_b[k + 1];
-      if (kVector) {
-        const int lane8 = lane & 7;
-        const int grp = lane >> 3;
-        const unsigned gmask = 0xffu << (grp * 8);
-        for (int t = indptr_b[k] + grp; t < b1; t += 4) {
-          int ins;
-          const int slot = insert_vector(keys, tsz, b_idx[t], gmask, lane8,
-                                         &ins);
-          if (slot < 0) {
-            if (lane8 == 0) atomicAdd(errors, 1);
-            continue;
-          }
-          mine += ins;
-          if (kNumeric && lane8 == 0)
-            atomicAdd(vals + slot, __fmul_rn(av, b_val[t]));
-        }
-      } else {
-        for (int t = indptr_b[k] + lane; t < b1; t += 32) {
-          int ins;
-          const int slot = insert_scalar(keys, tsz, b_idx[t], &ins);
-          if (slot < 0) {
-            atomicAdd(errors, 1);
-            continue;
-          }
-          mine += ins;
-          if (kNumeric) atomicAdd(vals + slot, __fmul_rn(av, b_val[t]));
-        }
-      }
-    }
-    if (mine) atomicAdd(&s_count, mine);
-    __syncthreads();
-    const int count = s_count;
-
-    if (!kNumeric) {
-      if (tid == 0) row_nnz[row] = count;
-    } else {
-      // flush in table order: unsorted columns (C8)
-      const int base = indptr_c[row];
-      const int want = indptr_c[row + 1] - base;
-      // the table was filled by atomics: read it past any stale L1 line
-      volatile const int* vkeys = keys;
-      volatile const float* vvals = vals;
-      int running = 0;
-      for (int s0 = 0; s0 < tsz; s0 += blockDim.x) {
-        const int s = s0 + tid;
-        const int key = s < tsz ? vkeys[s] : kEmpty;
-        const bool occupied = key != kEmpty;
-        const unsigned ballot = __ballot_sync(0xffffffffu, occupied);
-        if (lane == 0) s_warp[warp] = __popc(ballot);
-        __syncthreads();
-        int before = running;
-        int total = 0;
-        for (int w = 0; w < nwarps; ++w) {
-          if (w < warp) before += s_warp[w];
-          total += s_warp[w];
-        }
-        if (occupied) {
-          const int pos = before + __popc(ballot & ((1u << lane) - 1u));
-          if (pos < want && base + pos < cap_c) {
-            out_cols[base + pos] = key;
-            out_vals[base + pos] = vvals[s];
-          }
-        }
-        running += total;
-        __syncthreads();
-      }
-      if (tid == 0 && (running != want || count != want)) atomicAdd(errors, 1);
-    }
-    __syncthreads();
+// The batched grid of the numeric phase, for one bin index `bin`:
+// blockIdx.y is the fleet member e, and the x blocks stride over e's rows
+// [offsets[e][bin], offsets[e][bin + 1]).  Member e's arrays start at
+// base + e * stride; stride 0 shares one array among all members.  Its
+// table holds min(bin_tsize[e][bin], table_size) slots: in dynamic shared
+// memory when that fits smem_slots, else in the block's slice of the
+// global workspace (ws_tsz slots per member and x block).  A schedule the
+// launch cannot hold (rows past n_rows, a table that is not a power of two
+// or fits neither place) adds one to errors and runs nothing.
+template <bool kVector>
+__global__ void hash_rows_batched_kernel(
+    int bin, int n_bins, int n_rows, int table_size, int smem_slots,
+    int ws_tsz, int cap_c, const int* __restrict__ offsets,
+    const int* __restrict__ bin_tsize, const int* indptr_a, long long s_ia,
+    const int* a_idx, const float* a_val, long long s_a,
+    const int* indptr_b, long long s_ib, const int* b_idx,
+    const float* b_val, long long s_b, const int* indptr_c, long long s_ic,
+    int* out_cols, float* out_vals, int* errors, int* ws_keys,
+    float* ws_vals) {
+  extern __shared__ int smem[];
+  __shared__ int s_count;
+  __shared__ int s_warp[32];
+  const long long e = blockIdx.y;
+  const int r0 = offsets[e * (n_bins + 1) + bin];
+  const int r1 = offsets[e * (n_bins + 1) + bin + 1];
+  if (r0 >= r1) return;
+  const int tsz = min(bin_tsize[e * n_bins + bin], table_size);
+  const bool in_smem = tsz <= smem_slots;
+  if (r0 < 0 || r1 > n_rows || tsz < 1 || (tsz & (tsz - 1)) ||
+      (kVector && tsz < kChunk) || (!in_smem && tsz > ws_tsz)) {
+    if (threadIdx.x == 0 && blockIdx.x == 0) atomicAdd(errors, 1);
+    return;
   }
+  int* keys;
+  float* vals;
+  if (in_smem) {
+    keys = smem;
+    vals = reinterpret_cast<float*>(smem + tsz);
+  } else {
+    const size_t slot =
+        (static_cast<size_t>(e) * gridDim.x + blockIdx.x) * ws_tsz;
+    keys = ws_keys + slot;
+    vals = ws_vals + slot;
+  }
+  for (int row = r0 + blockIdx.x; row < r1; row += gridDim.x)
+    hash_row<true, kVector>(
+        row, tsz, cap_c, keys, vals, indptr_a + e * s_ia, a_idx + e * s_a,
+        a_val + e * s_a, indptr_b + e * s_ib, b_idx + e * s_b,
+        b_val + e * s_b, indptr_c + e * s_ic, out_cols + e * cap_c,
+        out_vals + e * cap_c, nullptr, errors, &s_count, s_warp);
 }
 
 template <bool kNumeric, bool kVector>
@@ -251,6 +332,31 @@ int launch(int row_begin, int row_end, int tsz, int cap_c, int grid,
   kernel<<<grid, block, smem_bytes, stream>>>(
       row_begin, row_end, tsz, cap_c, indptr_a, a_idx, a_val, indptr_b, b_idx,
       b_val, indptr_c, out_cols, out_vals, row_nnz, errors, ws_keys, ws_vals);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kVector>
+int launch_batched(int bin, int n_bins, int n_rows, int table_size,
+                   int smem_slots, int ws_tsz, int cap_c, int grid_x,
+                   int n_members, int block, int smem_bytes,
+                   const int* offsets, const int* bin_tsize,
+                   const int* indptr_a, long long s_ia, const int* a_idx,
+                   const float* a_val, long long s_a, const int* indptr_b,
+                   long long s_ib, const int* b_idx, const float* b_val,
+                   long long s_b, const int* indptr_c, long long s_ic,
+                   int* out_cols, float* out_vals, int* errors, int* ws_keys,
+                   float* ws_vals, cudaStream_t stream) {
+  auto kernel = hash_rows_batched_kernel<kVector>;
+  if (smem_bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  kernel<<<dim3(grid_x, n_members), block, smem_bytes, stream>>>(
+      bin, n_bins, n_rows, table_size, smem_slots, ws_tsz, cap_c, offsets,
+      bin_tsize, indptr_a, s_ia, a_idx, a_val, s_a, indptr_b, s_ib, b_idx,
+      b_val, s_b, indptr_c, s_ic, out_cols, out_vals, errors, ws_keys,
+      ws_vals);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -288,4 +394,34 @@ extern "C" int spgemm_hash_launch(
                               smem_bytes, indptr_a, a_idx, a_val, indptr_b,
                               b_idx, b_val, indptr_c, out_cols, out_vals,
                               row_nnz, errors, ws_keys, ws_vals, s);
+}
+
+// The batched numeric phase for bin index `bin` of every fleet member:
+// a grid of (grid_x, n_members) blocks.  offsets is (n_members, n_bins + 1)
+// and bin_tsize (n_members, n_bins); each operand array takes a member
+// stride in elements (0: shared by all members); out_cols/out_vals are
+// (n_members, cap_c), zeroed by the caller.  smem_bytes = smem_slots * 8;
+// ws_keys/ws_vals hold grid_x * n_members * ws_tsz slots (null when
+// ws_tsz is 0).
+extern "C" int spgemm_hash_batched_launch(
+    int vector, int bin, int n_bins, int n_rows, int table_size,
+    int smem_slots, int ws_tsz, int cap_c, int grid_x, int n_members,
+    int block, int smem_bytes, const int* offsets, const int* bin_tsize,
+    const int* indptr_a, long long s_ia, const int* a_idx, const float* a_val,
+    long long s_a, const int* indptr_b, long long s_ib, const int* b_idx,
+    const float* b_val, long long s_b, const int* indptr_c, long long s_ic,
+    int* out_cols, float* out_vals, int* errors, int* ws_keys, float* ws_vals,
+    void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (vector)
+    return launch_batched<true>(
+        bin, n_bins, n_rows, table_size, smem_slots, ws_tsz, cap_c, grid_x,
+        n_members, block, smem_bytes, offsets, bin_tsize, indptr_a, s_ia,
+        a_idx, a_val, s_a, indptr_b, s_ib, b_idx, b_val, s_b, indptr_c, s_ic,
+        out_cols, out_vals, errors, ws_keys, ws_vals, s);
+  return launch_batched<false>(
+      bin, n_bins, n_rows, table_size, smem_slots, ws_tsz, cap_c, grid_x,
+      n_members, block, smem_bytes, offsets, bin_tsize, indptr_a, s_ia, a_idx,
+      a_val, s_a, indptr_b, s_ib, b_idx, b_val, s_b, indptr_c, s_ic, out_cols,
+      out_vals, errors, ws_keys, ws_vals, s);
 }

@@ -3,7 +3,8 @@ wrappers.
 
 ``csrc/spgemm_hash.cu`` replaces the Pallas kernels of
 ``repro/kernels/spgemm_hash/kernel.py`` (``numeric_call``,
-``symbolic_call`` and the ``_probe_vector`` mode of both); its header says
+``symbolic_call``, the ``_probe_vector`` mode of both, and
+``batched_numeric_call``, the numeric phase over a fleet); its header says
 how the design maps the TPU's sequential bin grid onto the card.  It is
 compiled with ``nvcc`` for ``sm_90a`` at first use, into a shared library
 with a plain C interface under ``build/torch_ext/`` at the root of the
@@ -11,7 +12,8 @@ checkout, and loaded with ``ctypes``.  Nothing is compiled at import, so
 the module imports on a machine without CUDA.
 
 :func:`symbolic_call` and :func:`numeric_call` take the reference
-builders' arguments.  On CPU tensors they run the plain versions of
+builders' arguments; :func:`batched_numeric_call` takes them with a
+member axis.  On CPU tensors they run the plain versions of
 ``ref.py``; on CUDA tensors they launch the kernel or raise -- a build or
 launch failure is never answered with the plain version.
 """
@@ -29,10 +31,13 @@ from . import ref
 CHUNK = 8
 
 #: Launch counters.  A wrapper adds one where it launches its kernel (one
-#: call covers every bin), and ``plain`` counts the wrappers' runs of the
-#: plain versions -- zero on a card proves the main path never took them.
+#: call covers every bin; the batched counters add one per CUDA launch,
+#: which is one per bin index that holds rows in any member), and
+#: ``plain`` counts the wrappers' runs of the plain versions -- zero on a
+#: card proves the main path never took them.
 KERNEL_CALLS = {"symbolic": 0, "numeric": 0, "symbolic_vector": 0,
-                "numeric_vector": 0, "plain": 0}
+                "numeric_vector": 0, "batched_numeric": 0,
+                "batched_numeric_vector": 0, "plain": 0}
 
 #: Largest table kept in shared memory: 16,384 slots, 128 KB of key+value.
 SMEM_SLOTS = 16384
@@ -40,8 +45,15 @@ SMEM_SLOTS = 16384
 GLOBAL_BLOCKS = 264
 
 SOURCE = Path(__file__).parent / "csrc" / "spgemm_hash.cu"
-_FUNCTIONS = {"spgemm_hash_launch":
-              [ctypes.c_int] * 9 + [ctypes.c_void_p] * 14}
+_P, _L = ctypes.c_void_p, ctypes.c_longlong
+_FUNCTIONS = {
+    "spgemm_hash_launch": [ctypes.c_int] * 9 + [_P] * 14,
+    # ints; offsets, bin_tsize; then each operand pointer before its member
+    # stride; outputs, errors, workspace and the stream
+    "spgemm_hash_batched_launch":
+        [ctypes.c_int] * 12 + [_P, _P] + [_P, _L, _P, _P, _L]
+        + [_P, _L, _P, _P, _L] + [_P, _L] + [_P] * 6,
+}
 _lib = None
 
 
@@ -178,4 +190,147 @@ def numeric_call(offsets, bin_tsize, indptr_a, indptr_b, indptr_c, a_idx,
     KERNEL_CALLS["numeric_vector" if vector else "numeric"] += 1
     if own:
         _raise_on_errors(errors, "numeric")
+    return out_cols, out_vals
+
+
+def batched_launches(bounds, sizes, table_size: int, n_rows: int,
+                     vector: bool) -> list:
+    """The launches of the batched numeric kernel, from the fleet's bins as
+    host lists: ``bounds[e]`` is member e's bin offsets, ``sizes[e]`` its
+    per-bin table sizes.
+
+    Returns one ``{"bin", "grid_x", "block", "smem_slots", "ws_tsz"}`` per
+    bin index that holds rows in any member.  Member e of bin b probes
+    ``min(sizes[e][b], table_size)`` slots: shared memory holds the largest
+    such table up to :data:`SMEM_SLOTS` (``smem_slots``), and the members
+    with larger tables use a global workspace of ``ws_tsz`` slots per
+    member and x block.  Without a workspace there is one x block per row
+    of the member with the most rows in the bin; with one, the x blocks
+    are capped so that ``grid_x * n_members <= GLOBAL_BLOCKS`` (at least
+    one per member), which bounds the workspace as the single-product
+    kernel's.  Raises ``ValueError`` for bins that do not partition
+    ``n_rows`` rows or tables that are not powers of two (at least
+    :data:`CHUNK` in vector mode).
+    """
+    n = len(bounds)
+    if not 0 < n <= 65535 or len(sizes) != n:
+        raise ValueError(f"a fleet of {n} members with {len(sizes)} bin "
+                         f"size lists (1 to 65,535 members)")
+    n_bins = len(sizes[0])
+    for e, (bd, sz) in enumerate(zip(bounds, sizes)):
+        if len(bd) != n_bins + 1 or len(sz) != n_bins or any(
+                not 0 <= r0 <= r1 <= n_rows for r0, r1 in zip(bd, bd[1:])):
+            raise ValueError(f"member {e}: bin offsets {bd} do not "
+                             f"partition {n_rows} rows into {n_bins} bins")
+    launches = []
+    for b in range(n_bins):
+        rows = smem = ws = 0
+        for e in range(n):
+            r0, r1 = bounds[e][b], bounds[e][b + 1]
+            if r1 <= r0:
+                continue
+            tsz = min(int(sizes[e][b]), table_size)
+            if tsz < 1 or tsz & (tsz - 1) or (vector and tsz < CHUNK):
+                raise ValueError(
+                    f"member {e}, bin {b}: table size {tsz} is not a power "
+                    f"of two{' >= CHUNK' if vector else ''}")
+            rows = max(rows, r1 - r0)
+            if tsz <= SMEM_SLOTS:
+                smem = max(smem, tsz)
+            else:
+                ws = max(ws, tsz)
+        if not rows:
+            continue
+        if ws:
+            grid_x, block = min(rows, max(1, GLOBAL_BLOCKS // n)), 512
+        else:
+            grid_x = rows
+            block = 64 if smem <= 256 else (128 if smem <= 4096 else 256)
+        launches.append({"bin": b, "grid_x": grid_x, "block": block,
+                         "smem_slots": smem, "ws_tsz": ws})
+    return launches
+
+
+def batched_numeric_call(offsets, bin_tsize, indptr_a, indptr_b, indptr_c,
+                         a_idx, a_val, b_idx, b_val, *, cap_c: int,
+                         table_size: int, vector: bool,
+                         errors: torch.Tensor | None = None,
+                         launches: list | None = None):
+    """:func:`numeric_call` for every member of a fleet:
+    ``(cols (n, cap_c) int32, vals (n, cap_c) float32)``.
+
+    ``offsets (n, n_bins + 1)``, ``bin_tsize (n, n_bins)`` and ``indptr_c
+    (n, M + 1)`` carry the member axis; so does each operand array, or it
+    is 1-D when every member shares it (read in place, member stride 0).
+    ``launches``: :func:`batched_launches` of this schedule, which a plan
+    computes once from its host lists; without it the wrapper reads the
+    bins back and computes it.  (The kernel itself checks each member's
+    bins against the rows it is given.)  ``errors`` as for
+    :func:`numeric_call`, one counter for all members.
+    """
+    if a_idx.device.type == "cpu":
+        KERNEL_CALLS["plain"] += 1
+        return ref.batched_numeric_plain(
+            offsets, bin_tsize, indptr_a, indptr_b, indptr_c, a_idx, a_val,
+            b_idx, b_val, cap_c=cap_c, table_size=table_size, vector=vector)
+    dev = a_idx.device
+    n = offsets.shape[0]
+    for name, t in (("offsets", offsets), ("bin_tsize", bin_tsize),
+                    ("indptr_c", indptr_c)):
+        _build.check_tensor(name, t, torch.int32, dev)
+        if t.dim() != 2 or t.shape[0] != n:
+            raise ValueError(f"{name}: want ({n}, ...), got "
+                             f"{tuple(t.shape)}")
+    strides = {}
+    for name, t, dtype in (("indptr_a", indptr_a, torch.int32),
+                           ("a_idx", a_idx, torch.int32),
+                           ("a_val", a_val, torch.float32),
+                           ("indptr_b", indptr_b, torch.int32),
+                           ("b_idx", b_idx, torch.int32),
+                           ("b_val", b_val, torch.float32)):
+        _build.check_tensor(name, t, dtype, dev)
+        if not (t.dim() == 1 or (t.dim() == 2 and t.shape[0] == n)):
+            raise ValueError(f"{name}: want 1-D (shared) or ({n}, ...), "
+                             f"got {tuple(t.shape)}")
+        strides[name] = t.stride(0) if t.dim() == 2 else 0
+    if a_val.shape != a_idx.shape or b_val.shape != b_idx.shape:
+        raise ValueError("values and column ids of an operand differ in "
+                         "shape")
+    if errors is not None:
+        _build.check_tensor("errors", errors, torch.int32, dev)
+    build()
+    n_rows = min(indptr_a.shape[-1], indptr_c.shape[-1]) - 1
+    if launches is None:
+        launches = batched_launches(offsets.tolist(), bin_tsize.tolist(),
+                                    table_size, n_rows, vector)
+    n_bins = bin_tsize.shape[1]
+    out_cols = torch.zeros(n, cap_c, dtype=torch.int32, device=dev)
+    out_vals = torch.zeros(n, cap_c, dtype=torch.float32, device=dev)
+    own = errors is None
+    if own:
+        errors = torch.zeros(1, dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    key = "batched_numeric_vector" if vector else "batched_numeric"
+    for launch in launches:
+        ws_keys = ws_vals = None
+        if launch["ws_tsz"]:
+            slots = launch["grid_x"] * n * launch["ws_tsz"]
+            ws_keys = torch.empty(slots, dtype=torch.int32, device=dev)
+            ws_vals = torch.empty(slots, dtype=torch.float32, device=dev)
+        err = _lib.spgemm_hash_batched_launch(
+            int(vector), launch["bin"], n_bins, n_rows, table_size,
+            launch["smem_slots"], launch["ws_tsz"], cap_c, launch["grid_x"],
+            n, launch["block"], launch["smem_slots"] * 8, _ptr(offsets),
+            _ptr(bin_tsize), _ptr(indptr_a), strides["indptr_a"],
+            _ptr(a_idx), _ptr(a_val), strides["a_idx"], _ptr(indptr_b),
+            strides["indptr_b"], _ptr(b_idx), _ptr(b_val), strides["b_idx"],
+            _ptr(indptr_c), indptr_c.stride(0), _ptr(out_cols),
+            _ptr(out_vals), _ptr(errors), _ptr(ws_keys), _ptr(ws_vals),
+            stream)
+        if err != 0:
+            raise RuntimeError(f"spgemm_hash batched launch failed for bin "
+                               f"{launch['bin']}: CUDA error {err}")
+        KERNEL_CALLS[key] += 1
+    if own:
+        _raise_on_errors(errors, "batched numeric")
     return out_cols, out_vals

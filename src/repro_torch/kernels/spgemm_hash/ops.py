@@ -11,7 +11,8 @@ Port of ``repro.kernels.spgemm_hash.ops``:
 
 The planned path (``core.plan``) passes ``schedule=(offsets, bin_tsize)``
 and ``indptr_c=``, so a structure-identical repeat product runs the numeric
-kernel alone.
+kernel alone.  :func:`spgemm_hash_batched` is the same numeric phase for a
+fleet of products (``core.batch``), through the batched kernel.
 
 Rounding contract: the kernels round each product and add it atomically,
 in an order that changes from run to run; the reference kernel fuses the
@@ -121,3 +122,28 @@ def spgemm_hash_symbolic(a: CSR, b: CSR, *, n_bins: int = 8,
     return K.symbolic_call(offsets, bin_tsize, ip_a, ip_b, a_idx, a_val,
                            b_idx, b_val, table_size=table_size,
                            vector=vector)
+
+
+def spgemm_hash_batched(a: CSR, b: CSR, cap_c: int, *, vector: bool,
+                        table_size: int, schedule, indptr_c: torch.Tensor,
+                        launches: list | None = None):
+    """``A_e @ B_e`` for every member e of a fleet through the batched
+    numeric kernel: ``(cols, vals)``, each ``(n, cap_c)``, vals float32.
+
+    The counterpart of the reference's ``_numeric_entry`` vmap rule, as a
+    plain function over stacked members (torch has no ``custom_vmap``).
+    ``a`` and ``b`` are stacked CSRs, every array with a leading member
+    axis (``core.batch._stack_csr``), or plain CSRs that all members share:
+    a shared operand goes to the kernel as it is, with member stride 0,
+    where the reference broadcasts it.  ``schedule=(offsets, bin_tsize)``
+    and ``indptr_c`` are stacked ``(n, ...)`` plan arrays, ``table_size``
+    the class table (``BatchClass.table_size``, used as it is), and
+    ``launches`` the kernel's launch list for them
+    (``K.batched_launches``), which a plan computes once.
+    """
+    offsets, bin_tsize = schedule
+    return K.batched_numeric_call(
+        offsets, bin_tsize, a.indptr, b.indptr, indptr_c, a.indices,
+        a.data.to(torch.float32), b.indices, b.data.to(torch.float32),
+        cap_c=cap_c, table_size=table_size, vector=vector,
+        launches=launches)

@@ -10,7 +10,8 @@ internal layout, so the plain versions accept and ignore them.
 The semantic contract of the kernels (per phase):
   * symbolic: exact nnz per output row;
   * numeric:  (indices, values) at ``indptr_c``, where each row holds the
-    right {col: sum of products} set in *some* order (unsorted, C8).
+    right {col: sum of products} set in *some* order (unsorted, C8);
+  * batched numeric: the numeric phase for every member of a fleet.
 
 The CPU path runs these functions; on the card they serve only as the
 yardstick the kernels are checked against.
@@ -85,6 +86,34 @@ def numeric_plain(offsets, bin_tsize, indptr_a, indptr_b, indptr_c, a_idx,
     out_vals = torch.zeros(cap_c, dtype=torch.float32, device=dev)
     out_cols[pos[keep]] = cols[keep]
     out_vals[pos[keep]] = vals[keep]
+    return out_cols, out_vals
+
+
+def batched_numeric_plain(offsets, bin_tsize, indptr_a, indptr_b, indptr_c,
+                          a_idx, a_val, b_idx, b_val, *, cap_c, table_size,
+                          vector):
+    """The batched numeric kernel's function: :func:`numeric_plain` for
+    each fleet member.
+
+    ``offsets (n, n_bins + 1)``, ``bin_tsize (n, n_bins)`` and ``indptr_c
+    (n, M + 1)`` carry a member axis.  So does every operand array, or it
+    is 1-D when all members share it.  Returns ``(cols, vals)``, each
+    ``(n, cap_c)``.
+    """
+    n = offsets.shape[0]
+    dev = a_idx.device
+    out_cols = torch.zeros(n, cap_c, dtype=torch.int32, device=dev)
+    out_vals = torch.zeros(n, cap_c, dtype=torch.float32, device=dev)
+
+    def member(t, e):
+        return t[e] if t.dim() == 2 else t
+
+    for e in range(n):
+        out_cols[e], out_vals[e] = numeric_plain(
+            offsets[e], bin_tsize[e], member(indptr_a, e),
+            member(indptr_b, e), indptr_c[e], member(a_idx, e),
+            member(a_val, e), member(b_idx, e), member(b_val, e),
+            cap_c=cap_c, table_size=table_size, vector=vector)
     return out_cols, out_vals
 
 

@@ -511,3 +511,186 @@ def test_spmm_wrapper_rejects_bad_operands(cuda):
         SK.spmm_call(*args[:3], x.t().contiguous().t(), a.nnz)
     with pytest.raises(ValueError):              # nnz not 0-dim
         SK.spmm_call(*args[:4], a.nnz.reshape(1))
+
+
+# ---------------------------------------------------------------------------
+# The batched numeric kernel (a fleet of products, core.batch)
+# ---------------------------------------------------------------------------
+
+def wide_operands(cuda, width):
+    """A (2, 4) and B (4, width) whose row 0 product has ~0.6 * width
+    distinct columns: a table past ``K.SMEM_SLOTS`` for width 40,000."""
+    rng = np.random.default_rng(11)
+    rows = np.repeat(np.arange(4), width // 6)
+    cols = np.concatenate([rng.choice(width, width // 6, replace=False)
+                           for _ in range(4)])
+    b = CSR.from_numpy_coo(rows, cols, rng.choice(DYADIC, rows.shape[0]),
+                           (4, width), device=cuda)
+    a = CSR.from_numpy_coo([0, 0, 0, 0, 1], [0, 1, 2, 3, 2],
+                           rng.choice(DYADIC, 5), (2, 4), device=cuda)
+    return a, b
+
+
+def fleet_args(pairs, shared_b):
+    """The batched kernel's arguments for a fleet: each member's own
+    schedule (``ops.hash_schedule``) and ``indptr_c``, the operands padded
+    and stacked as the batched planner does (B passed once if shared)."""
+    from repro_torch.core.batch import _stack_csr, _stack_index
+    m = max(a.n_rows for a, _ in pairs)
+    k = max(a.n_cols for a, _ in pairs)
+    n = max(b.n_cols for _, b in pairs)
+    offs, sizes, ics, tables = [], [], [], []
+    for a, b in pairs:
+        off, tsz, table = ops.hash_schedule(a, b, n_bins=8)
+        rows = ref.symbolic_plain(off, tsz, a.indptr, b.indptr, a.indices,
+                                  a.data, b.indices, b.data,
+                                  table_size=table, vector=False)
+        ic = prefix_sum(rows).to(torch.int32)
+        ics.append(torch.cat([ic, ic[-1:].expand(m + 1 - ic.shape[0])]))
+        offs.append(off)
+        sizes.append(tsz)
+        tables.append(table)
+    a_ops = [a for a, _ in pairs]
+    a_st = _stack_csr(a_ops, k, True, _stack_index(
+        a_ops, m, max(x.cap for x in a_ops)))
+    if shared_b:
+        b_st = pairs[0][1]
+    else:
+        b_ops = [b for _, b in pairs]
+        b_st = _stack_csr(b_ops, n, True, _stack_index(
+            b_ops, k, max(x.cap for x in b_ops)))
+    ic = torch.stack(ics)
+    cap_c = int(ic[:, -1].max()) + 3
+    args = (torch.stack(offs), torch.stack(sizes), a_st.indptr, b_st.indptr,
+            ic, a_st.indices, a_st.data, b_st.indices, b_st.data)
+    return args, cap_c, max(tables)
+
+
+def check_batched(pairs, args, cols, vals, pc, pv):
+    """Per member: row pointers, sorted column sets and (dyadic) values
+    bitwise equal to the plain version; the tail past nnz zero."""
+    ic = args[4]
+    for e, (a, b) in enumerate(pairs):
+        ipc = ic[e, :a.n_rows + 1]
+        nnz = int(ipc[-1])
+        s = CSR(ipc, cols[e], vals[e], ipc[-1], (a.n_rows, b.n_cols),
+                False).sort_rows()
+        assert torch.equal(s.indices[:nnz], pc[e, :nnz])
+        assert torch.equal(s.data[:nnz], pv[e, :nnz])
+        assert bool((cols[e, nnz:] == 0).all())
+        assert bool((vals[e, nnz:] == 0).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shared_b", (False, True), ids=("stacked",
+                                                          "shared"))
+@pytest.mark.parametrize("vector", (False, True))
+def test_batched_kernel_matches_plain_version(cuda, vector, shared_b):
+    b_shared = operand("ER", 9, 8, True, cuda)
+    pairs = []
+    for i, (preset, scale, ef) in enumerate(
+            (("ER", 9, 4), ("G500", 9, 8), ("ER", 8, 2), ("G500", 9, 2))):
+        a = rmat.rmat_csr(scale, ef, preset, seed=20 + i, device=cuda)
+        a = CSR(a.indptr, a.indices, torch.from_numpy(
+            np.random.default_rng(i).choice(DYADIC, a.cap)).to(cuda),
+            a.nnz, a.shape)
+        if scale < 9:       # a narrower A: padded to the fleet's shape
+            b = operand("ER", scale, 8, True, cuda)
+        else:
+            b = b_shared if shared_b else operand("G500", 9, 4 + i, True,
+                                                  cuda)
+        pairs.append((a, b))
+    if shared_b:
+        pairs = [(a, b_shared) for a, _ in pairs if a.n_cols == 512]
+    args, cap_c, table = fleet_args(pairs, shared_b)
+    kw = dict(cap_c=cap_c, table_size=table, vector=vector)
+    ops.reset_kernel_calls()
+    cols, vals = K.batched_numeric_call(*args, **kw)
+    torch.cuda.synchronize()
+    key = "batched_numeric_vector" if vector else "batched_numeric"
+    want = len(K.batched_launches(args[0].tolist(), args[1].tolist(), table,
+                                  args[4].shape[1] - 1, vector))
+    counts = ops.kernel_call_counts()
+    assert counts.pop(key) == want and 0 < want <= 8
+    assert set(counts.values()) == {0}
+    pc, pv = ref.batched_numeric_plain(*args, **kw)
+    check_batched(pairs, args, cols, vals, pc, pv)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("vector", (False, True))
+def test_batched_kernel_member_past_smem(cuda, vector):
+    """One member's table past SMEM_SLOTS (global workspace) in the same
+    launches as members whose tables stay in shared memory."""
+    a_w, b_w = wide_operands(cuda, 40000)
+    small = []
+    for i in range(3):
+        # A's pattern of the wide member, so the bins line up with its
+        a = CSR.from_numpy_coo([0, 0, 0, 0, 1], [0, 1, 2, 3, 2],
+                               np.resize(DYADIC, 5), (2, 4), device=cuda)
+        b = CSR.from_numpy_coo(np.repeat(np.arange(4), 2),
+                               np.arange(8) * (i + 7), np.resize(DYADIC, 8),
+                               (4, 40000), device=cuda)
+        small.append((a, b))
+    pairs = [small[0], (a_w, b_w), small[1], small[2]]
+    args, cap_c, table = fleet_args(pairs, False)
+    assert args[1][1].max() > K.SMEM_SLOTS >= args[1][[0, 2, 3]].max()
+    kw = dict(cap_c=cap_c, table_size=table, vector=vector)
+    launches = K.batched_launches(args[0].tolist(), args[1].tolist(), table,
+                                  args[4].shape[1] - 1, vector)
+    assert any(x["ws_tsz"] and x["smem_slots"] for x in launches)
+    ops.reset_kernel_calls()
+    cols, vals = K.batched_numeric_call(*args, **kw)
+    torch.cuda.synchronize()
+    key = "batched_numeric_vector" if vector else "batched_numeric"
+    assert ops.kernel_call_counts()[key] == len(launches)
+    pc, pv = ref.batched_numeric_plain(*args, **kw)
+    check_batched(pairs, args, cols, vals, pc, pv)
+
+
+@pytest.mark.gpu
+def test_batched_kernel_table_too_small_raises(cuda):
+    pairs = [wide_operands(cuda, 600), wide_operands(cuda, 600)]
+    args, cap_c, _ = fleet_args(pairs, True)
+    small = torch.full_like(args[1], 8)
+    with pytest.raises(RuntimeError, match="full-table"):
+        K.batched_numeric_call(args[0], small, *args[2:], cap_c=cap_c,
+                               table_size=8, vector=False)
+    with pytest.raises(ValueError):              # float64 values
+        K.batched_numeric_call(*args[:6], args[6].double(), *args[7:],
+                               cap_c=cap_c, table_size=8, vector=False)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("algorithm", ("auto", "hash_vector"))
+def test_planned_batch_launches_only_the_batched_kernel(cuda, algorithm):
+    """``plan_batch(...).execute`` on the card: one batched launch per bin
+    index holding rows, per class, nothing else; each member equal to the
+    per-product planned loop (dyadic values: bitwise after a row sort)."""
+    from repro_torch.core import plan_batch, plan_spgemm
+    pairs = []
+    for i in range(12):
+        a = operand("G500" if i % 2 else "ER", 8, 1 + i % 3, True, cuda)
+        b = operand("ER", 8, 1 + (i + 1) % 4, True, cuda)
+        pairs.append((a, b))
+    plan = plan_batch(pairs, algorithm=algorithm, cache=False)
+    vector = algorithm == "hash_vector"
+    key = "batched_numeric_vector" if vector else "batched_numeric"
+    want = sum(len(K.batched_launches(*c.hash_host, c.table_size,
+                                      c.shape_a[0], vector))
+               for c in plan.classes)
+    assert all(c.hash_sched is not None for c in plan.classes)
+    ops.reset_kernel_calls()
+    outs = plan.execute(pairs)
+    torch.cuda.synchronize()
+    counts = ops.kernel_call_counts()
+    assert counts.pop(key) == want <= 8 * plan.n_classes
+    assert set(counts.values()) == {0}
+    for i, ((a, b), c) in enumerate(zip(pairs, outs)):
+        r = plan_spgemm(a, b, algorithm=plan.algorithms[i],
+                        cache=False).execute(a, b)
+        assert torch.equal(c.indptr, r.indptr) and int(c.nnz) == int(r.nnz)
+        s, t = c.sort_rows(), r.sort_rows()
+        nnz = int(c.nnz)
+        assert torch.equal(s.indices[:nnz], t.indices[:nnz])
+        assert torch.equal(s.data[:nnz], t.data[:nnz])
