@@ -5,8 +5,9 @@ Drives the port's main path -- the planned hash SpGEMM of the paper --
 through the entry points a user calls, at the paper's own input sizes
 (R-MAT, edge factor 16, squared: ER at scale 18 and G500 at scale 16,
 seed 0), then the sorted-output (PB) and block-sparse (BCSR) routes, SpMM,
-the paper's graph workloads and the batched fleet planner, and holds every
-hand-written kernel against its plain PyTorch version.
+the paper's graph workloads, the batched fleet planner and BCSR value
+fleets under ``torch.func.vmap``, and holds every hand-written kernel
+against its plain PyTorch version.
 Phases; any failure exits non-zero:
 
   1. the card's name and power limit (``nvidia-smi``);
@@ -48,7 +49,8 @@ Phases; any failure exits non-zero:
      symbolic counts; tiles bitwise on dyadic values and within 1 ulp per
      product on uniform ones; the CSR output has the scalar hash plan's
      structure.  Then the timings (the execute's re-blocking and
-     flattening apart, the kernel's device time from a ``torch.profiler``
+     flattening apart, the kernel alone and through the custom op the
+     execute calls, the kernel's device time from a ``torch.profiler``
      trace), beside the bound and ``torch.sparse.mm``.  Last, a small
      block-clustered input (a 128 x 128 grid of 8x8 tiles) that
      ``plan_spgemm(a, a)`` must route to ``bcsr`` by itself;
@@ -84,8 +86,26 @@ Phases; any failure exits non-zero:
      (row pointers and columns bitwise, values within 1 ulp per product),
      the MoE outputs bitwise against the gathered feature rows.  Timings:
      the batched execute, the per-product loop, the kernels alone, the
-     plain version and a loop of ``torch.sparse.mm`` per member;
- 13. one ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``.
+     plain version and a loop of ``torch.sparse.mm`` per member; for the
+     MoE fleet also a serving call (``plan_batch(pairs).execute`` under
+     ``torch.inference_mode()``) on its tensors and on copies made under
+     inference mode, which must hit the plan cache;
+ 13. BCSR value fleets: ``torch.func.vmap`` of ``BCSRPlan.execute`` over
+     members' tile values on one frozen block structure (DBCSR's repeated
+     products), on phase 7's inputs: the ER pattern with 8 members of A's
+     tiles against a shared B (a dyadic and a uniform fleet), with 4
+     members of both A's and B's tiles, and through ``plan_bcsr(vector=
+     True)``; the G500 pattern (global-memory tables) with 4 members; and
+     4 members at 64x64 tiles.  Each vmapped call must run the custom op's
+     vmap rule once -- the batched block kernel, once per bin index
+     holding rows -- and nothing else; every member against the batched
+     plain version and the per-member execute (tiles bitwise on dyadic
+     values, within 1 ulp per product otherwise).  Timings: the vmapped
+     execute, the batched kernel (CUDA events and its ``torch.profiler``
+     device time), a per-member execute loop, the batched plain version
+     and a loop of ``torch.sparse.mm`` over the members' flattened CSRs,
+     beside the byte bound;
+ 14. one ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``.
 
 Usage: ``python3 chip_smoke.py`` (one card, no arguments).  A quick first
 check of a changed kernel at small sizes is
@@ -137,6 +157,10 @@ MOE_EXPERTS, MOE_TOP_K, MOE_D_MODEL, MOE_TOKENS = 128, 8, 2048, 16384
 MOE_DENSITY = 0.05
 #: the mixed G500/ER fleet of benchmarks/common.py's rmat_fleet
 FLEET_PRODUCTS, FLEET_SCALE = 64, 10
+#: BCSR value fleets (members of new tile values on one block structure):
+#: A batched on the ER pattern, A and B batched, the G500 pattern, 64x64
+FLEET_MEMBERS, FLEET_MEMBERS_BOTH, FLEET_MEMBERS_G500 = 8, 4, 4
+FLEET_MEMBERS_LARGE = 4
 
 KERNEL_SOURCE = "src/repro_torch/kernels/spgemm_hash/csrc/spgemm_hash.cu"
 PB_SOURCE = "src/repro_torch/kernels/spgemm_pb/csrc/spgemm_pb.cu"
@@ -151,6 +175,7 @@ REPLACES = {
     "bcsr_numeric": "src/repro/kernels/spgemm_bcsr/kernel.py:131",
     "spmm": "src/repro/kernels/spmm/kernel.py:44",
     "batched": "src/repro/kernels/spgemm_hash/kernel.py:413",
+    "bcsr_batched": "src/repro/kernels/spgemm_bcsr/kernel.py:215",
 }
 #: the vector rows replace the chunked probe the Pallas kernels share
 REPLACES["bcsr_numeric_vector"] = REPLACES["numeric_vector"]
@@ -288,7 +313,7 @@ class Smoke:
         """Launch counts of one path: ``want``'s kernels as many times as
         it says, every other counter (plain versions included) zero."""
         plain = counts["plain"] + counts["pb_plain"] + counts["bcsr_plain"] \
-            + counts["spmm_plain"]
+            + counts["bcsr_batched_plain"] + counts["spmm_plain"]
         check(plain == 0, f"{what}: ran a plain version {plain} times")
         check(counts == {k: want.get(k, 0) for k in counts},
               f"{what}: launches {counts}, want {want}")
@@ -837,6 +862,12 @@ class Smoke:
              "kernel_vector": self.time_ms(lambda: BK.numeric_call(
                  *args, **{**kw, "vector": True}, errors=num_err)),
              "plain": self.time_ms(lambda: bref.numeric_plain(*args, **kw)),
+             # the wrapper with its own errors read-back, and through the
+             # custom op the execute calls: the op's own cost is the gap
+             "kernel_readback": self.time_ms(lambda: BK.numeric_call(
+                 *args, **kw)),
+             "kernel_op": self.time_ms(lambda: bcsr_ops.numeric_op(
+                 *args, bp.bcap_c, bp.table_size, False)),
              "bcsr_execute": self.time_ms(lambda: direct.execute(ab, ab)),
              "reblock": self.time_ms(lambda: core.csr_to_bcsr(
                  a, BLOCK, bcap=bp.bcap_a)),
@@ -1240,13 +1271,47 @@ class Smoke:
         return (off, bts, a.indptr, b.indptr, ic, a.indices, a.data.float(),
                 b.indices, b.data.float()), a, b
 
+    def serve_times(self, label, pairs, launches):
+        """A serving loop's call, ``plan_batch(pairs).execute(pairs)`` under
+        ``torch.inference_mode()`` (a plan-cache hit, the structure check
+        and the execute), timed on the fleet's own tensors and on copies
+        made under inference mode, which have no version counters; the
+        copies' call must hit the cache and launch what the execute
+        launches."""
+        import dataclasses
+        torch, core = self.torch, self.core
+        copies = {}
+        with torch.inference_mode():
+            for x in (x for pair in pairs for x in pair):
+                if id(x) not in copies:
+                    copies[id(x)] = dataclasses.replace(
+                        x, indptr=x.indptr.clone(), indices=x.indices.clone(),
+                        data=x.data.clone(), nnz=x.nnz.clone())
+        inf_pairs = [(copies[id(a)], copies[id(b)]) for a, b in pairs]
+
+        def serve(ps):
+            with torch.inference_mode():
+                return core.plan_batch(ps).execute(ps)
+
+        serve(inf_pairs)
+        outs, counts = self.counted(lambda: serve(inf_pairs))
+        self.expect(counts, {"batched_numeric": launches},
+                    f"{label} plan_batch.execute of inference tensors")
+        check([int(c.nnz) for c in outs] ==
+              list(core.plan_batch(pairs).nnz_cs),
+              f"{label}: nnz of the inference-mode execute")
+        del outs
+        return {"serve": self.time_ms(lambda: serve(pairs)),
+                "serve_inference": self.time_ms(lambda: serve(inf_pairs))}
+
     def batch_fleet(self, label, pairs, gather_oracle=False,
-                    vector_too=False):
+                    vector_too=False, serve_too=False):
         """``plan_batch(pairs).execute`` on the card: one batched kernel
         launch per bin index holding rows, per hash class, no plain
         version; every member against the batched plain version, the
         port's per-product planned loop (and, for the MoE fleet, the
-        gathered feature rows); then the timings."""
+        gathered feature rows); then the timings (``serve_too``: also
+        :meth:`serve_times`)."""
         torch, core, K, ref = self.torch, self.core, self.K, self.ref
         core.clear_plan_cache()
         t0 = time.perf_counter()
@@ -1383,6 +1448,8 @@ class Smoke:
                  lambda: [torch.sparse.mm(x, y) for x, y in sp_pairs])}
         if vector_too:
             t["kernel_vector"] = self.time_ms(lambda: kernels(True))
+        if serve_too:
+            t.update(self.serve_times(label, pairs, launches))
         torch.cuda.synchronize()
         check(int(errors) == 0, f"{label}: {int(errors)} kernel errors")
 
@@ -1464,7 +1531,7 @@ class Smoke:
                  f"T={MOE_TOKENS} d={MOE_D_MODEL}")
         print(f"{label}: nnz(F)={int(f.nnz)} (built in "
               f"{time.perf_counter() - t0:.1f} s)", flush=True)
-        self.batch_fleet(label, pairs, gather_oracle=True)
+        self.batch_fleet(label, pairs, gather_oracle=True, serve_too=True)
         del pairs, f
         pairs = []
         for i in range(FLEET_PRODUCTS):
@@ -1481,6 +1548,234 @@ class Smoke:
                    for s in (0, 1)]
         self.batch_fleet(f"G500 s{G500_SCALE} ef{EDGE_FACTOR} squares "
                          f"(seeds 0, 1)", [(a, a) for a in squares])
+
+    # ---- phase 13 ----------------------------------------------------------
+    def fleet_values(self, blocks, n, seed, dyadic):
+        """``n`` members of new tile values on ``blocks``' pattern, from a
+        seeded numpy generator: dyadic, or uniform in [0.5, 1.5)."""
+        torch = self.torch
+        rng = np.random.default_rng(seed)
+        shape = (n,) + tuple(blocks.shape)
+        vals = (np.asarray(DYADIC, np.float32)[rng.integers(0, 4, shape)]
+                if dyadic else rng.uniform(0.5, 1.5, shape).astype(np.float32))
+        return torch.from_numpy(vals).to(self.dev) * (blocks != 0)
+
+    def fleet_case(self, label, ab, bp, cases):
+        """One value-fleet case of phase 13: ``torch.func.vmap`` of
+        ``bp.execute`` over the members' tiles (``cases``: ``(values, xa,
+        xb)``, a 4-D stack or A's/B's own tiles), launching the batched
+        grid through the custom op's rule and nothing else; each member
+        against the batched plain version and the per-member execute; then
+        the timings of the uniform fleet.  ``ab`` is both operands' structure
+        (the products are A·A)."""
+        import dataclasses
+        torch, core, BK, bref = self.torch, self.core, self.BK, \
+            self.bcsr_ref
+        vector = bp.vector
+        bm, bk = ab.block
+        bn = ab.block[1]
+        key = "batched_numeric_vector" if vector else "batched_numeric"
+
+        def one(x, y):
+            c = bp.execute(dataclasses.replace(ab, blocks=x),
+                           dataclasses.replace(ab, blocks=y))
+            return c.indices, c.blocks
+
+        def dims(xa, xb):
+            return (0 if xa.dim() == 4 else None,
+                    0 if xb.dim() == 4 else None)
+
+        def vmapped(xa, xb):
+            return torch.func.vmap(one, in_dims=dims(xa, xb))(xa, xb)
+
+        n = max(x.shape[0] for _, xa, xb in cases for x in (xa, xb)
+                if x.dim() == 4)
+        pairs = bref.products_per_block(ab.indptr, ab.indptr, bp.indptr_cb,
+                                        ab.indices, ab.indices, bp.bcap_c)
+        bound_ulp = (pairs * bk).float()[:, None, None]
+        err, launches = 0.0, None
+        for values, xa, xb in cases:
+            what = f"{label} ({values})"
+            (bcol, blk), counts = self.counted(lambda: vmapped(xa, xb))
+            want = len(BK.launch_list(
+                bp.offsets, bp.bin_tsize, n_members=n,
+                n_rows=ab.indptr.shape[0] - 1, table_size=bp.table_size,
+                tile=bm * bn, vector=vector))
+            self.expect(counts, {f"bcsr_{key}": want},
+                        f"{what} vmap(BCSRPlan.execute)")
+            launches = counts[f"bcsr_{key}"]
+            check(bcol.shape == (n, bp.bcap_c) and
+                  blk.shape == (n, bp.bcap_c, bm, bn),
+                  f"{what}: output shapes {tuple(bcol.shape)}, "
+                  f"{tuple(blk.shape)}")
+            args = (bp.offsets, bp.bin_tsize, ab.indptr, ab.indptr,
+                    bp.indptr_cb, ab.indices, xa, ab.indices, xb)
+            pc, pb = bref.batched_numeric_plain(
+                *args, n_members=n, bcap_c=bp.bcap_c,
+                table_size=bp.table_size, vector=vector)
+            for e in range(n):
+                x = xa[e] if xa.dim() == 4 else xa
+                y = xb[e] if xb.dim() == 4 else xb
+                single = bp.execute(dataclasses.replace(ab, blocks=x),
+                                    dataclasses.replace(ab, blocks=y))
+                sc, sb = bref.sort_block_rows(bp.indptr_cb, bcol[e], blk[e])
+                oc, ob = bref.sort_block_rows(single.indptr, single.indices,
+                                              single.blocks)
+                for other, oc_, ob_ in (("the batched plain version", pc[e],
+                                         pb[e]),
+                                        ("the per-member execute", oc, ob)):
+                    check(torch.equal(sc, oc_), f"{what} member {e}: block "
+                          f"columns differ from {other}")
+                    diff = (sb - ob_).abs()
+                    if values == "dyadic":
+                        check(torch.equal(sb, ob_), f"{what} member {e}: "
+                              f"tiles not bitwise equal to {other} (max "
+                              f"abs diff {float(diff.max())})")
+                        continue
+                    ulp = torch.nextafter(ob_.abs(), torch.full_like(
+                        ob_, float("inf"))) - ob_.abs()
+                    bad = diff > bound_ulp * ulp
+                    check(not bool(bad.any()), f"{what} member {e}: "
+                          f"{int(bad.sum())} cells past 1 ulp per product "
+                          f"against {other} (max abs diff "
+                          f"{float(diff.max())})")
+                err = max(err, float((sb - pb[e]).abs().max()))
+                del single
+            del bcol, blk, pc, pb
+        print(f"{label}: {n} members, {len(cases)} fleets; every member "
+              f"equals the batched plain version and the per-member "
+              f"execute; {launches} batched launches a call; max abs diff "
+              f"{err}", flush=True)
+
+        # ---- timings (the uniform fleet) ---------------------------------
+        _, xa, xb = next(c for c in cases if c[0] == "uniform")
+        kw = dict(n_members=n, bcap_c=bp.bcap_c, table_size=bp.table_size,
+                  vector=vector)
+        args = (bp.offsets, bp.bin_tsize, ab.indptr, ab.indptr,
+                bp.indptr_cb, ab.indices, xa, ab.indices, xb)
+        errors = torch.zeros(1, dtype=torch.int32, device=self.dev)
+        members = [(xa[e] if xa.dim() == 4 else xa,
+                    xb[e] if xb.dim() == 4 else xb) for e in range(n)]
+        m_a = [dataclasses.replace(ab, blocks=x) for x, _ in members]
+        m_b = [dataclasses.replace(ab, blocks=y) for _, y in members]
+
+        def sparse(x):
+            c = core.bcsr_to_csr(x)
+            nnz = int(c.nnz)
+            return torch.sparse_csr_tensor(c.indptr.long(),
+                                           c.indices[:nnz].long(),
+                                           c.data[:nnz], size=c.shape)
+
+        sp_a = [sparse(x) for x in m_a]
+        sp_b = [sparse(y) for y in m_b] if xb.dim() == 4 else \
+            [sparse(m_b[0])] * n
+        t = {"vmap_execute": self.time_ms(lambda: vmapped(xa, xb)),
+             "kernel": self.time_ms(lambda: BK.batched_numeric_call(
+                 *args, **kw, errors=errors)),
+             "loop": self.time_ms(lambda: [bp.execute(x, y) for x, y in
+                                           zip(m_a, m_b)]),
+             "plain": self.time_ms(lambda: bref.batched_numeric_plain(
+                 *args, **kw), reps=3, warm=1),
+             "torch_sparse_mm_loop": self.time_ms(
+                 lambda: [torch.sparse.mm(x, y) for x, y in
+                          zip(sp_a, sp_b)])}
+        t["kernel_device"] = self.device_ms(lambda: BK.batched_numeric_call(
+            *args, **kw, errors=errors),
+            "bcsr_rows_batched_kernel")
+        torch.cuda.synchronize()
+        check(int(errors) == 0, f"{label}: kernel errors while timing")
+        # least time: each member's A tiles (A once when shared), B's
+        # likewise, each member's C tiles and block columns written once,
+        # the shared structure read once
+        gm = ab.indptr.shape[0] - 1
+        nnzb = int(ab.nnzb)
+        n_a = n if xa.dim() == 4 else 1
+        n_b = n if xb.dim() == 4 else 1
+        by = (4 * bm * bk * nnzb * n_a + 4 * bk * bn * nnzb * n_b
+              + n * (4 * bm * bn + 4) * bp.nnzb_c
+              + 4 * (3 * (gm + 1) + 2 * nnzb))
+        ops_n = n * 2 * bp.total_flop * bm * bk * bn
+        bound = max(by / HBM_BYTES_PER_S, ops_n / FP32_FLOP_PER_S) * 1e3
+        bound_by = "bytes" if by / HBM_BYTES_PER_S >= \
+            ops_n / FP32_FLOP_PER_S else "operations"
+        print(json.dumps({"timing": f"value fleet {label}",
+                          "card": self.card, "members": n,
+                          "batched": {"a": n_a > 1, "b": n_b > 1},
+                          "vector": vector, "nnzb_a": nnzb,
+                          "nnzb_c": bp.nnzb_c, "block_flop": bp.total_flop,
+                          "table_size": bp.table_size,
+                          "launches": launches, "ms": t, "bound_ms": bound,
+                          "bound_bytes": by, "bound_operations": ops_n}),
+              flush=True)
+        self.rows.append({
+            "name": f"spgemm_bcsr_{key}[{label}]", "route": "cuda",
+            "source": BCSR_SOURCE, "replaces": REPLACES["bcsr_batched"],
+            "launches": launches, "max_abs_err": err, "ms": t["kernel"],
+            "plain_ms": t["plain"], "bound_ms": bound, "bound_by": bound_by,
+            "library_ms": t["torch_sparse_mm_loop"]})
+        del sp_a, sp_b, m_a, m_b, members
+        torch.cuda.empty_cache()
+
+    def value_fleet(self):
+        """Phase 13: ``torch.func.vmap`` of ``BCSRPlan.execute`` over
+        fleets of block values on one frozen structure (DBCSR's repeated
+        products), on phase 7's block inputs and phase 11's 64x64 tiles."""
+        torch, core = self.torch, self.core
+
+        def fleets(ab, n, seed, b_too=False):
+            """A dyadic and a uniform fleet of ``n`` members on ``ab``'s
+            pattern, as ``(values, A's tiles, B's tiles)``: B's are
+            ``ab``'s own (shared) unless ``b_too``."""
+            out = []
+            for i, values in enumerate(("dyadic", "uniform")):
+                d = values == "dyadic"
+                xb = self.fleet_values(ab.blocks, n, seed + 10 + i, d) \
+                    if b_too else ab.blocks
+                out.append((values,
+                            self.fleet_values(ab.blocks, n, seed + i, d), xb))
+            return out
+
+        for preset, scale, ef in BCSR_INPUTS:
+            br, bc = self.rmat.rmat_edges(scale, ef, preset, seed=0)
+            # dyadic tiles: a fleet of dyadic members against them is exact
+            _, a_d, _ = self.block_csr(br, bc, 1 << scale, seed=1)
+            ab = core.csr_to_bcsr(a_d, BLOCK)
+            del a_d
+            label = f"{preset}-pattern s{scale} ef{ef} {BLOCK[0]}x{BLOCK[1]}"
+            bp, counts = self.counted(lambda: core.plan_bcsr(ab, ab,
+                                                             cache=False))
+            self.expect(counts, {"symbolic": 1, "bcsr_symbolic": 1},
+                        f"{label} fleet plan_bcsr")
+            if preset == "ER":
+                n, m = FLEET_MEMBERS, FLEET_MEMBERS_BOTH
+                self.fleet_case(f"{label}, {n} members, A batched", ab, bp,
+                                fleets(ab, n, 20))
+                self.fleet_case(f"{label}, {m} members, A and B batched", ab,
+                                bp, fleets(ab, m, 30, b_too=True))
+                vp = core.plan_bcsr(ab, ab, vector=True, cache=False)
+                self.fleet_case(f"{label}, {n} members, A batched, vector",
+                                ab, vp, fleets(ab, n, 50))
+                del vp
+            else:
+                check(bp.table_size * 4 * (1 + BLOCK[0] * BLOCK[1])
+                      > self.BK.SMEM_BUDGET,
+                      f"{label}: expected a global-memory table")
+                m = FLEET_MEMBERS_G500
+                self.fleet_case(f"{label}, {m} members, A batched", ab, bp,
+                                fleets(ab, m, 60))
+            del ab, bp
+            torch.cuda.empty_cache()
+        rng = np.random.default_rng(9)
+        occ = np.nonzero(rng.random((LARGE_GRID, LARGE_GRID)) < 0.5)
+        _, a_d, _ = self.block_csr(occ[0], occ[1], LARGE_GRID, seed=10,
+                                   block=LARGE_BLOCK)
+        ab = core.csr_to_bcsr(a_d, LARGE_BLOCK)
+        bp = core.plan_bcsr(ab, ab, cache=False)
+        m = FLEET_MEMBERS_LARGE
+        self.fleet_case(f"{LARGE_GRID}x{LARGE_GRID} grid of {LARGE_BLOCK[0]}x"
+                        f"{LARGE_BLOCK[1]} tiles, {m} members, A batched", ab,
+                        bp, fleets(ab, m, 70))
+
 
 def main() -> int:
     import torch
@@ -1529,9 +1824,10 @@ def main() -> int:
     smoke.tall_skinny(g500, g500_label)                          # phase 10
     smoke.bcsr_large_tile()                                      # phase 11
     smoke.batch()                                                # phase 12
+    smoke.value_fleet()                                          # phase 13
 
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
-    print(json.dumps({"kernels": smoke.rows}), flush=True)       # phase 13
+    print(json.dumps({"kernels": smoke.rows}), flush=True)       # phase 14
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -38,7 +38,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 
-from .formats import CSR
+from .formats import CSR, memo_on_versions
 from .plan import cache_lookup, cache_store, structure_key
 from .recipe import aggregate_stats, choose_algorithm_from_stats, \
     measure_stats
@@ -54,14 +54,10 @@ _HASH_BINS = 8
 
 def _host_nnz(a: CSR) -> int:
     """``int(a.nnz)``, read from the device once per CSR instance and
-    memoized on it, as the structure digest is: a serving loop that
-    re-executes the same fleet objects pays one read per operand, not one
-    per call."""
-    cached = a.__dict__.get("_host_nnz")
-    if cached is None:
-        cached = int(a.nnz)
-        object.__setattr__(a, "_host_nnz", cached)
-    return cached
+    memoized on it until ``nnz`` is written in place, as the structure
+    digest is: a serving loop that re-executes the same fleet objects pays
+    one read per operand, not one per call."""
+    return memo_on_versions(a, "_host_nnz", (a.nnz,), lambda: int(a.nnz))
 
 
 def _pad_csr(a: CSR, n_rows: int, n_cols: int, cap: int) -> CSR:
@@ -325,7 +321,8 @@ class BatchedPlan:
     def check_structure(self, pairs: Sequence[Tuple[CSR, CSR]]) -> None:
         """Cheap shapes/caps/nnz check of every member against the plan.
         Shapes and caps are static; each operand's ``nnz`` is read from the
-        device once per CSR instance (:func:`_host_nnz`)."""
+        device once per CSR instance, and again after a write in place
+        (:func:`_host_nnz`)."""
         assert len(pairs) == self.n_products, \
             f"plan is for {self.n_products} products, got {len(pairs)}"
         for i, (a, b) in enumerate(pairs):

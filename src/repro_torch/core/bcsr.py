@@ -27,24 +27,23 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from .formats import BCSR
+from .formats import BCSR, memo_on_versions
 from .plan import cache_lookup, cache_store
 
 
 def bcsr_structure_key(a: BCSR) -> bytes:
     """Digest of a BCSR's block structure (pattern and static layout), not
     its values; the bytes hashed are the reference's, so both packages key
-    a structure alike.  Memoized on the frozen instance."""
-    cached = a.__dict__.get("_structure_digest")
-    if cached is not None:
-        return cached
-    h = hashlib.blake2b(digest_size=16)
-    h.update(repr((a.shape, a.block, a.bcap, int(a.nnzb))).encode())
-    h.update(a.indptr.cpu().numpy().astype(np.int32).tobytes())
-    h.update(a.indices.cpu().numpy().astype(np.int32).tobytes())
-    digest = h.digest()
-    object.__setattr__(a, "_structure_digest", digest)
-    return digest
+    a structure alike.  Memoized on the instance until ``indptr``,
+    ``indices`` or ``nnzb`` is written in place."""
+    def digest():
+        h = hashlib.blake2b(digest_size=16)
+        h.update(repr((a.shape, a.block, a.bcap, int(a.nnzb))).encode())
+        h.update(a.indptr.cpu().numpy().astype(np.int32).tobytes())
+        h.update(a.indices.cpu().numpy().astype(np.int32).tobytes())
+        return h.digest()
+    return memo_on_versions(a, "_structure_digest",
+                            (a.indptr, a.indices, a.nnzb), digest)
 
 
 @dataclass(frozen=True)

@@ -50,6 +50,23 @@ def lexsort(keys) -> torch.Tensor:
     return order
 
 
+def memo_on_versions(obj, name: str, tensors, compute):
+    """``compute()``, memoized on the frozen instance ``obj`` under
+    ``name`` and keyed on the version counters of ``tensors``, the arrays
+    ``compute`` reads: a write in place bumps a counter, so the value is
+    computed again.  Reading a counter is host work and needs no sync.
+    An inference tensor has no counter: its part of the key is fixed, so
+    its value is memoized once per instance and a write in place to it is
+    not seen."""
+    stamp = tuple(None if t.is_inference() else t._version for t in tensors)
+    hit = obj.__dict__.get(name)
+    if hit is not None and hit[0] == stamp:
+        return hit[1]
+    value = compute()
+    object.__setattr__(obj, name, (stamp, value))
+    return value
+
+
 @dataclass(frozen=True)
 class CSR:
     """Compressed sparse rows with static capacity.
@@ -62,6 +79,15 @@ class CSR:
       shape:   static ``(n_rows, n_cols)``.
       sorted_cols: are column ids sorted within each row?  Part of the type,
         like Table 1's "Sortedness" column (the paper's C8 finding).
+
+    The tensors may be written in place.  What the package memoizes on an
+    instance (its structure digest, its host ``nnz``) is keyed on the
+    version counters of ``indptr``, ``indices`` and ``nnz``
+    (:func:`memo_on_versions`), so a write in place is seen and the next
+    ``plan_*`` call plans again.  Inference tensors (made under
+    ``torch.inference_mode()``) have no version counter: what is memoized
+    on them is computed once per instance, and a write in place to them is
+    not seen, so make a new instance after one.
     """
     indptr: torch.Tensor
     indices: torch.Tensor
@@ -260,6 +286,11 @@ class BCSR:
         partial last block row/column (storage padding, cropped by
         :meth:`to_dense`).
       block:   static ``(bm, bn)``.
+
+    As for :class:`CSR`, a write in place to ``indptr``, ``indices`` or
+    ``nnzb`` is seen: the structure digest memoized on the instance is
+    keyed on their version counters, and ``plan_bcsr`` plans again (not
+    for inference tensors, which have no counter).
     """
     indptr: torch.Tensor
     indices: torch.Tensor
@@ -348,8 +379,11 @@ class BCSR:
         dense = torch.zeros((gm, gn, bm, bn), dtype=self.dtype,
                             device=self.device)
         v = torch.where(self.valid_mask()[:, None, None], self.blocks, 0)
-        dense.index_put_((self.brow_ids().long(), self.indices.long()),
-                         v.to(self.dtype), accumulate=True)
+        # out of place: under torch.func.vmap the tiles may be batched
+        # while the zeros are not
+        dense = dense.index_put((self.brow_ids().long(),
+                                 self.indices.long()), v.to(self.dtype),
+                                accumulate=True)
         dense = dense.permute(0, 2, 1, 3).reshape(gm * bm, gn * bn)
         return dense[:self.shape[0], :self.shape[1]]
 

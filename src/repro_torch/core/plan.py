@@ -25,7 +25,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from .formats import CSR
+from .formats import CSR, memo_on_versions
 from .semiring import Semiring, resolve_semiring
 from . import schedule as sched
 from .spgemm import (_canon_mask, _check_mask, finalize, spgemm_dense,
@@ -35,17 +35,16 @@ from .spgemm import (_canon_mask, _check_mask, finalize, spgemm_dense,
 def structure_key(a: CSR) -> bytes:
     """Digest of a CSR's structure (pattern and static layout), not its
     values; the bytes hashed are the reference's, so both packages key a
-    structure alike.  Memoized on the frozen instance."""
-    cached = a.__dict__.get("_structure_digest")
-    if cached is not None:
-        return cached
-    h = hashlib.blake2b(digest_size=16)
-    h.update(repr((a.shape, a.cap, int(a.nnz), a.sorted_cols)).encode())
-    h.update(a.indptr.cpu().numpy().astype(np.int32).tobytes())
-    h.update(a.indices.cpu().numpy().astype(np.int32).tobytes())
-    digest = h.digest()
-    object.__setattr__(a, "_structure_digest", digest)
-    return digest
+    structure alike.  Memoized on the instance until ``indptr``,
+    ``indices`` or ``nnz`` is written in place."""
+    def digest():
+        h = hashlib.blake2b(digest_size=16)
+        h.update(repr((a.shape, a.cap, int(a.nnz), a.sorted_cols)).encode())
+        h.update(a.indptr.cpu().numpy().astype(np.int32).tobytes())
+        h.update(a.indices.cpu().numpy().astype(np.int32).tobytes())
+        return h.digest()
+    return memo_on_versions(a, "_structure_digest",
+                            (a.indptr, a.indices, a.nnz), digest)
 
 
 #: plan cache: key tuple -> plan, insertion-ordered, least recent first

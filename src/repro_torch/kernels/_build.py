@@ -109,3 +109,33 @@ def check_tensor(name, t, dtype, device) -> None:
     if t.device != device or t.dtype != dtype or not t.is_contiguous():
         raise ValueError(f"{name}: want a contiguous {dtype} tensor on "
                          f"{device}, got {t.dtype} on {t.device}")
+
+
+def member_stride(name, t, dim: int, n: int) -> int:
+    """Member stride of a batched kernel's argument: 0 when every member
+    shares it (``dim`` dimensions, read in place), else its leading stride
+    (``dim + 1`` dimensions, ``n`` members); raises ``ValueError``
+    otherwise."""
+    if t.dim() == dim:
+        return 0
+    if t.dim() == dim + 1 and t.shape[0] == n:
+        return t.stride(0)
+    raise ValueError(f"{name}: want {dim}-D (shared) or ({n}, ...) with "
+                     f"{dim + 1} dimensions, got {tuple(t.shape)}")
+
+
+def member_view(t, dim: int, e: int):
+    """Member ``e``'s view of a batched kernel's argument that has ``dim``
+    dimensions when shared (:func:`member_stride`)."""
+    return t[e] if t.dim() > dim else t
+
+
+def raise_on_errors(errors, what: str) -> None:
+    """Read a hash kernel's ``errors`` count back and raise if it is not
+    zero; ``what`` names the kernel."""
+    n = int(errors)
+    if n:
+        raise RuntimeError(
+            f"{what} kernel: {n} full-table probes or rows whose flushed "
+            f"count disagrees with indptr_c (table sizes or indptr_c do not "
+            f"fit these operands)")

@@ -12,9 +12,20 @@ static and per-bin table sizes, and the exact block row pointer of C.
 schedule=(offsets, bin_tsize), indptr_cb=...)`` then skips it, so a
 structure-identical repeat product runs the numeric kernel alone.
 
+Value fleets: the numeric phase goes through the custom op
+``repro_torch::spgemm_bcsr_numeric`` (:func:`numeric_op`), whose
+``register_vmap`` rule is the counterpart of the reference's
+``custom_vmap`` rule.  ``torch.func.vmap`` over a planned execute -- new
+tile values on one frozen block structure, DBCSR's repeated products --
+fires the rule once, and the rule runs the batched grid of ``kernel.py``
+over every member: a batched argument with its member stride, an
+unbatched one (the plan's integer arrays, a shared B) read in place.
+
 ``KERNEL_CALLS["symbolic"]`` counts inspections, ``numeric`` /
 ``numeric_vector`` the numeric kernel's launches and ``plain`` its plain
-version's runs; the hash symbolic launches of an inspection show in
+version's runs, ``batched_numeric`` / ``batched_numeric_vector`` the
+batched grid's launches and ``batched_plain`` its plain version's runs;
+the hash symbolic launches of an inspection show in
 ``repro_torch.kernels.spgemm_hash.ops.KERNEL_CALLS``.
 
 Rounding contract: one rounding per scalar product and per add, the
@@ -79,6 +90,40 @@ def bcsr_inspect(a: BCSR, b: BCSR, *, n_bins: int = 8, vector: bool = False,
     return flop, offsets, bin_tsize, table_size, row_nnzb, indptr_cb
 
 
+@torch.library.custom_op("repro_torch::spgemm_bcsr_numeric",
+                         mutates_args=())
+def numeric_op(offsets: torch.Tensor, bin_tsize: torch.Tensor,
+               indptr_a: torch.Tensor, indptr_b: torch.Tensor,
+               indptr_c: torch.Tensor, a_bcol: torch.Tensor,
+               a_blk: torch.Tensor, b_bcol: torch.Tensor,
+               b_blk: torch.Tensor, bcap_c: int, table_size: int,
+               vector: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`kernel.numeric_call` as a custom op, so that
+    ``torch.func.vmap`` reaches its rule (:func:`_numeric_vmap`); the
+    ``errors`` read-back stays inside."""
+    return K.numeric_call(offsets, bin_tsize, indptr_a, indptr_b, indptr_c,
+                          a_bcol, a_blk, b_bcol, b_blk, bcap_c=bcap_c,
+                          table_size=table_size, vector=vector)
+
+
+@numeric_op.register_vmap
+def _numeric_vmap(info, in_dims, offsets, bin_tsize, indptr_a, indptr_b,
+                  indptr_c, a_bcol, a_blk, b_bcol, b_blk, bcap_c,
+                  table_size, vector):
+    """The batched grid over ``info.batch_size`` members, once per
+    vmapped call: each batched argument with its member axis moved to the
+    front, each unbatched one as it is (member stride 0, never expanded
+    into a copy per member, where the reference's rule broadcasts)."""
+    args = [t if d is None else t.movedim(d, 0).contiguous()
+            for t, d in zip((offsets, bin_tsize, indptr_a, indptr_b,
+                             indptr_c, a_bcol, a_blk, b_bcol, b_blk),
+                            in_dims)]
+    out = K.batched_numeric_call(*args, n_members=info.batch_size,
+                                 bcap_c=bcap_c, table_size=table_size,
+                                 vector=vector)
+    return out, (0, 0)
+
+
 def spgemm_bcsr(a: BCSR, b: BCSR, bcap_c: int, *, n_bins: int = 8,
                 vector: bool = False, table_size: int | None = None,
                 schedule=None, indptr_cb: torch.Tensor | None = None) -> BCSR:
@@ -86,7 +131,9 @@ def spgemm_bcsr(a: BCSR, b: BCSR, bcap_c: int, *, n_bins: int = 8,
 
     ``schedule=(offsets, bin_tsize)`` with ``indptr_cb=`` (both from
     :func:`bcsr_inspect`, with its static ``table_size``) skips the
-    inspection: the planned execute runs the numeric kernel alone.
+    inspection: the planned execute runs the numeric kernel alone, and
+    runs under ``torch.func.vmap`` over the tiles of A, of B or both (the
+    batched grid).
     """
     bm, bk = a.block
     bk2, bn = b.block
@@ -105,11 +152,12 @@ def spgemm_bcsr(a: BCSR, b: BCSR, bcap_c: int, *, n_bins: int = 8,
             raise ValueError("a precomputed schedule needs its static "
                              "table_size")
         table_size = max(table_size, HK.CHUNK)
-    bcols_c, blocks_c = K.numeric_call(
+    bcols_c, blocks_c = numeric_op(
         offsets, bin_tsize, a.indptr, b.indptr, indptr_cb, a.indices,
         a.blocks.to(torch.float32), b.indices, b.blocks.to(torch.float32),
-        bcap_c=bcap_c, table_size=table_size, vector=vector)
-    # the valid-tail mask: slots past nnzb(C) are zero
+        bcap_c, table_size, vector)
+    # the valid-tail mask: slots past nnzb(C) are zero (indptr_cb is the
+    # structure's, never batched, so the host read is one value)
     nnzb_c = indptr_cb[-1]
     live = int(nnzb_c)
     bcols_c[live:] = 0

@@ -11,6 +11,10 @@ sorted block-column order with a zero tail.  The per-bin table sizes only
 shape the kernel's internal layout, so the plain version accepts and
 ignores them.
 
+:func:`batched_numeric_plain` is the batched kernel's function: the same
+for every member of a fleet, each argument stacked along a member axis or
+shared by all members.
+
 The kernel's contract: each block row holds the right {bcol: tile} set in
 *some* order (hash order, C8).  ``index_add_`` adds in expansion order on
 the CPU, the kernel's order; on the card it adds with atomics in some
@@ -22,8 +26,9 @@ from __future__ import annotations
 
 import torch
 
-_COL_BITS = 31
+from .._build import member_view
 
+_COL_BITS = 31
 
 def _expand_pairs(indptr_a, indptr_b, a_bcol, b_bcol):
     """``(key, j, t)`` of every block pair of ``A @ B`` in A-slot order."""
@@ -90,6 +95,29 @@ def numeric_plain(offsets, bin_tsize, indptr_a, indptr_b, indptr_c, a_bcol,
     out_bcol[pos[keep]] = (ukey[keep] & ((1 << _COL_BITS) - 1)).to(
         torch.int32)
     out_blk[pos[keep]] = tiles[keep]
+    return out_bcol, out_blk
+
+
+def batched_numeric_plain(offsets, bin_tsize, indptr_a, indptr_b,
+                          indptr_c, a_bcol, a_blk, b_bcol, b_blk, *,
+                          n_members, bcap_c, table_size, vector):
+    """:func:`numeric_plain` of each of ``n_members`` members:
+    ``(out_bcol (n, bcap_c) int32, out_blk (n, bcap_c, bm, bn) float32)``.
+    Each argument is stacked along a leading member axis or has
+    :func:`numeric_plain`'s shape and is shared (an integer array 1-D, a
+    tile array 3-D)."""
+    args = (offsets, bin_tsize, indptr_a, indptr_b, indptr_c, a_bcol, a_blk,
+            b_bcol, b_blk)
+    dev = a_bcol.device
+    bm, bn = a_blk.shape[-2], b_blk.shape[-1]
+    out_bcol = torch.zeros(n_members, bcap_c, dtype=torch.int32, device=dev)
+    out_blk = torch.zeros((n_members, bcap_c, bm, bn), dtype=torch.float32,
+                          device=dev)
+    for e in range(n_members):
+        out_bcol[e], out_blk[e] = numeric_plain(
+            *(member_view(t, 3 if t.is_floating_point() else 1, e)
+              for t in args),
+            bcap_c=bcap_c, table_size=table_size, vector=vector)
     return out_bcol, out_blk
 
 

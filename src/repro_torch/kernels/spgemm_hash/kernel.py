@@ -121,15 +121,6 @@ def _launch_bins(numeric, vector, offsets, bin_tsize, table_size, indptr_a,
                                f"CUDA error {err}")
 
 
-def _raise_on_errors(errors: torch.Tensor, what: str) -> None:
-    n = int(errors)
-    if n:
-        raise RuntimeError(
-            f"spgemm_hash {what} kernel: {n} full-table probes or rows whose "
-            f"flushed count disagrees with indptr_c (table sizes or "
-            f"indptr_c do not fit these operands)")
-
-
 def symbolic_call(offsets, bin_tsize, indptr_a, indptr_b, a_idx, a_val,
                   b_idx, b_val, *, table_size: int, vector: bool,
                   errors: torch.Tensor | None = None) -> torch.Tensor:
@@ -156,7 +147,7 @@ def symbolic_call(offsets, bin_tsize, indptr_a, indptr_b, a_idx, a_val,
                  row_nnz, errors)
     KERNEL_CALLS["symbolic_vector" if vector else "symbolic"] += 1
     if own:
-        _raise_on_errors(errors, "symbolic")
+        _build.raise_on_errors(errors, "spgemm_hash symbolic")
     return row_nnz
 
 
@@ -189,22 +180,24 @@ def numeric_call(offsets, bin_tsize, indptr_a, indptr_b, indptr_c, a_idx,
                  out_vals, None, errors)
     KERNEL_CALLS["numeric_vector" if vector else "numeric"] += 1
     if own:
-        _raise_on_errors(errors, "numeric")
+        _build.raise_on_errors(errors, "spgemm_hash numeric")
     return out_cols, out_vals
 
 
 def batched_launches(bounds, sizes, table_size: int, n_rows: int,
-                     vector: bool) -> list:
-    """The launches of the batched numeric kernel, from the fleet's bins as
+                     vector: bool, *, smem_slots: int = SMEM_SLOTS) -> list:
+    """The launches of a batched numeric kernel, from the fleet's bins as
     host lists: ``bounds[e]`` is member e's bin offsets, ``sizes[e]`` its
     per-bin table sizes.
 
     Returns one ``{"bin", "grid_x", "block", "smem_slots", "ws_tsz"}`` per
     bin index that holds rows in any member.  Member e of bin b probes
     ``min(sizes[e][b], table_size)`` slots: shared memory holds the largest
-    such table up to :data:`SMEM_SLOTS` (``smem_slots``), and the members
-    with larger tables use a global workspace of ``ws_tsz`` slots per
-    member and x block.  Without a workspace there is one x block per row
+    such table up to ``smem_slots`` (:data:`SMEM_SLOTS` for this module's
+    kernel; the BCSR kernel passes what its tiles leave room for), and the
+    members with larger tables use a global workspace of ``ws_tsz`` slots
+    per member and x block.  ``block`` is this module's kernel's thread
+    count.  Without a workspace there is one x block per row
     of the member with the most rows in the bin; with one, the x blocks
     are capped so that ``grid_x * n_members <= GLOBAL_BLOCKS`` (at least
     one per member), which bounds the workspace as the single-product
@@ -235,7 +228,7 @@ def batched_launches(bounds, sizes, table_size: int, n_rows: int,
                     f"member {e}, bin {b}: table size {tsz} is not a power "
                     f"of two{' >= CHUNK' if vector else ''}")
             rows = max(rows, r1 - r0)
-            if tsz <= SMEM_SLOTS:
+            if tsz <= smem_slots:
                 smem = max(smem, tsz)
             else:
                 ws = max(ws, tsz)
@@ -289,10 +282,7 @@ def batched_numeric_call(offsets, bin_tsize, indptr_a, indptr_b, indptr_c,
                            ("b_idx", b_idx, torch.int32),
                            ("b_val", b_val, torch.float32)):
         _build.check_tensor(name, t, dtype, dev)
-        if not (t.dim() == 1 or (t.dim() == 2 and t.shape[0] == n)):
-            raise ValueError(f"{name}: want 1-D (shared) or ({n}, ...), "
-                             f"got {tuple(t.shape)}")
-        strides[name] = t.stride(0) if t.dim() == 2 else 0
+        strides[name] = _build.member_stride(name, t, 1, n)
     if a_val.shape != a_idx.shape or b_val.shape != b_idx.shape:
         raise ValueError("values and column ids of an operand differ in "
                          "shape")
@@ -332,5 +322,5 @@ def batched_numeric_call(offsets, bin_tsize, indptr_a, indptr_b, indptr_c,
                                f"{launch['bin']}: CUDA error {err}")
         KERNEL_CALLS[key] += 1
     if own:
-        _raise_on_errors(errors, "batched numeric")
+        _build.raise_on_errors(errors, "spgemm_hash batched numeric")
     return out_cols, out_vals

@@ -131,7 +131,9 @@ def spgemm_hash_batched(a: CSR, b: CSR, cap_c: int, *, vector: bool,
     numeric kernel: ``(cols, vals)``, each ``(n, cap_c)``, vals float32.
 
     The counterpart of the reference's ``_numeric_entry`` vmap rule, as a
-    plain function over stacked members (torch has no ``custom_vmap``).
+    plain function over stacked members: ``core.batch`` stacks its class
+    members itself and calls it directly, not through ``torch.func.vmap``
+    (the BCSR route's ``register_vmap`` rule shows the vmap form).
     ``a`` and ``b`` are stacked CSRs, every array with a leading member
     axis (``core.batch._stack_csr``), or plain CSRs that all members share:
     a shared operand goes to the kernel as it is, with member stride 0,

@@ -20,6 +20,8 @@ from __future__ import annotations
 
 import torch
 
+from .._build import member_view
+
 _COL_BITS = 31
 
 
@@ -104,15 +106,12 @@ def batched_numeric_plain(offsets, bin_tsize, indptr_a, indptr_b, indptr_c,
     dev = a_idx.device
     out_cols = torch.zeros(n, cap_c, dtype=torch.int32, device=dev)
     out_vals = torch.zeros(n, cap_c, dtype=torch.float32, device=dev)
-
-    def member(t, e):
-        return t[e] if t.dim() == 2 else t
-
     for e in range(n):
         out_cols[e], out_vals[e] = numeric_plain(
-            offsets[e], bin_tsize[e], member(indptr_a, e),
-            member(indptr_b, e), indptr_c[e], member(a_idx, e),
-            member(a_val, e), member(b_idx, e), member(b_val, e),
+            offsets[e], bin_tsize[e], member_view(indptr_a, 1, e),
+            member_view(indptr_b, 1, e), indptr_c[e],
+            member_view(a_idx, 1, e), member_view(a_val, 1, e),
+            member_view(b_idx, 1, e), member_view(b_val, 1, e),
             cap_c=cap_c, table_size=table_size, vector=vector)
     return out_cols, out_vals
 

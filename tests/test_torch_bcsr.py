@@ -354,7 +354,10 @@ def test_vector_variant_matches_scalar_and_scipy(case):
     tops.reset_kernel_calls()
     cv = vector.execute(ta, tb)
     assert tops.kernel_call_counts() == {"symbolic": 0, "numeric": 0,
-                                         "numeric_vector": 0, "plain": 1}
+                                         "numeric_vector": 0, "plain": 1,
+                                         "batched_numeric": 0,
+                                         "batched_numeric_vector": 0,
+                                         "batched_plain": 0}
     cs = scalar.execute(ta, tb)
     for f in BCSR_FIELDS:
         assert torch.equal(getattr(cv, f), getattr(cs, f)), f
@@ -406,7 +409,10 @@ def test_repeat_execute_zero_reinspection_and_cache_kind():
     for _ in range(3):
         p1.execute(ta, tb)
     assert tops.kernel_call_counts() == {"symbolic": 0, "numeric": 0,
-                                         "numeric_vector": 0, "plain": 3}
+                                         "numeric_vector": 0, "plain": 3,
+                                         "batched_numeric": 0,
+                                         "batched_numeric_vector": 0,
+                                         "batched_plain": 0}
     assert set(thash_ops.kernel_call_counts().values()) == {0}
     fewer = T.BCSR(ta.indptr, ta.indices, ta.blocks, ta.nnzb - 1,
                    ta.shape, ta.block)

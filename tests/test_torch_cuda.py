@@ -300,7 +300,9 @@ def test_bcsr_global_memory_table(cuda, vector):
     key = "numeric_vector" if vector else "numeric"
     assert bops.kernel_call_counts() == {"symbolic": 0, "numeric": 0,
                                          "numeric_vector": 0, "plain": 0,
-                                         key: 1}
+                                         "batched_numeric": 0,
+                                         "batched_numeric_vector": 0,
+                                         "batched_plain": 0, key: 1}
     check_bcsr(a, b, plan, c.indices, c.blocks, True)
 
 
@@ -346,7 +348,10 @@ def test_bcsr_planned_execute_launches_only_the_kernel(cuda):
     c = plan.execute(a, a)
     torch.cuda.synchronize()
     assert bops.kernel_call_counts() == {"symbolic": 0, "numeric": 1,
-                                         "numeric_vector": 0, "plain": 0}
+                                         "numeric_vector": 0, "plain": 0,
+                                         "batched_numeric": 0,
+                                         "batched_numeric_vector": 0,
+                                         "batched_plain": 0}
     assert set(ops.kernel_call_counts().values()) == {0}
     h = plan_spgemm(a, a, algorithm="hash", cache=False).execute(
         a, a, sorted_output=True)
@@ -426,6 +431,185 @@ def test_plan_spgemm_bcsr_64x64_matches_plain_version(cuda):
         a, a, sorted_output=True)
     assert torch.equal(c.indptr, h.indptr) and torch.equal(c.indices,
                                                            h.indices)
+
+
+def bcsr_value_fleet(cuda, g, bm, bk, bn, density, n, seed, dyadic):
+    """A BCSR A and B on the card, ``plan_bcsr``'s operands, and ``n``
+    members of new values on A's tiles (A's pattern kept)."""
+    a = block_operand(g, g, bm, bk, density, seed, cuda, dyadic)
+    b = block_operand(g, g, bk, bn, density, seed + 1, cuda, dyadic)
+    rng = np.random.default_rng(seed + 2)
+    shape = (n,) + tuple(a.blocks.shape)
+    vals = rng.choice(DYADIC, size=shape) if dyadic else \
+        rng.uniform(0.5, 1.5, size=shape)
+    stack = torch.from_numpy(vals.astype(np.float32)).to(cuda)
+    return a, b, stack * (a.blocks != 0)
+
+
+def check_bcsr_fleet(a, b, plan, bcol, blk, pc, pb, dyadic):
+    """Each member's kernel output against the batched plain version's:
+    block columns per row bitwise after a per-row sort, tiles bitwise on
+    dyadic values, else within (block pairs x bk) ulp."""
+    from repro_torch.kernels.spgemm_bcsr import ref as bref
+    k = bref.products_per_block(a.indptr, b.indptr, plan.indptr_cb,
+                                a.indices, b.indices, plan.bcap_c)
+    for e in range(bcol.shape[0]):
+        sc, sb = bref.sort_block_rows(plan.indptr_cb, bcol[e], blk[e])
+        assert torch.equal(sc, pc[e]), e
+        if dyadic:
+            assert torch.equal(sb, pb[e]), e
+            continue
+        ulp = torch.nextafter(pb[e].abs(), torch.full_like(
+            pb[e], float("inf"))) - pb[e].abs()
+        bound = (k * a.block[1])[:, None, None] * ulp
+        assert bool(((sb - pb[e]).abs() <= bound).all()), e
+
+
+BCSR_FLEET_CASES = [(8, 8, 8, 48, 0.2, True), (8, 8, 8, 48, 0.2, False),
+                    (2, 3, 4, 40, 0.2, True), (64, 64, 64, 4, 0.6, False)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("vector", (False, True))
+@pytest.mark.parametrize("case", BCSR_FLEET_CASES,
+                         ids=lambda c: f"{c[0]}x{c[1]}x{c[2]}-{c[5]}")
+def test_bcsr_batched_kernel_matches_plain_version(cuda, case, vector):
+    """The batched block kernel (A's tiles stacked, everything else shared)
+    against ``batched_numeric_plain``, shared-memory tables (64x64 tiles:
+    global), one launch per bin index holding rows."""
+    from repro_torch.core import plan_bcsr
+    from repro_torch.kernels.spgemm_bcsr import kernel as BK
+    from repro_torch.kernels.spgemm_bcsr import ops as bops
+    from repro_torch.kernels.spgemm_bcsr import ref as bref
+    bm, bk, bn, g, density, dyadic = case
+    a, b, stack = bcsr_value_fleet(cuda, g, bm, bk, bn, density, 3, 30,
+                                   dyadic)
+    plan = plan_bcsr(a, b, vector=vector, cache=False)
+    args = (plan.offsets, plan.bin_tsize, a.indptr, b.indptr,
+            plan.indptr_cb, a.indices, stack, b.indices, b.blocks)
+    kw = dict(n_members=3, bcap_c=plan.bcap_c, table_size=plan.table_size,
+              vector=vector)
+    launches = BK.launch_list(plan.offsets, plan.bin_tsize, n_members=3,
+                              n_rows=a.grid[0], table_size=plan.table_size,
+                              tile=bm * bn, vector=vector)
+    bops.reset_kernel_calls()
+    errors = torch.zeros(1, dtype=torch.int32, device=cuda)
+    bcol, blk = BK.batched_numeric_call(*args, **kw, errors=errors)
+    torch.cuda.synchronize()
+    assert int(errors) == 0
+    key = "batched_numeric_vector" if vector else "batched_numeric"
+    counts = bops.kernel_call_counts()
+    assert counts.pop(key) == len(launches) > 0
+    assert set(counts.values()) == {0}
+    pc, pb = bref.batched_numeric_plain(*args, **kw)
+    check_bcsr_fleet(a, b, plan, bcol, blk, pc, pb, dyadic)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("vector", (False, True))
+def test_bcsr_batched_kernel_global_memory_table(cuda, vector):
+    """Members whose one block row needs a 1,024-slot table of 8x8 tiles
+    (past the shared-memory budget): the workspace per member and x
+    block, members not trampling each other."""
+    from repro_torch.core import BCSR, plan_bcsr
+    from repro_torch.kernels.spgemm_bcsr import kernel as BK
+    from repro_torch.kernels.spgemm_bcsr import ref as bref
+    rng = np.random.default_rng(31)
+    a = BCSR.from_dense(torch.from_numpy(rng.choice(DYADIC, (16, 8)).astype(
+        np.float32)).to(cuda), (8, 8))
+    b = BCSR.from_dense(torch.from_numpy(rng.choice(DYADIC, (8, 8 * 700))
+                                         .astype(np.float32)).to(cuda),
+                        (8, 8))
+    plan = plan_bcsr(a, b, vector=vector, cache=False)
+    assert plan.table_size * 4 * (1 + 64) > BK.SMEM_BUDGET
+    stack = torch.from_numpy(rng.choice(DYADIC, (4,) + tuple(
+        a.blocks.shape)).astype(np.float32)).to(cuda)
+    args = (plan.offsets, plan.bin_tsize, a.indptr, b.indptr,
+            plan.indptr_cb, a.indices, stack, b.indices, b.blocks)
+    kw = dict(n_members=4, bcap_c=plan.bcap_c, table_size=plan.table_size,
+              vector=vector)
+    launches = BK.launch_list(plan.offsets, plan.bin_tsize, n_members=4,
+                              n_rows=a.grid[0], table_size=plan.table_size,
+                              tile=64, vector=vector)
+    assert all(x["ws_tsz"] for x in launches)
+    bcol, blk = BK.batched_numeric_call(*args, **kw)
+    pc, pb = bref.batched_numeric_plain(*args, **kw)
+    check_bcsr_fleet(a, b, plan, bcol, blk, pc, pb, True)
+
+
+@pytest.mark.gpu
+def test_bcsr_batched_shared_operand_equals_stacked_copy(cuda):
+    """An operand passed once (member stride 0) and the same operand
+    stacked per member give identical bits, raw (unsorted) outputs
+    included: the probe order and every sum are the same."""
+    from repro_torch.core import plan_bcsr
+    from repro_torch.kernels.spgemm_bcsr import kernel as BK
+    a, b, stack = bcsr_value_fleet(cuda, 40, 8, 8, 8, 0.2, 3, 32, False)
+    plan = plan_bcsr(a, b, cache=False)
+    shared = [plan.offsets, plan.bin_tsize, a.indptr, b.indptr,
+              plan.indptr_cb, a.indices, stack, b.indices, b.blocks]
+    stacked = [t if i == 6 else torch.stack([t] * 3).contiguous()
+               for i, t in enumerate(shared)]
+    kw = dict(n_members=3, bcap_c=plan.bcap_c, table_size=plan.table_size,
+              vector=False)
+    c1, b1 = BK.batched_numeric_call(*shared, **kw)
+    c2, b2 = BK.batched_numeric_call(*stacked, **kw)
+    assert torch.equal(c1, c2) and torch.equal(b1, b2)
+    for e in range(3):
+        c, blk = BK.numeric_call(*shared[:6], stack[e], *shared[7:],
+                                 bcap_c=plan.bcap_c,
+                                 table_size=plan.table_size, vector=False)
+        assert torch.equal(c1[e], c) and torch.equal(b1[e], blk)
+
+
+@pytest.mark.gpu
+def test_bcsr_vmap_execute_launches_only_the_batched_kernel(cuda):
+    """``torch.func.vmap`` of ``BCSRPlan.execute`` over A's tiles on CUDA:
+    the rule's batched launches and nothing else, each member bitwise
+    equal to its own execute (the row code is the same)."""
+    import dataclasses
+    from repro_torch.core import plan_bcsr
+    from repro_torch.kernels.spgemm_bcsr import kernel as BK
+    from repro_torch.kernels.spgemm_bcsr import ops as bops
+    a, b, stack = bcsr_value_fleet(cuda, 48, 8, 8, 8, 0.2, 4, 33, False)
+    plan = plan_bcsr(a, b, cache=False)
+
+    def one(x):
+        c = plan.execute(dataclasses.replace(a, blocks=x), b)
+        return c.indices, c.blocks
+
+    bops.reset_kernel_calls()
+    bcol, blk = torch.func.vmap(one)(stack)
+    torch.cuda.synchronize()
+    counts = bops.kernel_call_counts()
+    want = len(BK.launch_list(plan.offsets, plan.bin_tsize, n_members=4,
+                              n_rows=a.grid[0], table_size=plan.table_size,
+                              tile=64, vector=False))
+    assert counts.pop("batched_numeric") == want > 0
+    assert set(counts.values()) == {0}
+    for e in range(4):
+        c = plan.execute(dataclasses.replace(a, blocks=stack[e]), b)
+        assert torch.equal(bcol[e], c.indices)
+        assert torch.equal(blk[e], c.blocks)
+
+
+@pytest.mark.gpu
+def test_bcsr_vmap_table_too_small_raises(cuda):
+    """Tables of 8 slots for block rows of more block columns: the op
+    raises under vmap, from the batched kernel's error count."""
+    from repro_torch.core import plan_bcsr
+    from repro_torch.kernels.spgemm_bcsr import ops as bops
+    a, b, stack = bcsr_value_fleet(cuda, 24, 8, 8, 8, 0.3, 2, 34, True)
+    plan = plan_bcsr(a, b, cache=False)
+    small = torch.full_like(plan.bin_tsize, 8)
+
+    def one(x):
+        return bops.numeric_op(plan.offsets, small, a.indptr, b.indptr,
+                               plan.indptr_cb, a.indices, x, b.indices,
+                               b.blocks, plan.bcap_c, 8, False)
+
+    with pytest.raises(RuntimeError, match="full-table"):
+        torch.func.vmap(one)(stack)
 
 
 def spmm_operand(cuda, skewed=False, seed=21):
