@@ -5,8 +5,8 @@ Drives the port's main path -- the planned hash SpGEMM of the paper --
 through the entry points a user calls, at the paper's own input sizes
 (R-MAT, edge factor 16, squared: ER at scale 18 and G500 at scale 16,
 seed 0), then the sorted-output (PB) and block-sparse (BCSR) routes, SpMM,
-the paper's graph workloads, the batched fleet planner and BCSR value
-fleets under ``torch.func.vmap``, and holds every hand-written kernel
+the paper's graph workloads, the batched fleet planner and BCSR and PB
+value fleets under ``torch.func.vmap``, and holds every hand-written kernel
 against its plain PyTorch version.
 Phases; any failure exits non-zero:
 
@@ -35,7 +35,8 @@ Phases; any failure exits non-zero:
      cache.  The output is row-sorted, its structure bitwise equal to the
      sorted hash route's, its values bitwise equal to the plain versions on
      dyadic values and within 1 ulp per accumulated product otherwise;
-     then the same timings as phase 5;
+     then the same timings as phase 5, and each kernel again through its
+     custom op (``scatter_op``, ``merge_op``: the op's own cost);
   7. block-sparse products (BCSR, 8x8 tiles): an R-MAT pattern over the
      block grid with every occupied tile dense -- ER at scale 13 (n =
      65,536, 65,501 tiles, table in shared memory) and G500 at scale 10
@@ -105,7 +106,22 @@ Phases; any failure exits non-zero:
      device time), a per-member execute loop, the batched plain version
      and a loop of ``torch.sparse.mm`` over the members' flattened CSRs,
      beside the byte bound;
- 14. one ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``.
+ 14. PB value fleets (run right after phase 6, on its input): ``torch.func.
+     vmap`` of the ER s18 sorted plan's ``PBPlan.execute`` over 8 members
+     of A's values against a shared dyadic B, over 4 members with A's and
+     B's values batched, and of ``plan_spgemm(a, a, sorted_output=True)
+     .execute`` (which must choose ``pb`` by itself) over 8 members of A's;
+     a dyadic and a uniform fleet each.  Each vmapped call must run the
+     ops' vmap rules -- one batched scatter and one batched merge launch --
+     and nothing else; C's structure bitwise the plan's; every member
+     bitwise equal to the single-product execute; the batched kernels
+     against the batched plain versions (scatter bitwise, merge bitwise on
+     dyadic values, else within 1 ulp per product).  Timings: the vmapped
+     execute, each batched kernel, the single-product kernels once per
+     member, the per-member execute loop, the batched plain versions and a
+     loop of ``torch.sparse.mm`` per member, beside the byte bound (shared
+     index arrays counted once);
+ 15. one ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``.
 
 Usage: ``python3 chip_smoke.py`` (one card, no arguments).  A quick first
 check of a changed kernel at small sizes is
@@ -161,6 +177,8 @@ FLEET_PRODUCTS, FLEET_SCALE = 64, 10
 #: A batched on the ER pattern, A and B batched, the G500 pattern, 64x64
 FLEET_MEMBERS, FLEET_MEMBERS_BOTH, FLEET_MEMBERS_G500 = 8, 4, 4
 FLEET_MEMBERS_LARGE = 4
+#: PB value fleets on the ER s18 sorted plan: A batched, A and B batched
+PB_FLEET_MEMBERS, PB_FLEET_MEMBERS_BOTH = 8, 4
 
 KERNEL_SOURCE = "src/repro_torch/kernels/spgemm_hash/csrc/spgemm_hash.cu"
 PB_SOURCE = "src/repro_torch/kernels/spgemm_pb/csrc/spgemm_pb.cu"
@@ -176,6 +194,8 @@ REPLACES = {
     "spmm": "src/repro/kernels/spmm/kernel.py:44",
     "batched": "src/repro/kernels/spgemm_hash/kernel.py:413",
     "bcsr_batched": "src/repro/kernels/spgemm_bcsr/kernel.py:215",
+    "batched_scatter": "src/repro/kernels/spgemm_pb/kernel.py:179",
+    "batched_merge": "src/repro/kernels/spgemm_pb/kernel.py:220",
 }
 #: the vector rows replace the chunked probe the Pallas kernels share
 REPLACES["bcsr_numeric_vector"] = REPLACES["numeric_vector"]
@@ -313,7 +333,8 @@ class Smoke:
         """Launch counts of one path: ``want``'s kernels as many times as
         it says, every other counter (plain versions included) zero."""
         plain = counts["plain"] + counts["pb_plain"] + counts["bcsr_plain"] \
-            + counts["bcsr_batched_plain"] + counts["spmm_plain"]
+            + counts["bcsr_batched_plain"] + counts["pb_batched_plain"] \
+            + counts["spmm_plain"]
         check(plain == 0, f"{what}: ran a plain version {plain} times")
         check(counts == {k: want.get(k, 0) for k in counts},
               f"{what}: launches {counts}, want {want}")
@@ -642,6 +663,11 @@ class Smoke:
                  p.bucket_nnz, p.src_a, p.src_b, a.data, a.data)),
              "merge": self.time_ms(lambda: PK.merge_call(
                  p.bucket_nnz, p.seg, pp, p.cap_c)),
+             # the same launches through the custom ops (their own cost)
+             "scatter_op": self.time_ms(lambda: self.pb_ops.scatter_op(
+                 p.bucket_nnz, p.src_a, p.src_b, a.data, a.data)),
+             "merge_op": self.time_ms(lambda: self.pb_ops.merge_op(
+                 p.bucket_nnz, p.seg, pp, p.cap_c)),
              "plain_scatter": self.time_ms(lambda: pb_ref.scatter_plain(
                  p.bucket_nnz, p.src_a, p.src_b, a.data, a.data)),
              "plain_merge": self.time_ms(lambda: pb_ref.merge_plain(
@@ -667,6 +693,216 @@ class Smoke:
                 flop / FP32_FLOP_PER_S else "operations",
                 "library_ms": t["torch_sparse_mm"]})
         del plan, plan_h, p, c, c_d, c_h, pp, out, again
+        core.clear_plan_cache()
+        torch.cuda.empty_cache()
+
+
+    # ---- phase 14 ----------------------------------------------------------
+    def csr_fleet(self, a, n, seed, dyadic):
+        """``n`` members of new values on ``a``'s pattern, ``(n, cap)``
+        float32, zero past nnz, from a seeded numpy generator: dyadic, or
+        uniform in [0.5, 1.5)."""
+        torch = self.torch
+        rng = np.random.default_rng(seed)
+        shape = (n, a.cap)
+        vals = (np.asarray(DYADIC, np.float32)[rng.integers(0, 4, shape)]
+                if dyadic else rng.uniform(0.5, 1.5, shape).astype(np.float32))
+        live = torch.arange(a.cap, device=self.dev) < a.nnz
+        return torch.from_numpy(vals).to(self.dev) * live
+
+    def pb_fleet_case(self, label, a, execute, p, cases):
+        """One value-fleet case of phase 14: ``torch.func.vmap`` of
+        ``execute`` (a plan's, on ``p``'s structure; the product is A·A)
+        over the members' values (``cases``: ``(values, xa, xb)``, a
+        ``(n, cap)`` stack or a shared vector), launching the batched
+        scatter and merge once each and nothing else; C's structure, the
+        batched kernels against the batched plain versions, each member
+        against the single-product execute; then the timings of the uniform
+        fleet (``loop_scatter``/``loop_merge``: the single-product kernels
+        launched once per member)."""
+        import dataclasses
+        torch, PK, pb_ref = self.torch, self.PK, self.pb_ref
+
+        def one(x, y):
+            c = execute(dataclasses.replace(a, data=x),
+                        dataclasses.replace(a, data=y))
+            return c.indptr, c.indices, c.data
+
+        def vmapped(xa, xb):
+            dims = (0 if xa.dim() == 2 else None, 0 if xb.dim() == 2 else None)
+            return torch.func.vmap(one, in_dims=dims)(xa, xb)
+
+        def member(x, e):
+            return x[e] if x.dim() == 2 else x
+
+        n = max(x.shape[0] for _, xa, xb in cases for x in (xa, xb)
+                if x.dim() == 2)
+        arrays = (p.bucket_nnz, p.src_a, p.src_b)
+        live = torch.arange(p.bucket_cap, device=self.dev)[None, :] < \
+            p.bucket_nnz[:, None]
+        counts_pp = torch.bincount(p.seg[live].long(),
+                                   minlength=p.cap_c).float()
+        del live
+        err = {"batched_scatter": 0.0, "batched_merge": 0.0}
+        launches = {}
+        for values, xa, xb in cases:
+            what = f"{label} ({values})"
+            (ip, cols, data), counts = self.counted(lambda: vmapped(xa, xb))
+            self.expect(counts, {"pb_batched_scatter": 1,
+                                 "pb_batched_merge": 1},
+                        f"{what} vmap(execute)")
+            launches = {k: counts[f"pb_{k}"] for k in err}
+            check(data.shape == (n, p.cap_c),
+                  f"{what}: output shape {tuple(data.shape)}")
+            check(torch.equal(ip, p.indptr_c.expand_as(ip)) and
+                  torch.equal(cols, p.cols_c.expand_as(cols)),
+                  f"{what}: structure differs from the plan's")
+            del ip, cols
+            pp = PK.batched_scatter_call(*arrays, xa, xb, n_members=n)
+            pp_plain = pb_ref.batched_scatter_plain(*arrays, xa, xb, n)
+            check(torch.equal(pp, pp_plain),
+                  f"{what}: batched scatter not bitwise equal to its plain "
+                  f"version")
+            err["batched_scatter"] = max(err["batched_scatter"], float(
+                (pp - pp_plain).abs().max()))
+            del pp_plain
+            out = PK.batched_merge_call(p.bucket_nnz, p.seg, pp, p.cap_c,
+                                        n_members=n)
+            out_plain = pb_ref.batched_merge_plain(p.bucket_nnz, p.seg, pp,
+                                                   p.cap_c, n)
+            del pp
+            diff = (out - out_plain).abs()
+            if values == "dyadic":
+                check(torch.equal(out, out_plain), f"{what}: batched merge "
+                      f"not bitwise equal to its plain version")
+            else:
+                ulp = torch.nextafter(out_plain.abs(), torch.full_like(
+                    out_plain, float("inf"))) - out_plain.abs()
+                bad = diff > counts_pp * ulp
+                check(not bool(bad.any()), f"{what}: batched merge "
+                      f"{int(bad.sum())} values past 1 ulp per product")
+                err["batched_merge"] = max(err["batched_merge"],
+                                           float(diff.max()))
+            check(torch.equal(data, out), f"{what}: the vmapped execute "
+                  f"differs from the batched kernels")
+            del out, out_plain, diff
+            for e in range(n):
+                single = execute(
+                    dataclasses.replace(a, data=member(xa, e)),
+                    dataclasses.replace(a, data=member(xb, e)))
+                check(torch.equal(single.data, data[e]), f"{what} member "
+                      f"{e}: not bitwise equal to the single-product "
+                      f"execute")
+            del data, single
+        print(f"{label}: {n} members, {len(cases)} fleets; one batched "
+              f"scatter and merge a call; every member equals the "
+              f"single-product execute, the kernels their plain versions; "
+              f"max abs diff merge {err['batched_merge']}", flush=True)
+
+        # ---- timings (the uniform fleet) ---------------------------------
+        _, xa, xb = next(c for c in cases if c[0] == "uniform")
+        pp = PK.batched_scatter_call(*arrays, xa, xb, n_members=n)
+        m_a = [dataclasses.replace(a, data=member(xa, e)) for e in range(n)]
+        m_b = [dataclasses.replace(a, data=member(xb, e)) for e in range(n)]
+        nnz = int(a.nnz)
+        ip, ix = a.indptr.long(), a.indices[:nnz].long()
+        sp_a = [torch.sparse_csr_tensor(ip, ix, x.data[:nnz], size=a.shape)
+                for x in m_a]
+        sp_b = [torch.sparse_csr_tensor(ip, ix, y.data[:nnz], size=a.shape)
+                for y in m_b]
+        t = {"vmap_execute": self.time_ms(lambda: vmapped(xa, xb)),
+             "batched_scatter": self.time_ms(lambda: PK.batched_scatter_call(
+                 *arrays, xa, xb, n_members=n)),
+             "batched_merge": self.time_ms(lambda: PK.batched_merge_call(
+                 p.bucket_nnz, p.seg, pp, p.cap_c, n_members=n)),
+             "loop": self.time_ms(lambda: [execute(x, y) for x, y in
+                                           zip(m_a, m_b)]),
+             "loop_scatter": self.time_ms(lambda: [PK.scatter_call(
+                 *arrays, member(xa, e), member(xb, e)) for e in range(n)]),
+             "loop_merge": self.time_ms(lambda: [PK.merge_call(
+                 p.bucket_nnz, p.seg, pp[e], p.cap_c) for e in range(n)]),
+             "plain_scatter": self.time_ms(
+                 lambda: pb_ref.batched_scatter_plain(*arrays, xa, xb, n),
+                 reps=3, warm=1),
+             "plain_merge": self.time_ms(
+                 lambda: pb_ref.batched_merge_plain(p.bucket_nnz, p.seg, pp,
+                                                    p.cap_c, n),
+                 reps=3, warm=1),
+             "torch_sparse_mm_loop": self.time_ms(
+                 lambda: [torch.sparse.mm(x, y) for x, y in
+                          zip(sp_a, sp_b)])}
+        # least time: the shared index arrays once (8 B per product for
+        # the scatter, seg's 4 B for the merge), each member's A and B
+        # values (once when shared), pp written by the scatter and its live
+        # lanes read by the merge per member, C's values written per member
+        flop, nb, cap = p.total_flop, p.n_buckets, p.bucket_cap
+        n_a = n if xa.dim() == 2 else 1
+        n_b = n if xb.dim() == 2 else 1
+        by = {"batched_scatter": 8 * flop + 4 * nb + 4 * nnz * (n_a + n_b)
+              + 4 * n * nb * cap,
+              "batched_merge": 4 * flop + 4 * nb + 4 * n * flop
+              + 4 * n * p.nnz_c}
+        ops_n = n * flop
+        bound = {k: max(v / HBM_BYTES_PER_S, ops_n / FP32_FLOP_PER_S) * 1e3
+                 for k, v in by.items()}
+        print(json.dumps({"timing": f"PB value fleet {label}",
+                          "card": self.card, "members": n,
+                          "batched": {"a": n_a > 1, "b": n_b > 1},
+                          "nnz_a": nnz, "flop": flop, "nnz_c": p.nnz_c,
+                          "n_buckets": nb, "bucket_cap": cap,
+                          "launches": launches, "ms": t, "bound_ms": bound,
+                          "bound_pair_ms": sum(bound.values()),
+                          "bound_bytes": by, "bound_operations": ops_n,
+                          "shared_index_arrays": "counted once"}),
+              flush=True)
+        for k in err:
+            self.rows.append({
+                "name": f"spgemm_pb_{k}[{label}]", "route": "cuda",
+                "source": PB_SOURCE, "replaces": REPLACES[k],
+                "launches": launches[k], "max_abs_err": err[k], "ms": t[k],
+                "plain_ms": t[f"plain_{k.split('_')[1]}"],
+                "bound_ms": bound[k],
+                "bound_by": "bytes" if by[k] / HBM_BYTES_PER_S >=
+                ops_n / FP32_FLOP_PER_S else "operations",
+                "library_ms": t["torch_sparse_mm_loop"]})
+        del pp, sp_a, sp_b, m_a, m_b
+        torch.cuda.empty_cache()
+
+    def pb_value_fleet(self, a, a_d, label):
+        """Phase 14: ``torch.func.vmap`` of the sorted ER plan's execute
+        over fleets of values on A's pattern (one structure, new values:
+        re-assembly in a solver), the shared operand dyadic."""
+        torch, core = self.torch, self.core
+        core.clear_plan_cache()
+        plan, counts = self.counted(lambda: core.plan_spgemm(
+            a, a, algorithm="auto", sorted_output=True))
+        check(plan.algorithm == "pb",
+              f"{label} fleet: recipe chose {plan.algorithm}, not pb")
+        check(counts["pb_inspect"] == 1,
+              f"{label} fleet: planning ran no PB inspection")
+        p = plan.pb_plan
+
+        def fleets(n, seed, b_too=False):
+            """A dyadic and a uniform fleet of ``n`` members on A's
+            pattern, as ``(values, A's values, B's values)``: B's are
+            ``a_d``'s (shared) unless ``b_too``."""
+            out = []
+            for i, values in enumerate(("dyadic", "uniform")):
+                d = values == "dyadic"
+                xb = self.csr_fleet(a, n, seed + 10 + i, d) if b_too \
+                    else a_d.data
+                out.append((values, self.csr_fleet(a, n, seed + i, d), xb))
+            return out
+
+        n, m = PB_FLEET_MEMBERS, PB_FLEET_MEMBERS_BOTH
+        self.pb_fleet_case(f"{label}, {n} members, A batched", a, p.execute,
+                           p, fleets(n, 80))
+        self.pb_fleet_case(f"{label}, {m} members, A and B batched", a,
+                           p.execute, p, fleets(m, 90, b_too=True))
+        self.pb_fleet_case(f"{label}, plan_spgemm(sorted_output=True), {n} "
+                           f"members, A batched", a, plan.execute, p,
+                           fleets(n, 100))
+        del plan, p
         core.clear_plan_cache()
         torch.cuda.empty_cache()
 
@@ -1811,6 +2047,7 @@ def main() -> int:
     smoke.saturation()                                           # phase 3
     er = smoke.one_input("ER", ER_SCALE)                         # 4, 5
     smoke.sorted_pb(*er)                                         # phase 6
+    smoke.pb_value_fleet(*er)                                    # phase 14
     smoke.spmm_input(*er, {})                                    # phase 8
     del er
     g500, _, g500_label = smoke.one_input("G500", G500_SCALE)
@@ -1827,7 +2064,7 @@ def main() -> int:
     smoke.value_fleet()                                          # phase 13
 
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
-    print(json.dumps({"kernels": smoke.rows}), flush=True)       # phase 14
+    print(json.dumps({"kernels": smoke.rows}), flush=True)       # phase 15
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

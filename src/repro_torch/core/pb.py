@@ -136,7 +136,13 @@ class PBPlan:
     def execute(self, a: CSR, b: CSR) -> CSR:
         """Numeric phases only, over the frozen geometry; C has sorted
         columns.  plus_times runs the scatter and merge kernels; every
-        other semiring runs the plain general-semiring twin."""
+        other semiring runs the plain general-semiring twin.
+
+        Runs under ``torch.func.vmap`` over the values of A, of B or both
+        (members of new values on this structure): plus_times then runs
+        the batched kernels once per phase, through the ops' vmap rules.
+        The structure check reads only the operands' structure, which is
+        never batched, and C's structure is the plan's."""
         self.check_structure(a, b)
         if self.semiring == "plus_times":
             from repro_torch.kernels.spgemm_pb import ops as pb_ops

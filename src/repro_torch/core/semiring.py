@@ -5,7 +5,7 @@ reduces the products per output coordinate, ``zero`` is the additive
 identity given to padded lanes.  The output keeps the structural union
 pattern: value-level cancellation removes no entry.
 
-``reduce`` names the ``Tensor.scatter_reduce_`` mode matching ``add``; the
+``reduce`` names the ``Tensor.scatter_reduce`` mode matching ``add``; the
 sort-based accumulators (ESC and the hash fallback) reduce duplicate
 coordinates with one segmented reduction.
 """
@@ -69,9 +69,10 @@ def resolve_semiring(s: "str | Semiring") -> Semiring:
 def segment_reduce(sr: Semiring, vals: torch.Tensor, seg: torch.Tensor,
                    num_segments: int) -> torch.Tensor:
     """``jax.ops.segment_{sum,max,min}`` for ``sr``: one value per segment,
-    in input order; empty segments hold 0 (callers mask them)."""
+    in input order; empty segments hold 0 (callers mask them).  Out of
+    place, so it runs under ``torch.func.vmap`` over ``vals``."""
     out = torch.zeros(num_segments, dtype=vals.dtype, device=vals.device)
     if sr.reduce == "sum":
-        return out.index_add_(0, seg.long(), vals)
-    return out.scatter_reduce_(0, seg.long(), vals, sr.reduce,
-                               include_self=False)
+        return out.index_add(0, seg.long(), vals)
+    return out.scatter_reduce(0, seg.long(), vals, sr.reduce,
+                              include_self=False)

@@ -124,10 +124,37 @@ def member_stride(name, t, dim: int, n: int) -> int:
                      f"{dim + 1} dimensions, got {tuple(t.shape)}")
 
 
+def members_first(tensors, in_dims) -> list:
+    """A vmap rule's array arguments for a batched wrapper: each batched
+    tensor with its member axis moved to the front, each unbatched one as
+    it is (member stride 0, never expanded into a copy per member, where
+    the reference's ``custom_vmap`` rules broadcast)."""
+    return [t if d is None else t.movedim(d, 0).contiguous()
+            for t, d in zip(tensors, in_dims)]
+
+
 def member_view(t, dim: int, e: int):
     """Member ``e``'s view of a batched kernel's argument that has ``dim``
     dimensions when shared (:func:`member_stride`)."""
     return t[e] if t.dim() > dim else t
+
+
+def member_layout(names, tensors, dims, n: int):
+    """A batched wrapper's arguments checked for ``n >= 1`` members:
+    each one's member stride (:func:`member_stride`) and member 0's view
+    of each (:func:`member_view`), the single-product shapes to check."""
+    if n < 1:
+        raise ValueError(f"n_members must be at least 1, got {n}")
+    strides = [member_stride(name, t, dim, n)
+               for name, t, dim in zip(names, tensors, dims)]
+    return strides, [member_view(t, dim, 0) for t, dim in zip(tensors, dims)]
+
+
+def member_expand(t, dim: int, n: int):
+    """A batched plain version's argument with a leading member axis of
+    ``n``: stacked as it is, shared (``dim`` dimensions) as a broadcast
+    view, never a copy."""
+    return t if t.dim() > dim else t.expand((n,) + tuple(t.shape))
 
 
 def raise_on_errors(errors, what: str) -> None:

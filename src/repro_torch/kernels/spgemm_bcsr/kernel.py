@@ -209,8 +209,8 @@ def batched_numeric_call(offsets, bin_tsize, indptr_a, indptr_b, indptr_c,
     """
     args = (offsets, bin_tsize, indptr_a, indptr_b, indptr_c, a_bcol, a_blk,
             b_bcol, b_blk)
-    strides = [_build.member_stride(name, t, dim, n_members)
-               for name, t, dim in zip(ARG_NAMES, args, ARG_DIMS)]
+    strides, views = _build.member_layout(ARG_NAMES, args, ARG_DIMS,
+                                          n_members)
     if a_bcol.device.type == "cpu":
         KERNEL_CALLS["batched_plain"] += 1
         return ref.batched_numeric_plain(
@@ -219,8 +219,7 @@ def batched_numeric_call(offsets, bin_tsize, indptr_a, indptr_b, indptr_c,
     dev = a_bcol.device
     for name, t in zip(ARG_NAMES[:2], args[:2]):
         _build.check_tensor(name, t, torch.int32, dev)
-    _check_operands(*(_build.member_view(t, dim, 0) for t, dim in
-                      zip(args[2:], ARG_DIMS[2:])))
+    _check_operands(*views[2:])
     if errors is not None:
         _build.check_tensor("errors", errors, torch.int32, dev)
     bm, bn = a_blk.shape[-2], b_blk.shape[-1]

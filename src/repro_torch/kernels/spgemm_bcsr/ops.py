@@ -40,6 +40,7 @@ import torch
 
 from repro_torch.core.formats import BCSR, CSR, prefix_sum
 import repro_torch.core.schedule as sched
+from repro_torch.kernels import _build
 from repro_torch.kernels.spgemm_hash import kernel as HK
 from . import kernel as K
 from .kernel import KERNEL_CALLS
@@ -111,13 +112,11 @@ def _numeric_vmap(info, in_dims, offsets, bin_tsize, indptr_a, indptr_b,
                   indptr_c, a_bcol, a_blk, b_bcol, b_blk, bcap_c,
                   table_size, vector):
     """The batched grid over ``info.batch_size`` members, once per
-    vmapped call: each batched argument with its member axis moved to the
-    front, each unbatched one as it is (member stride 0, never expanded
-    into a copy per member, where the reference's rule broadcasts)."""
-    args = [t if d is None else t.movedim(d, 0).contiguous()
-            for t, d in zip((offsets, bin_tsize, indptr_a, indptr_b,
-                             indptr_c, a_bcol, a_blk, b_bcol, b_blk),
-                            in_dims)]
+    vmapped call (arguments as :func:`_build.members_first` lays them
+    out)."""
+    args = _build.members_first((offsets, bin_tsize, indptr_a, indptr_b,
+                                 indptr_c, a_bcol, a_blk, b_bcol, b_blk),
+                                in_dims)
     out = K.batched_numeric_call(*args, n_members=info.batch_size,
                                  bcap_c=bcap_c, table_size=table_size,
                                  vector=vector)

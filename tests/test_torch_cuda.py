@@ -168,7 +168,10 @@ def test_pb_kernels_match_plain_versions(cuda, case):
     c = plan.execute(a, a)
     torch.cuda.synchronize()
     assert pb_ops.kernel_call_counts() == {"inspect": 0, "scatter": 1,
-                                           "merge": 1, "plain": 0}
+                                           "merge": 1, "plain": 0,
+                                           "batched_scatter": 0,
+                                           "batched_merge": 0,
+                                           "batched_plain": 0}
     assert c.sorted_cols and torch.equal(c.indptr, plan.indptr_c)
     h = plan_spgemm(a, a, algorithm="hash", cache=False).execute(
         a, a, sorted_output=True)
@@ -215,6 +218,131 @@ def test_pb_wrappers_reject_bad_operands(cuda):
     with pytest.raises(ValueError):              # shapes disagree
         PK.scatter_call(bucket_nnz, src, torch.zeros((1, 4), **i32), vals,
                         vals)
+
+
+def pb_fleet(cuda, case, n, seed, dyadic):
+    """A PB plan of ``A·A`` on the card and ``n`` members of new values on
+    A's pattern, ``(n, cap)`` float32."""
+    from repro_torch.core import plan_pb
+    a = operand(*case, True, cuda)
+    plan = plan_pb(a, a, cache=False)
+    rng = np.random.default_rng(seed)
+    vals = rng.choice(DYADIC, size=(n, a.cap)) if dyadic else \
+        rng.uniform(0.5, 1.5, size=(n, a.cap))
+    return a, plan, torch.from_numpy(vals.astype(np.float32)).to(cuda)
+
+
+def pb_slot_products(plan):
+    """Products accumulated into each output slot (the ulp budget)."""
+    live = torch.arange(plan.bucket_cap, device=plan.seg.device)[None, :] \
+        < plan.bucket_nnz[:, None]
+    return torch.bincount(plan.seg[live].long(), minlength=plan.cap_c)
+
+
+PB_STACKED = ("a", "a_b", "indices", "all")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dyadic", (True, False))
+@pytest.mark.parametrize("stacked", PB_STACKED)
+def test_pb_batched_kernels_match_plain_versions(cuda, stacked, dyadic):
+    """The batched scatter and merge against the batched plain versions:
+    A's values stacked, A's and B's, the plan's index arrays stacked (the
+    values shared, member stride 0), everything stacked.  Scatter bitwise;
+    merge bitwise on dyadic values, else within 1 ulp per product (the
+    plain merge adds with atomics); one launch per phase."""
+    a, p, stack = pb_fleet(cuda, PB_CASES[0], 3, 40, dyadic)
+    av = stack if stacked != "indices" else a.data
+    bv = stack.flip(0) if stacked in ("a_b", "all") else a.data
+    idx = [p.bucket_nnz, p.src_a, p.src_b, p.seg]
+    if stacked in ("indices", "all"):
+        idx = [torch.stack([t] * 3) for t in idx]
+    bnz, sa, sb, seg = idx
+    pb_ops.reset_kernel_calls()
+    pp = PK.batched_scatter_call(bnz, sa, sb, av, bv, n_members=3)
+    out = PK.batched_merge_call(bnz, seg, pp, p.cap_c, n_members=3)
+    torch.cuda.synchronize()
+    assert pb_ops.kernel_call_counts() == {
+        "inspect": 0, "scatter": 0, "merge": 0, "plain": 0,
+        "batched_scatter": 1, "batched_merge": 1, "batched_plain": 0}
+    assert torch.equal(pp, pb_ref.batched_scatter_plain(bnz, sa, sb, av, bv,
+                                                        3))
+    want = pb_ref.batched_merge_plain(bnz, seg, pp, p.cap_c, 3)
+    if dyadic:
+        assert torch.equal(out, want)
+        return
+    k = pb_slot_products(p).float()
+    ulp = torch.nextafter(want.abs(), torch.full_like(want, float("inf"))) \
+        - want.abs()
+    assert bool(((out - want).abs() <= k * ulp).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", PB_CASES, ids=lambda c: f"{c[0]}{c[1]}")
+def test_pb_batched_member_equals_single_kernels(cuda, case):
+    """On uniform values member e of the batched pair is bitwise what the
+    single-product kernels give on member e: the bucket body, its lane
+    order and its roundings are the same."""
+    a, p, stack = pb_fleet(cuda, case, 4, 41, False)
+    pp = PK.batched_scatter_call(p.bucket_nnz, p.src_a, p.src_b, stack,
+                                 a.data, n_members=4)
+    out = PK.batched_merge_call(p.bucket_nnz, p.seg, pp, p.cap_c,
+                                n_members=4)
+    for e in range(4):
+        one = PK.scatter_call(p.bucket_nnz, p.src_a, p.src_b, stack[e],
+                              a.data)
+        assert torch.equal(pp[e], one), e
+        assert torch.equal(out[e], PK.merge_call(p.bucket_nnz, p.seg, one,
+                                                 p.cap_c)), e
+
+
+@pytest.mark.gpu
+def test_pb_batched_kernels_clip_indices_and_zero_pad_lanes(cuda):
+    """Per member, out-of-range gathers and slots clip, pad lanes are 0 and
+    never merged, a slot no lane names stays 0; ``bucket_nnz`` stacked
+    (each member's buckets name disjoint slots, as a plan's do)."""
+    i32 = dict(dtype=torch.int32, device=cuda)
+    bucket_nnz = torch.tensor([[3, 0, 2], [2, 0, 1]], **i32)
+    src_a = torch.tensor([[0, 5, -2, 7], [1, 1, 1, 1], [2, 9, 0, 0]], **i32)
+    src_b = torch.tensor([[1, -1, 9, 3], [0, 0, 0, 0], [0, 2, 4, 4]], **i32)
+    seg = torch.tensor([[0, 1, 1, 9], [0, 0, 0, 0], [3, 7, 9, 9]], **i32)
+    a_data = torch.tensor([[0.5, 1.5, 2.0], [1.0, 2.0, 4.0]], device=cuda)
+    b_data = torch.tensor([1.0, 2.0, 4.0], device=cuda)
+    pp = PK.batched_scatter_call(bucket_nnz, src_a, src_b, a_data, b_data,
+                                 n_members=2)
+    out = PK.batched_merge_call(bucket_nnz, seg, pp, 5, n_members=2)
+    assert torch.equal(pp[0], torch.tensor(
+        [[1.0, 2.0, 2.0, 0], [0, 0, 0, 0], [2.0, 8.0, 0, 0]], device=cuda))
+    assert torch.equal(out[0], torch.tensor([1.0, 4.0, 0.0, 2.0, 8.0],
+                                            device=cuda))
+    for e in range(2):
+        one = pb_ref.scatter_plain(bucket_nnz[e], src_a, src_b, a_data[e],
+                                   b_data)
+        assert torch.equal(pp[e], one)
+        assert torch.equal(out[e], pb_ref.merge_plain(bucket_nnz[e], seg,
+                                                      one, 5))
+
+
+@pytest.mark.gpu
+def test_pb_vmap_execute_launches_only_the_batched_kernels(cuda):
+    """``torch.func.vmap`` of ``PBPlan.execute`` over A's values on CUDA:
+    one batched scatter and one batched merge, no single-product kernel,
+    no plain version and no inspection; each member bitwise equal to its
+    own execute."""
+    import dataclasses
+    a, p, stack = pb_fleet(cuda, PB_CASES[1], 4, 42, False)
+
+    def one(v):
+        return p.execute(dataclasses.replace(a, data=v), a).data
+
+    pb_ops.reset_kernel_calls()
+    data = torch.func.vmap(one)(stack)
+    torch.cuda.synchronize()
+    assert pb_ops.kernel_call_counts() == {
+        "inspect": 0, "scatter": 0, "merge": 0, "plain": 0,
+        "batched_scatter": 1, "batched_merge": 1, "batched_plain": 0}
+    for e in range(4):
+        assert torch.equal(data[e], one(stack[e])), e
 
 
 def block_operand(gm, gn, bm, bn, density, seed, device, dyadic=True):

@@ -210,7 +210,10 @@ def test_plain_pair_matches_interpret_kernels(fx, values):
                           interpret=True)
     tdata = tops.pb_merge(tpp, tp.seg, tp.bucket_nnz, tp.cap_c)
     assert tops.kernel_call_counts() == {"inspect": 0, "scatter": 0,
-                                         "merge": 0, "plain": 2}
+                                         "merge": 0, "plain": 2,
+                                         "batched_scatter": 0,
+                                         "batched_merge": 0,
+                                         "batched_plain": 0}
     if values == "dyadic":
         assert np.array_equal(np.asarray(jdata), tdata.numpy())
     else:
@@ -286,7 +289,10 @@ def test_sorted_er_plan_chooses_pb_and_never_reinspects():
     c1 = tp.execute(ta, ta)
     c2 = tp.execute(ta, ta)
     assert tops.kernel_call_counts() == {"inspect": 1, "scatter": 0,
-                                         "merge": 0, "plain": 4}
+                                         "merge": 0, "plain": 4,
+                                         "batched_scatter": 0,
+                                         "batched_merge": 0,
+                                         "batched_plain": 0}
     assert_csr_equal(c1, c2)
     assert T.plan_spgemm(ta, ta, sorted_output=True) is tp
     assert T.plan_pb(ta, ta) is tp.pb_plan               # cache hit
