@@ -5,9 +5,9 @@ Drives the port's main path -- the planned hash SpGEMM of the paper --
 through the entry points a user calls, at the paper's own input sizes
 (R-MAT, edge factor 16, squared: ER at scale 18 and G500 at scale 16,
 seed 0), then the sorted-output (PB) and block-sparse (BCSR) routes, SpMM,
-the paper's graph workloads, the batched fleet planner and BCSR and PB
-value fleets under ``torch.func.vmap``, and holds every hand-written kernel
-against its plain PyTorch version.
+the paper's graph workloads, the batched fleet planner and BCSR, PB and
+hash value fleets under ``torch.func.vmap``, and holds every hand-written
+kernel against its plain PyTorch version.
 Phases; any failure exits non-zero:
 
   1. the card's name and power limit (``nvidia-smi``);
@@ -27,7 +27,10 @@ Phases; any failure exits non-zero:
      the planner's ESC counts bitwise;
   5. median CUDA-event times of each kernel, its plain version and
      ``torch.sparse.mm`` (cuSPARSE; a yardstick only, never on the path),
-     each beside its least possible time on the card;
+     each beside its least possible time on the card; each probe mode's
+     execute, and its numeric kernel through the wrapper that reads its
+     own ``errors`` back and through the custom op the execute calls
+     (``numeric_op``: the op's own cost);
   6. sorted output on ER s18: ``plan_spgemm(a, a, sorted_output=True)``
      under ``algorithm="auto"`` must choose propagation blocking (``pb``);
      ``plan.execute`` must launch the scatter and merge kernels once each,
@@ -121,6 +124,25 @@ Phases; any failure exits non-zero:
      member, the per-member execute loop, the batched plain versions and a
      loop of ``torch.sparse.mm`` per member, beside the byte bound (shared
      index arrays counted once);
+ 16. hash value fleets (ER right after phase 14, on phase 4's inputs):
+     ``torch.func.vmap`` of the recipe's hash plan's ``execute`` over 8
+     members of ER s18's values against a shared dyadic B, over 4 members
+     with A's and B's values, of the other probe mode's plan over 8
+     members, and of the planless ``spgemm_hash`` with the plan's schedule
+     pinned over 8 members (the batched symbolic kernel too); G500 s16
+     over 2 members (global-memory tables), planned and planless; a
+     dyadic and a uniform fleet each.  Each vmapped call must run the ops'
+     vmap rules -- one batched launch per bin index holding rows, per
+     phase -- and nothing else; row pointers the plan's; the batched
+     symbolic counts bitwise the plan's ESC counts and the batched plain
+     version's; the batched numeric kernel and every member against the
+     batched plain version (columns bitwise, values bitwise on dyadic
+     values, else within 1 ulp per product), each dyadic member bitwise
+     equal to the single-product execute.  Timings: the vmapped call,
+     each batched kernel, the single-product kernels once per member, the
+     per-member loop, the batched plain versions and a loop of
+     ``torch.sparse.mm`` per member, beside the byte bound (shared index
+     arrays counted once);
  15. one ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``.
 
 Usage: ``python3 chip_smoke.py`` (one card, no arguments).  A quick first
@@ -179,6 +201,9 @@ FLEET_MEMBERS, FLEET_MEMBERS_BOTH, FLEET_MEMBERS_G500 = 8, 4, 4
 FLEET_MEMBERS_LARGE = 4
 #: PB value fleets on the ER s18 sorted plan: A batched, A and B batched
 PB_FLEET_MEMBERS, PB_FLEET_MEMBERS_BOTH = 8, 4
+#: hash value fleets: ER s18 with A batched (also through hash_vector and
+#: the planless spgemm_hash), with A and B batched; G500 s16 (global tables)
+HASH_FLEET_MEMBERS, HASH_FLEET_MEMBERS_BOTH, HASH_FLEET_MEMBERS_G500 = 8, 4, 2
 
 KERNEL_SOURCE = "src/repro_torch/kernels/spgemm_hash/csrc/spgemm_hash.cu"
 PB_SOURCE = "src/repro_torch/kernels/spgemm_pb/csrc/spgemm_pb.cu"
@@ -193,6 +218,7 @@ REPLACES = {
     "bcsr_numeric": "src/repro/kernels/spgemm_bcsr/kernel.py:131",
     "spmm": "src/repro/kernels/spmm/kernel.py:44",
     "batched": "src/repro/kernels/spgemm_hash/kernel.py:413",
+    "batched_symbolic": "src/repro/kernels/spgemm_hash/kernel.py:381",
     "bcsr_batched": "src/repro/kernels/spgemm_bcsr/kernel.py:215",
     "batched_scatter": "src/repro/kernels/spgemm_pb/kernel.py:179",
     "batched_merge": "src/repro/kernels/spgemm_pb/kernel.py:220",
@@ -332,7 +358,8 @@ class Smoke:
     def expect(self, counts, want, what):
         """Launch counts of one path: ``want``'s kernels as many times as
         it says, every other counter (plain versions included) zero."""
-        plain = counts["plain"] + counts["pb_plain"] + counts["bcsr_plain"] \
+        plain = counts["plain"] + counts["batched_plain"] \
+            + counts["pb_plain"] + counts["bcsr_plain"] \
             + counts["bcsr_batched_plain"] + counts["pb_batched_plain"] \
             + counts["spmm_plain"]
         check(plain == 0, f"{what}: ran a plain version {plain} times")
@@ -533,6 +560,18 @@ class Smoke:
         t["symbolic"] = self.time_ms(lambda: K.symbolic_call(
             plan.offsets, plan.bin_tsize, *ops_args,
             table_size=plan.table_size, vector=False, errors=sym_err))
+        # the op on the main path: each probe mode's numeric kernel
+        # through the wrapper that reads its own errors back, and through
+        # the custom op the execute calls (the op's own cost: the
+        # difference), and each mode's execute
+        for vector, name in ((False, "numeric"), (True, "numeric_vector")):
+            t[f"{name}_readback"] = self.time_ms(lambda: K.numeric_call(
+                *args, cap_c=plan.cap_c, table_size=plan.table_size,
+                vector=vector))
+            t[f"{name}_op"] = self.time_ms(lambda: self.ops.numeric_op(
+                *args[:6], a.data.float(), args[7], a.data.float(),
+                plan.cap_c, plan.table_size, vector))
+        t[f"execute_{other}"] = self.time_ms(lambda: plan_o.execute(a, a))
         t["plain_numeric"] = self.time_ms(lambda: ref.numeric_plain(*args,
                                                                     **kw))
         t["plain_symbolic"] = self.time_ms(lambda: ref.symbolic_plain(
@@ -903,6 +942,265 @@ class Smoke:
                            f"members, A batched", a, plan.execute, p,
                            fleets(n, 100))
         del plan, p
+        core.clear_plan_cache()
+        torch.cuda.empty_cache()
+
+
+    # ---- phase 16 ----------------------------------------------------------
+    def hash_fleet_case(self, label, a, plan, execute, cases,
+                        planless=False):
+        """One value-fleet case of phase 16: ``torch.func.vmap`` of
+        ``execute`` (A·A on ``plan``'s structure, the hash family) over the
+        members' values (``cases``: ``(values, xa, xb)``, each a ``(n,
+        cap)`` stack or a shared vector), launching the batched kernels once
+        per bin index holding rows (the numeric one; ``planless``: the
+        symbolic one too) and nothing else.  Checks: row pointers the
+        plan's; the batched symbolic counts the plan's ESC counts and the
+        batched plain version's; the batched numeric kernel and the vmapped
+        output against the batched plain version (columns bitwise, values
+        bitwise on dyadic values, else within 1 ulp per product); on dyadic
+        values every member bitwise equal to the single-product execute
+        (rows sorted).  Then the timings of the uniform fleet."""
+        import dataclasses
+        torch, K, ref = self.torch, self.K, self.ref
+        vector = plan.algorithm == "hash_vector"
+        sfx = "_vector" if vector else ""
+        m, shape = a.n_rows, a.shape
+        table, cap_c, ic = plan.table_size, plan.cap_c, plan.indptr_c
+        sched = (plan.offsets, plan.bin_tsize)
+
+        def one(x, y):
+            c = execute(dataclasses.replace(a, data=x),
+                        dataclasses.replace(a, data=y))
+            return c.indptr, c.indices, c.data
+
+        def vmapped(xa, xb):
+            dims = (0 if xa.dim() == 2 else None, 0 if xb.dim() == 2 else None)
+            return torch.func.vmap(one, in_dims=dims)(xa, xb)
+
+        def member(x, e):
+            return x[e] if x.dim() == 2 else x
+
+        def sym_args(xa, xb):
+            return (*sched, a.indptr, a.indptr, a.indices, xa, a.indices, xb)
+
+        def num_args(xa, xb):
+            return (*sched, a.indptr, a.indptr, ic, a.indices, xa, a.indices,
+                    xb)
+
+        n = max(x.shape[0] for _, xa, xb in cases for x in (xa, xb)
+                if x.dim() == 2)
+        bounds = plan.offsets.tolist()
+        launch_list = K.batched_launches([bounds] * n,
+                                         [plan.bin_tsize.tolist()] * n,
+                                         table, m, vector)
+        n_launches = sum(1 for r0, r1 in zip(bounds, bounds[1:]) if r1 > r0)
+        check(len(launch_list) == n_launches,
+              f"{label}: {len(launch_list)} batched launches for "
+              f"{n_launches} bins holding rows")
+        want = {f"batched_numeric{sfx}": n_launches}
+        if planless:
+            want[f"batched_symbolic{sfx}"] = n_launches
+        kw = dict(n_members=n, table_size=table, vector=vector)
+        counts_pp = ref.products_per_entry(a.indptr, a.indptr, ic, a.indices,
+                                           a.indices, cap_c)
+        err = {"batched_numeric": 0.0, "batched_symbolic": 0.0}
+        launches = {}
+        for values, xa, xb in cases:
+            what = f"{label} ({values})"
+            dyadic = values == "dyadic"
+            (ip, cols, data), counts = self.counted(lambda: vmapped(xa, xb))
+            self.expect(counts, want, f"{what} vmap")
+            launches = {"batched_numeric": counts[f"batched_numeric{sfx}"],
+                        "batched_symbolic": counts[f"batched_symbolic{sfx}"]}
+            check(data.shape == cols.shape == (n, cap_c),
+                  f"{what}: output shape {tuple(data.shape)}")
+            check(torch.equal(ip, ic.expand_as(ip)),
+                  f"{what}: row pointers differ from the plan's")
+            del ip
+            rows = K.batched_symbolic_call(*sym_args(xa, xb), **kw)
+            check(torch.equal(rows, plan.row_nnz_c.expand_as(rows)),
+                  f"{what}: batched symbolic counts != the plan's ESC counts")
+            check(torch.equal(rows, ref.batched_symbolic_plain(
+                *sym_args(xa, xb), **kw)), f"{what}: batched symbolic "
+                f"kernel differs from its plain version")
+            del rows
+            kc, kv = K.batched_numeric_call(*num_args(xa, xb), cap_c=cap_c,
+                                            **kw)
+            pc, pv = ref.batched_numeric_plain(*num_args(xa, xb),
+                                               cap_c=cap_c, **kw)
+            k = None if dyadic else counts_pp
+            for e in range(n):
+                err["batched_numeric"] = max(
+                    err["batched_numeric"],
+                    self.compare(f"{what} batched kernel member {e}", kc[e],
+                                 kv[e], ic, shape, pc[e], pv[e], k),
+                    self.compare(f"{what} vmap member {e}", cols[e],
+                                 data[e], ic, shape, pc[e], pv[e], k))
+                if dyadic:
+                    single = execute(
+                        dataclasses.replace(a, data=member(xa, e)),
+                        dataclasses.replace(a, data=member(xb, e)))
+                    s = single.sort_rows()
+                    self.compare(f"{what} member {e} vs single execute",
+                                 cols[e], data[e], ic, shape, s.indices,
+                                 s.data)
+                    del single, s
+            del kc, kv, pc, pv, cols, data
+        print(f"{label}: {n} members, {len(cases)} fleets; {n_launches} "
+              f"batched launches a phase; row counts the plan's, every "
+              f"member equal to the plain version and (dyadic) the "
+              f"single-product execute; max abs diff numeric "
+              f"{err['batched_numeric']}", flush=True)
+
+        # ---- timings (the uniform fleet) ---------------------------------
+        _, xa, xb = next(c for c in cases if c[0] == "uniform")
+        errors = torch.zeros(1, dtype=torch.int32, device=self.dev)
+        nnz = int(a.nnz)
+        m_a = [dataclasses.replace(a, data=member(xa, e)) for e in range(n)]
+        m_b = [dataclasses.replace(a, data=member(xb, e)) for e in range(n)]
+        ip_l, ix_l = a.indptr.long(), a.indices[:nnz].long()
+        sp_a = [torch.sparse_csr_tensor(ip_l, ix_l, x.data[:nnz], size=shape)
+                for x in m_a]
+        sp_b = [torch.sparse_csr_tensor(ip_l, ix_l, y.data[:nnz], size=shape)
+                for y in m_b]
+
+        def single(kernel, e, *extra):
+            args = (*sched, a.indptr, a.indptr, *extra, a.indices,
+                    member(xa, e), a.indices, member(xb, e))
+            return kernel(*args, table_size=table, vector=vector,
+                          errors=errors, **({"cap_c": cap_c} if extra
+                                            else {}))
+
+        t = {"vmap_execute": self.time_ms(lambda: vmapped(xa, xb)),
+             "batched_numeric": self.time_ms(lambda: K.batched_numeric_call(
+                 *num_args(xa, xb), cap_c=cap_c, **kw, errors=errors,
+                 launches=launch_list)),
+             "batched_symbolic": self.time_ms(
+                 lambda: K.batched_symbolic_call(
+                     *sym_args(xa, xb), **kw, errors=errors,
+                     launches=launch_list)),
+             "loop_numeric": self.time_ms(lambda: [
+                 single(K.numeric_call, e, ic) for e in range(n)]),
+             "loop_symbolic": self.time_ms(lambda: [
+                 single(K.symbolic_call, e) for e in range(n)]),
+             "loop": self.time_ms(lambda: [execute(x, y) for x, y in
+                                           zip(m_a, m_b)]),
+             "plain_numeric": self.time_ms(
+                 lambda: ref.batched_numeric_plain(*num_args(xa, xb),
+                                                   cap_c=cap_c, **kw),
+                 reps=3, warm=1),
+             "plain_symbolic": self.time_ms(
+                 lambda: ref.batched_symbolic_plain(*sym_args(xa, xb), **kw),
+                 reps=3, warm=1),
+             "torch_sparse_mm_loop": self.time_ms(
+                 lambda: [torch.sparse.mm(x, y) for x, y in
+                          zip(sp_a, sp_b)])}
+        torch.cuda.synchronize()
+        check(int(errors) == 0, f"{label}: {int(errors)} kernel errors")
+        # least time: the shared index arrays once (A's row pointer and
+        # column ids, B's column ids, the schedule and, numeric, indptr_c),
+        # each member's A and B values (once when shared), per member C's
+        # columns and values (numeric) or row counts (symbolic)
+        n_a = n if xa.dim() == 2 else 1
+        n_b = n if xb.dim() == 2 else 1
+        nb = plan.bin_tsize.shape[0]
+        index = 4 * (m + 1) + 8 * nnz + 4 * (2 * nb + 1)
+        by = {"batched_numeric": index + 4 * (m + 1)
+              + 4 * nnz * (n_a + n_b) + 8 * n * plan.nnz_c,
+              "batched_symbolic": index + 4 * n * m}
+        ops_n = 2 * n * plan.total_flop
+        bound = {"batched_numeric": max(by["batched_numeric"]
+                                        / HBM_BYTES_PER_S,
+                                        ops_n / FP32_FLOP_PER_S) * 1e3,
+                 "batched_symbolic": by["batched_symbolic"]
+                 / HBM_BYTES_PER_S * 1e3}
+        bound_by = {"batched_numeric": "bytes" if by["batched_numeric"]
+                    / HBM_BYTES_PER_S >= ops_n / FP32_FLOP_PER_S
+                    else "operations", "batched_symbolic": "bytes"}
+        print(json.dumps({"timing": f"hash value fleet {label}",
+                          "card": self.card, "members": n,
+                          "algorithm": plan.algorithm, "planless": planless,
+                          "batched": {"a": n_a > 1, "b": n_b > 1},
+                          "nnz_a": nnz, "flop": plan.total_flop,
+                          "nnz_c": plan.nnz_c, "table_size": table,
+                          "launches": launches, "ms": t, "bound_ms": bound,
+                          "bound_bytes": by, "bound_operations": ops_n,
+                          "shared_index_arrays": "counted once"}),
+              flush=True)
+        for k in ("batched_numeric", "batched_symbolic"):
+            if not launches[k]:
+                continue        # not on this path: timed in the line above
+            self.rows.append({
+                "name": f"spgemm_hash_{k}{sfx}[{label}]", "route": "cuda",
+                "source": KERNEL_SOURCE,
+                "replaces": REPLACES["batched" if k == "batched_numeric"
+                                     else k],
+                "launches": launches[k], "max_abs_err": err[k], "ms": t[k],
+                "plain_ms": t[f"plain_{k.split('_')[1]}"],
+                "bound_ms": bound[k], "bound_by": bound_by[k],
+                "library_ms": t["torch_sparse_mm_loop"]
+                if k == "batched_numeric" else None})
+        del m_a, m_b, sp_a, sp_b
+        torch.cuda.empty_cache()
+
+    def hash_value_fleet(self, a, a_d, label, members, both=0,
+                         other=False):
+        """Phase 16: ``torch.func.vmap`` of the hash plan's execute (the
+        recipe's own plan, which must be of the hash family) over
+        ``members`` members of A's values against the shared dyadic B, and
+        of the planless ``spgemm_hash`` with the plan's schedule pinned
+        (rows 4 and 5); with ``both``, also ``both`` members of A's and B's
+        values; with ``other``, also the plan of the other probe mode.  A
+        dyadic and a uniform fleet each.
+
+        Memory (ER s18 ef16, 8 members): each member's output is 8 bytes x
+        nnz(C) = 8 x 67,073,501 = 537 MB, so 4.3 GB a call; the check
+        holds the vmapped output, the batched kernel's and the batched
+        plain version's (12.9 GB) plus one plain product's sort at a time
+        (about 2 GB); G500 s16 ef16 at 2 members: 8 x 163,577,005 x 2 =
+        2.6 GB a call, 7.9 GB held.
+        """
+        torch, core, ops = self.torch, self.core, self.ops
+        core.clear_plan_cache()
+        plan = core.plan_spgemm(a, a, algorithm="auto", sorted_output=False)
+        algo = plan.algorithm
+        check(algo in ("hash", "hash_vector"),
+              f"{label} fleet: recipe chose {algo}, not the hash family")
+
+        def fleets(n, seed, b_too=False):
+            out = []
+            for i, values in enumerate(("dyadic", "uniform")):
+                d = values == "dyadic"
+                xb = self.csr_fleet(a, n, seed + 10 + i, d) if b_too \
+                    else a_d.data
+                out.append((values, self.csr_fleet(a, n, seed + i, d), xb))
+            return out
+
+        def planless(x, y):
+            return ops.spgemm_hash(x, y, plan.cap_c,
+                                   vector=algo == "hash_vector",
+                                   table_size=plan.table_size,
+                                   schedule=(plan.offsets, plan.bin_tsize))
+
+        n = members
+        self.hash_fleet_case(f"{label}, {algo}, {n} members, A batched", a,
+                             plan, plan.execute, fleets(n, 110))
+        if both:
+            self.hash_fleet_case(f"{label}, {algo}, {both} members, A and B "
+                                 f"batched", a, plan, plan.execute,
+                                 fleets(both, 120, b_too=True))
+        if other:
+            other = "hash" if algo == "hash_vector" else "hash_vector"
+            plan_o = core.plan_spgemm(a, a, algorithm=other)
+            self.hash_fleet_case(f"{label}, {other}, {n} members, A "
+                                 f"batched", a, plan_o, plan_o.execute,
+                                 fleets(n, 130))
+            del plan_o
+        self.hash_fleet_case(f"{label}, planless spgemm_hash, {n} members, "
+                             f"A batched", a, plan, planless, fleets(n, 140),
+                             planless=True)
+        del plan
         core.clear_plan_cache()
         torch.cuda.empty_cache()
 
@@ -1579,8 +1877,8 @@ class Smoke:
         plain, pp, class_args = {}, {}, []
         for cls in hash_cls:
             args, _, _ = self.batch_args(cls, pairs)
-            kw = dict(cap_c=cls.cap_c, table_size=cls.table_size,
-                      vector=False)
+            kw = dict(n_members=cls.n_members, cap_c=cls.cap_c,
+                      table_size=cls.table_size, vector=False)
             class_args.append((cls, args, kw))
             pc, pv = ref.batched_numeric_plain(*args, **kw)
             for e, i in enumerate(cls.members):
@@ -2048,9 +2346,14 @@ def main() -> int:
     er = smoke.one_input("ER", ER_SCALE)                         # 4, 5
     smoke.sorted_pb(*er)                                         # phase 6
     smoke.pb_value_fleet(*er)                                    # phase 14
+    smoke.hash_value_fleet(*er, HASH_FLEET_MEMBERS,              # phase 16
+                           both=HASH_FLEET_MEMBERS_BOTH, other=True)
     smoke.spmm_input(*er, {})                                    # phase 8
     del er
-    g500, _, g500_label = smoke.one_input("G500", G500_SCALE)
+    g500, g500_d, g500_label = smoke.one_input("G500", G500_SCALE)
+    smoke.hash_value_fleet(g500, g500_d, g500_label,             # phase 16
+                           HASH_FLEET_MEMBERS_G500)
+    del g500_d
     for preset, scale, ef in BCSR_INPUTS:                        # phase 7
         smoke.bcsr_input(preset, scale, ef)
     smoke.bcsr_auto()

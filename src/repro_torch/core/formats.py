@@ -215,9 +215,10 @@ class CSR:
         out = torch.zeros(self.shape, dtype=self.dtype, device=self.device)
         v = torch.where(self.valid_mask(), self.data,
                         torch.zeros((), dtype=self.dtype, device=self.device))
-        out.index_put_((self.row_ids().long(), self.indices.long()), v,
-                       accumulate=True)
-        return out
+        # out of place: under torch.func.vmap the values may be batched
+        # while the zeros are not
+        return out.index_put((self.row_ids().long(), self.indices.long()), v,
+                             accumulate=True)
 
     def sort_rows(self) -> "CSR":
         """Sort column ids within each row (the optional epilogue, whose

@@ -4,8 +4,9 @@
 //   numeric_call  (_numeric_kernel, _row_loop(numeric=True), _probe_scalar)
 //   symbolic_call (_symbolic_kernel)
 //   _probe_vector (the hash_vector mode of both)
-//   batched_numeric_call (_batched_numeric_kernel: numeric_call over the
-//     grid (members, bins) of a fleet of products)
+//   batched_symbolic_call (_batched_symbolic_kernel) and
+//     batched_numeric_call (_batched_numeric_kernel): symbolic_call and
+//     numeric_call over the grid (members, bins) of a fleet of products
 //
 // What each computes, per output row i of a bin whose table holds tsz slots
 // (tsz a power of two, the plan's min(bin_tsize[b], table_size)):
@@ -41,15 +42,18 @@
 //     else the first EMPTY lane (claimed with atomicCAS), else the next
 //     chunk -- the TPU kernel's CHUNK = 8, so any plan table (>= 8 slots)
 //     is valid.
-//   * Batched (a fleet of products that share static capacities): one
-//     launch per bin index, blockIdx.y the member, the x blocks striding
-//     over that member's rows of the bin.  Every operand array takes a
-//     member stride, 0 for an operand all members share, so a shared B is
-//     read in place and never copied per member.  Each member probes its
-//     own table size, as the TPU kernel does; dynamic shared memory is
-//     sized for the largest table of the launch that fits, and members
-//     with larger tables use the global workspace.  The row body is the
-//     same code as the single-product kernel's.
+//   * Batched (a fleet of products that share static capacities), both
+//     phases: one launch per bin index, blockIdx.y the member, one x block
+//     per row of the member with the most rows in the bin while the tables
+//     fit in shared memory (blocks that walk many work items ran the PB
+//     batched kernels 2x slower).  Every array argument, the schedule
+//     included, takes a member stride, 0 for one all members share, so a
+//     shared B or a plan's shared bins are read in place and never copied
+//     per member.  Each member probes its own table size, as the TPU
+//     kernel does; dynamic shared memory is sized for the largest table of
+//     the launch that fits, and members with larger tables use the global
+//     workspace.  The row body (hash_row) is the same code as the
+//     single-product kernel's.
 //
 // Bound: memory.  Each product reads one B index and value and does one
 // probe and one atomic in the table; the output is written once.  The
@@ -264,33 +268,36 @@ __global__ void hash_rows_kernel(
                                 s_warp);
 }
 
-// The batched grid of the numeric phase, for one bin index `bin`:
-// blockIdx.y is the fleet member e, and the x blocks stride over e's rows
-// [offsets[e][bin], offsets[e][bin + 1]).  Member e's arrays start at
-// base + e * stride; stride 0 shares one array among all members.  Its
-// table holds min(bin_tsize[e][bin], table_size) slots: in dynamic shared
-// memory when that fits smem_slots, else in the block's slice of the
-// global workspace (ws_tsz slots per member and x block).  A schedule the
-// launch cannot hold (rows past n_rows, a table that is not a power of two
-// or fits neither place) adds one to errors and runs nothing.
-template <bool kVector>
+// The batched grid of one phase (kNumeric: numeric, else symbolic) for
+// one bin index `bin`: blockIdx.y is the fleet member e, and the x blocks
+// stride over e's rows [offsets[e][bin], offsets[e][bin + 1]).  Member e's
+// arrays start at base + e * stride; stride 0 shares one array among all
+// members (a plan's schedule is shared by every member of a value fleet).
+// Its table holds min(bin_tsize[e][bin], table_size) slots: in dynamic
+// shared memory when that fits smem_slots, else in the block's slice of
+// the global workspace (ws_tsz slots per member and x block).  The
+// symbolic phase writes row_nnz[e * n_rows + row], the numeric phase
+// out_cols/out_vals[e * cap_c + ...].  A schedule the launch cannot hold
+// (rows past n_rows, a table that is not a power of two or fits neither
+// place) adds one to errors and runs nothing.
+template <bool kNumeric, bool kVector>
 __global__ void hash_rows_batched_kernel(
-    int bin, int n_bins, int n_rows, int table_size, int smem_slots,
-    int ws_tsz, int cap_c, const int* __restrict__ offsets,
-    const int* __restrict__ bin_tsize, const int* indptr_a, long long s_ia,
-    const int* a_idx, const float* a_val, long long s_a,
-    const int* indptr_b, long long s_ib, const int* b_idx,
-    const float* b_val, long long s_b, const int* indptr_c, long long s_ic,
-    int* out_cols, float* out_vals, int* errors, int* ws_keys,
-    float* ws_vals) {
+    int bin, int n_rows, int table_size, int smem_slots, int ws_tsz,
+    int cap_c, const int* __restrict__ offsets, long long s_off,
+    const int* __restrict__ bin_tsize, long long s_bt, const int* indptr_a,
+    long long s_ia, const int* a_idx, long long s_ai, const float* a_val,
+    long long s_av, const int* indptr_b, long long s_ib, const int* b_idx,
+    long long s_bi, const float* b_val, long long s_bv, const int* indptr_c,
+    long long s_ic, int* out_cols, float* out_vals, int* row_nnz,
+    int* errors, int* ws_keys, float* ws_vals) {
   extern __shared__ int smem[];
   __shared__ int s_count;
   __shared__ int s_warp[32];
   const long long e = blockIdx.y;
-  const int r0 = offsets[e * (n_bins + 1) + bin];
-  const int r1 = offsets[e * (n_bins + 1) + bin + 1];
+  const int r0 = offsets[e * s_off + bin];
+  const int r1 = offsets[e * s_off + bin + 1];
   if (r0 >= r1) return;
-  const int tsz = min(bin_tsize[e * n_bins + bin], table_size);
+  const int tsz = min(bin_tsize[e * s_bt + bin], table_size);
   const bool in_smem = tsz <= smem_slots;
   if (r0 < 0 || r1 > n_rows || tsz < 1 || (tsz & (tsz - 1)) ||
       (kVector && tsz < kChunk) || (!in_smem && tsz > ws_tsz)) {
@@ -298,22 +305,25 @@ __global__ void hash_rows_batched_kernel(
     return;
   }
   int* keys;
-  float* vals;
+  float* vals = nullptr;
   if (in_smem) {
     keys = smem;
-    vals = reinterpret_cast<float*>(smem + tsz);
+    if (kNumeric) vals = reinterpret_cast<float*>(smem + tsz);
   } else {
     const size_t slot =
         (static_cast<size_t>(e) * gridDim.x + blockIdx.x) * ws_tsz;
     keys = ws_keys + slot;
-    vals = ws_vals + slot;
+    if (kNumeric) vals = ws_vals + slot;
   }
+  const int* ic = kNumeric ? indptr_c + e * s_ic : nullptr;
+  int* oc = kNumeric ? out_cols + e * cap_c : nullptr;
+  float* ov = kNumeric ? out_vals + e * cap_c : nullptr;
+  int* rn = kNumeric ? nullptr : row_nnz + e * n_rows;
   for (int row = r0 + blockIdx.x; row < r1; row += gridDim.x)
-    hash_row<true, kVector>(
-        row, tsz, cap_c, keys, vals, indptr_a + e * s_ia, a_idx + e * s_a,
-        a_val + e * s_a, indptr_b + e * s_ib, b_idx + e * s_b,
-        b_val + e * s_b, indptr_c + e * s_ic, out_cols + e * cap_c,
-        out_vals + e * cap_c, nullptr, errors, &s_count, s_warp);
+    hash_row<kNumeric, kVector>(
+        row, tsz, cap_c, keys, vals, indptr_a + e * s_ia, a_idx + e * s_ai,
+        a_val + e * s_av, indptr_b + e * s_ib, b_idx + e * s_bi,
+        b_val + e * s_bv, ic, oc, ov, rn, errors, &s_count, s_warp);
 }
 
 template <bool kNumeric, bool kVector>
@@ -332,31 +342,6 @@ int launch(int row_begin, int row_end, int tsz, int cap_c, int grid,
   kernel<<<grid, block, smem_bytes, stream>>>(
       row_begin, row_end, tsz, cap_c, indptr_a, a_idx, a_val, indptr_b, b_idx,
       b_val, indptr_c, out_cols, out_vals, row_nnz, errors, ws_keys, ws_vals);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <bool kVector>
-int launch_batched(int bin, int n_bins, int n_rows, int table_size,
-                   int smem_slots, int ws_tsz, int cap_c, int grid_x,
-                   int n_members, int block, int smem_bytes,
-                   const int* offsets, const int* bin_tsize,
-                   const int* indptr_a, long long s_ia, const int* a_idx,
-                   const float* a_val, long long s_a, const int* indptr_b,
-                   long long s_ib, const int* b_idx, const float* b_val,
-                   long long s_b, const int* indptr_c, long long s_ic,
-                   int* out_cols, float* out_vals, int* errors, int* ws_keys,
-                   float* ws_vals, cudaStream_t stream) {
-  auto kernel = hash_rows_batched_kernel<kVector>;
-  if (smem_bytes > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  kernel<<<dim3(grid_x, n_members), block, smem_bytes, stream>>>(
-      bin, n_bins, n_rows, table_size, smem_slots, ws_tsz, cap_c, offsets,
-      bin_tsize, indptr_a, s_ia, a_idx, a_val, s_a, indptr_b, s_ib, b_idx,
-      b_val, s_b, indptr_c, s_ic, out_cols, out_vals, errors, ws_keys,
-      ws_vals);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -396,32 +381,40 @@ extern "C" int spgemm_hash_launch(
                               row_nnz, errors, ws_keys, ws_vals, s);
 }
 
-// The batched numeric phase for bin index `bin` of every fleet member:
-// a grid of (grid_x, n_members) blocks.  offsets is (n_members, n_bins + 1)
-// and bin_tsize (n_members, n_bins); each operand array takes a member
-// stride in elements (0: shared by all members); out_cols/out_vals are
-// (n_members, cap_c), zeroed by the caller.  smem_bytes = smem_slots * 8;
-// ws_keys/ws_vals hold grid_x * n_members * ws_tsz slots (null when
-// ws_tsz is 0).
+// One phase (numeric = 0: symbolic, 1: numeric) for bin index `bin` of
+// every fleet member: a grid of (grid_x, n_members) blocks.  offsets rows
+// hold n_bins + 1 entries and bin_tsize rows n_bins; every array argument
+// is followed by its member stride in elements (0: shared by all members;
+// an operand's column ids and values each have their own).  Symbolic
+// writes row_nnz (n_members, n_rows) (indptr_c/out_* unused); numeric
+// writes out_cols/out_vals (n_members, cap_c), zeroed by the caller
+// (row_nnz unused).  smem_bytes = smem_slots * 4 (symbolic) or 8
+// (numeric); ws_keys (and, numeric, ws_vals) hold grid_x * n_members *
+// ws_tsz slots (null when ws_tsz is 0).
 extern "C" int spgemm_hash_batched_launch(
-    int vector, int bin, int n_bins, int n_rows, int table_size,
+    int numeric, int vector, int bin, int n_rows, int table_size,
     int smem_slots, int ws_tsz, int cap_c, int grid_x, int n_members,
-    int block, int smem_bytes, const int* offsets, const int* bin_tsize,
-    const int* indptr_a, long long s_ia, const int* a_idx, const float* a_val,
-    long long s_a, const int* indptr_b, long long s_ib, const int* b_idx,
-    const float* b_val, long long s_b, const int* indptr_c, long long s_ic,
-    int* out_cols, float* out_vals, int* errors, int* ws_keys, float* ws_vals,
-    void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (vector)
-    return launch_batched<true>(
-        bin, n_bins, n_rows, table_size, smem_slots, ws_tsz, cap_c, grid_x,
-        n_members, block, smem_bytes, offsets, bin_tsize, indptr_a, s_ia,
-        a_idx, a_val, s_a, indptr_b, s_ib, b_idx, b_val, s_b, indptr_c, s_ic,
-        out_cols, out_vals, errors, ws_keys, ws_vals, s);
-  return launch_batched<false>(
-      bin, n_bins, n_rows, table_size, smem_slots, ws_tsz, cap_c, grid_x,
-      n_members, block, smem_bytes, offsets, bin_tsize, indptr_a, s_ia, a_idx,
-      a_val, s_a, indptr_b, s_ib, b_idx, b_val, s_b, indptr_c, s_ic, out_cols,
-      out_vals, errors, ws_keys, ws_vals, s);
+    int block, int smem_bytes, const int* offsets, long long s_off,
+    const int* bin_tsize, long long s_bt, const int* indptr_a, long long s_ia,
+    const int* a_idx, long long s_ai, const float* a_val, long long s_av,
+    const int* indptr_b, long long s_ib, const int* b_idx, long long s_bi,
+    const float* b_val, long long s_bv, const int* indptr_c, long long s_ic,
+    int* out_cols, float* out_vals, int* row_nnz, int* errors, int* ws_keys,
+    float* ws_vals, void* stream) {
+  auto kernel = numeric ? (vector ? &hash_rows_batched_kernel<true, true>
+                                  : &hash_rows_batched_kernel<true, false>)
+                        : (vector ? &hash_rows_batched_kernel<false, true>
+                                  : &hash_rows_batched_kernel<false, false>);
+  if (smem_bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  kernel<<<dim3(grid_x, n_members), block, smem_bytes,
+           static_cast<cudaStream_t>(stream)>>>(
+      bin, n_rows, table_size, smem_slots, ws_tsz, cap_c, offsets, s_off,
+      bin_tsize, s_bt, indptr_a, s_ia, a_idx, s_ai, a_val, s_av, indptr_b,
+      s_ib, b_idx, s_bi, b_val, s_bv, indptr_c, s_ic, out_cols, out_vals,
+      row_nnz, errors, ws_keys, ws_vals);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -14,6 +14,20 @@ and ``indptr_c=``, so a structure-identical repeat product runs the numeric
 kernel alone.  :func:`spgemm_hash_batched` is the same numeric phase for a
 fleet of products (``core.batch``), through the batched kernel.
 
+Value fleets: the two phases go through the custom ops
+``repro_torch::spgemm_hash_symbolic`` (:func:`symbolic_op`) and
+``repro_torch::spgemm_hash_numeric`` (:func:`numeric_op`), whose
+``register_vmap`` rules are the counterparts of the reference's
+``custom_vmap`` rules.  ``torch.func.vmap`` over a planned execute (new
+values on one frozen structure: A's, B's or both) fires the numeric rule
+once; over the planless :func:`spgemm_hash` with values batched, or with
+stacked per-member structures and a stacked ``schedule=``, it fires the
+symbolic rule and then the numeric rule once each.  A rule runs the
+batched kernel of ``kernel.py`` over every member: a batched argument
+with its member stride, an unbatched one (the plan's schedule and index
+arrays, a shared operand) read in place.  A call outside vmap runs the
+single-product kernel once per phase.
+
 Rounding contract: the kernels round each product and add it atomically,
 in an order that changes from run to run; the reference kernel fuses the
 multiply-add, and the sort-based fallback and the plain versions add in
@@ -30,6 +44,7 @@ import torch
 
 from repro_torch.core.formats import CSR, prefix_sum
 import repro_torch.core.schedule as sched
+from repro_torch.kernels import _build
 from . import kernel as K
 from .kernel import KERNEL_CALLS
 
@@ -66,6 +81,12 @@ def hash_schedule(a: CSR, b: CSR, n_bins: int,
 
 def _resolve_schedule(a, b, n_bins, table_size, schedule):
     if schedule is None:
+        if any(torch._C._functorch.is_batchedtensor(t)
+               for t in (a.indptr, a.indices, b.indptr, b.indices)):
+            raise ValueError(
+                "under torch.func.vmap over the operands' structure, pass "
+                "schedule=(offsets, bin_tsize) and table_size= (the "
+                "inspection runs on one structure)")
         return hash_schedule(a, b, n_bins, table_size)
     if table_size is None:
         raise ValueError("a precomputed schedule needs its static table_size")
@@ -78,6 +99,63 @@ def _operands(a: CSR, b: CSR):
             b.indices, b.data.to(torch.float32))
 
 
+@torch.library.custom_op("repro_torch::spgemm_hash_symbolic",
+                         mutates_args=())
+def symbolic_op(offsets: torch.Tensor, bin_tsize: torch.Tensor,
+                indptr_a: torch.Tensor, indptr_b: torch.Tensor,
+                a_idx: torch.Tensor, a_val: torch.Tensor, b_idx: torch.Tensor,
+                b_val: torch.Tensor, table_size: int,
+                vector: bool) -> torch.Tensor:
+    """:func:`kernel.symbolic_call` as a custom op, so that
+    ``torch.func.vmap`` reaches its rule (:func:`_symbolic_vmap`); the
+    ``errors`` read-back stays inside."""
+    return K.symbolic_call(offsets, bin_tsize, indptr_a, indptr_b, a_idx,
+                           a_val, b_idx, b_val, table_size=table_size,
+                           vector=vector)
+
+
+@symbolic_op.register_vmap
+def _symbolic_vmap(info, in_dims, offsets, bin_tsize, indptr_a, indptr_b,
+                   a_idx, a_val, b_idx, b_val, table_size, vector):
+    """The batched symbolic kernel over ``info.batch_size`` members, once
+    per vmapped call (arguments as :func:`_build.members_first` lays them
+    out)."""
+    args = _build.members_first((offsets, bin_tsize, indptr_a, indptr_b,
+                                 a_idx, a_val, b_idx, b_val), in_dims)
+    return K.batched_symbolic_call(*args, n_members=info.batch_size,
+                                   table_size=table_size, vector=vector), 0
+
+
+@torch.library.custom_op("repro_torch::spgemm_hash_numeric",
+                         mutates_args=())
+def numeric_op(offsets: torch.Tensor, bin_tsize: torch.Tensor,
+               indptr_a: torch.Tensor, indptr_b: torch.Tensor,
+               indptr_c: torch.Tensor, a_idx: torch.Tensor,
+               a_val: torch.Tensor, b_idx: torch.Tensor, b_val: torch.Tensor,
+               cap_c: int, table_size: int,
+               vector: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`kernel.numeric_call` as a custom op (rule:
+    :func:`_numeric_vmap`)."""
+    return K.numeric_call(offsets, bin_tsize, indptr_a, indptr_b, indptr_c,
+                          a_idx, a_val, b_idx, b_val, cap_c=cap_c,
+                          table_size=table_size, vector=vector)
+
+
+@numeric_op.register_vmap
+def _numeric_vmap(info, in_dims, offsets, bin_tsize, indptr_a, indptr_b,
+                  indptr_c, a_idx, a_val, b_idx, b_val, cap_c, table_size,
+                  vector):
+    """The batched numeric kernel over ``info.batch_size`` members, once
+    per vmapped call."""
+    args = _build.members_first((offsets, bin_tsize, indptr_a, indptr_b,
+                                 indptr_c, a_idx, a_val, b_idx, b_val),
+                                in_dims)
+    out = K.batched_numeric_call(*args, n_members=info.batch_size,
+                                 cap_c=cap_c, table_size=table_size,
+                                 vector=vector)
+    return out, (0, 0)
+
+
 def spgemm_hash(a: CSR, b: CSR, cap_c: int, *, n_bins: int = 8,
                 vector: bool = False, table_size: int | None = None,
                 semiring="plus_times", mask: CSR | None = None,
@@ -88,7 +166,10 @@ def spgemm_hash(a: CSR, b: CSR, cap_c: int, *, n_bins: int = 8,
 
     ``schedule=(offsets, bin_tsize)`` skips the Fig. 6 inspection (pass
     ``table_size`` alongside); ``indptr_c=`` also skips the symbolic
-    kernel -- the planned execute runs the numeric kernel only.
+    kernel -- the planned execute runs the numeric kernel only.  Runs under
+    ``torch.func.vmap`` over the values of A, of B or both, and over
+    stacked structures with a stacked ``schedule=`` (the batched kernels,
+    through the ops' rules).
     """
     from repro_torch.core.semiring import resolve_semiring
     if resolve_semiring(semiring).name != "plus_times" or mask is not None:
@@ -100,13 +181,12 @@ def spgemm_hash(a: CSR, b: CSR, cap_c: int, *, n_bins: int = 8,
                                                        table_size, schedule)
     ip_a, ip_b, a_idx, a_val, b_idx, b_val = _operands(a, b)
     if indptr_c is None:
-        row_nnz = K.symbolic_call(offsets, bin_tsize, ip_a, ip_b, a_idx,
-                                  a_val, b_idx, b_val, table_size=table_size,
-                                  vector=vector)
+        row_nnz = symbolic_op(offsets, bin_tsize, ip_a, ip_b, a_idx, a_val,
+                              b_idx, b_val, table_size, vector)
         indptr_c = prefix_sum(row_nnz).to(torch.int32)
-    cols_c, vals_c = K.numeric_call(offsets, bin_tsize, ip_a, ip_b, indptr_c,
-                                    a_idx, a_val, b_idx, b_val, cap_c=cap_c,
-                                    table_size=table_size, vector=vector)
+    cols_c, vals_c = numeric_op(offsets, bin_tsize, ip_a, ip_b, indptr_c,
+                                a_idx, a_val, b_idx, b_val, cap_c,
+                                table_size, vector)
     nnz_c = indptr_c[-1]
     return CSR(indptr_c, cols_c, vals_c.to(a.dtype), nnz_c, (m, n),
                sorted_cols=False)
@@ -118,10 +198,8 @@ def spgemm_hash_symbolic(a: CSR, b: CSR, *, n_bins: int = 8,
     """Symbolic phase only: exact nnz(C) per row, ``(m,) int32``."""
     offsets, bin_tsize, table_size = _resolve_schedule(a, b, n_bins,
                                                        table_size, schedule)
-    ip_a, ip_b, a_idx, a_val, b_idx, b_val = _operands(a, b)
-    return K.symbolic_call(offsets, bin_tsize, ip_a, ip_b, a_idx, a_val,
-                           b_idx, b_val, table_size=table_size,
-                           vector=vector)
+    return symbolic_op(offsets, bin_tsize, *_operands(a, b), table_size,
+                       vector)
 
 
 def spgemm_hash_batched(a: CSR, b: CSR, cap_c: int, *, vector: bool,
@@ -133,7 +211,7 @@ def spgemm_hash_batched(a: CSR, b: CSR, cap_c: int, *, vector: bool,
     The counterpart of the reference's ``_numeric_entry`` vmap rule, as a
     plain function over stacked members: ``core.batch`` stacks its class
     members itself and calls it directly, not through ``torch.func.vmap``
-    (the BCSR route's ``register_vmap`` rule shows the vmap form).
+    (:func:`numeric_op`'s ``register_vmap`` rule is the vmap form).
     ``a`` and ``b`` are stacked CSRs, every array with a leading member
     axis (``core.batch._stack_csr``), or plain CSRs that all members share:
     a shared operand goes to the kernel as it is, with member stride 0,
@@ -147,5 +225,5 @@ def spgemm_hash_batched(a: CSR, b: CSR, cap_c: int, *, vector: bool,
     return K.batched_numeric_call(
         offsets, bin_tsize, a.indptr, b.indptr, indptr_c, a.indices,
         a.data.to(torch.float32), b.indices, b.data.to(torch.float32),
-        cap_c=cap_c, table_size=table_size, vector=vector,
-        launches=launches)
+        n_members=offsets.shape[0], cap_c=cap_c, table_size=table_size,
+        vector=vector, launches=launches)

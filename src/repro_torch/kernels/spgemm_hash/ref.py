@@ -11,7 +11,8 @@ The semantic contract of the kernels (per phase):
   * symbolic: exact nnz per output row;
   * numeric:  (indices, values) at ``indptr_c``, where each row holds the
     right {col: sum of products} set in *some* order (unsorted, C8);
-  * batched numeric: the numeric phase for every member of a fleet.
+  * batched symbolic and numeric: each phase for every member of a
+    fleet, every argument stacked along a leading member axis or shared.
 
 The CPU path runs these functions; on the card they serve only as the
 yardstick the kernels are checked against.
@@ -91,28 +92,36 @@ def numeric_plain(offsets, bin_tsize, indptr_a, indptr_b, indptr_c, a_idx,
     return out_cols, out_vals
 
 
-def batched_numeric_plain(offsets, bin_tsize, indptr_a, indptr_b, indptr_c,
-                          a_idx, a_val, b_idx, b_val, *, cap_c, table_size,
-                          vector):
-    """The batched numeric kernel's function: :func:`numeric_plain` for
-    each fleet member.
+def batched_symbolic_plain(offsets, bin_tsize, indptr_a, indptr_b, a_idx,
+                           a_val, b_idx, b_val, *, n_members, table_size,
+                           vector):
+    """The batched symbolic kernel's function: :func:`symbolic_plain` for
+    each of ``n_members`` members, ``(n, m) int32``.  Every argument has a
+    leading member axis or is 1-D and shared by all members."""
+    args = (offsets, bin_tsize, indptr_a, indptr_b, a_idx, a_val, b_idx,
+            b_val)
+    return torch.stack([
+        symbolic_plain(*(member_view(t, 1, e) for t in args),
+                       table_size=table_size, vector=vector)
+        for e in range(n_members)])
 
-    ``offsets (n, n_bins + 1)``, ``bin_tsize (n, n_bins)`` and ``indptr_c
-    (n, M + 1)`` carry a member axis.  So does every operand array, or it
-    is 1-D when all members share it.  Returns ``(cols, vals)``, each
-    ``(n, cap_c)``.
-    """
-    n = offsets.shape[0]
+
+def batched_numeric_plain(offsets, bin_tsize, indptr_a, indptr_b, indptr_c,
+                          a_idx, a_val, b_idx, b_val, *, n_members, cap_c,
+                          table_size, vector):
+    """The batched numeric kernel's function: :func:`numeric_plain` for
+    each of ``n_members`` members, ``(cols, vals)``, each ``(n, cap_c)``.
+    Every argument has a leading member axis or is 1-D and shared by all
+    members (a plan's schedule and ``indptr_c`` under a value fleet)."""
+    args = (offsets, bin_tsize, indptr_a, indptr_b, indptr_c, a_idx, a_val,
+            b_idx, b_val)
     dev = a_idx.device
-    out_cols = torch.zeros(n, cap_c, dtype=torch.int32, device=dev)
-    out_vals = torch.zeros(n, cap_c, dtype=torch.float32, device=dev)
-    for e in range(n):
+    out_cols = torch.zeros(n_members, cap_c, dtype=torch.int32, device=dev)
+    out_vals = torch.zeros(n_members, cap_c, dtype=torch.float32, device=dev)
+    for e in range(n_members):
         out_cols[e], out_vals[e] = numeric_plain(
-            offsets[e], bin_tsize[e], member_view(indptr_a, 1, e),
-            member_view(indptr_b, 1, e), indptr_c[e],
-            member_view(a_idx, 1, e), member_view(a_val, 1, e),
-            member_view(b_idx, 1, e), member_view(b_val, 1, e),
-            cap_c=cap_c, table_size=table_size, vector=vector)
+            *(member_view(t, 1, e) for t in args), cap_c=cap_c,
+            table_size=table_size, vector=vector)
     return out_cols, out_vals
 
 

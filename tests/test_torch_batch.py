@@ -544,7 +544,7 @@ def check_class_plain(cls, tpairs):
     cols, vals = tops.spgemm_hash_batched(
         a_st, b_st, cls.cap_c, vector=False, table_size=cls.table_size,
         schedule=(off, bts), indptr_c=ic)
-    assert tops.kernel_call_counts()["plain"] == 1
+    assert tops.kernel_call_counts()["batched_plain"] == 1
     assert tops.kernel_call_counts()["batched_numeric"] == 0
     n = cls.n_members
 
@@ -601,8 +601,8 @@ def test_batched_wrapper_runs_plain_on_cpu():
     tops.reset_kernel_calls()
     tp.execute(tpairs)
     counts = tops.kernel_call_counts()
-    assert counts["plain"] == sum(c.hash_sched is not None
-                                  for c in tp.classes)
+    assert counts["batched_plain"] == sum(c.hash_sched is not None
+                                          for c in tp.classes)
     assert counts["batched_numeric"] == counts["batched_numeric_vector"] \
         == counts["numeric"] == 0
 

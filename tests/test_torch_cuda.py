@@ -915,7 +915,8 @@ def test_batched_kernel_matches_plain_version(cuda, vector, shared_b):
     if shared_b:
         pairs = [(a, b_shared) for a, _ in pairs if a.n_cols == 512]
     args, cap_c, table = fleet_args(pairs, shared_b)
-    kw = dict(cap_c=cap_c, table_size=table, vector=vector)
+    kw = dict(n_members=len(pairs), cap_c=cap_c, table_size=table,
+              vector=vector)
     ops.reset_kernel_calls()
     cols, vals = K.batched_numeric_call(*args, **kw)
     torch.cuda.synchronize()
@@ -947,7 +948,8 @@ def test_batched_kernel_member_past_smem(cuda, vector):
     pairs = [small[0], (a_w, b_w), small[1], small[2]]
     args, cap_c, table = fleet_args(pairs, False)
     assert args[1][1].max() > K.SMEM_SLOTS >= args[1][[0, 2, 3]].max()
-    kw = dict(cap_c=cap_c, table_size=table, vector=vector)
+    kw = dict(n_members=len(pairs), cap_c=cap_c, table_size=table,
+              vector=vector)
     launches = K.batched_launches(args[0].tolist(), args[1].tolist(), table,
                                   args[4].shape[1] - 1, vector)
     assert any(x["ws_tsz"] and x["smem_slots"] for x in launches)
@@ -966,11 +968,12 @@ def test_batched_kernel_table_too_small_raises(cuda):
     args, cap_c, _ = fleet_args(pairs, True)
     small = torch.full_like(args[1], 8)
     with pytest.raises(RuntimeError, match="full-table"):
-        K.batched_numeric_call(args[0], small, *args[2:], cap_c=cap_c,
-                               table_size=8, vector=False)
+        K.batched_numeric_call(args[0], small, *args[2:], n_members=2,
+                               cap_c=cap_c, table_size=8, vector=False)
     with pytest.raises(ValueError):              # float64 values
         K.batched_numeric_call(*args[:6], args[6].double(), *args[7:],
-                               cap_c=cap_c, table_size=8, vector=False)
+                               n_members=2, cap_c=cap_c, table_size=8,
+                               vector=False)
 
 
 @pytest.mark.gpu
@@ -1006,3 +1009,228 @@ def test_planned_batch_launches_only_the_batched_kernel(cuda, algorithm):
         nnz = int(c.nnz)
         assert torch.equal(s.indices[:nnz], t.indices[:nnz])
         assert torch.equal(s.data[:nnz], t.data[:nnz])
+
+
+def symbolic_args(args):
+    """:func:`fleet_args`' arguments without ``indptr_c``: the batched
+    symbolic kernel's."""
+    return args[:4] + args[5:]
+
+
+def check_batched_symbolic(args, n, table, vector, launches=None):
+    """The batched symbolic kernel on ``args`` (each stacked or shared)
+    launches once per bin index holding rows and gives bitwise the batched
+    plain version's counts; returns them."""
+    kw = dict(n_members=n, table_size=table, vector=vector)
+    if launches is None:
+        rows = [args[0].tolist()] * n if args[0].dim() == 1 \
+            else args[0].tolist()
+        sizes = [args[1].tolist()] * n if args[1].dim() == 1 \
+            else args[1].tolist()
+        launches = K.batched_launches(rows, sizes, table,
+                                      args[2].shape[-1] - 1, vector)
+    ops.reset_kernel_calls()
+    got = K.batched_symbolic_call(*args, **kw)
+    torch.cuda.synchronize()
+    counts = ops.kernel_call_counts()
+    key = "batched_symbolic_vector" if vector else "batched_symbolic"
+    assert counts.pop(key) == len(launches) > 0
+    assert set(counts.values()) == {0}
+    assert torch.equal(got, ref.batched_symbolic_plain(*args, **kw))
+    return got
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shared_b", (False, True), ids=("stacked",
+                                                          "shared"))
+@pytest.mark.parametrize("vector", (False, True))
+def test_batched_symbolic_kernel_matches_plain_version(cuda, vector,
+                                                       shared_b):
+    """The batched symbolic kernel over a fleet of different structures
+    (stacked schedules and A's, B stacked or shared, shared-memory
+    tables): every member's row counts bitwise equal to the batched plain
+    version and to the symbolic counts behind its ``indptr_c``."""
+    b_shared = operand("ER", 9, 8, True, cuda)
+    pairs = [(operand(p, 9, ef, True, cuda),
+              b_shared if shared_b else operand("G500", 9, 4 + i, True,
+                                                cuda))
+             for i, (p, ef) in enumerate((("ER", 4), ("G500", 8),
+                                          ("G500", 2)))]
+    args, _, table = fleet_args(pairs, shared_b)
+    rows = check_batched_symbolic(symbolic_args(args), len(pairs), table,
+                                  vector)
+    assert torch.equal(rows, args[4][:, 1:] - args[4][:, :-1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("vector", (False, True))
+def test_batched_symbolic_kernel_member_past_smem(cuda, vector):
+    """One member's table past SMEM_SLOTS (global workspace) in the same
+    launches as members whose tables stay in shared memory."""
+    a_w, b_w = wide_operands(cuda, 40000)
+    small = []
+    for i in range(3):
+        a = CSR.from_numpy_coo([0, 0, 0, 0, 1], [0, 1, 2, 3, 2],
+                               np.resize(DYADIC, 5), (2, 4), device=cuda)
+        b = CSR.from_numpy_coo(np.repeat(np.arange(4), 2),
+                               np.arange(8) * (i + 7), np.resize(DYADIC, 8),
+                               (4, 40000), device=cuda)
+        small.append((a, b))
+    pairs = [small[0], (a_w, b_w), small[1], small[2]]
+    args, _, table = fleet_args(pairs, False)
+    launches = K.batched_launches(args[0].tolist(), args[1].tolist(), table,
+                                  args[4].shape[1] - 1, vector)
+    assert any(x["ws_tsz"] and x["smem_slots"] for x in launches)
+    rows = check_batched_symbolic(symbolic_args(args), len(pairs), table,
+                                  vector, launches)
+    assert torch.equal(rows, args[4][:, 1:] - args[4][:, :-1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("vector", (False, True))
+@pytest.mark.parametrize("case", CASES, ids=lambda c: f"{c[0]}{c[1]}")
+def test_batched_symbolic_one_member_equals_single_kernel(cuda, case,
+                                                          vector):
+    """At one member with every argument shared (stride 0), the batched
+    symbolic kernel gives bitwise the single kernel's counts (G500 s12:
+    global-memory tables)."""
+    a = operand(*case, cuda)
+    off, tsz, table = ops.hash_schedule(a, a, n_bins=8)
+    args = (off, tsz, a.indptr, a.indptr, a.indices, a.data, a.indices,
+            a.data)
+    single = K.symbolic_call(*args, table_size=table, vector=vector)
+    rows = check_batched_symbolic(args, 1, table, vector)
+    assert rows.shape == (1, a.n_rows)
+    assert torch.equal(rows[0], single)
+
+
+def value_fleet(cuda, n, seed):
+    """A hash plan on a G500 s10 square and ``n`` dyadic members of A's
+    values, ``(n, cap)``, zero past nnz."""
+    from repro_torch.core import plan_spgemm
+    a = operand("G500", 10, 16, True, cuda)
+    plan = plan_spgemm(a, a, algorithm="hash", cache=False)
+    rng = np.random.default_rng(seed)
+    vals = torch.from_numpy(rng.choice(DYADIC, (n, a.cap))).to(cuda)
+    return a, plan, vals * a.valid_mask()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("schedule", ("shared", "stacked"))
+@pytest.mark.parametrize("vector", (False, True))
+def test_batched_kernels_with_plan_schedule(cuda, vector, schedule):
+    """A value fleet on one plan: the schedule (and ``indptr_c``) shared,
+    stride 0, or stacked per member, A's values stacked, B shared.  The
+    symbolic counts equal the plan's; the numeric kernel with a shared
+    schedule equals the stacked-schedule call bitwise (rows sorted,
+    dyadic values), and the batched plain version."""
+    a, plan, vals = value_fleet(cuda, 3, 30)
+    n = vals.shape[0]
+    sched = [plan.offsets, plan.bin_tsize, plan.indptr_c]
+    if schedule == "stacked":
+        sched = [torch.stack([t] * n) for t in sched]
+    off, tsz, ic = sched
+    table = plan.table_size
+    rows = check_batched_symbolic((off, tsz, a.indptr, a.indptr, a.indices,
+                                   vals, a.indices, a.data), n, table,
+                                  vector)
+    assert torch.equal(rows, plan.row_nnz_c.expand(n, -1))
+    kw = dict(n_members=n, cap_c=plan.cap_c, table_size=table,
+              vector=vector)
+    num = (off, tsz, a.indptr, a.indptr, ic, a.indices, vals, a.indices,
+           a.data)
+    cols, out = K.batched_numeric_call(*num, **kw)
+    stacked = [torch.stack([t] * n) for t in (plan.offsets, plan.bin_tsize,
+                                              plan.indptr_c)]
+    cols_s, out_s = K.batched_numeric_call(stacked[0], stacked[1],
+                                           *num[2:4], stacked[2], *num[5:],
+                                           **kw)
+    pc, pv = ref.batched_numeric_plain(*num, **kw)
+    for e in range(n):
+        got = CSR(plan.indptr_c, cols[e], out[e], plan.indptr_c[-1], a.shape,
+                  False).sort_rows()
+        want = CSR(plan.indptr_c, cols_s[e], out_s[e], plan.indptr_c[-1],
+                   a.shape, False).sort_rows()
+        assert torch.equal(got.indices, want.indices), e
+        assert torch.equal(got.data, want.data), e
+        assert torch.equal(got.indices, pc[e]), e
+        assert torch.equal(got.data, pv[e]), e
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("algorithm", ("hash", "hash_vector"))
+def test_hash_vmap_launches_only_the_batched_kernels(cuda, algorithm):
+    """``torch.func.vmap`` on CUDA: the plan's execute launches only the
+    batched numeric kernel, once per bin index holding rows; the planless
+    ``spgemm_hash`` with the plan's schedule pinned launches the batched
+    symbolic and numeric kernels as often each; no single-product kernel,
+    no plain version.  Each member bitwise equal to its own execute
+    (rows sorted, dyadic values)."""
+    import dataclasses
+    from repro_torch.core import plan_spgemm
+    a, _, vals = value_fleet(cuda, 4, 31)
+    plan = plan_spgemm(a, a, algorithm=algorithm, cache=False)
+    vector = algorithm == "hash_vector"
+    n_launches = sum(1 for r0, r1 in zip(plan.offsets.tolist(),
+                                         plan.offsets.tolist()[1:])
+                     if r1 > r0)
+    sfx = "_vector" if vector else ""
+
+    def planned(v):
+        c = plan.execute(dataclasses.replace(a, data=v), a)
+        return c.indices, c.data
+
+    def planless(v):
+        c = ops.spgemm_hash(dataclasses.replace(a, data=v), a, plan.cap_c,
+                            vector=vector, table_size=plan.table_size,
+                            schedule=(plan.offsets, plan.bin_tsize))
+        return c.indptr, c.indices, c.data
+
+    ops.reset_kernel_calls()
+    cols, data = torch.func.vmap(planned)(vals)
+    torch.cuda.synchronize()
+    counts = ops.kernel_call_counts()
+    assert counts.pop(f"batched_numeric{sfx}") == n_launches > 0
+    assert set(counts.values()) == {0}
+    ops.reset_kernel_calls()
+    ip2, cols2, data2 = torch.func.vmap(planless)(vals)
+    torch.cuda.synchronize()
+    counts = ops.kernel_call_counts()
+    assert counts.pop(f"batched_numeric{sfx}") == n_launches
+    assert counts.pop(f"batched_symbolic{sfx}") == n_launches
+    assert set(counts.values()) == {0}
+    assert torch.equal(ip2, plan.indptr_c.expand_as(ip2))
+    for e in range(vals.shape[0]):
+        one = plan.execute(dataclasses.replace(a, data=vals[e]),
+                           a).sort_rows()
+        for c, d in ((cols, data), (cols2, data2)):
+            got = CSR(plan.indptr_c, c[e], d[e], plan.indptr_c[-1], a.shape,
+                      False).sort_rows()
+            assert torch.equal(got.indices, one.indices), e
+            assert torch.equal(got.data, one.data), e
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("vector", (False, True))
+def test_batched_symbolic_table_too_small_raises(cuda, vector):
+    """A table of CHUNK slots for 2 * CHUNK distinct columns: the batched
+    symbolic kernel's ``errors`` count makes its wrapper raise, and so
+    does the planless ``spgemm_hash`` under vmap with that schedule."""
+    import dataclasses
+    d = 2 * K.CHUNK
+    a = CSR.from_numpy_coo([0], [0], np.ones(1, np.float32), (1, 1),
+                           device=cuda)
+    b = CSR.from_numpy_coo(np.zeros(d, np.int64), np.arange(d),
+                           DYADIC[np.arange(d) % 4], (1, d), device=cuda)
+    off = torch.tensor([0, 1], dtype=torch.int32, device=cuda)
+    tsz = torch.tensor([K.CHUNK], dtype=torch.int32, device=cuda)
+    vals = torch.ones(2, 1, device=cuda)
+    with pytest.raises(RuntimeError, match="full-table"):
+        K.batched_symbolic_call(off, tsz, a.indptr, b.indptr, a.indices,
+                                vals, b.indices, b.data, n_members=2,
+                                table_size=K.CHUNK, vector=vector)
+    with pytest.raises(RuntimeError, match="full-table"):
+        torch.func.vmap(lambda v: ops.spgemm_hash(
+            dataclasses.replace(a, data=v), b, d, vector=vector,
+            table_size=K.CHUNK, schedule=(off, tsz)).data)(vals)
+

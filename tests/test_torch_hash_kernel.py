@@ -175,8 +175,9 @@ def test_launch_counters_on_cpu_count_plain_runs():
     tops.spgemm_hash(ta, tb, cap)                       # symbolic + numeric
     assert tops.kernel_call_counts() == {
         "symbolic": 0, "numeric": 0, "symbolic_vector": 0,
-        "numeric_vector": 0, "batched_numeric": 0,
-        "batched_numeric_vector": 0, "plain": 2}
+        "numeric_vector": 0, "batched_symbolic": 0,
+        "batched_symbolic_vector": 0, "batched_numeric": 0,
+        "batched_numeric_vector": 0, "plain": 2, "batched_plain": 0}
     tops.reset_kernel_calls()
     assert set(tops.kernel_call_counts().values()) == {0}
 
