@@ -6,8 +6,9 @@ through the entry points a user calls, at the paper's own input sizes
 (R-MAT, edge factor 16, squared: ER at scale 18 and G500 at scale 16,
 seed 0), then the sorted-output (PB) and block-sparse (BCSR) routes, SpMM,
 the paper's graph workloads, the batched fleet planner and BCSR, PB and
-hash value fleets under ``torch.func.vmap``, and holds every hand-written
-kernel against its plain PyTorch version.
+hash value fleets under ``torch.func.vmap``, then the LM serving path
+(qwen3-0.6b at full width, prefill through the flash-attention kernel),
+and holds every hand-written kernel against its plain PyTorch version.
 Phases; any failure exits non-zero:
 
   1. the card's name and power limit (``nvidia-smi``);
@@ -143,6 +144,32 @@ Phases; any failure exits non-zero:
      per-member loop, the batched plain versions and a loop of
      ``torch.sparse.mm`` per member, beside the byte bound (shared index
      arrays counted once);
+ 17. the flash-attention kernel at qwen3-0.6b's widths (16 query heads, 8
+     KV heads, head dim 128) against its plain version, float32 (within
+     2e-5) and bfloat16 (within one bf16 ulp of the plain output plus
+     2e-5: each rounds its own float32 result, which may differ by the
+     float32 tolerance, so this matters only near zero), causal
+     at (B 2, S 2,048) and (B 1, S 4,096) and not causal at Sq 1,000, Skv
+     3,000; at (B 1, S 4,096) and (B 1, S 32,768) bf16 causal, median
+     CUDA-event times beside the plain version (at 32,768 head by head,
+     which is also the check there), ``scaled_dot_product_attention`` (a
+     yardstick only, never on the path) and the operations bound;
+ 18. serving qwen3-0.6b at full width (28 layers, random float32 weights
+     from seed 0, bf16 compute, TF32 off) through ``Engine(max_batch=4,
+     max_len=4,096)``: 8 requests (six prompts as ``launch/serve.py``
+     draws them, one of 1,024 and one of 2,048 tokens), 16 new tokens
+     each.  Counters zeroed around the run and read per call: each
+     admission launches the flash kernel 28 times and its plain version
+     never, a decode step neither, nothing else runs; every request
+     finishes with its tokens.  Prefill logits of the short prompt and
+     both long ones through "flash" against "full": at float32 within a
+     relative L2 distance of 1e-4; at bf16 "flash" at most 1.5 times as
+     far from the float32 logits as "full" is.  A float32 copy of the
+     config passes ``tests/test_serve.py``'s greedy-equals-
+     re-prefill check over 4 tokens (logits compared instead, within 1e-4
+     of the largest |logit|, where the top-2 gap is under that).  Timing
+     line: prefill ms per prompt length, decode-step ms at batch 4,
+     tokens/s;
  15. one ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``.
 
 Usage: ``python3 chip_smoke.py`` (one card, no arguments).  A quick first
@@ -205,10 +232,38 @@ PB_FLEET_MEMBERS, PB_FLEET_MEMBERS_BOTH = 8, 4
 #: the planless spgemm_hash), with A and B batched; G500 s16 (global tables)
 HASH_FLEET_MEMBERS, HASH_FLEET_MEMBERS_BOTH, HASH_FLEET_MEMBERS_G500 = 8, 4, 2
 
+#: published H100 SXM bf16 tensor-core peak (dense), the flash kernel's bound
+BF16_FLOP_PER_S = 989e12
+#: the LM serving path at qwen3-0.6b's widths (src/repro_torch/configs/
+#: qwen3_0_6b.py: 16 query heads, 8 KV heads, head dim 128)
+LM_ARCH, LM_HEADS, LM_KV_HEADS, LM_HEAD_DIM = "qwen3-0.6b", 16, 8, 128
+#: phase 17: (batch, Sq, Skv, causal) checked against the plain version,
+#: and the causal lengths timed (prefill_32k's length the longest)
+FLASH_CHECKS = ((2, 2048, 2048, True), (1, 4096, 4096, True),
+                (1, 1000, 3000, False))
+FLASH_TIMED = (4096, 32768)
+#: phase 17 tolerance: float32 outputs against the plain version (sums in
+#: another order); bf16 outputs get one bf16 ulp on top of it
+FLASH_F32_TOL = 2e-5
+#: phase 18: the engine's slots and cache, six prompts as the launcher
+#: draws them and two long ones, new tokens per request
+SERVE_BATCH, SERVE_MAX_LEN, SERVE_SHORT, SERVE_LONG, SERVE_NEW = \
+    4, 4096, 6, (1024, 2048), 16
+#: phase 18 tolerances.  SERVE_F32_FLASH_REL: float32 prefill logits at
+#: full width, "flash" against "full", as a relative L2 distance (sums in
+#: another order through 28 layers; a wrong stride or mask moves them by
+#: far more).  SERVE_BF16_RATIO: at bf16 each path rounds every layer, so
+#: "flash" may be at most this many times as far from the float32 logits
+#: as "full" is.  SERVE_F32_REL: float32 greedy decode against
+#: re-prefill, as a share of the largest |logit|
+SERVE_F32_FLASH_REL, SERVE_BF16_RATIO, SERVE_F32_REL = 1e-4, 1.5, 1e-4
+
 KERNEL_SOURCE = "src/repro_torch/kernels/spgemm_hash/csrc/spgemm_hash.cu"
 PB_SOURCE = "src/repro_torch/kernels/spgemm_pb/csrc/spgemm_pb.cu"
 BCSR_SOURCE = "src/repro_torch/kernels/spgemm_bcsr/csrc/spgemm_bcsr.cu"
 SPMM_SOURCE = "src/repro_torch/kernels/spmm/csrc/spmm.cu"
+FLASH_SOURCE = \
+    "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
 REPLACES = {
     "numeric": "src/repro/kernels/spgemm_hash/kernel.py:266",
     "numeric_vector": "src/repro/kernels/spgemm_hash/kernel.py:87",
@@ -222,6 +277,7 @@ REPLACES = {
     "bcsr_batched": "src/repro/kernels/spgemm_bcsr/kernel.py:215",
     "batched_scatter": "src/repro/kernels/spgemm_pb/kernel.py:179",
     "batched_merge": "src/repro/kernels/spgemm_pb/kernel.py:220",
+    "flash_fwd": "src/repro/kernels/flash_attention/kernel.py:88",
 }
 #: the vector rows replace the chunked probe the Pallas kernels share
 REPLACES["bcsr_numeric_vector"] = REPLACES["numeric_vector"]
@@ -261,6 +317,10 @@ class Smoke:
         from repro_torch.kernels.spmm import ops as spmm_ops
         from repro_torch.kernels.spmm import ref as spmm_ref
         from repro_torch.examples import graph_analytics
+        from repro_torch.kernels.flash_attention import kernel as FK
+        from repro_torch.kernels.flash_attention import ops as fa_ops
+        from repro_torch.kernels.flash_attention import ref as fa_ref
+        self.FK, self.fa_ops, self.fa_ref = FK, fa_ops, fa_ref
         self.torch, self.core, self.CSR, self.rmat = torch, core, CSR, rmat
         self.SK, self.spmm_ops, self.spmm_ref = SK, spmm_ops, spmm_ref
         self.ga = graph_analytics
@@ -275,10 +335,10 @@ class Smoke:
     # ---- helpers ---------------------------------------------------------
     def counted(self, fn):
         """Run ``fn`` between a reset and a read of every launch counter
-        (the PB, BCSR and SpMM counters under ``pb_``, ``bcsr_`` and
-        ``spmm_`` names)."""
+        (the PB, BCSR, SpMM and flash-attention counters under ``pb_``,
+        ``bcsr_``, ``spmm_`` and ``flash_`` names)."""
         others = {"pb": self.pb_ops, "bcsr": self.bcsr_ops,
-                  "spmm": self.spmm_ops}
+                  "spmm": self.spmm_ops, "flash": self.fa_ops}
         self.ops.reset_kernel_calls()
         for mod in others.values():
             mod.reset_kernel_calls()
@@ -322,6 +382,32 @@ class Smoke:
                  for e in prof.key_averages() if kernel in e.key)
         return us / 1e3 if us else None
 
+    def busy_ms(self, fn, kernel: str, reps: int = 3):
+        """One call of ``fn``: (median host ms of ``reps`` calls ending in
+        a synchronise, device busy ms -- the device events' summed time in
+        a ``torch.profiler`` trace of one more call, None if the trace
+        holds none --, the number of device events: kernels, copies and
+        fills, and the ms of the kernels whose name holds ``kernel``)."""
+        from torch.profiler import ProfilerActivity, profile
+        torch = self.torch
+        host = []
+        for _ in range(reps + 1):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            host.append((time.perf_counter() - t0) * 1e3)
+        host = sorted(host[1:])
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+        named = sum(e.time_range.elapsed_us() for e in kernels
+                    if kernel in e.name) / 1e3
+        return host[len(host) // 2], (busy or None), len(kernels), named
+
     def sorted_rows(self, cols, vals, indptr, shape):
         c = self.CSR(indptr, cols, vals,
                      self.torch.tensor(int(indptr[-1]), dtype=self.torch.int32,
@@ -361,7 +447,7 @@ class Smoke:
         plain = counts["plain"] + counts["batched_plain"] \
             + counts["pb_plain"] + counts["bcsr_plain"] \
             + counts["bcsr_batched_plain"] + counts["pb_batched_plain"] \
-            + counts["spmm_plain"]
+            + counts["spmm_plain"] + counts["flash_plain"]
         check(plain == 0, f"{what}: ran a plain version {plain} times")
         check(counts == {k: want.get(k, 0) for k in counts},
               f"{what}: launches {counts}, want {want}")
@@ -2310,6 +2396,333 @@ class Smoke:
                         f"{LARGE_BLOCK[1]} tiles, {m} members, A batched", ab,
                         bp, fleets(ab, m, 70))
 
+    # ---- phase 17 ----------------------------------------------------------
+    @staticmethod
+    def bf16_ulp(x):
+        """One bfloat16 ulp at each value of ``x`` (float32 of bf16s)."""
+        _, e = x.float().abs().frexp()
+        return (e.float() - 8).exp2()
+
+    def flash_inputs(self, b, sq, skv, dtype, seed):
+        torch = self.torch
+        g = torch.Generator(self.dev).manual_seed(seed)
+        return [torch.randn(s, generator=g, device=self.dev).to(dtype)
+                for s in ((b, LM_HEADS, sq, LM_HEAD_DIM),
+                          (b, LM_KV_HEADS, skv, LM_HEAD_DIM),
+                          (b, LM_KV_HEADS, skv, LM_HEAD_DIM))]
+
+    def flash_kernel(self):
+        """Phase 17: the flash kernel at qwen3-0.6b's widths against its
+        plain version (float32 within FLASH_F32_TOL; bfloat16 within one
+        bf16 ulp of the plain output plus FLASH_F32_TOL: each rounds its
+        own float32 sum, and those may differ by FLASH_F32_TOL), then
+        CUDA-event medians beside the plain version,
+        ``scaled_dot_product_attention`` (a yardstick only, never on the
+        path) and the bound.  Returns the rows' numbers by length."""
+        torch, FK, ref = self.torch, self.FK, self.fa_ref
+        F = torch.nn.functional
+        scale = LM_HEAD_DIM ** -0.5
+        errs = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            for i, (b, sq, skv, causal) in enumerate(FLASH_CHECKS):
+                q, k, v = self.flash_inputs(b, sq, skv, dtype, 100 + i)
+                got = FK.flash_fwd(q, k, v, scale=scale, causal=causal)
+                want = ref.flash_attention_plain(q, k, v, causal=causal,
+                                                 scale=scale)
+                torch.cuda.synchronize()
+                what = (f"flash {str(dtype)[6:]} B {b} Sq {sq} Skv {skv} "
+                        f"causal {causal}")
+                check(got.shape == want.shape and got.dtype == dtype and
+                      bool(torch.isfinite(got).all()),
+                      f"{what}: shape, dtype or non-finite values")
+                d = (got.float() - want.float()).abs()
+                err = float(d.max())
+                if dtype == torch.float32:
+                    check(err <= FLASH_F32_TOL, f"{what}: max abs diff "
+                          f"{err} > {FLASH_F32_TOL} against the plain "
+                          f"version")
+                else:
+                    bad = int((d > self.bf16_ulp(want) + FLASH_F32_TOL)
+                              .sum())
+                    check(bad == 0, f"{what}: {bad} values past one bf16 "
+                          f"ulp (+ {FLASH_F32_TOL}) of the plain version "
+                          f"(max abs diff {err})")
+                errs[(dtype, sq)] = err
+                print(f"phase 17: {what}: max abs diff {err:.3g} to the "
+                      f"plain version", flush=True)
+                del q, k, v, got, want, d
+        torch.cuda.empty_cache()
+
+        rows = {}
+        for s in FLASH_TIMED:
+            q, k, v = self.flash_inputs(1, s, s, torch.bfloat16, 200 + s)
+            t = {"kernel": self.time_ms(lambda: FK.flash_fwd(
+                q, k, v, scale=scale, causal=True))}
+            out = FK.flash_fwd(q, k, v, scale=scale, causal=True)
+            if any(c[1] == s and c[3] for c in FLASH_CHECKS):
+                t["plain"] = self.time_ms(
+                    lambda: ref.flash_attention_plain(q, k, v, causal=True,
+                                                      scale=scale),
+                    reps=3, warm=1)
+                err = errs[(torch.bfloat16, s)]
+            else:
+                # the score panel of all heads at once does not fit: the
+                # plain version head by head is the check, timed as a loop
+                def plain_heads():
+                    g = LM_HEADS // LM_KV_HEADS
+                    return torch.cat([ref.flash_attention_plain(
+                        q[:, h:h + 1], k[:, h // g:h // g + 1],
+                        v[:, h // g:h // g + 1], causal=True, scale=scale)
+                        for h in range(LM_HEADS)], dim=1)
+                want = plain_heads()
+                d = (out.float() - want.float()).abs()
+                bad = int((d > self.bf16_ulp(want) + FLASH_F32_TOL).sum())
+                err = float(d.max())
+                check(bad == 0, f"flash bf16 S {s}: {bad} values past one "
+                      f"bf16 ulp (+ {FLASH_F32_TOL}) of the plain version, "
+                      f"head by head (max abs diff {err})")
+                print(f"phase 17: flash bf16 B 1 S {s} causal: max abs diff "
+                      f"{err:.3g} to the plain version head by head",
+                      flush=True)
+                del want, d
+                t["plain_heads"] = self.time_ms(plain_heads, reps=1, warm=0)
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                q, k, v, is_causal=True, enable_gqa=True)
+            t["sdpa"] = self.time_ms(lib)
+            lib_diff = float((lib().float() - out.float()).abs().max())
+            ops = 4 * LM_HEADS * LM_HEAD_DIM * s * (s + 1) / 2
+            by = (q.numel() + k.numel() + v.numel() + out.numel()) * 2
+            bound = max(ops / BF16_FLOP_PER_S, by / HBM_BYTES_PER_S) * 1e3
+            bound_by = "operations" if ops / BF16_FLOP_PER_S >= \
+                by / HBM_BYTES_PER_S else "bytes"
+            print(json.dumps({
+                "timing": f"flash_fwd bf16 B 1 H {LM_HEADS} Hkv "
+                f"{LM_KV_HEADS} D {LM_HEAD_DIM} S {s} causal",
+                "card": self.card, "ms": t, "bound_ms": bound,
+                "bound_by": bound_by, "tflop_per_s": ops / t["kernel"] / 1e9,
+                "sdpa_max_abs_diff": lib_diff}), flush=True)
+            rows[s] = {"ms": t["kernel"],
+                       "plain_ms": t.get("plain", t.get("plain_heads")),
+                       "bound_ms": bound, "bound_by": bound_by,
+                       "library_ms": t["sdpa"], "max_abs_err": err}
+            del q, k, v, out
+            torch.cuda.empty_cache()
+        return rows
+
+    # ---- phase 18 ----------------------------------------------------------
+    def serve(self, flash_rows):
+        """Phase 18: serve qwen3-0.6b at full width (random weights from a
+        seeded generator, bf16) through ``Engine``: 8 requests, every
+        admission launching the flash kernel once per layer and its plain
+        version never, decode launching neither; then the float32 and
+        bf16 prefill logits of "flash" against "full", and a float32 copy's
+        greedy
+        decode against re-prefill.  Adds the flash kernel's rows."""
+        import dataclasses
+        torch = self.torch
+        from repro_torch.configs import get
+        from repro_torch.models import transformer as T
+        from repro_torch.parallel.sharding import single_device_ctx
+        from repro_torch.serve import Engine, Request
+        fa_ops = self.fa_ops
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        print(f"phase 18: torch {torch.__version__} (CUDA "
+              f"{torch.version.cuda}); matmul allow_tf32 "
+              f"{torch.backends.cuda.matmul.allow_tf32}, cudnn allow_tf32 "
+              f"{torch.backends.cudnn.allow_tf32}", flush=True)
+        cfg = get(LM_ARCH)
+        check((cfg.n_heads, cfg.n_kv_heads, cfg.hd) ==
+              (LM_HEADS, LM_KV_HEADS, LM_HEAD_DIM), f"{LM_ARCH} widths")
+        t0 = time.perf_counter()
+        model = T.init_params(torch.Generator(self.dev).manual_seed(0), cfg)
+        torch.cuda.synchronize()
+        n_params = sum(p.numel() for p in model.parameters())
+        check(n_params == cfg.param_count(), f"{LM_ARCH}: {n_params} "
+              f"parameters, the config counts {cfg.param_count()}")
+        print(f"phase 18: {LM_ARCH} at full width ({cfg.n_layers} layers, "
+              f"d_model {cfg.d_model}, vocab {cfg.vocab_size}): {n_params} "
+              f"float32 parameters from seed 0 in "
+              f"{time.perf_counter() - t0:.1f} s; compute {cfg.dtype}",
+              flush=True)
+        pctx = single_device_ctx(attn_impl="flash")
+        rng = np.random.default_rng(0)
+        prompts = []
+        for _ in range(SERVE_SHORT):           # as repro/launch/serve.py
+            plen = int(rng.integers(4, 24))
+            prompts.append(rng.integers(0, cfg.vocab_size, size=(plen,))
+                           .astype(np.int32))
+        prompts += [rng.integers(0, cfg.vocab_size, size=(n,))
+                    .astype(np.int32) for n in SERVE_LONG]
+
+        # warm-up (cuBLAS handles, the allocator): one short prefill
+        T.prefill(model, torch.from_numpy(prompts[0][None]).long()
+                  .to(self.dev), cfg, pctx)
+        torch.cuda.synchronize()
+
+        eng = Engine(cfg, model, pctx, max_batch=SERVE_BATCH,
+                     max_len=SERVE_MAX_LEN, device=self.dev)
+        prefills, decodes = [], []
+        inner_prefill, inner_decode = eng._prefill, eng._decode
+
+        def timed(inner, log, what):
+            def call(*args):
+                before = fa_ops.kernel_call_counts()
+                t0 = time.perf_counter()
+                out = inner(*args)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+                after = fa_ops.kernel_call_counts()
+                log.append((args[1].shape[1] if what == "prefill"
+                            else eng.active(), ms,
+                            {k: after[k] - before[k] for k in after}))
+                return out
+            return call
+        eng._prefill = timed(inner_prefill, prefills, "prefill")
+        eng._decode = timed(inner_decode, decodes, "decode")
+        for r, p in enumerate(prompts):
+            eng.add_request(Request(rid=r, prompt=p,
+                                    max_new_tokens=SERVE_NEW))
+        t0 = time.perf_counter()
+        done, counts = self.counted(eng.run_to_completion)
+        wall = time.perf_counter() - t0
+        n_tok = sum(len(d.out_tokens) for d in done)
+        self.expect(counts, {"flash_flash_fwd": cfg.n_layers * len(prompts)},
+                    f"phase 18 {LM_ARCH} serving")
+        for n, _, c in prefills:
+            check(c == {"flash_fwd": cfg.n_layers, "plain": 0},
+                  f"phase 18: the admission of a {n}-token prompt launched "
+                  f"{c}, want {cfg.n_layers} flash_fwd and no plain")
+        for _, _, c in decodes:
+            check(c == {"flash_fwd": 0, "plain": 0},
+                  f"phase 18: a decode step launched {c}")
+        check(sorted(d.rid for d in done) == list(range(len(prompts))),
+              f"phase 18: finished {sorted(d.rid for d in done)}")
+        for d in done:
+            toks = np.asarray(d.out_tokens)
+            check(len(d.out_tokens) == SERVE_NEW and
+                  bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+                  f"phase 18: request {d.rid} gave {len(d.out_tokens)} "
+                  f"tokens (want {SERVE_NEW}) or ids past the vocabulary")
+        dec4 = sorted(ms for b, ms, _ in decodes if b == SERVE_BATCH)
+        check(bool(dec4), "phase 18: no decode step at batch 4")
+        timing = {
+            "prefill_ms": [[n, ms] for n, ms, _ in prefills],
+            "decode_ms_batch4_median": dec4[len(dec4) // 2],
+            "decode_steps": len(decodes), "tokens": n_tok, "wall_s": wall,
+            "tokens_per_s": n_tok / wall}
+        print(f"phase 18: served {len(done)} requests, {n_tok} tokens; "
+              f"{cfg.n_layers} flash_fwd launches per admission, none per "
+              f"decode step ({counts['flash_flash_fwd']} in all)",
+              flush=True)
+        # where a call's time goes: the device's busy share of the host time
+        caches = T.init_caches(cfg, SERVE_BATCH, SERVE_MAX_LEN,
+                               torch.bfloat16, self.dev)
+        tok = torch.zeros((SERVE_BATCH, 1), dtype=torch.long,
+                          device=self.dev)
+        pos = torch.full((SERVE_BATCH,), SERVE_LONG[-1], device=self.dev)
+        long_tok = torch.from_numpy(prompts[-1][None]).long().to(self.dev)
+        for name, fn in (
+                ("decode_batch4", lambda: T.decode_step(
+                    model, tok, caches, pos, cfg, pctx)),
+                (f"prefill_{SERVE_LONG[-1]}", lambda: T.prefill(
+                    model, long_tok, cfg, pctx))):
+            host, busy, n_k, flash = self.busy_ms(fn, "flash_fwd")
+            timing[name] = {"host_ms": host, "device_busy_ms": busy,
+                            "device_events": n_k, "flash_ms": flash,
+                            "device_idle_share": None if busy is None
+                            else 1 - busy / host}
+        del caches
+        print(json.dumps({"timing": f"{LM_ARCH} serving", "card": self.card,
+                          **timing}), flush=True)
+
+        # prefill logits, the flash kernel against exact softmax: at float32
+        # (the check that the kernel is wired in right) and at bf16 (each
+        # path's distance from the float32 logits)
+        full = single_device_ctx(attn_impl="full")
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        for p in (prompts[0], *prompts[SERVE_SHORT:]):
+            tok = torch.from_numpy(p[None]).long().to(self.dev)
+            f32 = T.prefill(model, tok, cfg32, pctx)[0]
+            r32 = T.prefill(model, tok, cfg32, full)[0]
+            rel = float((f32 - r32).norm() / r32.norm())
+            check(bool(torch.isfinite(f32).all()) and
+                  rel <= SERVE_F32_FLASH_REL,
+                  f"phase 18: float32 prefill logits of a {p.shape[0]}-token "
+                  f"prompt, flash against full: relative L2 {rel} > "
+                  f"{SERVE_F32_FLASH_REL}")
+            lf = T.prefill(model, tok, cfg, pctx)[0].float()
+            lr = T.prefill(model, tok, cfg, full)[0].float()
+            rel16 = [float((x - r32).norm() / r32.norm()) for x in (lf, lr)]
+            check(bool(torch.isfinite(lf).all()) and
+                  rel16[0] <= SERVE_BF16_RATIO * rel16[1],
+                  f"phase 18: bf16 prefill logits of a {p.shape[0]}-token "
+                  f"prompt: flash is {rel16[0]} from the float32 logits, "
+                  f"more than {SERVE_BF16_RATIO} x full's {rel16[1]}")
+            same = "equal" if int(lf.argmax()) == int(lr.argmax()) \
+                else "differs"
+            print(f"phase 18: prefill logits, {p.shape[0]} tokens: float32 "
+                  f"flash vs full relative L2 {rel:.3g}, max abs diff "
+                  f"{float((f32 - r32).abs().max()):.3g} (largest |logit| "
+                  f"{float(r32.abs().max()):.3g}); bf16 flash vs full "
+                  f"relative L2 {float((lf - lr).norm() / lr.norm()):.3g}, "
+                  f"argmax {same}; bf16 against float32: flash "
+                  f"{rel16[0]:.3g}, full {rel16[1]:.3g}", flush=True)
+        del eng
+        torch.cuda.empty_cache()
+
+        # float32 copy: greedy decode equals re-prefill (tests/test_serve.py)
+        eng = Engine(cfg32, model, pctx, max_batch=2, max_len=64,
+                     device=self.dev)
+        seen = []
+        inner_prefill, inner_decode = eng._prefill, eng._decode
+
+        def keep(inner):
+            def call(*args):
+                out = inner(*args)
+                seen.append(out[0][0, 0].float().clone())
+                return out
+            return call
+        eng._prefill, eng._decode = keep(inner_prefill), keep(inner_decode)
+        prompt = np.random.default_rng(1).integers(
+            0, cfg.vocab_size, size=(6,)).astype(np.int32)
+        eng.add_request(Request(rid=0, prompt=prompt, max_new_tokens=4))
+        out = [int(t) for t in eng.run_to_completion()[0].out_tokens]
+        seq, notes = list(prompt), []
+        for i, t in enumerate(out):
+            ref, _ = T.prefill(model, torch.tensor([seq], device=self.dev),
+                               cfg32, pctx)
+            ref = ref[0, 0].float()
+            tol = SERVE_F32_REL * float(ref.abs().max())
+            top2 = ref.topk(2).values
+            gap = float(top2[0] - top2[1])
+            diff = float((seen[i] - ref).abs().max())
+            if gap > tol:
+                check(t == int(ref.argmax()), f"phase 18: float32 greedy "
+                      f"token {i} is {t}, re-prefill gives "
+                      f"{int(ref.argmax())} (top-2 gap {gap})")
+                notes.append(f"token {i} equal (gap {gap:.3g}, logits "
+                             f"max abs diff {diff:.3g})")
+            else:
+                check(diff <= tol, f"phase 18: float32 logits at token {i} "
+                      f"differ by {diff} > {tol} (top-2 gap {gap} under "
+                      f"the tolerance)")
+                notes.append(f"token {i}: top-2 gap {gap:.3g} under "
+                             f"{tol:.3g}, logits compared instead "
+                             f"(max abs diff {diff:.3g})")
+            seq.append(t)
+        print(f"phase 18: float32 {LM_ARCH} greedy decode equals re-prefill "
+              f"over {len(out)} tokens (tolerance {SERVE_F32_REL} of the "
+              f"largest |logit|): " + "; ".join(notes), flush=True)
+        del eng, model
+        torch.cuda.empty_cache()
+
+        for s, row in flash_rows.items():
+            self.rows.append({
+                "name": f"flash_fwd[bf16 S{s}]", "route": "cuda",
+                "source": FLASH_SOURCE, "replaces": REPLACES["flash_fwd"],
+                "launches": counts["flash_flash_fwd"],
+                "launches_per_admission": cfg.n_layers, **row})
 
 def main() -> int:
     import torch
@@ -2331,9 +2744,10 @@ def main() -> int:
     from repro_torch.kernels.spgemm_pb import kernel as PK
     from repro_torch.kernels.spgemm_bcsr import kernel as BK
     from repro_torch.kernels.spmm import kernel as SK
+    from repro_torch.kernels.flash_attention import kernel as FK
     seconds = _build.compile_sources([K.SOURCE, PK.SOURCE, BK.SOURCE,
-                                      SK.SOURCE])
-    for mod in (K, PK, BK, SK):
+                                      SK.SOURCE, FK.SOURCE])
+    for mod in (K, PK, BK, SK, FK):
         info = mod.build()
         print(f"phase 2: built {info['path']} in "
               f"{seconds[mod.SOURCE]:.1f} s", flush=True)
@@ -2365,6 +2779,8 @@ def main() -> int:
     smoke.bcsr_large_tile()                                      # phase 11
     smoke.batch()                                                # phase 12
     smoke.value_fleet()                                          # phase 13
+    flash_rows = smoke.flash_kernel()                            # phase 17
+    smoke.serve(flash_rows)                                      # phase 18
 
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": smoke.rows}), flush=True)       # phase 15

@@ -30,12 +30,11 @@ import torch
 def resolve_device(device=None) -> torch.device:
     """The device an entry point puts its tensors on: ``cuda`` unless the
     caller names another one; raises when CUDA is wanted but absent."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device: pass device='cpu' to run on the CPU")
-        return torch.device("cuda")
-    return torch.device(device)
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: pass device='cpu' to run on the CPU")
+    return device
 
 
 def lexsort(keys) -> torch.Tensor:

@@ -1,5 +1,5 @@
-"""The hand-written CUDA kernels (hash, propagation blocking, BCSR, SpMM)
-against their plain versions.
+"""The hand-written CUDA kernels (hash, propagation blocking, BCSR, SpMM,
+flash attention) against their plain versions.
 
 Every test here needs an NVIDIA GPU (marker ``gpu``) and skips without one:
 the kernels have no CPU mode.  The module imports neither jax nor the
@@ -10,6 +10,10 @@ reference package, so it runs on a machine with only PyTorch and CUDA::
 (``--noconftest`` because the suite's ``conftest.py`` imports jax.)
 Row counts and per-row column sets must be bitwise equal; values bitwise
 on dyadic inputs and within one ulp per accumulated product otherwise.
+Flash attention: float32 within 2e-5 of the plain version (sums in another
+order); bfloat16 within one bf16 ulp of the plain output plus that 2e-5
+(each rounds its own float32 result, and the two float32 results may
+differ by up to 2e-5 before rounding, which matters only near zero).
 """
 import numpy as np
 import pytest
@@ -18,6 +22,9 @@ import torch
 from repro_torch.core import CSR
 from repro_torch.core.formats import prefix_sum
 from repro_torch.data import rmat
+from repro_torch.kernels.flash_attention import kernel as FK
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.kernels.spgemm_hash import kernel as K
 from repro_torch.kernels.spgemm_hash import ops, ref
 from repro_torch.kernels.spgemm_pb import kernel as PK
@@ -1234,3 +1241,68 @@ def test_batched_symbolic_table_too_small_raises(cuda, vector):
             dataclasses.replace(a, data=v), b, d, vector=vector,
             table_size=K.CHUNK, schedule=(off, tsz)).data)(vals)
 
+
+
+# ---- flash attention --------------------------------------------------------
+
+def bf16_ulp(x):
+    """One bfloat16 ulp at each value of ``x``."""
+    _, e = x.float().abs().frexp()
+    return (e.float() - 8).exp2()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+@pytest.mark.parametrize("causal", (True, False))
+@pytest.mark.parametrize("b,h,hkv,d,sq,skv", [
+    (2, 4, 4, 32, 128, 128), (1, 4, 2, 64, 17, 17), (2, 8, 1, 16, 200, 333),
+    (1, 2, 1, 128, 64, 256), (1, 4, 2, 256, 100, 100),
+    (2, 2, 2, 128, 1, 64), (1, 16, 8, 128, 300, 300)])
+def test_flash_kernel_matches_plain_version(cuda, dtype, causal, b, h, hkv,
+                                            d, sq, skv):
+    gen = torch.Generator(cuda).manual_seed(h * d + sq)
+    q, k, v = (torch.randn(s, generator=gen, device=cuda).to(dtype)
+               for s in ((b, h, sq, d), (b, hkv, skv, d), (b, hkv, skv, d)))
+    fa_ops.reset_kernel_calls()
+    got = FK.flash_fwd(q, k, v, scale=d ** -0.5, causal=causal)
+    torch.cuda.synchronize()
+    assert fa_ops.kernel_call_counts() == {"flash_fwd": 1, "plain": 0}
+    want = fa_ref.flash_attention_plain(q, k, v, causal=causal,
+                                        scale=d ** -0.5)
+    assert got.dtype == dtype and got.shape == want.shape
+    diff = (got.float() - want.float()).abs()
+    if dtype == torch.float32:
+        assert float(diff.max()) <= 2e-5
+    else:
+        assert bool((diff <= bf16_ulp(want) + 2e-5).all())
+
+
+@pytest.mark.gpu
+def test_flash_kernel_takes_strided_operands(cuda):
+    """q, k, v as the model makes them: (B, S, H, D) projections seen as
+    (B, H, S, D)."""
+    gen = torch.Generator(cuda).manual_seed(0)
+    q = torch.randn((2, 96, 8, 64), generator=gen, device=cuda)
+    kv = torch.randn((2, 96, 2, 2, 64), generator=gen, device=cuda)
+    q, k, v = q.transpose(1, 2), kv[:, :, 0].transpose(1, 2), \
+        kv[:, :, 1].transpose(1, 2)
+    assert not q.is_contiguous() and not v.is_contiguous()
+    got = fa_ops.flash_attention(q, k, v, causal=True, bq=32, bkv=32)
+    want = fa_ref.flash_attention_plain(q.contiguous(), k.contiguous(),
+                                        v.contiguous(), causal=True,
+                                        scale=64 ** -0.5)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) <= 2e-5
+
+
+@pytest.mark.gpu
+def test_flash_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    q = torch.zeros((1, 2, 8, 48), device=cuda)
+    with pytest.raises(ValueError, match="head dim 48"):
+        FK.flash_fwd(q, q, q, scale=1.0, causal=True)
+    q = torch.zeros((1, 2, 8, 64), device=cuda, dtype=torch.float16)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        FK.flash_fwd(q, q, q, scale=1.0, causal=True)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        FK.flash_fwd(q.float(), q.bfloat16(), q.float(), scale=1.0,
+                     causal=True)

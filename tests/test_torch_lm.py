@@ -1,0 +1,290 @@
+"""The port's LM stack (``repro_torch.configs``, ``models.layers``,
+``models.attention``, ``models.transformer``) against ``repro``'s.
+
+Weights are the reference's ``init_params`` pytree, with every norm scale,
+qk-norm scale and QKV bias redrawn from a numpy seed (the reference
+initialises them to ones and zeros, which would hide a missing term),
+carried across with ``load_jax_params``.  Inputs are numpy arrays from a
+seed.  The reference runs attention as ``"full"`` (exact softmax); the
+port runs ``"flash"`` (the flash kernel's plain version on CPU tensors),
+``"full"`` and ``"chunked"``.  Tolerance: float32 logits, activations and
+caches within 1e-4 absolute (matmuls and softmax sum in another order;
+reduced-config logits are O(10)).
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import configs as jconfigs
+from repro.models import attention as JA
+from repro.models import layers as JL
+from repro.models import transformer as JT
+from repro.parallel.sharding import single_device_ctx as jctx
+from repro_torch import configs as tconfigs
+from repro_torch.models import attention as TA
+from repro_torch.models import layers as TL
+from repro_torch.models import transformer as TT
+from repro_torch.parallel.sharding import single_device_ctx as tctx
+
+TOL = 1e-4
+DENSE = ["qwen3-0.6b", "granite-8b", "qwen1.5-32b", "phi4-mini-3.8b",
+         "chameleon-34b", "musicgen-medium"]
+NOT_PORTED = ["mamba2-780m", "recurrentgemma-9b", "qwen3-moe-30b-a3b"]
+JPCTX = jctx(remat=False, attn_impl="full")
+IMPLS = ["flash", "full", "chunked"]
+REDRAWN = ("scale", "q_scale", "k_scale", "bq", "bk", "bv")
+
+
+def cfgs(arch, **kw):
+    """The reference's and the port's reduced config of ``arch``."""
+    j = dataclasses.replace(jconfigs.reduced(jconfigs.get(arch)), **kw)
+    t = dataclasses.replace(tconfigs.reduced(tconfigs.get(arch)), **kw)
+    return j, t
+
+
+def redraw(tree, rng):
+    """The numpy pytree with norm scales and biases redrawn."""
+    if isinstance(tree, dict):
+        return {k: (rng.normal(1.0 if "scale" in k else 0.0, 0.3,
+                               size=np.shape(v)).astype(np.float32)
+                    if k in REDRAWN else redraw(v, rng))
+                for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(redraw(v, rng) for v in tree)
+    return tree
+
+
+def carried(arch, seed=0, **kw):
+    """(jax cfg, port cfg, jax params, port model) with the same weights."""
+    jcfg, tcfg = cfgs(arch, **kw)
+    params_np = jax.tree.map(np.asarray,
+                             JT.init_params(jax.random.PRNGKey(seed), jcfg))
+    params_np = redraw(params_np, np.random.default_rng(seed))
+    jparams = jax.tree.map(jnp.asarray, params_np)
+    return jcfg, tcfg, jparams, TT.load_jax_params(tcfg, params_np, "cpu")
+
+
+def jax_layer_caches(caches, cfg):
+    """The reference's {"periods", "tail"} caches as one (k, v) per layer."""
+    out = []
+    for i in range(cfg.n_full_periods):
+        for j in range(cfg.period):
+            c = caches["periods"][j]
+            out.append((np.asarray(c.k[i]), np.asarray(c.v[i])))
+    out.extend((np.asarray(c.k), np.asarray(c.v)) for c in caches["tail"])
+    return out
+
+
+def diff(got, want) -> float:
+    return float(np.abs(np.asarray(got, np.float32)
+                        - np.asarray(want, np.float32)).max())
+
+
+def tokens_for(cfg, rng, b, s):
+    shape = (b, s, cfg.n_codebooks) if cfg.n_codebooks else (b, s)
+    return rng.integers(0, cfg.vocab_size, size=shape).astype(np.int32)
+
+
+# ---------------------------------------------------------------------------
+# configs
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch", sorted(jconfigs.ARCHS))
+def test_configs_equal_reference(arch):
+    j, t = jconfigs.get(arch), tconfigs.get(arch)
+    assert dataclasses.asdict(j) == dataclasses.asdict(t)
+    assert j.param_count() == t.param_count()
+    assert dataclasses.asdict(jconfigs.reduced(j)) == \
+        dataclasses.asdict(tconfigs.reduced(t))
+    assert tconfigs.get("qwen3-0.6b").param_count() == 596_049_920
+
+
+# ---------------------------------------------------------------------------
+# layers
+# ---------------------------------------------------------------------------
+
+def test_layers_match_reference():
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(2, 5, 32)).astype(np.float32)
+    scale = rng.normal(1.0, 0.3, size=32).astype(np.float32)
+    got = TL.rmsnorm({"scale": torch.from_numpy(scale)},
+                     torch.from_numpy(x), 1e-6)
+    assert diff(got, JL.rmsnorm({"scale": scale}, jnp.asarray(x),
+                                1e-6)) < TOL
+
+    xr = rng.normal(size=(2, 3, 5, 16)).astype(np.float32)
+    for pos in (np.arange(5), np.array([3, 70, 1_000])[:, None, None][:2]):
+        pos = pos.astype(np.int32)
+        want = JL.apply_rope(jnp.asarray(xr[:, :, :pos.shape[-1]]),
+                             jnp.asarray(pos), 1e6)
+        got = TL.apply_rope(torch.from_numpy(xr[:, :, :pos.shape[-1]]),
+                            torch.from_numpy(pos), 1e6)
+        assert diff(got, want) < TOL
+
+    w = {k: rng.normal(size=s).astype(np.float32) * 0.2 for k, s in
+         (("w_gate", (32, 48)), ("w_in", (32, 48)), ("w_out", (48, 32)))}
+    for act in ("silu", "gelu"):
+        want = JL.mlp_apply(w, jnp.asarray(x), act=act)
+        got = TL.mlp_apply({k: torch.from_numpy(v) for k, v in w.items()},
+                           torch.from_numpy(x), act=act)
+        assert diff(got, want) < TOL
+
+
+@pytest.mark.parametrize("arch,tie,softcap", [
+    ("qwen3-0.6b", True, None), ("granite-8b", False, None),
+    ("granite-8b", False, 30.0), ("musicgen-medium", False, None),
+    ("musicgen-medium", True, 15.0)])
+def test_embed_and_head_match_reference(arch, tie, softcap):
+    jcfg, tcfg = cfgs(arch, tie_embeddings=tie, logit_softcap=softcap)
+    key = jax.random.PRNGKey(1)
+    emb = jax.tree.map(np.array, JL.embed_init(
+        key, jcfg.vocab_size, jcfg.d_model, jcfg.n_codebooks))
+    head = jax.tree.map(np.array, JL.head_init(key, jcfg))
+    temb = {k: torch.from_numpy(v) for k, v in emb.items()}
+    thead = {k: torch.from_numpy(v) for k, v in head.items()}
+    rng = np.random.default_rng(2)
+    tok = tokens_for(jcfg, rng, 2, 6)
+    want = JL.embed_apply(emb, jnp.asarray(tok), jcfg)
+    got = TL.embed_apply(temb, torch.from_numpy(tok).long(), tcfg)
+    assert diff(got, want) < TOL
+    x = rng.normal(size=(2, 3, jcfg.d_model)).astype(np.float32)
+    want = JL.head_apply(head, emb, jnp.asarray(x), jcfg)
+    got = TL.head_apply(thead, temb, torch.from_numpy(x), tcfg)
+    assert got.shape == want.shape and diff(got, want) < TOL
+
+
+# ---------------------------------------------------------------------------
+# attention
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("impl", IMPLS)
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "qwen1.5-32b"])
+def test_apply_full_matches_reference(arch, impl):
+    jcfg, tcfg, jp, model = carried(arch, seed=3)
+    p = jp["periods"][0]["mixer"]
+    jmix = jax.tree.map(lambda a: a[0], p)
+    tmix = model.layers[0]["mixer"]
+    x = np.random.default_rng(4).normal(
+        size=(2, 24, jcfg.d_model)).astype(np.float32)
+    want, wc = JA.apply_full(jmix, jnp.asarray(x), jcfg, JPCTX)
+    got, tc = TA.apply_full(tmix, torch.from_numpy(x), tcfg,
+                            tctx(attn_impl=impl))
+    assert diff(got, want) < TOL
+    assert diff(tc.k, wc.k) < TOL and diff(tc.v, wc.v) < TOL
+
+
+def test_apply_full_local_window_matches_reference():
+    jcfg, tcfg, jp, model = carried("qwen3-0.6b", seed=5, attn_window=16)
+    jmix = jax.tree.map(lambda a: a[0], jp["periods"][0]["mixer"])
+    x = np.random.default_rng(6).normal(
+        size=(1, 64, jcfg.d_model)).astype(np.float32)
+    want, _ = JA.apply_full(jmix, jnp.asarray(x), jcfg, JPCTX, local=True)
+    got, _ = TA.apply_full(model.layers[0]["mixer"], torch.from_numpy(x),
+                           tcfg, tctx(attn_impl="flash"), local=True)
+    assert diff(got, want) < TOL
+
+
+@pytest.mark.parametrize("local", [False, True])
+def test_apply_decode_vector_positions_match_reference(local):
+    jcfg, tcfg, jp, model = carried("qwen3-0.6b", seed=7, attn_window=8)
+    jmix = jax.tree.map(lambda a: a[0], jp["periods"][0]["mixer"])
+    rng = np.random.default_rng(8)
+    B, S = 3, 32
+    shape = (B, jcfg.n_kv_heads, S, jcfg.hd)
+    k0, v0 = (rng.normal(size=shape).astype(np.float32) for _ in range(2))
+    x = rng.normal(size=(B, 1, jcfg.d_model)).astype(np.float32)
+    pos = np.array([5, 0, 17], np.int32)
+    want, wc = JA.apply_decode(jmix, jnp.asarray(x),
+                               JA.KVCache(jnp.asarray(k0), jnp.asarray(v0)),
+                               jnp.asarray(pos), jcfg, JPCTX, local=local)
+    cache = TA.KVCache(torch.from_numpy(k0.copy()),
+                       torch.from_numpy(v0.copy()))
+    got, tc = TA.apply_decode(model.layers[0]["mixer"], torch.from_numpy(x),
+                              cache, torch.from_numpy(pos), tcfg,
+                              tctx(attn_impl="flash"), local=local)
+    assert tc is cache                      # written in place
+    assert diff(got, want) < TOL
+    assert diff(tc.k, wc.k) < TOL and diff(tc.v, wc.v) < TOL
+
+
+# ---------------------------------------------------------------------------
+# whole model
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_param_count_equals_carried_tensors(arch):
+    _, tcfg, _, model = carried(arch)
+    total = sum(p.numel() for p in model.parameters())
+    assert total == tcfg.param_count()
+    fresh = TT.init_params(torch.Generator().manual_seed(0), tcfg)
+    assert sum(p.numel() for p in fresh.parameters()) == total
+    assert {n: p.shape for n, p in fresh.named_parameters()} == \
+        {n: p.shape for n, p in model.named_parameters()}
+
+
+@pytest.mark.parametrize("impl", IMPLS)
+@pytest.mark.parametrize("arch", DENSE)
+def test_prefill_matches_reference(arch, impl):
+    jcfg, tcfg, jp, model = carried(arch, seed=9)
+    tok = tokens_for(jcfg, np.random.default_rng(10), 2, 12)
+    want, wc = JT.prefill(jp, jnp.asarray(tok), jcfg, JPCTX)
+    got, tc = TT.prefill(model, torch.from_numpy(tok).long(), tcfg,
+                         tctx(attn_impl=impl))
+    assert got.shape == want.shape and diff(got, want) < TOL
+    wl = jax_layer_caches(wc, jcfg)
+    assert len(tc) == len(wl) == tcfg.n_layers
+    for c, (k, v) in zip(tc, wl):
+        assert diff(c.k, k) < TOL and diff(c.v, v) < TOL
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_decode_steps_match_reference(arch):
+    jcfg, tcfg, jp, model = carried(arch, seed=11)
+    rng = np.random.default_rng(12)
+    B, S = 2, 16
+    jc = JT.init_caches(jcfg, B, S, jnp.float32)
+    tc = TT.init_caches(tcfg, B, S, torch.float32, "cpu")
+    pctx = tctx(attn_impl="flash")
+    for pos in (0, 1, 2, np.array([3, 7], np.int32),
+                np.array([4, 15], np.int32)):
+        tok = tokens_for(jcfg, rng, B, 1)
+        want, jc = JT.decode_step(jp, jnp.asarray(tok), jc,
+                                  jnp.asarray(pos), jcfg, JPCTX)
+        got, tc = TT.decode_step(model, torch.from_numpy(tok).long(), tc,
+                                 torch.as_tensor(pos), tcfg, pctx)
+        assert got.shape == want.shape and diff(got, want) < TOL
+    for c, (k, v) in zip(tc, jax_layer_caches(jc, jcfg)):
+        assert diff(c.k, k) < TOL and diff(c.v, v) < TOL
+
+
+def test_flash_prefill_keeps_the_kernel_precondition():
+    """A prompt longer than 128 tokens that is not a multiple of 128 fails
+    on the flash path (as on the reference's accelerator) and runs on the
+    exact and chunked paths."""
+    _, tcfg, _, model = carried("qwen3-0.6b")
+    tok = torch.from_numpy(tokens_for(tcfg, np.random.default_rng(0), 1,
+                                      200)).long()
+    with pytest.raises(ValueError, match="Sq % bq"):
+        TT.prefill(model, tok, tcfg, tctx(attn_impl="flash"))
+    full, _ = TT.prefill(model, tok, tcfg, tctx(attn_impl="full"))
+    chunked, _ = TT.prefill(model, tok, tcfg, tctx(attn_impl="chunked"))
+    assert diff(full, chunked) < TOL
+    flash, _ = TT.prefill(model, tok[:, :128], tcfg,
+                          tctx(attn_impl="flash"))
+    full, _ = TT.prefill(model, tok[:, :128], tcfg, tctx(attn_impl="full"))
+    assert diff(flash, full) < TOL
+
+
+@pytest.mark.parametrize("arch", NOT_PORTED)
+def test_unported_mixers_and_mlps_raise(arch):
+    jcfg, tcfg = cfgs(arch)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        TT.init_params(torch.Generator().manual_seed(0), tcfg)
+    params_np = jax.tree.map(np.asarray,
+                             JT.init_params(jax.random.PRNGKey(0), jcfg))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        TT.load_jax_params(tcfg, params_np, "cpu")

@@ -1,0 +1,178 @@
+"""The port's serving path (``repro_torch.serve``, ``repro_torch.launch.
+serve``) against ``repro``'s.
+
+The port's ``Engine`` and the reference's serve the same requests (the
+prompt lengths of ``tests/test_serve.py``, prompts from a numpy seed) on
+reduced qwen3-0.6b with the reference's weights carried across: the same
+requests finish in the same order with the same greedy tokens (float32
+logits agree within 1e-4, far inside these logits' top-2 gaps).  The
+reference serves with ``"full"`` attention; the port with ``"flash"`` (the
+flash kernel's plain version on CPU tensors) and ``"full"``.
+``insert_slot`` writes the same caches as the reference's (exactly: it
+copies).  Sampling draws from a ``torch.Generator``, so only greedy and
+top-k=1 are compared by value.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import configs as jconfigs
+from repro.models import transformer as JT
+from repro.parallel.sharding import single_device_ctx as jctx
+from repro.serve import Engine as JEngine
+from repro.serve import Request as JRequest
+from repro.serve.cache import insert_slot as jinsert
+from repro_torch import configs as tconfigs
+from repro_torch.launch import serve as launch_serve
+from repro_torch.models import transformer as TT
+from repro_torch.parallel.sharding import single_device_ctx as tctx
+from repro_torch.serve import Engine, Request
+from repro_torch.serve.cache import insert_slot
+from repro_torch.serve.sampling import sample_logits
+
+LENGTHS = [4, 9, 13, 7, 5]
+
+
+def carried(arch="qwen3-0.6b", seed=0):
+    jcfg = jconfigs.reduced(jconfigs.get(arch))
+    tcfg = tconfigs.reduced(tconfigs.get(arch))
+    jp = JT.init_params(jax.random.PRNGKey(seed), jcfg)
+    model = TT.load_jax_params(tcfg, jax.tree.map(np.asarray, jp), "cpu")
+    return jcfg, tcfg, jp, model
+
+
+def prompts(cfg, seed=0):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, cfg.vocab_size, size=(n,)).astype(np.int32)
+            for n in LENGTHS]
+
+
+def served(done):
+    return [(d.rid, [int(t) for t in d.out_tokens]) for d in done]
+
+
+@pytest.mark.parametrize("impl", ["flash", "full"])
+def test_engine_matches_reference(impl):
+    jcfg, tcfg, jp, model = carried()
+    jeng = JEngine(jcfg, jp, jctx(remat=False, attn_impl="full"),
+                   max_batch=3, max_len=48)
+    eng = Engine(tcfg, model, tctx(attn_impl=impl),
+                 max_batch=3, max_len=48, device="cpu")
+    for r, p in enumerate(prompts(jcfg)):
+        jeng.add_request(JRequest(rid=r, prompt=p, max_new_tokens=4 + r))
+        eng.add_request(Request(rid=r, prompt=p, max_new_tokens=4 + r))
+    want, got = served(jeng.run_to_completion()), \
+        served(eng.run_to_completion())
+    assert len(got) == 5
+    assert sorted(len(t) for _, t in got) == [4, 5, 6, 7, 8]
+    assert got == want
+
+
+def test_engine_stops_at_max_len():
+    _, tcfg, _, model = carried()
+    eng = Engine(tcfg, model, tctx(attn_impl="flash"), max_batch=2,
+                 max_len=16, device="cpu")
+    for r, p in enumerate(prompts(tcfg)[:2]):
+        eng.add_request(Request(rid=r, prompt=p, max_new_tokens=50))
+    done = eng.run_to_completion()
+    # pos starts at the prompt length and stops at max_len - 1
+    assert sorted(len(d.out_tokens) for d in done) == [16 - 1 - 9 + 1,
+                                                       16 - 1 - 4 + 1]
+
+
+def test_greedy_matches_prefill_oracle():
+    _, tcfg, _, model = carried()
+    pctx = tctx(attn_impl="flash")
+    eng = Engine(tcfg, model, pctx, max_batch=2, max_len=32, device="cpu")
+    prompt = np.random.default_rng(1).integers(
+        0, tcfg.vocab_size, size=(6,)).astype(np.int32)
+    eng.add_request(Request(rid=0, prompt=prompt, max_new_tokens=4))
+    out = [int(t) for t in eng.run_to_completion()[0].out_tokens]
+    seq, ref = list(prompt), []
+    for _ in range(4):
+        logits, _ = TT.prefill(model, torch.tensor([seq]), tcfg, pctx)
+        ref.append(int(torch.argmax(logits[0, 0])))
+        seq.append(ref[-1])
+    assert out == ref
+
+
+@pytest.mark.parametrize("slot,length", [(0, 5), (2, 11)])
+def test_insert_slot_matches_reference(slot, length):
+    jcfg, tcfg, jp, model = carried(seed=2)
+    rng = np.random.default_rng(slot)
+    B, S = 3, 16
+    jbig = JT.init_caches(jcfg, B, S, jnp.float32)
+    jbig = jax.tree.map(
+        lambda a: jnp.asarray(rng.normal(size=a.shape).astype(np.float32)),
+        jbig)
+    tbig = TT.init_caches(tcfg, B, S, torch.float32, "cpu")
+    for li, c in enumerate(tbig):
+        per = li // jcfg.period
+        jc = jbig["periods"][li % jcfg.period]
+        c.k.copy_(torch.from_numpy(np.array(jc.k[per])))
+        c.v.copy_(torch.from_numpy(np.array(jc.v[per])))
+    tok = rng.integers(0, jcfg.vocab_size, size=(1, length)).astype(np.int32)
+    _, jsmall = JT.prefill(jp, jnp.asarray(tok), jcfg,
+                           jctx(attn_impl="full"))
+    _, tsmall = TT.prefill(model, torch.from_numpy(tok).long(), tcfg,
+                           tctx(attn_impl="full"))
+    want = jinsert(jbig, jsmall, slot)
+    got = insert_slot(tbig, tsmall, slot)
+    assert got is tbig                                  # written in place
+    for li, c in enumerate(got):
+        jc = want["periods"][li % jcfg.period]
+        per = li // jcfg.period
+        for t, w in ((c.k, jc.k[per]), (c.v, jc.v[per])):
+            assert np.abs(t.numpy() - np.asarray(w)).max() < 1e-4
+            # untouched slots and positions are copied bits
+            keep = np.ones(t.shape, bool)
+            keep[slot, :, :length] = False
+            assert np.array_equal(t.numpy()[keep], np.asarray(w)[keep])
+
+
+def test_sampling_modes():
+    gen = torch.Generator().manual_seed(0)
+    logits = torch.tensor([[0.0, 5.0, 1.0, -2.0]])
+    assert int(sample_logits(gen, logits, temperature=0.0)[0]) == 1
+    # top-k=1 equals greedy regardless of temperature
+    for _ in range(8):
+        assert int(sample_logits(gen, logits, temperature=2.0,
+                                 top_k=1)[0]) == 1
+    draws = [int(sample_logits(gen, logits, temperature=1.0)[0])
+             for _ in range(64)]
+    assert set(draws) <= {0, 1, 2, 3}
+    assert np.bincount(draws, minlength=4).argmax() == 1
+    # ties go to the first largest logit, as jnp.argmax
+    tied = torch.tensor([[1.0, 3.0, 3.0], [2.0, 2.0, 0.0]])
+    assert sample_logits(gen, tied, temperature=0.0).tolist() == [1, 0]
+
+
+def test_launcher_smoke_on_cpu(capsys):
+    assert launch_serve.main(["--arch", "qwen3-0.6b", "--smoke",
+                              "--device", "cpu"]) == 0
+    assert capsys.readouterr().out.startswith("served 8 requests, 128 tokens")
+
+
+def test_cuda_request_without_a_card_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    _, tcfg, _, model = carried()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Engine(tcfg, model, tctx(attn_impl="flash"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        launch_serve.main(["--arch", "qwen3-0.6b", "--smoke"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TT.load_jax_params(tcfg, {}, None)
+
+
+def test_engine_rejects_params_on_another_device():
+    _, tcfg, _, model = carried()
+    model = model.to(torch.float64)         # still on the CPU: accepted
+    Engine(dataclasses.replace(tcfg, dtype="float64"), model,
+           tctx(attn_impl="full"), device="cpu")
+    with pytest.raises(ValueError, match="engine on meta"):
+        Engine(tcfg, model, tctx(attn_impl="full"), device="meta")
