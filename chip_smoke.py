@@ -7,7 +7,8 @@ through the entry points a user calls, at the paper's own input sizes
 seed 0), then the sorted-output (PB) and block-sparse (BCSR) routes, SpMM,
 the paper's graph workloads, the batched fleet planner and BCSR, PB and
 hash value fleets under ``torch.func.vmap``, then the LM serving path
-(qwen3-0.6b at full width, prefill through the flash-attention kernel),
+(qwen3-0.6b at full width, prefill through the flash-attention kernel;
+mamba2-780m at full width, prefill through the SSD chunk-scan kernel),
 and holds every hand-written kernel against its plain PyTorch version.
 Phases; any failure exits non-zero:
 
@@ -170,6 +171,28 @@ Phases; any failure exits non-zero:
      of the largest |logit|, where the top-2 gap is under that).  Timing
      line: prefill ms per prompt length, decode-step ms at batch 4,
      tokens/s;
+ 19. the SSD chunk-scan kernel at mamba2-780m's widths (48 heads of head
+     dim 64, one group, state 128, chunks of up to 256; log_a = -softplus
+     (N(0, 1)) A with A the config's span 1-16) against its plain version,
+     float32 (y and final state within 1e-4 plus 8 float32 ulps of the
+     chunk's largest |cumsum of log_a|, of the largest |value|) and
+     bfloat16 (y within one bf16 ulp more), at (B 1, S 4,096), (B 1, S
+     1,000: chunks of 250), (B 2, S 2,048) and two groups at S 2,048; at
+     S 4,096 and 32,768 bf16, median CUDA-event times beside the plain
+     version and the bound (bytes at 3.35 TB/s or the least operations
+     at 989 TFLOP/s, C B^T shared by a group's heads);
+ 20. serving mamba2-780m at full width (48 SSD layers, random float32
+     weights from seed 0, bf16 compute) through ``Engine(max_batch=4,
+     max_len=4,096)``: six prompts as ``launch/serve.py`` draws them, one
+     of 1,000 and one of 2,048 tokens, 16 new tokens each; each admission
+     launches the SSD kernel 48 times and no plain version, a decode step
+     nothing, every request finishes.  The gate that does not pass through
+     the kernel: at float32 a 300-token prompt (two chunks of 150) through
+     the kernel's prefill against the same tokens fed one at a time
+     through ``decode_step`` (the recurrence) from empty caches, last
+     logits and every layer's state and conv window within a relative L2
+     distance of 1e-3; then phase 18's float32 greedy-equals-re-prefill
+     check.  Timing line as phase 18's;
  15. one ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``.
 
 Usage: ``python3 chip_smoke.py`` (one card, no arguments).  A quick first
@@ -257,6 +280,28 @@ SERVE_BATCH, SERVE_MAX_LEN, SERVE_SHORT, SERVE_LONG, SERVE_NEW = \
 #: as "full" is.  SERVE_F32_REL: float32 greedy decode against
 #: re-prefill, as a share of the largest |logit|
 SERVE_F32_FLASH_REL, SERVE_BF16_RATIO, SERVE_F32_REL = 1e-4, 1.5, 1e-4
+#: the SSD path at mamba2-780m's widths (src/repro_torch/configs/
+#: mamba2_780m.py: 48 SSD heads of head dim 64, one group, state 128,
+#: chunks of up to 256)
+SSD_ARCH, SSD_HEADS, SSD_HEAD_DIM, SSD_STATE, SSD_CHUNK = \
+    "mamba2-780m", 48, 64, 128, 256
+#: phase 19: (batch, S, groups) checked against the plain version (S 1,000
+#: takes chunks of 250), and the lengths timed (prefill_32k's the longest)
+SSD_CHECKS = ((1, 4096, 1), (1, 1000, 1), (2, 2048, 1), (1, 2048, 2))
+SSD_TIMED = (4096, 32768)
+#: phase 19 tolerance: float32 y and final state within SSD_REL plus 8
+#: float32 ulps of the largest |cumsum of log_a| over a chunk, of the
+#: largest |value| (each cum_i - cum_j carries the rounding of two cumsums
+#: taken in another order); bf16 y gets one bf16 ulp on top of it
+SSD_REL = 1e-4
+#: phase 20: the two long prompts, and the float32 gate: a prompt of
+#: SSD_GATE_LEN tokens (two chunks of 150) through the kernel's prefill
+#: against the recurrence token by token, as a relative L2 distance of the
+#: last logits and of every layer's state and conv window (the kernel's
+#: exp(cum_i - cum_j) carries a few float32 ulps of |cum|, about 1,000 over
+#: 150 steps of mamba2's strongest heads: ~1e-4 relative per term; a wrong
+#: chunk carry, transpose or mask moves them by order 1)
+SSD_LONG, SSD_GATE_LEN, SSD_GATE_REL = (1000, 2048), 300, 1e-3
 
 KERNEL_SOURCE = "src/repro_torch/kernels/spgemm_hash/csrc/spgemm_hash.cu"
 PB_SOURCE = "src/repro_torch/kernels/spgemm_pb/csrc/spgemm_pb.cu"
@@ -264,6 +309,7 @@ BCSR_SOURCE = "src/repro_torch/kernels/spgemm_bcsr/csrc/spgemm_bcsr.cu"
 SPMM_SOURCE = "src/repro_torch/kernels/spmm/csrc/spmm.cu"
 FLASH_SOURCE = \
     "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
+SSD_SOURCE = "src/repro_torch/kernels/ssd_chunk/csrc/ssd_chunk.cu"
 REPLACES = {
     "numeric": "src/repro/kernels/spgemm_hash/kernel.py:266",
     "numeric_vector": "src/repro/kernels/spgemm_hash/kernel.py:87",
@@ -278,6 +324,7 @@ REPLACES = {
     "batched_scatter": "src/repro/kernels/spgemm_pb/kernel.py:179",
     "batched_merge": "src/repro/kernels/spgemm_pb/kernel.py:220",
     "flash_fwd": "src/repro/kernels/flash_attention/kernel.py:88",
+    "ssd_chunk": "src/repro/kernels/ssd_chunk/kernel.py:74",
 }
 #: the vector rows replace the chunked probe the Pallas kernels share
 REPLACES["bcsr_numeric_vector"] = REPLACES["numeric_vector"]
@@ -320,7 +367,11 @@ class Smoke:
         from repro_torch.kernels.flash_attention import kernel as FK
         from repro_torch.kernels.flash_attention import ops as fa_ops
         from repro_torch.kernels.flash_attention import ref as fa_ref
+        from repro_torch.kernels.ssd_chunk import kernel as SSDK
+        from repro_torch.kernels.ssd_chunk import ops as ssd_ops
+        from repro_torch.kernels.ssd_chunk import ref as ssd_ref
         self.FK, self.fa_ops, self.fa_ref = FK, fa_ops, fa_ref
+        self.SSDK, self.ssd_ops, self.ssd_ref = SSDK, ssd_ops, ssd_ref
         self.torch, self.core, self.CSR, self.rmat = torch, core, CSR, rmat
         self.SK, self.spmm_ops, self.spmm_ref = SK, spmm_ops, spmm_ref
         self.ga = graph_analytics
@@ -335,10 +386,11 @@ class Smoke:
     # ---- helpers ---------------------------------------------------------
     def counted(self, fn):
         """Run ``fn`` between a reset and a read of every launch counter
-        (the PB, BCSR, SpMM and flash-attention counters under ``pb_``,
-        ``bcsr_``, ``spmm_`` and ``flash_`` names)."""
+        (the PB, BCSR, SpMM, flash-attention and SSD counters under
+        ``pb_``, ``bcsr_``, ``spmm_``, ``flash_`` and ``ssd_`` names)."""
         others = {"pb": self.pb_ops, "bcsr": self.bcsr_ops,
-                  "spmm": self.spmm_ops, "flash": self.fa_ops}
+                  "spmm": self.spmm_ops, "flash": self.fa_ops,
+                  "ssd": self.ssd_ops}
         self.ops.reset_kernel_calls()
         for mod in others.values():
             mod.reset_kernel_calls()
@@ -447,7 +499,8 @@ class Smoke:
         plain = counts["plain"] + counts["batched_plain"] \
             + counts["pb_plain"] + counts["bcsr_plain"] \
             + counts["bcsr_batched_plain"] + counts["pb_batched_plain"] \
-            + counts["spmm_plain"] + counts["flash_plain"]
+            + counts["spmm_plain"] + counts["flash_plain"] \
+            + counts["ssd_plain"]
         check(plain == 0, f"{what}: ran a plain version {plain} times")
         check(counts == {k: want.get(k, 0) for k in counts},
               f"{what}: launches {counts}, want {want}")
@@ -2523,8 +2576,6 @@ class Smoke:
         from repro_torch.configs import get
         from repro_torch.models import transformer as T
         from repro_torch.parallel.sharding import single_device_ctx
-        from repro_torch.serve import Engine, Request
-        fa_ops = self.fa_ops
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         print(f"phase 18: torch {torch.__version__} (CUDA "
@@ -2546,93 +2597,9 @@ class Smoke:
               f"{time.perf_counter() - t0:.1f} s; compute {cfg.dtype}",
               flush=True)
         pctx = single_device_ctx(attn_impl="flash")
-        rng = np.random.default_rng(0)
-        prompts = []
-        for _ in range(SERVE_SHORT):           # as repro/launch/serve.py
-            plen = int(rng.integers(4, 24))
-            prompts.append(rng.integers(0, cfg.vocab_size, size=(plen,))
-                           .astype(np.int32))
-        prompts += [rng.integers(0, cfg.vocab_size, size=(n,))
-                    .astype(np.int32) for n in SERVE_LONG]
-
-        # warm-up (cuBLAS handles, the allocator): one short prefill
-        T.prefill(model, torch.from_numpy(prompts[0][None]).long()
-                  .to(self.dev), cfg, pctx)
-        torch.cuda.synchronize()
-
-        eng = Engine(cfg, model, pctx, max_batch=SERVE_BATCH,
-                     max_len=SERVE_MAX_LEN, device=self.dev)
-        prefills, decodes = [], []
-        inner_prefill, inner_decode = eng._prefill, eng._decode
-
-        def timed(inner, log, what):
-            def call(*args):
-                before = fa_ops.kernel_call_counts()
-                t0 = time.perf_counter()
-                out = inner(*args)
-                torch.cuda.synchronize()
-                ms = (time.perf_counter() - t0) * 1e3
-                after = fa_ops.kernel_call_counts()
-                log.append((args[1].shape[1] if what == "prefill"
-                            else eng.active(), ms,
-                            {k: after[k] - before[k] for k in after}))
-                return out
-            return call
-        eng._prefill = timed(inner_prefill, prefills, "prefill")
-        eng._decode = timed(inner_decode, decodes, "decode")
-        for r, p in enumerate(prompts):
-            eng.add_request(Request(rid=r, prompt=p,
-                                    max_new_tokens=SERVE_NEW))
-        t0 = time.perf_counter()
-        done, counts = self.counted(eng.run_to_completion)
-        wall = time.perf_counter() - t0
-        n_tok = sum(len(d.out_tokens) for d in done)
-        self.expect(counts, {"flash_flash_fwd": cfg.n_layers * len(prompts)},
-                    f"phase 18 {LM_ARCH} serving")
-        for n, _, c in prefills:
-            check(c == {"flash_fwd": cfg.n_layers, "plain": 0},
-                  f"phase 18: the admission of a {n}-token prompt launched "
-                  f"{c}, want {cfg.n_layers} flash_fwd and no plain")
-        for _, _, c in decodes:
-            check(c == {"flash_fwd": 0, "plain": 0},
-                  f"phase 18: a decode step launched {c}")
-        check(sorted(d.rid for d in done) == list(range(len(prompts))),
-              f"phase 18: finished {sorted(d.rid for d in done)}")
-        for d in done:
-            toks = np.asarray(d.out_tokens)
-            check(len(d.out_tokens) == SERVE_NEW and
-                  bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
-                  f"phase 18: request {d.rid} gave {len(d.out_tokens)} "
-                  f"tokens (want {SERVE_NEW}) or ids past the vocabulary")
-        dec4 = sorted(ms for b, ms, _ in decodes if b == SERVE_BATCH)
-        check(bool(dec4), "phase 18: no decode step at batch 4")
-        timing = {
-            "prefill_ms": [[n, ms] for n, ms, _ in prefills],
-            "decode_ms_batch4_median": dec4[len(dec4) // 2],
-            "decode_steps": len(decodes), "tokens": n_tok, "wall_s": wall,
-            "tokens_per_s": n_tok / wall}
-        print(f"phase 18: served {len(done)} requests, {n_tok} tokens; "
-              f"{cfg.n_layers} flash_fwd launches per admission, none per "
-              f"decode step ({counts['flash_flash_fwd']} in all)",
-              flush=True)
-        # where a call's time goes: the device's busy share of the host time
-        caches = T.init_caches(cfg, SERVE_BATCH, SERVE_MAX_LEN,
-                               torch.bfloat16, self.dev)
-        tok = torch.zeros((SERVE_BATCH, 1), dtype=torch.long,
-                          device=self.dev)
-        pos = torch.full((SERVE_BATCH,), SERVE_LONG[-1], device=self.dev)
-        long_tok = torch.from_numpy(prompts[-1][None]).long().to(self.dev)
-        for name, fn in (
-                ("decode_batch4", lambda: T.decode_step(
-                    model, tok, caches, pos, cfg, pctx)),
-                (f"prefill_{SERVE_LONG[-1]}", lambda: T.prefill(
-                    model, long_tok, cfg, pctx))):
-            host, busy, n_k, flash = self.busy_ms(fn, "flash_fwd")
-            timing[name] = {"host_ms": host, "device_busy_ms": busy,
-                            "device_events": n_k, "flash_ms": flash,
-                            "device_idle_share": None if busy is None
-                            else 1 - busy / host}
-        del caches
+        prompts = self.serve_prompts(cfg, model, pctx, SERVE_LONG)
+        counts, timing = self.serve_run(cfg, model, pctx, prompts, "flash",
+                                        "flash_fwd", "flash_ms", "phase 18")
         print(json.dumps({"timing": f"{LM_ARCH} serving", "card": self.card,
                           **timing}), flush=True)
 
@@ -2668,10 +2635,137 @@ class Smoke:
                   f"relative L2 {float((lf - lr).norm() / lr.norm()):.3g}, "
                   f"argmax {same}; bf16 against float32: flash "
                   f"{rel16[0]:.3g}, full {rel16[1]:.3g}", flush=True)
-        del eng
         torch.cuda.empty_cache()
 
         # float32 copy: greedy decode equals re-prefill (tests/test_serve.py)
+        self.greedy_equals_reprefill(model, cfg32, pctx, "phase 18")
+        del model
+        torch.cuda.empty_cache()
+
+        for s, row in flash_rows.items():
+            self.rows.append({
+                "name": f"flash_fwd[bf16 S{s}]", "route": "cuda",
+                "source": FLASH_SOURCE, "replaces": REPLACES["flash_fwd"],
+                "launches": counts["flash_flash_fwd"],
+                "launches_per_admission": cfg.n_layers, **row})
+
+    def serve_prompts(self, cfg, model, pctx, longs) -> list:
+        """SERVE_SHORT prompts drawn as ``launch/serve.py`` draws them
+        (seed 0, 4-23 tokens) and one of each length in ``longs``; then one
+        short prefill as a warm-up (cuBLAS handles, the allocator)."""
+        torch = self.torch
+        from repro_torch.models import transformer as T
+        rng = np.random.default_rng(0)
+        prompts = [rng.integers(0, cfg.vocab_size,
+                                size=(int(rng.integers(4, 24)),))
+                   .astype(np.int32) for _ in range(SERVE_SHORT)]
+        prompts += [rng.integers(0, cfg.vocab_size, size=(n,))
+                    .astype(np.int32) for n in longs]
+        T.prefill(model, torch.from_numpy(prompts[0][None]).long()
+                  .to(self.dev), cfg, pctx)
+        torch.cuda.synchronize()
+        return prompts
+
+    def serve_run(self, cfg, model, pctx, prompts, prefix: str, key: str,
+                  ms_name: str, phase: str):
+        """Serve ``prompts`` (SERVE_NEW new tokens each) through
+        ``Engine(max_batch=SERVE_BATCH, max_len=SERVE_MAX_LEN)`` between a
+        reset and a read of every launch counter: each admission launches
+        the kernel ``key`` (counters under ``prefix``, as :meth:`counted`
+        names them) once per layer and its plain version never, a decode
+        step neither, nothing else runs, and every request finishes.  Then the device's busy share of a decode step at batch
+        SERVE_BATCH and of a prefill of the last prompt (``ms_name``: the
+        kernel's own device ms).  Returns (counts, timing)."""
+        torch = self.torch
+        from repro_torch.models import transformer as T
+        from repro_torch.serve import Engine, Request
+        ops_mod = {"flash": self.fa_ops, "ssd": self.ssd_ops}[prefix]
+        eng = Engine(cfg, model, pctx, max_batch=SERVE_BATCH,
+                     max_len=SERVE_MAX_LEN, device=self.dev)
+        prefills, decodes = [], []
+        inner_prefill, inner_decode = eng._prefill, eng._decode
+
+        def timed(inner, log, what):
+            def call(*args):
+                before = ops_mod.kernel_call_counts()
+                t0 = time.perf_counter()
+                out = inner(*args)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+                after = ops_mod.kernel_call_counts()
+                log.append((args[1].shape[1] if what == "prefill"
+                            else eng.active(), ms,
+                            {k: after[k] - before[k] for k in after}))
+                return out
+            return call
+        eng._prefill = timed(inner_prefill, prefills, "prefill")
+        eng._decode = timed(inner_decode, decodes, "decode")
+        for r, p in enumerate(prompts):
+            eng.add_request(Request(rid=r, prompt=p,
+                                    max_new_tokens=SERVE_NEW))
+        t0 = time.perf_counter()
+        done, counts = self.counted(eng.run_to_completion)
+        wall = time.perf_counter() - t0
+        n_tok = sum(len(d.out_tokens) for d in done)
+        self.expect(counts, {f"{prefix}_{key}": cfg.n_layers * len(prompts)},
+                    f"{phase} {cfg.name} serving")
+        for n, _, c in prefills:
+            check(c == {key: cfg.n_layers, "plain": 0},
+                  f"{phase}: the admission of a {n}-token prompt launched "
+                  f"{c}, want {cfg.n_layers} {key} and no plain")
+        for _, _, c in decodes:
+            check(c == {key: 0, "plain": 0},
+                  f"{phase}: a decode step launched {c}")
+        check(sorted(d.rid for d in done) == list(range(len(prompts))),
+              f"{phase}: finished {sorted(d.rid for d in done)}")
+        for d in done:
+            toks = np.asarray(d.out_tokens)
+            check(len(d.out_tokens) == SERVE_NEW and
+                  bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+                  f"{phase}: request {d.rid} gave {len(d.out_tokens)} "
+                  f"tokens (want {SERVE_NEW}) or ids past the vocabulary")
+        dec4 = sorted(ms for b, ms, _ in decodes if b == SERVE_BATCH)
+        check(bool(dec4), f"{phase}: no decode step at batch {SERVE_BATCH}")
+        timing = {
+            "prefill_ms": [[n, ms] for n, ms, _ in prefills],
+            "decode_ms_batch4_median": dec4[len(dec4) // 2],
+            "decode_steps": len(decodes), "tokens": n_tok, "wall_s": wall,
+            "tokens_per_s": n_tok / wall}
+        print(f"{phase}: served {len(done)} requests, {n_tok} tokens; "
+              f"{cfg.n_layers} {key} launches per admission, none per "
+              f"decode step ({counts[f'{prefix}_{key}']} in all)",
+              flush=True)
+        del eng
+        # where a call's time goes: the device's busy share of the host time
+        caches = T.init_caches(cfg, SERVE_BATCH, SERVE_MAX_LEN,
+                               torch.bfloat16, self.dev)
+        tok = torch.zeros((SERVE_BATCH, 1), dtype=torch.long,
+                          device=self.dev)
+        n_long = prompts[-1].shape[0]
+        pos = torch.full((SERVE_BATCH,), n_long, device=self.dev)
+        long_tok = torch.from_numpy(prompts[-1][None]).long().to(self.dev)
+        for name, fn in (
+                ("decode_batch4", lambda: T.decode_step(
+                    model, tok, caches, pos, cfg, pctx)),
+                (f"prefill_{n_long}", lambda: T.prefill(
+                    model, long_tok, cfg, pctx))):
+            host, busy, n_k, named = self.busy_ms(fn, key)
+            timing[name] = {"host_ms": host, "device_busy_ms": busy,
+                            "device_events": n_k, ms_name: named,
+                            "device_idle_share": None if busy is None
+                            else 1 - busy / host}
+        del caches
+        torch.cuda.empty_cache()
+        return counts, timing
+
+    def greedy_equals_reprefill(self, model, cfg32, pctx, phase: str):
+        """A float32 copy's greedy decode of 4 tokens after a 6-token prompt
+        equals re-prefill (``tests/test_serve.py``): each token the
+        re-prefill's argmax where its top-2 gap passes the tolerance
+        (SERVE_F32_REL of the largest |logit|), else the logits within it."""
+        torch = self.torch
+        from repro_torch.models import transformer as T
+        from repro_torch.serve import Engine, Request
         eng = Engine(cfg32, model, pctx, max_batch=2, max_len=64,
                      device=self.dev)
         seen = []
@@ -2685,7 +2779,7 @@ class Smoke:
             return call
         eng._prefill, eng._decode = keep(inner_prefill), keep(inner_decode)
         prompt = np.random.default_rng(1).integers(
-            0, cfg.vocab_size, size=(6,)).astype(np.int32)
+            0, cfg32.vocab_size, size=(6,)).astype(np.int32)
         eng.add_request(Request(rid=0, prompt=prompt, max_new_tokens=4))
         out = [int(t) for t in eng.run_to_completion()[0].out_tokens]
         seq, notes = list(prompt), []
@@ -2698,31 +2792,249 @@ class Smoke:
             gap = float(top2[0] - top2[1])
             diff = float((seen[i] - ref).abs().max())
             if gap > tol:
-                check(t == int(ref.argmax()), f"phase 18: float32 greedy "
+                check(t == int(ref.argmax()), f"{phase}: float32 greedy "
                       f"token {i} is {t}, re-prefill gives "
                       f"{int(ref.argmax())} (top-2 gap {gap})")
                 notes.append(f"token {i} equal (gap {gap:.3g}, logits "
                              f"max abs diff {diff:.3g})")
             else:
-                check(diff <= tol, f"phase 18: float32 logits at token {i} "
+                check(diff <= tol, f"{phase}: float32 logits at token {i} "
                       f"differ by {diff} > {tol} (top-2 gap {gap} under "
                       f"the tolerance)")
                 notes.append(f"token {i}: top-2 gap {gap:.3g} under "
                              f"{tol:.3g}, logits compared instead "
                              f"(max abs diff {diff:.3g})")
             seq.append(t)
-        print(f"phase 18: float32 {LM_ARCH} greedy decode equals re-prefill "
-              f"over {len(out)} tokens (tolerance {SERVE_F32_REL} of the "
-              f"largest |logit|): " + "; ".join(notes), flush=True)
-        del eng, model
+        print(f"{phase}: float32 {cfg32.name} greedy decode equals "
+              f"re-prefill over {len(out)} tokens (tolerance "
+              f"{SERVE_F32_REL} of the largest |logit|): "
+              + "; ".join(notes), flush=True)
+        del eng
+
+    # ---- phase 19 ----------------------------------------------------------
+    def ssd_tol(self, la, chunk, values) -> float:
+        """Phase 19's tolerance for ``values`` (float32): (SSD_REL + 8
+        float32 ulps of the largest |cumsum of log_a| over a chunk) x
+        max(1, max |values|): each cum_i - cum_j carries a few ulps of
+        |cum| from two cumsums taken in another order."""
+        b, s, nh = la.shape
+        cum = float(-la.reshape(b, s // chunk, chunk, nh).sum(2).min())
+        return (SSD_REL + 8 * self.torch.finfo(self.torch.float32).eps
+                * cum) * max(1.0, float(values.float().abs().max()))
+
+    def ssd_inputs(self, b, s, g, dtype, seed):
+        """xd, log_a, B, C at mamba2-780m's SSD widths: x ~ N(0, 1), dt =
+        softplus(N(0, 1)), A the config's span exp(log linspace(1, 16)),
+        log_a = -dt A, xd = x dt, B and C ~ N(0, 1)."""
+        torch = self.torch
+        gen = torch.Generator(self.dev).manual_seed(seed)
+        dt = torch.nn.functional.softplus(torch.randn(
+            (b, s, SSD_HEADS), generator=gen, device=self.dev))
+        A = torch.linspace(1.0, 16.0, SSD_HEADS, device=self.dev)
+        x = torch.randn((b, s, SSD_HEADS, SSD_HEAD_DIM), generator=gen,
+                        device=self.dev)
+        Bm, Cm = (torch.randn((b, s, g, SSD_STATE), generator=gen,
+                              device=self.dev).to(dtype) for _ in range(2))
+        return (x * dt[..., None]).to(dtype), -dt * A, Bm, Cm
+
+    def ssd_kernel(self):
+        """Phase 19: the SSD chunk kernel at mamba2-780m's widths against
+        its plain version (float32 within ``ssd_tol``; bfloat16 within one
+        bf16 ulp of the plain output plus that), then CUDA-event medians
+        beside the plain version and the bound.  Returns the rows' numbers
+        by length."""
+        torch, SSDK, ref = self.torch, self.SSDK, self.ssd_ref
+        from repro_torch.models.ssm import _pick_chunk
+        errs = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            for i, (b, s, g) in enumerate(SSD_CHECKS):
+                q = _pick_chunk(s, SSD_CHUNK)
+                xd, la, Bm, Cm = self.ssd_inputs(b, s, g, dtype, 300 + i)
+                y, hT = SSDK.ssd_fwd(xd, la, Bm, Cm, q)
+                yw, hw = ref.ssd_chunked(xd, la, Bm, Cm, q)
+                hw = hw.transpose(-1, -2)
+                torch.cuda.synchronize()
+                what = f"ssd_chunk {str(dtype)[6:]} B {b} S {s} g {g} Q {q}"
+                check(y.shape == yw.shape and y.dtype == dtype and
+                      hT.shape == hw.shape and
+                      bool(torch.isfinite(y).all()) and
+                      bool(torch.isfinite(hT).all()),
+                      f"{what}: shape, dtype or non-finite values")
+                tol = self.ssd_tol(la, q, yw)
+                d = (y.float() - yw.float()).abs()
+                err = float(d.max())
+                if dtype == torch.float32:
+                    check(err <= tol, f"{what}: y max abs diff {err} > "
+                          f"{tol} against the plain version")
+                else:
+                    bad = int((d > self.bf16_ulp(yw) + tol).sum())
+                    check(bad == 0, f"{what}: {bad} values of y past one "
+                          f"bf16 ulp (+ {tol}) of the plain version (max "
+                          f"abs diff {err})")
+                herr = float((hT - hw).abs().max())
+                check(herr <= self.ssd_tol(la, q, hw), f"{what}: final "
+                      f"state max abs diff {herr} against the plain version")
+                errs[(dtype, s, b, g)] = err
+                print(f"phase 19: {what}: max abs diff {err:.3g} (y, "
+                      f"tolerance {tol:.3g}), {herr:.3g} (final state) to "
+                      f"the plain version", flush=True)
+                del xd, la, Bm, Cm, y, hT, yw, hw, d
         torch.cuda.empty_cache()
 
-        for s, row in flash_rows.items():
+        rows = {}
+        for s in SSD_TIMED:
+            q = _pick_chunk(s, SSD_CHUNK)
+            xd, la, Bm, Cm = self.ssd_inputs(1, s, 1, torch.bfloat16,
+                                             400 + s)
+            t = {"kernel": self.time_ms(
+                lambda: SSDK.ssd_fwd(xd, la, Bm, Cm, q))}
+            y, hT = SSDK.ssd_fwd(xd, la, Bm, Cm, q)
+            if (torch.bfloat16, s, 1, 1) in errs:
+                err = errs[(torch.bfloat16, s, 1, 1)]
+            else:
+                yw, _ = ref.ssd_chunked(xd, la, Bm, Cm, q)
+                tol = self.ssd_tol(la, q, yw)
+                d = (y.float() - yw.float()).abs()
+                bad = int((d > self.bf16_ulp(yw) + tol).sum())
+                err = float(d.max())
+                check(bad == 0, f"ssd_chunk bf16 S {s}: {bad} values past "
+                      f"one bf16 ulp (+ {tol}) of the plain version (max "
+                      f"abs diff {err})")
+                print(f"phase 19: ssd_chunk bf16 B 1 S {s} Q {q}: max abs "
+                      f"diff {err:.3g} to the plain version", flush=True)
+                del yw, d
+            t["plain"] = self.time_ms(
+                lambda: ref.ssd_chunked(xd, la, Bm, Cm, q), reps=3, warm=1)
+            nc, tri = s // q, q * (q + 1) / 2
+            ops = 2 * nc * (tri * SSD_STATE + SSD_HEADS * (
+                tri * SSD_HEAD_DIM + 2 * q * SSD_STATE * SSD_HEAD_DIM))
+            by = (2 * xd.numel() + Bm.numel() + Cm.numel()) * 2 \
+                + (la.numel() + hT.numel()) * 4
+            bound = max(ops / BF16_FLOP_PER_S, by / HBM_BYTES_PER_S) * 1e3
+            bound_by = "operations" if ops / BF16_FLOP_PER_S >= \
+                by / HBM_BYTES_PER_S else "bytes"
+            print(json.dumps({
+                "timing": f"ssd_chunk bf16 B 1 nh {SSD_HEADS} hp "
+                f"{SSD_HEAD_DIM} g 1 n {SSD_STATE} S {s} Q {q}",
+                "card": self.card, "ms": t, "bound_ms": bound,
+                "bound_by": bound_by, "ops": ops, "bytes": by,
+                "gflop_per_s": ops / t["kernel"] / 1e6}), flush=True)
+            rows[s] = {"ms": t["kernel"], "plain_ms": t["plain"],
+                       "bound_ms": bound, "bound_by": bound_by,
+                       "library_ms": None, "max_abs_err": err}
+            del xd, la, Bm, Cm, y, hT
+            torch.cuda.empty_cache()
+        return rows
+
+    # ---- phase 20 ----------------------------------------------------------
+    def serve_ssd(self, ssd_rows):
+        """Phase 20: serve mamba2-780m at full width (random weights from a
+        seeded generator, bf16) through ``Engine``: 8 requests, every
+        admission launching the SSD chunk kernel once per layer and no
+        plain version, decode launching nothing; then the float32 gate
+        that does not pass through the kernel -- a prompt of
+        SSD_GATE_LEN tokens (two chunks) through the kernel's prefill
+        against the same tokens fed one at a time through ``decode_step``
+        (the recurrence) from empty caches -- and a float32 copy's greedy
+        decode against re-prefill.  Adds the SSD kernel's rows."""
+        import dataclasses
+        torch = self.torch
+        from repro_torch.configs import get
+        from repro_torch.models import ssm as S
+        from repro_torch.models import transformer as T
+        from repro_torch.parallel.sharding import single_device_ctx
+        ssd_ops = self.ssd_ops
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        cfg = get(SSD_ARCH)
+        _, nh, conv_ch = S.dims(cfg)
+        check((nh, cfg.ssm.head_dim, cfg.ssm.d_state, cfg.ssm.n_groups,
+               cfg.ssm.chunk) == (SSD_HEADS, SSD_HEAD_DIM, SSD_STATE, 1,
+                                  SSD_CHUNK), f"{SSD_ARCH} widths")
+        t0 = time.perf_counter()
+        model = T.init_params(torch.Generator(self.dev).manual_seed(0), cfg)
+        torch.cuda.synchronize()
+        n_params = sum(p.numel() for p in model.parameters())
+        # the config's analytic count leaves out each layer's conv bias
+        # and dt bias
+        carried = cfg.param_count() + cfg.n_layers * (conv_ch + nh)
+        check(n_params == carried, f"{SSD_ARCH}: {n_params} parameters, "
+              f"want {carried} (the config's {cfg.param_count()} + conv and "
+              f"dt biases)")
+        print(f"phase 20: {SSD_ARCH} at full width ({cfg.n_layers} SSD "
+              f"layers, d_model {cfg.d_model}, {nh} heads of "
+              f"{cfg.ssm.head_dim}, state {cfg.ssm.d_state}, vocab "
+              f"{cfg.vocab_size}): "
+              f"{n_params} float32 parameters from seed 0 in "
+              f"{time.perf_counter() - t0:.1f} s; compute {cfg.dtype}",
+              flush=True)
+        pctx = single_device_ctx(attn_impl="flash")
+        prompts = self.serve_prompts(cfg, model, pctx, SSD_LONG)
+        counts, timing = self.serve_run(cfg, model, pctx, prompts, "ssd",
+                                        "ssd_chunk", "ssd_chunk_ms",
+                                        "phase 20")
+        print(json.dumps({"timing": f"{SSD_ARCH} serving", "card": self.card,
+                          **timing}), flush=True)
+
+        # the gate: float32 prefill through the kernel against the
+        # recurrence, token by token from empty caches
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        gate = np.random.default_rng(SSD_GATE_LEN).integers(
+            0, cfg.vocab_size, size=(1, SSD_GATE_LEN))
+        gate = torch.from_numpy(gate).long().to(self.dev)
+        check(S._pick_chunk(SSD_GATE_LEN, cfg.ssm.chunk) * 2 == SSD_GATE_LEN,
+              "phase 20: the gate's prompt is not two chunks")
+        before = ssd_ops.kernel_call_counts()["ssd_chunk"]
+        want, wc = T.prefill(model, gate, cfg32, pctx)
+        check(ssd_ops.kernel_call_counts()["ssd_chunk"] - before ==
+              cfg.n_layers, "phase 20: the float32 prefill did not launch "
+              "the kernel once per layer")
+        caches = T.init_caches(cfg32, 1, SSD_GATE_LEN + 1, torch.float32,
+                               self.dev)
+        t0 = time.perf_counter()
+        for i in range(SSD_GATE_LEN):
+            got, caches = T.decode_step(model, gate[:, i:i + 1], caches,
+                                        torch.tensor(i, device=self.dev),
+                                        cfg32, pctx)
+        torch.cuda.synchronize()
+        rec_s = time.perf_counter() - t0
+        check(ssd_ops.kernel_call_counts()["ssd_chunk"] - before ==
+              cfg.n_layers, "phase 20: the recurrence launched the kernel")
+
+        def rel(a, b):
+            return float((a - b).norm() / b.norm())
+        logit_rel = rel(want, got)
+        h_rel = [rel(w.h, c.h) for w, c in zip(wc, caches)]
+        conv_rel = [rel(w.conv, c.conv) for w, c in zip(wc, caches)]
+        check(bool(torch.isfinite(want).all()) and logit_rel <= SSD_GATE_REL
+              and max(h_rel) <= SSD_GATE_REL
+              and max(conv_rel) <= SSD_GATE_REL,
+              f"phase 20: float32 prefill against the recurrence over "
+              f"{SSD_GATE_LEN} tokens: relative L2 logits {logit_rel}, "
+              f"states up to {max(h_rel)}, conv windows up to "
+              f"{max(conv_rel)} (limit {SSD_GATE_REL})")
+        print(f"phase 20: float32 prefill of {SSD_GATE_LEN} tokens (2 chunks"
+              f" of {SSD_GATE_LEN // 2}, the kernel) against {SSD_GATE_LEN} "
+              f"decode steps (the recurrence, {rec_s:.1f} s): relative L2 "
+              f"logits {logit_rel:.3g}, states max {max(h_rel):.3g} (layer "
+              f"{int(np.argmax(h_rel))}), median "
+              f"{float(np.median(h_rel)):.3g}, conv windows max "
+              f"{max(conv_rel):.3g} (limit {SSD_GATE_REL})", flush=True)
+        del caches, wc
+
+        # float32 copy: greedy decode equals re-prefill (tests/test_serve.py)
+        self.greedy_equals_reprefill(model, cfg32, pctx, "phase 20")
+        del model
+        torch.cuda.empty_cache()
+
+        for s, row in ssd_rows.items():
             self.rows.append({
-                "name": f"flash_fwd[bf16 S{s}]", "route": "cuda",
-                "source": FLASH_SOURCE, "replaces": REPLACES["flash_fwd"],
-                "launches": counts["flash_flash_fwd"],
-                "launches_per_admission": cfg.n_layers, **row})
+                "name": f"ssd_chunk[bf16 S{s}]", "route": "cuda",
+                "source": SSD_SOURCE, "replaces": REPLACES["ssd_chunk"],
+                "launches": counts["ssd_ssd_chunk"],
+                "launches_per_admission": cfg.n_layers,
+                "launches_per_decode_step": 0, **row})
+
 
 def main() -> int:
     import torch
@@ -2745,9 +3057,10 @@ def main() -> int:
     from repro_torch.kernels.spgemm_bcsr import kernel as BK
     from repro_torch.kernels.spmm import kernel as SK
     from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.ssd_chunk import kernel as SSDK
     seconds = _build.compile_sources([K.SOURCE, PK.SOURCE, BK.SOURCE,
-                                      SK.SOURCE, FK.SOURCE])
-    for mod in (K, PK, BK, SK, FK):
+                                      SK.SOURCE, FK.SOURCE, SSDK.SOURCE])
+    for mod in (K, PK, BK, SK, FK, SSDK):
         info = mod.build()
         print(f"phase 2: built {info['path']} in "
               f"{seconds[mod.SOURCE]:.1f} s", flush=True)
@@ -2781,6 +3094,8 @@ def main() -> int:
     smoke.value_fleet()                                          # phase 13
     flash_rows = smoke.flash_kernel()                            # phase 17
     smoke.serve(flash_rows)                                      # phase 18
+    ssd_rows = smoke.ssd_kernel()                                # phase 19
+    smoke.serve_ssd(ssd_rows)                                    # phase 20
 
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": smoke.rows}), flush=True)       # phase 15

@@ -4,7 +4,6 @@
   spgemm_pb   -- propagation-blocking scatter/merge pair (low CF)
   spgemm_bcsr -- block-row hash SpGEMM over BCSR tiles
   spmm        -- CSR times dense (the BFS frontier stack, section 5.5)
-
-The other kernels of ``repro.kernels`` are not ported yet (ROADMAP.md,
-Queue 2).
+  flash_attention -- GQA attention forward (LM prefill)
+  ssd_chunk   -- Mamba-2 SSD chunk scan (SSD prefill)
 """

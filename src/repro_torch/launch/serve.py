@@ -2,10 +2,14 @@
 ``repro.launch.serve``).
 
 Runs on ``cuda`` unless ``--device cpu`` is given; prefill attention goes
-through the flash kernel's wrapper (``attn_impl="flash"``: the CUDA kernel
-on the card, its plain version on the CPU).  Example (CPU smoke):
+through the flash kernel's wrapper (``attn_impl="flash"``) and an SSD
+layer's prefill through the SSD chunk kernel's wrapper: the CUDA kernels
+on the card, their plain versions on the CPU.  Examples (CPU smoke; drop
+``--smoke --device cpu`` on the card for full width):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \\
       --smoke --device cpu --requests 8 --max-new 16
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m \\
+      --smoke --device cpu
 """
 from __future__ import annotations
 

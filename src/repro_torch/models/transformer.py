@@ -1,21 +1,23 @@
-"""Unified LM (port of ``repro.models.transformer``), dense attention
+"""Unified LM (port of ``repro.models.transformer``): attention and SSD
 architectures.
 
 The model is an ``nn.Module`` holding one sub-layer per layer: the
 reference's scan over stacked plan periods (plus unrolled tail layers)
 becomes a Python loop over layers ``0 .. n_layers - 1``, layer ``li``
-running ``cfg.plan[li % cfg.period]``.  Caches are a list of one
-:class:`~repro_torch.models.attention.KVCache` per layer.
+running ``cfg.plan[li % cfg.period]``.  Caches are a list of one cache
+per layer: a :class:`~repro_torch.models.attention.KVCache` for an
+attention layer, a :class:`~repro_torch.models.ssm.SSMCache` for an SSD
+layer.
 
 Entry points (``params`` is the :class:`Transformer`):
   init_params(gen, cfg)                     -> Transformer
   load_jax_params(cfg, params_np, device)   -> Transformer
-  init_caches(cfg, batch, max_len, dtype, device) -> [KVCache, ...]
+  init_caches(cfg, batch, max_len, dtype, device) -> [cache, ...]
   prefill(params, tokens, cfg, pctx)        -> (last_logits, caches)
   decode_step(params, token, caches, pos, cfg, pctx) -> (logits, caches)
 
-Mixers other than ``attn``/``attn_local`` and MLPs other than
-``swiglu``/``gated_mlp`` (the SSD, RG-LRU and MoE layers) raise
+Mixers other than ``attn``/``attn_local``/``ssd`` and MLPs other than
+``swiglu``/``gated_mlp``/``none`` (the RG-LRU and MoE layers) raise
 ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -26,11 +28,11 @@ from torch import nn
 
 from repro_torch.core.formats import resolve_device
 from repro_torch.parallel.sharding import ParallelCtx
-from . import attention
+from . import attention, ssm
 from . import layers as L
 
-MIXERS = ("attn", "attn_local")
-MLPS = ("swiglu", "gated_mlp")
+MIXERS = ("attn", "attn_local", "ssd")
+MLPS = ("swiglu", "gated_mlp", "none")
 
 
 def layer_plan(cfg) -> list:
@@ -46,8 +48,9 @@ def layer_plan(cfg) -> list:
 
 class Transformer(nn.Module):
     """The parameters of one model: ``embed``, ``head``, ``final_norm``
-    and ``layers[li]`` (``norm1``, ``mixer``, ``norm2``, ``mlp``), each
-    addressed like the reference's parameter dicts."""
+    and ``layers[li]`` (``norm1``, ``mixer`` and, unless the MLP is
+    ``"none"``, ``norm2`` and ``mlp``), each addressed like the
+    reference's parameter dicts."""
 
     def __init__(self, tree: dict):
         super().__init__()
@@ -57,11 +60,13 @@ class Transformer(nn.Module):
         self.layers = nn.ModuleList(L.Params(p) for p in tree["layers"])
 
 
-def _init_sublayer(gen, cfg) -> dict:
-    return {"norm1": L.rmsnorm_init(cfg.d_model, gen.device),
-            "mixer": attention.init(gen, cfg),
-            "norm2": L.rmsnorm_init(cfg.d_model, gen.device),
-            "mlp": L.mlp_init(gen, cfg.d_model, cfg.d_ff)}
+def _init_sublayer(gen, cfg, mixer: str, mlp: str) -> dict:
+    p = {"norm1": L.rmsnorm_init(cfg.d_model, gen.device),
+         "mixer": (ssm if mixer == "ssd" else attention).init(gen, cfg)}
+    if mlp != "none":
+        p["norm2"] = L.rmsnorm_init(cfg.d_model, gen.device)
+        p["mlp"] = L.mlp_init(gen, cfg.d_model, cfg.d_ff)
+    return p
 
 
 def init_params(gen: torch.Generator, cfg) -> Transformer:
@@ -72,7 +77,7 @@ def init_params(gen: torch.Generator, cfg) -> Transformer:
                                   cfg.n_codebooks),
             "head": L.head_init(gen, cfg),
             "final_norm": L.rmsnorm_init(cfg.d_model, gen.device),
-            "layers": [_init_sublayer(gen, cfg) for _ in plan]}
+            "layers": [_init_sublayer(gen, cfg, *ml) for ml in plan]}
     return Transformer(tree)
 
 
@@ -111,8 +116,9 @@ def _index(x, i):
 
 
 def init_caches(cfg, batch: int, max_len: int, dtype, device) -> list:
-    return [attention.init_cache(cfg, batch, max_len, dtype, device)
-            for _ in layer_plan(cfg)]
+    return [ssm.init_cache(cfg, batch, dtype, device) if mixer == "ssd"
+            else attention.init_cache(cfg, batch, max_len, dtype, device)
+            for mixer, _ in layer_plan(cfg)]
 
 
 # ---------------------------------------------------------------------------
@@ -120,6 +126,8 @@ def init_caches(cfg, batch: int, max_len: int, dtype, device) -> list:
 # ---------------------------------------------------------------------------
 
 def _mlp(p, x, cfg, mlp: str):
+    if mlp == "none":
+        return x
     h = L.rmsnorm(p["norm2"], x, cfg.norm_eps)
     return x + L.mlp_apply(p["mlp"], h,
                            act=("gelu" if mlp == "gated_mlp" else "silu"))
@@ -132,8 +140,11 @@ def prefill(params: Transformer, tokens, cfg, pctx: ParallelCtx):
     caches = []
     for p, (mixer, mlp) in zip(params.layers, layer_plan(cfg)):
         h = L.rmsnorm(p["norm1"], x, cfg.norm_eps)
-        y, cache = attention.apply_full(p["mixer"], h, cfg, pctx,
-                                        local=(mixer == "attn_local"))
+        if mixer == "ssd":
+            y, cache = ssm.apply_full(p["mixer"], h, cfg)
+        else:
+            y, cache = attention.apply_full(p["mixer"], h, cfg, pctx,
+                                            local=(mixer == "attn_local"))
         x = _mlp(p, x + y, cfg, mlp)
         caches.append(cache)
     x_last = L.rmsnorm(params.final_norm, x[:, -1:, :], cfg.norm_eps)
@@ -150,8 +161,11 @@ def decode_step(params: Transformer, token, caches, pos, cfg,
     for p, cache, (mixer, mlp) in zip(params.layers, caches,
                                       layer_plan(cfg)):
         h = L.rmsnorm(p["norm1"], x, cfg.norm_eps)
-        y, _ = attention.apply_decode(p["mixer"], h, cache, pos, cfg, pctx,
-                                      local=(mixer == "attn_local"))
+        if mixer == "ssd":
+            y, _ = ssm.apply_decode(p["mixer"], h, cache, cfg)
+        else:
+            y, _ = attention.apply_decode(p["mixer"], h, cache, pos, cfg,
+                                          pctx, local=(mixer == "attn_local"))
         x = _mlp(p, x + y, cfg, mlp)
     x = L.rmsnorm(params.final_norm, x, cfg.norm_eps)
     return L.head_apply(params.head, params.embed, x, cfg), caches

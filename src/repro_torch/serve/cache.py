@@ -1,21 +1,29 @@
 """Batched-cache surgery for continuous batching (port of
-``repro.serve.cache``, KV caches only: the SSM and RG-LRU caches come with
-their mixers)."""
+``repro.serve.cache``: KV and SSM caches; the RG-LRU cache comes with its
+mixer)."""
 from __future__ import annotations
 
 from repro_torch.models.attention import KVCache
+from repro_torch.models.ssm import SSMCache
 
 
 def insert_slot(batched: list, single: list, slot: int) -> list:
     """Write the batch-1 caches of a prefill into slot ``slot`` of the
     batched caches, in place (the reference returns new arrays).  A
-    shorter sequence writes its KV prefix and leaves the rest as it is."""
+    shorter sequence writes its KV prefix and leaves the rest as it is; an
+    SSM layer's whole conv window and state are written."""
     for big, small in zip(batched, single):
-        if not (isinstance(big, KVCache) and isinstance(small, KVCache)):
+        if isinstance(big, KVCache) and isinstance(small, KVCache):
+            s = small.k.shape[2]
+            big.k[slot, :, :s] = small.k[0]
+            big.v[slot, :, :s] = small.v[0]
+        elif isinstance(big, SSMCache) and isinstance(small, SSMCache):
+            big.conv[slot] = small.conv[0]
+            big.h[slot] = small.h[0]
+        else:
             raise NotImplementedError(
-                f"insert_slot takes KVCache layers, got {type(big).__name__}")
-        s = small.k.shape[2]
-        big.k[slot, :, :s] = small.k[0]
-        big.v[slot, :, :s] = small.v[0]
+                f"insert_slot takes KVCache and SSMCache layers, got "
+                f"{type(big).__name__} and {type(small).__name__} (the "
+                f"RG-LRU cache is not ported yet, ROADMAP.md Queue 1 item "
+                f"6b)")
     return batched
-

@@ -35,7 +35,8 @@ class Request:
 class Engine:
     """Serves ``params`` (a :class:`~repro_torch.models.transformer.
     Transformer` on ``device``, ``cuda`` unless named) with ``max_batch``
-    KV-cache slots of ``max_len`` positions each."""
+    cache slots of ``max_len`` positions each (an SSD layer's slot is its
+    conv window and state, whatever the length)."""
 
     def __init__(self, cfg, params, pctx: ParallelCtx, *, max_batch: int = 4,
                  max_len: int = 512, seed: int = 0, device=None):
@@ -80,6 +81,9 @@ class Engine:
             tokens[i, 0] = req.out_tokens[-1] if req.out_tokens else \
                 np.asarray(req.prompt[-1])
         # per-slot positions: attention masks/rope use pos[b] (vector pos).
+        # Idle slots decode too, as the reference's; nothing that writes is
+        # read: KV entries past a slot's position are masked, and the next
+        # insert_slot overwrites an SSD layer's whole conv window and state.
         logits, self.caches = self._decode(
             self.params, torch.from_numpy(tokens).to(self.device),
             self.caches, torch.from_numpy(self.pos).to(self.device))

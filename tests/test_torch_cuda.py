@@ -14,6 +14,11 @@ Flash attention: float32 within 2e-5 of the plain version (sums in another
 order); bfloat16 within one bf16 ulp of the plain output plus that 2e-5
 (each rounds its own float32 result, and the two float32 results may
 differ by up to 2e-5 before rounding, which matters only near zero).
+SSD chunk scan: float32 y and final state within 1e-4 plus 8 float32 ulps
+of the chunk's largest |cumsum of log_a|, of the largest |value| (each
+cum_i - cum_j carries the rounding of two cumsums taken in another order,
+a few ulps of |cum|); bfloat16 y within one bf16 ulp of the plain output
+plus that.
 """
 import numpy as np
 import pytest
@@ -30,6 +35,9 @@ from repro_torch.kernels.spgemm_hash import ops, ref
 from repro_torch.kernels.spgemm_pb import kernel as PK
 from repro_torch.kernels.spgemm_pb import ops as pb_ops
 from repro_torch.kernels.spgemm_pb import ref as pb_ref
+from repro_torch.kernels.ssd_chunk import kernel as SSDK
+from repro_torch.kernels.ssd_chunk import ops as ssd_ops
+from repro_torch.kernels.ssd_chunk import ref as ssd_ref
 
 DYADIC = np.array([0.5, 1.0, 1.5, 2.0], np.float32)
 CASES = [("ER", 9, 8, True), ("G500", 10, 16, False), ("G500", 12, 16, True)]
@@ -1306,3 +1314,101 @@ def test_flash_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         FK.flash_fwd(q.float(), q.bfloat16(), q.float(), scale=1.0,
                      causal=True)
+
+
+# ---- SSD chunk scan --------------------------------------------------------
+
+SSD_REL = 1e-4
+
+
+def ssd_tol(la, chunk, values):
+    """The SSD tolerance for ``values``: (SSD_REL + 8 float32 ulps of the
+    largest |cumsum of log_a| over a chunk) x max(1, max |values|)."""
+    b, s, nh = la.shape
+    cum = float(-la.reshape(b, s // chunk, chunk, nh).sum(2).min())
+    return (SSD_REL + 8 * torch.finfo(torch.float32).eps * cum) * \
+        max(1.0, float(values.float().abs().max()))
+
+
+def ssd_inputs(gen, b, s, nh, hp, g, n, dtype, decay, device):
+    xd = (torch.randn((b, s, nh, hp), generator=gen, device=device) * 0.5)
+    la = -torch.rand((b, s, nh), generator=gen, device=device) * decay
+    Bm = torch.randn((b, s, g, n), generator=gen, device=device)
+    Cm = torch.randn((b, s, g, n), generator=gen, device=device)
+    return xd.to(dtype), la, Bm.to(dtype), Cm.to(dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+@pytest.mark.parametrize("b,s,nh,hp,g,n,chunk,decay", [
+    (1, 512, 4, 64, 1, 128, 256, 1.0),    # mamba2-780m's head and state
+    (2, 1000, 3, 64, 1, 128, 250, 1.0),   # a ragged chunk of 250
+    (1, 512, 2, 64, 1, 128, 256, 16.0),   # cum near -2,000: exp underflows
+    (1, 39, 4, 8, 2, 24, 13, 0.5),        # a chunk of 13, n != hp
+    (2, 7, 2, 48, 1, 12, 1, 0.5),         # a chunk of 1, a partial hp tile
+    (1, 64, 6, 32, 3, 200, 64, 0.2),      # three groups, a large state
+])
+def test_ssd_kernel_matches_plain_version(cuda, dtype, b, s, nh, hp, g, n,
+                                          chunk, decay):
+    gen = torch.Generator(cuda).manual_seed(s + n)
+    xd, la, Bm, Cm = ssd_inputs(gen, b, s, nh, hp, g, n, dtype, decay, cuda)
+    ssd_ops.reset_kernel_calls()
+    y, hT = ssd_ops.ssd_chunk(xd, la, Bm, Cm, chunk)
+    torch.cuda.synchronize()
+    assert ssd_ops.kernel_call_counts() == {"ssd_chunk": 1, "plain": 0}
+    yw, hw = ssd_ref.ssd_chunked(xd, la, Bm, Cm, chunk)
+    hw = hw.transpose(-1, -2)
+    assert y.dtype == dtype and y.shape == yw.shape
+    assert hT.dtype == torch.float32 and hT.shape == (b, nh, n, hp)
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(hT).all())
+    tol = ssd_tol(la, chunk, yw)
+    d = (y.float() - yw.float()).abs()
+    if dtype == torch.float32:
+        assert float(d.max()) <= tol
+    else:
+        assert bool((d <= bf16_ulp(yw) + tol).all())
+    assert float((hT - hw).abs().max()) <= ssd_tol(la, chunk, hw)
+
+
+@pytest.mark.gpu
+def test_ssd_kernel_takes_strided_operands(cuda):
+    """B and C as the model slices them out of the convolution's output."""
+    gen = torch.Generator(cuda).manual_seed(1)
+    b, s, nh, hp, g, n = 2, 96, 4, 64, 1, 128
+    xd, la, _, _ = ssd_inputs(gen, b, s, nh, hp, g, n, torch.float32, 1.0,
+                              cuda)
+    xbc = torch.randn((b, s, 256 + 2 * g * n), generator=gen, device=cuda)
+    Bm = xbc[..., 256:256 + g * n].reshape(b, s, g, n)
+    Cm = xbc[..., 256 + g * n:].reshape(b, s, g, n)
+    assert not Bm.is_contiguous()
+    y, hT = ssd_ops.ssd_chunk(xd, la, Bm, Cm, 32)
+    yw, hw = ssd_ref.ssd_chunked(xd, la, Bm.contiguous(), Cm.contiguous(),
+                                 32)
+    torch.cuda.synchronize()
+    assert float((y - yw).abs().max()) <= ssd_tol(la, 32, yw)
+    assert float((hT - hw.transpose(-1, -2)).abs().max()) <= \
+        ssd_tol(la, 32, hw)
+
+
+@pytest.mark.gpu
+def test_ssd_wrapper_raises_rather_than_falls_back(cuda):
+    """What the kernel does not take raises on the card, though the plain
+    version would compute it."""
+    gen = torch.Generator(cuda).manual_seed(2)
+    xd, la, Bm, Cm = ssd_inputs(gen, 1, 16, 2, 8, 1, 8, torch.float16, 1.0,
+                                cuda)
+    ssd_ops.reset_kernel_calls()
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        ssd_ops.ssd_chunk(xd, la, Bm, Cm, 8)
+    with pytest.raises(ValueError, match="log_a must be float32"):
+        ssd_ops.ssd_chunk(xd.float(), la.bfloat16(), Bm.float(),
+                          Cm.float(), 8)
+    big = torch.zeros((1, 16, 1, SSDK.MAX_STATE + 1), device=cuda)
+    with pytest.raises(ValueError, match="states up to"):
+        ssd_ops.ssd_chunk(xd.float(), la, big, big, 8)
+    long = torch.zeros((1, 512, 2, 8), device=cuda)
+    with pytest.raises(ValueError, match="chunks up to"):
+        SSDK.ssd_fwd(long, torch.zeros((1, 512, 2), device=cuda),
+                     torch.zeros((1, 512, 1, 8), device=cuda),
+                     torch.zeros((1, 512, 1, 8), device=cuda), 512)
+    assert ssd_ops.kernel_call_counts() == {"ssd_chunk": 0, "plain": 0}

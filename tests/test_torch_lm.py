@@ -2,12 +2,15 @@
 ``models.attention``, ``models.transformer``) against ``repro``'s.
 
 Weights are the reference's ``init_params`` pytree, with every norm scale,
-qk-norm scale and QKV bias redrawn from a numpy seed (the reference
-initialises them to ones and zeros, which would hide a missing term),
+qk-norm scale and QKV bias, and an SSD layer's ``A_log``, ``dt_bias``,
+``D``, conv bias and gated-norm scale, redrawn from a numpy seed (the
+reference initialises them to constants, which would hide a missing term),
 carried across with ``load_jax_params``.  Inputs are numpy arrays from a
 seed.  The reference runs attention as ``"full"`` (exact softmax); the
 port runs ``"flash"`` (the flash kernel's plain version on CPU tensors),
-``"full"`` and ``"chunked"``.  Tolerance: float32 logits, activations and
+``"full"`` and ``"chunked"``; mamba2-780m's SSD prefill runs the SSD
+chunk kernel's plain version where the reference runs ``ssd_chunked``.
+Tolerance: float32 logits, activations and
 caches within 1e-4 absolute (matmuls and softmax sum in another order;
 reduced-config logits are O(10)).
 """
@@ -33,10 +36,12 @@ from repro_torch.parallel.sharding import single_device_ctx as tctx
 TOL = 1e-4
 DENSE = ["qwen3-0.6b", "granite-8b", "qwen1.5-32b", "phi4-mini-3.8b",
          "chameleon-34b", "musicgen-medium"]
-NOT_PORTED = ["mamba2-780m", "recurrentgemma-9b", "qwen3-moe-30b-a3b"]
+SERVED = DENSE + ["mamba2-780m"]
+NOT_PORTED = ["recurrentgemma-9b", "qwen3-moe-30b-a3b"]
 JPCTX = jctx(remat=False, attn_impl="full")
 IMPLS = ["flash", "full", "chunked"]
-REDRAWN = ("scale", "q_scale", "k_scale", "bq", "bk", "bv")
+REDRAWN = ("scale", "q_scale", "k_scale", "bq", "bk", "bv", "A_log",
+           "dt_bias", "D", "conv_b", "norm_scale")
 
 
 def cfgs(arch, **kw):
@@ -69,14 +74,26 @@ def carried(arch, seed=0, **kw):
 
 
 def jax_layer_caches(caches, cfg):
-    """The reference's {"periods", "tail"} caches as one (k, v) per layer."""
+    """The reference's {"periods", "tail"} caches as one tuple of arrays
+    per layer: (k, v) or (conv, h)."""
     out = []
     for i in range(cfg.n_full_periods):
         for j in range(cfg.period):
-            c = caches["periods"][j]
-            out.append((np.asarray(c.k[i]), np.asarray(c.v[i])))
-    out.extend((np.asarray(c.k), np.asarray(c.v)) for c in caches["tail"])
+            out.append(tuple(np.asarray(f[i]) for f in caches["periods"][j]))
+    out.extend(tuple(np.asarray(f) for f in c) for c in caches["tail"])
     return out
+
+
+def carried_count(cfg) -> int:
+    """The parameters a model carries: the config's analytic count, which
+    leaves out each SSD layer's conv bias and dt bias, plus those."""
+    total = cfg.param_count()
+    for li in range(cfg.n_layers):
+        if cfg.plan[li % cfg.period][0] == "ssd":
+            s = cfg.ssm
+            d_in = s.expand * cfg.d_model
+            total += d_in + 2 * s.n_groups * s.d_state + d_in // s.head_dim
+    return total
 
 
 def diff(got, want) -> float:
@@ -215,11 +232,11 @@ def test_apply_decode_vector_positions_match_reference(local):
 # whole model
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", SERVED)
 def test_param_count_equals_carried_tensors(arch):
     _, tcfg, _, model = carried(arch)
     total = sum(p.numel() for p in model.parameters())
-    assert total == tcfg.param_count()
+    assert total == carried_count(tcfg)
     fresh = TT.init_params(torch.Generator().manual_seed(0), tcfg)
     assert sum(p.numel() for p in fresh.parameters()) == total
     assert {n: p.shape for n, p in fresh.named_parameters()} == \
@@ -227,7 +244,7 @@ def test_param_count_equals_carried_tensors(arch):
 
 
 @pytest.mark.parametrize("impl", IMPLS)
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", SERVED)
 def test_prefill_matches_reference(arch, impl):
     jcfg, tcfg, jp, model = carried(arch, seed=9)
     tok = tokens_for(jcfg, np.random.default_rng(10), 2, 12)
@@ -237,11 +254,12 @@ def test_prefill_matches_reference(arch, impl):
     assert got.shape == want.shape and diff(got, want) < TOL
     wl = jax_layer_caches(wc, jcfg)
     assert len(tc) == len(wl) == tcfg.n_layers
-    for c, (k, v) in zip(tc, wl):
-        assert diff(c.k, k) < TOL and diff(c.v, v) < TOL
+    for c, w in zip(tc, wl):
+        assert len(c) == len(w)
+        assert all(diff(f, wf) < TOL for f, wf in zip(c, w))
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", SERVED)
 def test_decode_steps_match_reference(arch):
     jcfg, tcfg, jp, model = carried(arch, seed=11)
     rng = np.random.default_rng(12)
@@ -257,8 +275,8 @@ def test_decode_steps_match_reference(arch):
         got, tc = TT.decode_step(model, torch.from_numpy(tok).long(), tc,
                                  torch.as_tensor(pos), tcfg, pctx)
         assert got.shape == want.shape and diff(got, want) < TOL
-    for c, (k, v) in zip(tc, jax_layer_caches(jc, jcfg)):
-        assert diff(c.k, k) < TOL and diff(c.v, v) < TOL
+    for c, w in zip(tc, jax_layer_caches(jc, jcfg)):
+        assert all(diff(f, wf) < TOL for f, wf in zip(c, w))
 
 
 def test_flash_prefill_keeps_the_kernel_precondition():

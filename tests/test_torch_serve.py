@@ -3,14 +3,15 @@ serve``) against ``repro``'s.
 
 The port's ``Engine`` and the reference's serve the same requests (the
 prompt lengths of ``tests/test_serve.py``, prompts from a numpy seed) on
-reduced qwen3-0.6b with the reference's weights carried across: the same
+reduced qwen3-0.6b and reduced mamba2-780m with the reference's weights
+carried across: the same
 requests finish in the same order with the same greedy tokens (float32
 logits agree within 1e-4, far inside these logits' top-2 gaps).  The
 reference serves with ``"full"`` attention; the port with ``"flash"`` (the
 flash kernel's plain version on CPU tensors) and ``"full"``.
-``insert_slot`` writes the same caches as the reference's (exactly: it
-copies).  Sampling draws from a ``torch.Generator``, so only greedy and
-top-k=1 are compared by value.
+``insert_slot`` writes the same KV and SSM caches as the reference's
+(exactly: it copies).  Sampling draws from a ``torch.Generator``, so only
+greedy and top-k=1 are compared by value.
 """
 import dataclasses
 
@@ -176,3 +177,65 @@ def test_engine_rejects_params_on_another_device():
            tctx(attn_impl="full"), device="cpu")
     with pytest.raises(ValueError, match="engine on meta"):
         Engine(tcfg, model, tctx(attn_impl="full"), device="meta")
+
+
+@pytest.mark.parametrize("slot,length", [(0, 2), (2, 13)])
+def test_insert_slot_ssm_matches_reference(slot, length):
+    """An SSD layer's slot gets the prefill's whole conv window (a prompt
+    shorter than d_conv - 1 left-padded) and state; other slots keep their
+    bits."""
+    jcfg, tcfg, jp, model = carried("mamba2-780m", seed=3)
+    rng = np.random.default_rng(slot)
+    B = 3
+    jbig = JT.init_caches(jcfg, B, 16, jnp.float32)
+    jbig = jax.tree.map(
+        lambda a: jnp.asarray(rng.normal(size=a.shape).astype(np.float32)),
+        jbig)
+    tbig = TT.init_caches(tcfg, B, 16, torch.float32, "cpu")
+    for li, c in enumerate(tbig):
+        jc = jbig["periods"][li % jcfg.period]
+        per = li // jcfg.period
+        c.conv.copy_(torch.from_numpy(np.array(jc.conv[per])))
+        c.h.copy_(torch.from_numpy(np.array(jc.h[per])))
+    tok = rng.integers(0, jcfg.vocab_size, size=(1, length)).astype(np.int32)
+    _, jsmall = JT.prefill(jp, jnp.asarray(tok), jcfg,
+                           jctx(attn_impl="full"))
+    _, tsmall = TT.prefill(model, torch.from_numpy(tok).long(), tcfg,
+                           tctx(attn_impl="flash"))
+    want = jinsert(jbig, jsmall, slot)
+    got = insert_slot(tbig, tsmall, slot)
+    assert got is tbig                                  # written in place
+    for li, c in enumerate(got):
+        jc = want["periods"][li % jcfg.period]
+        per = li // jcfg.period
+        for t, w in ((c.conv, jc.conv[per]), (c.h, jc.h[per])):
+            assert np.abs(t.numpy() - np.asarray(w)).max() < 1e-4
+            keep = np.ones(t.shape, bool)
+            keep[slot] = False
+            assert np.array_equal(t.numpy()[keep], np.asarray(w)[keep])
+
+
+def test_mamba2_engine_matches_reference():
+    """``tests/test_serve.py``'s ``test_engine_completes_all`` requests on
+    reduced mamba2-780m: every request finishes, with the reference
+    engine's greedy tokens (idle slots decode too; their SSM state is
+    overwritten at the next admission)."""
+    jcfg, tcfg, jp, model = carried("mamba2-780m")
+    jeng = JEngine(jcfg, jp, jctx(remat=False, attn_impl="full"),
+                   max_batch=3, max_len=48)
+    eng = Engine(tcfg, model, tctx(attn_impl="flash"), max_batch=3,
+                 max_len=48, device="cpu")
+    for r, p in enumerate(prompts(jcfg)):
+        jeng.add_request(JRequest(rid=r, prompt=p, max_new_tokens=4 + r))
+        eng.add_request(Request(rid=r, prompt=p, max_new_tokens=4 + r))
+    want, got = served(jeng.run_to_completion()), \
+        served(eng.run_to_completion())
+    assert len(got) == 5
+    assert sorted(len(t) for _, t in got) == [4, 5, 6, 7, 8]
+    assert got == want
+
+
+def test_launcher_smoke_mamba2_on_cpu(capsys):
+    assert launch_serve.main(["--arch", "mamba2-780m", "--smoke",
+                              "--device", "cpu"]) == 0
+    assert capsys.readouterr().out.startswith("served 8 requests, 128 tokens")
