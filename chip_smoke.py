@@ -145,32 +145,38 @@ Phases; any failure exits non-zero:
      per-member loop, the batched plain versions and a loop of
      ``torch.sparse.mm`` per member, beside the byte bound (shared index
      arrays counted once);
- 17. the flash-attention kernel at qwen3-0.6b's widths (16 query heads, 8
-     KV heads, head dim 128) against its plain version, float32 (within
-     2e-5) and bfloat16 (within one bf16 ulp of the plain output plus
-     2e-5: each rounds its own float32 result, which may differ by the
-     float32 tolerance, so this matters only near zero), causal
-     at (B 2, S 2,048) and (B 1, S 4,096) and not causal at Sq 1,000, Skv
-     3,000; at (B 1, S 4,096) and (B 1, S 32,768) bf16 causal, median
-     CUDA-event times beside the plain version (at 32,768 head by head,
-     which is also the check there), ``scaled_dot_product_attention`` (a
-     yardstick only, never on the path) and the operations bound;
+ 17. the flash-attention kernels at qwen3-0.6b's widths (16 query heads, 8
+     KV heads, head dim 128): ``ptxas`` registers and spills of the
+     tensor-core kernel; against the plain version, float32 through the
+     CUDA-core kernel (within 2e-5) and bfloat16 through the tensor-core
+     kernel (within one bf16 ulp of the plain output plus 2e-5: each
+     rounds its own float32 result, which may differ by the float32
+     tolerance, so this matters only near zero), each launch on the
+     kernel ``flash_fwd`` picks for (dtype, D), causal at (B 2, S 2,048)
+     and (B 1, S 4,096) and not causal at Sq 1,000, Skv 3,000; at (B 1, S
+     4,096) and (B 1, S 32,768) bf16 causal, median CUDA-event times
+     beside the plain version (at 32,768 head by head, which is also the
+     check there), ``scaled_dot_product_attention`` (a yardstick only,
+     never on the path) and the operations bound; the float32 kernel
+     timed at S 4,096;
  18. serving qwen3-0.6b at full width (28 layers, random float32 weights
      from seed 0, bf16 compute, TF32 off) through ``Engine(max_batch=4,
-     max_len=4,096)``: 8 requests (six prompts as ``launch/serve.py``
-     draws them, one of 1,024 and one of 2,048 tokens), 16 new tokens
-     each.  Counters zeroed around the run and read per call: each
-     admission launches the flash kernel 28 times and its plain version
-     never, a decode step neither, nothing else runs; every request
-     finishes with its tokens.  Prefill logits of the short prompt and
-     both long ones through "flash" against "full": at float32 within a
+     max_len=4,096)``: 9 requests (six prompts as ``launch/serve.py``
+     draws them, and long ones of 1,000, 1,024 and 2,048 tokens), 16 new
+     tokens each.  Counters zeroed around the run and read per call: each
+     admission launches the flash kernel 28 times, all on the tensor-core
+     kernel, and its plain version never, a decode step neither, nothing
+     else runs; every request finishes with its tokens.  Prefill logits
+     of the short prompt and the long ones through "flash" against
+     "full": at float32 (the CUDA-core kernel) within a
      relative L2 distance of 1e-4; at bf16 "flash" at most 1.5 times as
      far from the float32 logits as "full" is.  A float32 copy of the
      config passes ``tests/test_serve.py``'s greedy-equals-
      re-prefill check over 4 tokens (logits compared instead, within 1e-4
      of the largest |logit|, where the top-2 gap is under that).  Timing
      line: prefill ms per prompt length, decode-step ms at batch 4,
-     tokens/s;
+     tokens/s; the 2,048-token prefill's device time and the flash
+     kernels' share of it;
  19. the SSD chunk-scan kernel at mamba2-780m's widths (48 heads of head
      dim 64, one group, state 128, chunks of up to 256; log_a = -softplus
      (N(0, 1)) A with A the config's span 1-16) against its plain version,
@@ -269,9 +275,10 @@ FLASH_TIMED = (4096, 32768)
 #: another order); bf16 outputs get one bf16 ulp on top of it
 FLASH_F32_TOL = 2e-5
 #: phase 18: the engine's slots and cache, six prompts as the launcher
-#: draws them and two long ones, new tokens per request
+#: draws them and three long ones (1,000: no multiple of a 64-row tile),
+#: new tokens per request
 SERVE_BATCH, SERVE_MAX_LEN, SERVE_SHORT, SERVE_LONG, SERVE_NEW = \
-    4, 4096, 6, (1024, 2048), 16
+    4, 4096, 6, (1000, 1024, 2048), 16
 #: phase 18 tolerances.  SERVE_F32_FLASH_REL: float32 prefill logits at
 #: full width, "flash" against "full", as a relative L2 distance (sums in
 #: another order through 28 layers; a wrong stride or mask moves them by
@@ -307,8 +314,8 @@ KERNEL_SOURCE = "src/repro_torch/kernels/spgemm_hash/csrc/spgemm_hash.cu"
 PB_SOURCE = "src/repro_torch/kernels/spgemm_pb/csrc/spgemm_pb.cu"
 BCSR_SOURCE = "src/repro_torch/kernels/spgemm_bcsr/csrc/spgemm_bcsr.cu"
 SPMM_SOURCE = "src/repro_torch/kernels/spmm/csrc/spmm.cu"
-FLASH_SOURCE = \
-    "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
+FLASH_WGMMA_SOURCE = \
+    "src/repro_torch/kernels/flash_attention/csrc/flash_attention_wgmma.cu"
 SSD_SOURCE = "src/repro_torch/kernels/ssd_chunk/csrc/ssd_chunk.cu"
 REPLACES = {
     "numeric": "src/repro/kernels/spgemm_hash/kernel.py:266",
@@ -2465,26 +2472,39 @@ class Smoke:
                           (b, LM_KV_HEADS, skv, LM_HEAD_DIM))]
 
     def flash_kernel(self):
-        """Phase 17: the flash kernel at qwen3-0.6b's widths against its
-        plain version (float32 within FLASH_F32_TOL; bfloat16 within one
+        """Phase 17: the flash kernels at qwen3-0.6b's widths against their
+        plain version (float32 through the CUDA-core kernel within
+        FLASH_F32_TOL; bfloat16 through the tensor-core kernel within one
         bf16 ulp of the plain output plus FLASH_F32_TOL: each rounds its
-        own float32 sum, and those may differ by FLASH_F32_TOL), then
-        CUDA-event medians beside the plain version,
-        ``scaled_dot_product_attention`` (a yardstick only, never on the
-        path) and the bound.  Returns the rows' numbers by length."""
+        own float32 sum, and those may differ by FLASH_F32_TOL), each
+        launch on the kernel ``FK.variant`` names, then CUDA-event medians
+        beside the plain version, ``scaled_dot_product_attention`` (a
+        yardstick only, never on the path) and the bound.  Returns the
+        rows' numbers by length."""
         torch, FK, ref = self.torch, self.FK, self.fa_ref
         F = torch.nn.functional
         scale = LM_HEAD_DIM ** -0.5
+        for line in FK.build()["wgmma"]["ptxas"].splitlines():
+            if "registers" in line or "spill" in line or "setmaxnreg" in \
+                    line:
+                print("phase 17: tensor-core kernel ptxas:", line.strip(),
+                      flush=True)
         errs = {}
         for dtype in (torch.float32, torch.bfloat16):
+            kind = FK.variant(dtype, LM_HEAD_DIM)
             for i, (b, sq, skv, causal) in enumerate(FLASH_CHECKS):
                 q, k, v = self.flash_inputs(b, sq, skv, dtype, 100 + i)
+                self.fa_ops.reset_kernel_calls()
                 got = FK.flash_fwd(q, k, v, scale=scale, causal=causal)
+                variants = self.fa_ops.variant_call_counts()
                 want = ref.flash_attention_plain(q, k, v, causal=causal,
                                                  scale=scale)
                 torch.cuda.synchronize()
                 what = (f"flash {str(dtype)[6:]} B {b} Sq {sq} Skv {skv} "
                         f"causal {causal}")
+                check(variants == {"wgmma": int(kind == "wgmma"),
+                                   "fma": int(kind == "fma")},
+                      f"{what}: launched {variants}, want one {kind}")
                 check(got.shape == want.shape and got.dtype == dtype and
                       bool(torch.isfinite(got).all()),
                       f"{what}: shape, dtype or non-finite values")
@@ -2501,8 +2521,8 @@ class Smoke:
                           f"ulp (+ {FLASH_F32_TOL}) of the plain version "
                           f"(max abs diff {err})")
                 errs[(dtype, sq)] = err
-                print(f"phase 17: {what}: max abs diff {err:.3g} to the "
-                      f"plain version", flush=True)
+                print(f"phase 17: {what}: {kind} kernel, max abs diff "
+                      f"{err:.3g} to the plain version", flush=True)
                 del q, k, v, got, want, d
         torch.cuda.empty_cache()
 
@@ -2543,6 +2563,12 @@ class Smoke:
                 q, k, v, is_causal=True, enable_gqa=True)
             t["sdpa"] = self.time_ms(lib)
             lib_diff = float((lib().float() - out.float()).abs().max())
+            if s == FLASH_TIMED[0]:
+                # the float32 path, the CUDA-core kernel, for the record
+                q32, k32, v32 = (x.float() for x in (q, k, v))
+                t["kernel_f32_fma"] = self.time_ms(lambda: FK.flash_fwd(
+                    q32, k32, v32, scale=scale, causal=True))
+                del q32, k32, v32
             ops = 4 * LM_HEADS * LM_HEAD_DIM * s * (s + 1) / 2
             by = (q.numel() + k.numel() + v.numel() + out.numel()) * 2
             bound = max(ops / BF16_FLOP_PER_S, by / HBM_BYTES_PER_S) * 1e3
@@ -2553,6 +2579,9 @@ class Smoke:
                 f"{LM_KV_HEADS} D {LM_HEAD_DIM} S {s} causal",
                 "card": self.card, "ms": t, "bound_ms": bound,
                 "bound_by": bound_by, "tflop_per_s": ops / t["kernel"] / 1e9,
+                # P V runs twice (P_hi and P_lo): 1.5x the least operations
+                "tflop_per_s_performed": 1.5 * ops / t["kernel"] / 1e9,
+                "sdpa_tflop_per_s": ops / t["sdpa"] / 1e9,
                 "sdpa_max_abs_diff": lib_diff}), flush=True)
             rows[s] = {"ms": t["kernel"],
                        "plain_ms": t.get("plain", t.get("plain_heads")),
@@ -2565,12 +2594,12 @@ class Smoke:
     # ---- phase 18 ----------------------------------------------------------
     def serve(self, flash_rows):
         """Phase 18: serve qwen3-0.6b at full width (random weights from a
-        seeded generator, bf16) through ``Engine``: 8 requests, every
-        admission launching the flash kernel once per layer and its plain
-        version never, decode launching neither; then the float32 and
-        bf16 prefill logits of "flash" against "full", and a float32 copy's
-        greedy
-        decode against re-prefill.  Adds the flash kernel's rows."""
+        seeded generator, bf16) through ``Engine``: 9 requests, every
+        admission launching the tensor-core flash kernel once per layer
+        and the plain version never, decode launching neither; then the
+        float32 and bf16 prefill logits of "flash" against "full", and a
+        float32 copy's greedy decode against re-prefill.  Adds the flash
+        kernel's rows."""
         import dataclasses
         torch = self.torch
         from repro_torch.configs import get
@@ -2599,9 +2628,18 @@ class Smoke:
         pctx = single_device_ctx(attn_impl="flash")
         prompts = self.serve_prompts(cfg, model, pctx, SERVE_LONG)
         counts, timing = self.serve_run(cfg, model, pctx, prompts, "flash",
-                                        "flash_fwd", "flash_ms", "phase 18")
+                                        "flash_fwd", "flash_ms", "phase 18",
+                                        variant="wgmma")
         print(json.dumps({"timing": f"{LM_ARCH} serving", "card": self.card,
                           **timing}), flush=True)
+        long = timing[f"prefill_{SERVE_LONG[-1]}"]
+        if long["device_busy_ms"]:
+            print(f"phase 18: {SERVE_LONG[-1]}-token prefill: host "
+                  f"{long['host_ms']:.2f} ms, device busy "
+                  f"{long['device_busy_ms']:.2f} ms, flash kernels "
+                  f"{long['flash_ms']:.3f} ms "
+                  f"({long['flash_ms'] / long['device_busy_ms']:.1%} of "
+                  f"the device time)", flush=True)
 
         # prefill logits, the flash kernel against exact softmax: at float32
         # (the check that the kernel is wired in right) and at bf16 (each
@@ -2645,7 +2683,8 @@ class Smoke:
         for s, row in flash_rows.items():
             self.rows.append({
                 "name": f"flash_fwd[bf16 S{s}]", "route": "cuda",
-                "source": FLASH_SOURCE, "replaces": REPLACES["flash_fwd"],
+                "source": FLASH_WGMMA_SOURCE,
+                "replaces": REPLACES["flash_fwd"], "variant": "wgmma",
                 "launches": counts["flash_flash_fwd"],
                 "launches_per_admission": cfg.n_layers, **row})
 
@@ -2667,15 +2706,18 @@ class Smoke:
         return prompts
 
     def serve_run(self, cfg, model, pctx, prompts, prefix: str, key: str,
-                  ms_name: str, phase: str):
+                  ms_name: str, phase: str, variant: str | None = None):
         """Serve ``prompts`` (SERVE_NEW new tokens each) through
         ``Engine(max_batch=SERVE_BATCH, max_len=SERVE_MAX_LEN)`` between a
         reset and a read of every launch counter: each admission launches
         the kernel ``key`` (counters under ``prefix``, as :meth:`counted`
         names them) once per layer and its plain version never, a decode
-        step neither, nothing else runs, and every request finishes.  Then the device's busy share of a decode step at batch
-        SERVE_BATCH and of a prefill of the last prompt (``ms_name``: the
-        kernel's own device ms).  Returns (counts, timing)."""
+        step neither, nothing else runs, and every request finishes; with
+        ``variant``, every launch of an admission ran that flash kernel
+        (``fa_ops.variant_call_counts``).  Then the device's busy share of
+        a decode step at batch SERVE_BATCH and of a prefill of the last
+        prompt (``ms_name``: the kernel's own device ms).  Returns (counts,
+        timing)."""
         torch = self.torch
         from repro_torch.models import transformer as T
         from repro_torch.serve import Engine, Request
@@ -2685,14 +2727,20 @@ class Smoke:
         prefills, decodes = [], []
         inner_prefill, inner_decode = eng._prefill, eng._decode
 
+        def snapshot():
+            c = ops_mod.kernel_call_counts()
+            if variant is not None:
+                c.update(self.fa_ops.variant_call_counts())
+            return c
+
         def timed(inner, log, what):
             def call(*args):
-                before = ops_mod.kernel_call_counts()
+                before = snapshot()
                 t0 = time.perf_counter()
                 out = inner(*args)
                 torch.cuda.synchronize()
                 ms = (time.perf_counter() - t0) * 1e3
-                after = ops_mod.kernel_call_counts()
+                after = snapshot()
                 log.append((args[1].shape[1] if what == "prefill"
                             else eng.active(), ms,
                             {k: after[k] - before[k] for k in after}))
@@ -2709,12 +2757,16 @@ class Smoke:
         n_tok = sum(len(d.out_tokens) for d in done)
         self.expect(counts, {f"{prefix}_{key}": cfg.n_layers * len(prompts)},
                     f"{phase} {cfg.name} serving")
+        per_admission = {key: cfg.n_layers, "plain": 0}
+        if variant is not None:
+            per_admission.update({v: cfg.n_layers if v == variant else 0
+                                  for v in self.fa_ops.variant_call_counts()})
         for n, _, c in prefills:
-            check(c == {key: cfg.n_layers, "plain": 0},
+            check(c == per_admission,
                   f"{phase}: the admission of a {n}-token prompt launched "
-                  f"{c}, want {cfg.n_layers} {key} and no plain")
+                  f"{c}, want {per_admission}")
         for _, _, c in decodes:
-            check(c == {key: 0, "plain": 0},
+            check(not any(c.values()),
                   f"{phase}: a decode step launched {c}")
         check(sorted(d.rid for d in done) == list(range(len(prompts))),
               f"{phase}: finished {sorted(d.rid for d in done)}")
@@ -2732,9 +2784,10 @@ class Smoke:
             "decode_steps": len(decodes), "tokens": n_tok, "wall_s": wall,
             "tokens_per_s": n_tok / wall}
         print(f"{phase}: served {len(done)} requests, {n_tok} tokens; "
-              f"{cfg.n_layers} {key} launches per admission, none per "
-              f"decode step ({counts[f'{prefix}_{key}']} in all)",
-              flush=True)
+              f"{cfg.n_layers} {key} launches per admission"
+              + (f", all on the {variant} kernel" if variant else "")
+              + f", none per decode step ({counts[f'{prefix}_{key}']} in "
+              f"all)", flush=True)
         del eng
         # where a call's time goes: the device's busy share of the host time
         caches = T.init_caches(cfg, SERVE_BATCH, SERVE_MAX_LEN,
@@ -3059,11 +3112,15 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import kernel as FK
     from repro_torch.kernels.ssd_chunk import kernel as SSDK
     seconds = _build.compile_sources([K.SOURCE, PK.SOURCE, BK.SOURCE,
-                                      SK.SOURCE, FK.SOURCE, SSDK.SOURCE])
-    for mod in (K, PK, BK, SK, FK, SSDK):
-        info = mod.build()
-        print(f"phase 2: built {info['path']} in "
-              f"{seconds[mod.SOURCE]:.1f} s", flush=True)
+                                      SK.SOURCE, *FK.SOURCES, SSDK.SOURCE])
+    flash = FK.build()
+    for info, src in ((K.build(), K.SOURCE), (PK.build(), PK.SOURCE),
+                      (BK.build(), BK.SOURCE), (SK.build(), SK.SOURCE),
+                      (flash["fma"], FK.SOURCE),
+                      (flash["wgmma"], FK.WGMMA_SOURCE),
+                      (SSDK.build(), SSDK.SOURCE)):
+        print(f"phase 2: built {info['path']} in {seconds[src]:.1f} s",
+              flush=True)
         for line in info["ptxas"].splitlines():
             if "registers" in line or "spill" in line:
                 print("  ptxas:", line.strip(), flush=True)

@@ -1,4 +1,7 @@
-// GQA flash-attention forward for Hopper (sm_90a), online softmax.
+// GQA flash-attention forward for Hopper (sm_90a) on the CUDA cores,
+// online softmax: float32 q, k, v, and bfloat16 at head dims 16 and 32.
+// bfloat16 at head dims 64, 128 and 256 runs on the tensor cores in
+// flash_attention_wgmma.cu (kernel.py's flash_fwd picks by (dtype, D)).
 //
 // Replaces the Pallas TPU kernel fwd_call of
 // repro/kernels/flash_attention/kernel.py (_fwd_kernel): for q (B, H, Sq, D)
@@ -44,9 +47,10 @@
 //
 // What it does not do about its bound: the scores and the weighted sum run
 // at the float32 CUDA-core rate (67 TFLOP/s, 15x under the bound's 989),
-// with no wgmma, no TMA or asynchronous copies overlapping the loads with
-// the products, and no sharing of a KV tile between the query heads of one
-// GQA group.  Those are later work.
+// with no asynchronous copies overlapping the loads with the products and
+// no sharing of a KV tile between the query heads of one GQA group.  That
+// is what flash_attention_wgmma.cu does for bf16; float32 stays here so
+// that its sums stay IEEE float32 (no TF32, no bf16 rounding).
 //
 // Plain C interface, loaded with ctypes; the launch reports
 // cudaGetLastError().
@@ -54,6 +58,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -267,25 +273,35 @@ cudaError_t launch(int B, int H, int Hkv, int Sq, int Skv, int causal,
   return cudaGetLastError();
 }
 
+// bfloat16 at head dims 64-256 runs on the tensor cores
+// (flash_attention_wgmma.cu), so only float32 instantiates them here.
 template <typename T>
 cudaError_t launch_d(int D, int B, int H, int Hkv, int Sq, int Skv,
                      int causal, float scale, const void* q, const void* k,
                      const void* v, void* out, const long long* st,
                      cudaStream_t stream) {
+  constexpr bool f32 = std::is_same<T, float>::value;
   switch (D) {
     case 16: return launch<16, T>(B, H, Hkv, Sq, Skv, causal, scale, q, k, v, out, st, stream);
     case 32: return launch<32, T>(B, H, Hkv, Sq, Skv, causal, scale, q, k, v, out, st, stream);
-    case 64: return launch<64, T>(B, H, Hkv, Sq, Skv, causal, scale, q, k, v, out, st, stream);
-    case 128: return launch<128, T>(B, H, Hkv, Sq, Skv, causal, scale, q, k, v, out, st, stream);
-    case 256: return launch<256, T>(B, H, Hkv, Sq, Skv, causal, scale, q, k, v, out, st, stream);
-    default: return cudaErrorInvalidValue;
+    case 64:
+      if constexpr (f32) return launch<64, T>(B, H, Hkv, Sq, Skv, causal, scale, q, k, v, out, st, stream);
+      break;
+    case 128:
+      if constexpr (f32) return launch<128, T>(B, H, Hkv, Sq, Skv, causal, scale, q, k, v, out, st, stream);
+      break;
+    case 256:
+      if constexpr (f32) return launch<256, T>(B, H, Hkv, Sq, Skv, causal, scale, q, k, v, out, st, stream);
+      break;
   }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16 (q, k, v and out alike).  strides: the
-// batch, head and row strides of q, k and v, in elements (9 values).
+// dtype: 0 float32, 1 bfloat16 (q, k, v and out alike; bfloat16 at head
+// dims 16 and 32 only).  strides: the batch, head and row strides of q, k
+// and v, in elements (9 values).
 extern "C" int flash_fwd_launch(int dtype, int B, int H, int Hkv, int Sq,
                                 int Skv, int D, int causal, float scale,
                                 const void* q, const void* k, const void* v,

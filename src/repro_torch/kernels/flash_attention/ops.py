@@ -1,8 +1,11 @@
 """Public entry points of attention (port of
 ``repro.kernels.flash_attention.ops``, forward only).
 
-``flash_attention``   -- the hand-written CUDA kernel on CUDA tensors, its
-                         plain version on CPU tensors.
+``flash_attention``   -- the hand-written CUDA kernels on CUDA tensors,
+                         their plain version on CPU tensors; keeps the
+                         reference's tiling preconditions.  The model's
+                         prefill calls ``kernel.flash_fwd``, which takes
+                         any length.
 ``chunked_attention`` -- online softmax over KV chunks in plain PyTorch,
                          with sliding windows; what the reference computes
                          outside Pallas.  Its custom VJP waits for the
@@ -13,19 +16,25 @@ from __future__ import annotations
 import torch
 
 from . import kernel as K
-from .kernel import KERNEL_CALLS
+from .kernel import KERNEL_CALLS, VARIANT_CALLS
 from .ref import NEG_INF
 
 
 def reset_kernel_calls() -> None:
-    """Zero the launch counters."""
-    for k in KERNEL_CALLS:
-        KERNEL_CALLS[k] = 0
+    """Zero the launch counters and the variant counters."""
+    for counter in (KERNEL_CALLS, VARIANT_CALLS):
+        for k in counter:
+            counter[k] = 0
 
 
 def kernel_call_counts() -> dict:
     """Snapshot of :data:`KERNEL_CALLS`."""
     return dict(KERNEL_CALLS)
+
+
+def variant_call_counts() -> dict:
+    """Snapshot of :data:`VARIANT_CALLS`: which kernel the launches ran."""
+    return dict(VARIANT_CALLS)
 
 
 def flash_attention(q, k, v, *, causal: bool = True,
@@ -35,8 +44,8 @@ def flash_attention(q, k, v, *, causal: bool = True,
 
     ``bq`` and ``bkv`` keep the reference's preconditions: each is cut to
     its sequence length and must then divide it (``ValueError`` where the
-    reference asserts).  They do not change the result: the CUDA kernel
-    tiles by its own sizes and masks ragged edges, and the causal mask is
+    reference asserts).  They do not change the result: the CUDA kernels
+    tile by their own sizes and mask ragged edges, and the causal mask is
     the reference kernel's (query ``i`` sees key ``j`` iff ``i >= j``).
     """
     sq, d = q.shape[2], q.shape[3]

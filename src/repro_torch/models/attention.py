@@ -7,11 +7,14 @@ sliding-window local attention (recurrentgemma).  One device: no
 sharding constraints.
 
 Prefill picks its attention from ``pctx.attn_impl`` (window None):
-``"flash"`` runs the flash kernel's wrapper on any device -- the CUDA
-kernel on the card, its plain version on the CPU -- and keeps the
-wrapper's preconditions (a prompt longer than 128 tokens must be a
-multiple of 128, as on the reference's accelerator); ``"full"`` runs
-``attention_ref``; ``"chunked"`` and windows run ``chunked_attention``.
+``"flash"`` runs the flash kernels' wrapper ``flash_fwd`` on any device
+and at any prompt length -- a CUDA kernel on the card (bf16 at head dims
+64 and 128 on the tensor cores, the rest on the CUDA cores), the plain
+version on the CPU; ``"full"`` runs ``attention_ref``; ``"chunked"`` and
+windows run ``chunked_attention``.  (The reference's accelerator path
+needs a prompt longer than 128 tokens to be a multiple of 128; off the
+TPU it runs ``chunked_attention``, which serves any length, as this path
+does.)
 Decode is plain PyTorch, as the reference's jnp decode.
 """
 from __future__ import annotations
@@ -20,8 +23,8 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels.flash_attention.ops import (chunked_attention,
-                                                     flash_attention)
+from repro_torch.kernels.flash_attention.kernel import flash_fwd
+from repro_torch.kernels.flash_attention.ops import chunked_attention
 from repro_torch.kernels.flash_attention.ref import NEG_INF, attention_ref
 from repro_torch.parallel.sharding import ParallelCtx
 from . import layers as L
@@ -87,7 +90,7 @@ def apply_full(params, x, cfg, pctx: ParallelCtx, *, local: bool = False):
     window = cfg.attn_window if (local and cfg.attn_window and
                                  cfg.attn_window < S) else None
     if window is None and pctx.attn_impl == "flash":
-        o = flash_attention(q, k, v, causal=True)
+        o = flash_fwd(q, k, v, scale=cfg.hd ** -0.5, causal=True)
     elif window is None and pctx.attn_impl == "full":
         o = attention_ref(q, k, v, causal=True)
     else:

@@ -15,7 +15,7 @@ from dataclasses import dataclass
 @dataclass(frozen=True)
 class ParallelCtx:
     """``attn_impl`` picks the prefill attention: ``"flash"`` (the
-    hand-written kernel's wrapper), ``"full"`` (exact softmax,
+    hand-written kernels' wrapper ``flash_fwd``), ``"full"`` (exact softmax,
     ``attention_ref``) or ``"chunked"`` (online softmax over KV chunks).
     """
     attn_impl: str = "chunked"        # chunked | flash | full

@@ -20,10 +20,13 @@ cum_i - cum_j carries the rounding of two cumsums taken in another order,
 a few ulps of |cum|); bfloat16 y within one bf16 ulp of the plain output
 plus that.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import get as get_config
 from repro_torch.core import CSR
 from repro_torch.core.formats import prefix_sum
 from repro_torch.data import rmat
@@ -38,6 +41,9 @@ from repro_torch.kernels.spgemm_pb import ref as pb_ref
 from repro_torch.kernels.ssd_chunk import kernel as SSDK
 from repro_torch.kernels.ssd_chunk import ops as ssd_ops
 from repro_torch.kernels.ssd_chunk import ref as ssd_ref
+from repro_torch.models import transformer
+from repro_torch.parallel.sharding import single_device_ctx
+from repro_torch.serve import Engine, Request
 
 DYADIC = np.array([0.5, 1.0, 1.5, 2.0], np.float32)
 CASES = [("ER", 9, 8, True), ("G500", 10, 16, False), ("G500", 12, 16, True)]
@@ -1265,7 +1271,10 @@ def bf16_ulp(x):
 @pytest.mark.parametrize("b,h,hkv,d,sq,skv", [
     (2, 4, 4, 32, 128, 128), (1, 4, 2, 64, 17, 17), (2, 8, 1, 16, 200, 333),
     (1, 2, 1, 128, 64, 256), (1, 4, 2, 256, 100, 100),
-    (2, 2, 2, 128, 1, 64), (1, 16, 8, 128, 300, 300)])
+    (2, 2, 2, 128, 1, 64), (1, 16, 8, 128, 300, 300),
+    (1, 16, 8, 128, 1000, 1000), (2, 8, 2, 128, 333, 333),
+    (1, 8, 2, 64, 200, 500), (1, 16, 1, 256, 300, 300),
+    (1, 32, 1, 64, 100, 100)])
 def test_flash_kernel_matches_plain_version(cuda, dtype, causal, b, h, hkv,
                                             d, sq, skv):
     gen = torch.Generator(cuda).manual_seed(h * d + sq)
@@ -1275,6 +1284,9 @@ def test_flash_kernel_matches_plain_version(cuda, dtype, causal, b, h, hkv,
     got = FK.flash_fwd(q, k, v, scale=d ** -0.5, causal=causal)
     torch.cuda.synchronize()
     assert fa_ops.kernel_call_counts() == {"flash_fwd": 1, "plain": 0}
+    kind = FK.variant(dtype, d)
+    assert fa_ops.variant_call_counts() == {
+        "wgmma": int(kind == "wgmma"), "fma": int(kind == "fma")}
     want = fa_ref.flash_attention_plain(q, k, v, causal=causal,
                                         scale=d ** -0.5)
     assert got.dtype == dtype and got.shape == want.shape
@@ -1286,21 +1298,97 @@ def test_flash_kernel_matches_plain_version(cuda, dtype, causal, b, h, hkv,
 
 
 @pytest.mark.gpu
-def test_flash_kernel_takes_strided_operands(cuda):
+@pytest.mark.parametrize("dtype,width", [
+    (torch.float32, 64), (torch.bfloat16, 64), (torch.bfloat16, 68)])
+def test_flash_kernel_takes_strided_operands(cuda, dtype, width):
     """q, k, v as the model makes them: (B, S, H, D) projections seen as
-    (B, H, S, D)."""
+    (B, H, S, D); bf16 through the tensor maps of the tensor-core kernel.
+    ``width`` 68: a head stride of 136 bytes that TMA cannot address, so
+    the wrapper copies those operands first."""
     gen = torch.Generator(cuda).manual_seed(0)
-    q = torch.randn((2, 96, 8, 64), generator=gen, device=cuda)
-    kv = torch.randn((2, 96, 2, 2, 64), generator=gen, device=cuda)
-    q, k, v = q.transpose(1, 2), kv[:, :, 0].transpose(1, 2), \
-        kv[:, :, 1].transpose(1, 2)
+    q = torch.randn((2, 96, 8, width), generator=gen, device=cuda).to(dtype)
+    kv = torch.randn((2, 96, 2, 2, width), generator=gen,
+                     device=cuda).to(dtype)
+    q, k, v = (t[..., :64].transpose(1, 2)
+               for t in (q, kv[:, :, 0], kv[:, :, 1]))
     assert not q.is_contiguous() and not v.is_contiguous()
+    fa_ops.reset_kernel_calls()
     got = fa_ops.flash_attention(q, k, v, causal=True, bq=32, bkv=32)
     want = fa_ref.flash_attention_plain(q.contiguous(), k.contiguous(),
                                         v.contiguous(), causal=True,
                                         scale=64 ** -0.5)
     torch.cuda.synchronize()
-    assert float((got - want).abs().max()) <= 2e-5
+    assert fa_ops.variant_call_counts()[FK.variant(dtype, 64)] == 1
+    diff = (got.float() - want.float()).abs()
+    if dtype == torch.float32:
+        assert float(diff.max()) <= 2e-5
+    else:
+        assert bool((diff <= bf16_ulp(want) + 2e-5).all())
+
+
+@pytest.mark.gpu
+def test_flash_variant_by_dtype_and_head_dim(cuda):
+    """bf16 at head dims 64, 128 and 256 launches the tensor-core kernel,
+    every float32 input and bf16 at 16 and 32 the CUDA-core kernel."""
+    for dtype, d, kind in ((torch.bfloat16, 64, "wgmma"),
+                           (torch.bfloat16, 128, "wgmma"),
+                           (torch.bfloat16, 256, "wgmma"),
+                           (torch.float32, 64, "fma"),
+                           (torch.float32, 128, "fma"),
+                           (torch.float32, 256, "fma"),
+                           (torch.bfloat16, 16, "fma"),
+                           (torch.bfloat16, 32, "fma")):
+        q = torch.ones((1, 2, 40, d), device=cuda, dtype=dtype)
+        fa_ops.reset_kernel_calls()
+        out = FK.flash_fwd(q, q[:, :1], q[:, :1], scale=d ** -0.5,
+                           causal=True)
+        torch.cuda.synchronize()
+        assert FK.variant(dtype, d) == kind
+        assert fa_ops.variant_call_counts() == {
+            "wgmma": int(kind == "wgmma"), "fma": int(kind == "fma")}
+        # a weighted mean of ones: 1 up to the sums' rounding
+        assert float((out.float() - 1).abs().max()) <= 1e-6, (dtype, d)
+
+
+@pytest.mark.gpu
+def test_flash_engine_serves_a_long_ragged_prompt(cuda):
+    """qwen3-0.6b's attention widths (16 heads, 8 KV heads, head dim 128;
+    2 layers, a 4,096-token vocabulary), random weights, bf16: an engine on
+    "flash" serves a 1,000-token prompt and a short one, each admission
+    launching the tensor-core kernel once a layer.  The long prompt's
+    logits: float32 "flash" within a relative L2 distance of 1e-4 of
+    float32 "full"; bf16 "flash" at most 1.5 times as far from them as
+    bf16 "full" is (chip_smoke's phase 18 gates)."""
+    cfg = dataclasses.replace(get_config("qwen3-0.6b"), n_layers=2,
+                              vocab_size=4096)
+    model = transformer.init_params(torch.Generator(cuda).manual_seed(0),
+                                    cfg)
+    rng = np.random.default_rng(0)
+    ps = [rng.integers(0, cfg.vocab_size, size=(n,)).astype(np.int32)
+          for n in (1000, 7)]
+    flash = single_device_ctx(attn_impl="flash")
+    full = single_device_ctx(attn_impl="full")
+    eng = Engine(cfg, model, flash, max_batch=2, max_len=1024, device=cuda)
+    for r, p in enumerate(ps):
+        eng.add_request(Request(rid=r, prompt=p, max_new_tokens=4))
+    fa_ops.reset_kernel_calls()
+    done = eng.run_to_completion()
+    torch.cuda.synchronize()
+    assert sorted(d.rid for d in done) == [0, 1]
+    assert all(len(d.out_tokens) == 4 for d in done)
+    n = len(ps) * cfg.n_layers
+    assert fa_ops.kernel_call_counts() == {"flash_fwd": n, "plain": 0}
+    assert fa_ops.variant_call_counts() == {"wgmma": n, "fma": 0}
+    tok = torch.from_numpy(ps[0][None]).long().to(cuda)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    r32 = transformer.prefill(model, tok, cfg32, full)[0].float()
+    f32 = transformer.prefill(model, tok, cfg32, flash)[0].float()
+    lf, lr = (transformer.prefill(model, tok, cfg, c)[0].float()
+              for c in (flash, full))
+    rel = lambda x: float((x - r32).norm() / r32.norm())  # noqa: E731
+    assert bool(torch.isfinite(lf).all())
+    assert rel(f32) <= 1e-4
+    assert rel(lf) <= 1.5 * rel(lr)
 
 
 @pytest.mark.gpu

@@ -9,7 +9,12 @@ mask: query i sees key j iff i >= j); ``attention_ref`` against its twin
 sliding window against the reference's.  Tolerances: float32 within 2e-5
 (the sums run in another order); bfloat16 inputs against the float32
 reference within 2e-2, as ``tests/test_kernels.py`` holds the Pallas
-kernel.  On CPU tensors the CUDA kernel is never launched.
+kernel.  On CPU tensors the CUDA kernels are never launched.
+
+The tensor-core kernel's P·V runs on bf16 operands; a plain-PyTorch
+emulation of its rounding shows why it splits P into P_hi + P_lo: P rounded
+once breaks the card's bf16 gate (one bf16 ulp of the plain output plus
+2e-5), the split keeps it.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -131,7 +136,60 @@ def test_cpu_tensors_count_plain_launches():
     ops.flash_attention(q, k, v)
     ops.flash_attention(q, k, v, causal=False)
     assert ops.kernel_call_counts() == {"flash_fwd": 0, "plain": 2}
+    assert ops.variant_call_counts() == {"wgmma": 0, "fma": 0}
     ops.reset_kernel_calls()
     ops.chunked_attention(q, k, v)
     ref.attention_ref(q, k, v)
     assert ops.kernel_call_counts() == {"flash_fwd": 0, "plain": 0}
+
+
+@pytest.mark.parametrize("dtype,d,kind", [
+    (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
+    (torch.bfloat16, 256, "wgmma"), (torch.bfloat16, 16, "fma"),
+    (torch.bfloat16, 32, "fma"), (torch.float32, 128, "fma")])
+def test_kernel_variant_by_dtype_and_head_dim(dtype, d, kind):
+    """The rule ``flash_fwd`` launches by: bf16 at 64, 128 and 256 on the
+    tensor cores, float32 and bf16 at 16 and 32 on the CUDA cores."""
+    assert K.variant(dtype, d) == kind
+
+
+def bf16_ulp(x):
+    """One bfloat16 ulp at each value of ``x``."""
+    _, e = x.float().abs().frexp()
+    return (e.float() - 8).exp2()
+
+
+def tensor_core_emulation(q, k, v, *, scale, split):
+    """The tensor-core kernel's arithmetic in plain PyTorch, causal: exact
+    float32 scores of bf16 q, k; P = exp(s - max) and l in float32; P·V
+    with P rounded to bf16 (``split``: plus the rounding's remainder,
+    itself rounded to bf16) against bf16 V, summed in float32."""
+    sq, skv = q.shape[2], k.shape[2]
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    keep = torch.arange(sq)[:, None] >= torch.arange(skv)[None, :]
+    s = s.masked_fill(~keep, ref.NEG_INF)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    l = p.sum(dim=-1, keepdim=True)
+    hi = p.bfloat16().float()
+    acc = torch.einsum("bhqk,bhkd->bhqd", hi, v.float())
+    if split:
+        lo = (p - hi).bfloat16().float()
+        acc = acc + torch.einsum("bhqk,bhkd->bhqd", lo, v.float())
+    return (acc / l.clamp_min(1e-30)).bfloat16()
+
+
+def test_split_p_keeps_the_bf16_gate():
+    """Outputs are sums that cancel, so P's rounding error, relative to the
+    terms, is large against one ulp of the result: rounding P once puts
+    about a tenth of the outputs past the gate, the split none."""
+    q, k, v = (torch.from_numpy(x).bfloat16()
+               for x in qkv(0, 1, 2, 2, 256, 256, 64))
+    want = ref.flash_attention_plain(q, k, v, causal=True, scale=0.125)
+    past = {}
+    for split in (False, True):
+        got = tensor_core_emulation(q, k, v, scale=0.125, split=split)
+        d = (got.float() - want.float()).abs()
+        past[split] = int((d > bf16_ulp(want) + F32_TOL).sum())
+    assert past[False] > want.numel() // 20
+    assert past[True] == 0
+

@@ -279,22 +279,23 @@ def test_decode_steps_match_reference(arch):
         assert all(diff(f, wf) < TOL for f, wf in zip(c, w))
 
 
-def test_flash_prefill_keeps_the_kernel_precondition():
-    """A prompt longer than 128 tokens that is not a multiple of 128 fails
-    on the flash path (as on the reference's accelerator) and runs on the
-    exact and chunked paths."""
-    _, tcfg, _, model = carried("qwen3-0.6b")
-    tok = torch.from_numpy(tokens_for(tcfg, np.random.default_rng(0), 1,
-                                      200)).long()
-    with pytest.raises(ValueError, match="Sq % bq"):
-        TT.prefill(model, tok, tcfg, tctx(attn_impl="flash"))
-    full, _ = TT.prefill(model, tok, tcfg, tctx(attn_impl="full"))
+def test_flash_prefill_serves_any_length():
+    """A 200-token prompt -- past 128 tokens and not a multiple of 128,
+    which the reference's accelerator path refuses -- prefills through
+    "flash" (the kernels' wrapper, which tiles and masks by itself) as
+    through "full", "chunked" and the reference, caches included."""
+    jcfg, tcfg, jp, model = carried("qwen3-0.6b")
+    tok = tokens_for(tcfg, np.random.default_rng(0), 1, 200)
+    want, _ = JT.prefill(jp, jnp.asarray(tok), jcfg, JPCTX)
+    tok = torch.from_numpy(tok).long()
+    flash, fc = TT.prefill(model, tok, tcfg, tctx(attn_impl="flash"))
+    full, uc = TT.prefill(model, tok, tcfg, tctx(attn_impl="full"))
     chunked, _ = TT.prefill(model, tok, tcfg, tctx(attn_impl="chunked"))
-    assert diff(full, chunked) < TOL
-    flash, _ = TT.prefill(model, tok[:, :128], tcfg,
-                          tctx(attn_impl="flash"))
-    full, _ = TT.prefill(model, tok[:, :128], tcfg, tctx(attn_impl="full"))
-    assert diff(flash, full) < TOL
+    assert flash.shape == full.shape == want.shape
+    assert diff(flash, full) < TOL and diff(chunked, full) < TOL
+    assert diff(flash, want) < TOL
+    for c, u in zip(fc, uc):
+        assert all(diff(f, w) < TOL for f, w in zip(c, u))
 
 
 @pytest.mark.parametrize("arch", NOT_PORTED)
