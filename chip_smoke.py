@@ -16,7 +16,9 @@ Phases; any failure exits non-zero:
   2. build the CUDA kernels from the checkout's sources;
   3. the hash-table saturation fixtures (load factor exactly 1.0, and one
      past fill) through the scalar and vector kernels, bitwise against
-     the plain versions after a per-row sort;
+     the plain versions after a per-row sort; the hash numeric kernel's
+     launch shape per table class (``cudaOccupancyMaxActiveClusters`` for
+     clusters of 2, 4 and 8 blocks);
   4. per input: ``plan_spgemm(a, a)`` under ``algorithm="auto"`` and
      ``plan.execute``; an explicit ``hash_vector`` plan; the planless
      ``spgemm(..., algorithm="hash")``; ``execute(sorted_output=True)``.
@@ -26,7 +28,11 @@ Phases; any failure exits non-zero:
      row's columns bitwise equal to the plain version's, values bitwise
      on a dyadic-valued copy of A and within 1 ulp per accumulated
      product on the R-MAT values; the symbolic kernel's row counts equal
-     the planner's ESC counts bitwise;
+     the planner's ESC counts bitwise.  The numeric kernel's row classes:
+     the classifying kernel equal to its plain version, rows, flop, nnz(C)
+     and table slots per class, each class that holds rows launched once
+     by ``plan.execute`` (G500: rows on clusters of 2, 4 and 8 blocks,
+     none in device memory; ER: none on a cluster);
   5. median CUDA-event times of each kernel, its plain version and
      ``torch.sparse.mm`` (cuSPARSE; a yardstick only, never on the path),
      each beside its least possible time on the card; each probe mode's
@@ -199,6 +205,10 @@ Phases; any failure exits non-zero:
      logits and every layer's state and conv window within a relative L2
      distance of 1e-3; then phase 18's float32 greedy-equals-re-prefill
      check.  Timing line as phase 18's;
+ 21. the hash numeric kernel's device time per table class and the
+     classifying kernel's, from a ``torch.profiler`` trace of one call per
+     probe mode on each phase-4 input (last: traces over the cluster
+     launches left later traces' sums short);
  15. one ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``.
 
 Usage: ``python3 chip_smoke.py`` (one card, no arguments).  A quick first
@@ -388,21 +398,27 @@ class Smoke:
         self.card = card
         self.dev = torch.device("cuda")
         self.rows = []          # the kernels line
+        self.class_profiles = []  # phase 21's numeric calls, per input
         self.library_ms = {}    # torch.sparse.mm time per input
 
     # ---- helpers ---------------------------------------------------------
     def counted(self, fn):
         """Run ``fn`` between a reset and a read of every launch counter
         (the PB, BCSR, SpMM, flash-attention and SSD counters under
-        ``pb_``, ``bcsr_``, ``spmm_``, ``flash_`` and ``ssd_`` names)."""
+        ``pb_``, ``bcsr_``, ``spmm_``, ``flash_`` and ``ssd_`` names; the
+        hash numeric kernel's class launches, extra to its one count a
+        call, in ``self.class_counts``)."""
         others = {"pb": self.pb_ops, "bcsr": self.bcsr_ops,
                   "spmm": self.spmm_ops, "flash": self.fa_ops,
                   "ssd": self.ssd_ops}
         self.ops.reset_kernel_calls()
         for mod in others.values():
             mod.reset_kernel_calls()
+        classes = self.K.CLASS_CALLS
+        classes.update(dict.fromkeys(classes, 0))
         out = fn()
         self.torch.cuda.synchronize()
+        self.class_counts = dict(classes)
         counts = self.ops.kernel_call_counts()
         for prefix, mod in others.items():
             counts.update({f"{prefix}_{k}": v for k, v in
@@ -566,6 +582,23 @@ class Smoke:
                 self.compare(what, kc, kv, indptr_c, (2, d), pc, pv)
         print("phase 3: saturation fixtures bitwise equal (load factor 1.0 "
               "and one past fill, scalar and vector)", flush=True)
+        # the numeric kernel's launch shape per table class; a cluster of
+        # 8 blocks must fit the card at 16,384-slot slices
+        for vector in (False, True):
+            shapes = {name: K.class_shape(c, vector)
+                      for c, name in enumerate(K.CLASS_NAMES)}
+            for name, sh in shapes.items():
+                check(sh["resident_blocks"] >= sh["blocks"],
+                      f"class {name}: no {sh['blocks']}-block launch is "
+                      f"resident")
+            print(json.dumps({"hash_class_shapes": "vector" if vector
+                              else "scalar", "card": self.card,
+                              "shapes": shapes}), flush=True)
+        print("phase 3: cudaOccupancyMaxActiveClusters at 16,384-slot "
+              "slices (1,024 threads): " + ", ".join(
+                  f"{b} blocks {K.class_shape(c, False)['resident_clusters']}"
+                  for c, b in enumerate(K.CLASS_BLOCKS) if b > 1),
+              flush=True)
 
     # ---- phase 4 and 5 -----------------------------------------------------
     def one_input(self, preset: str, scale: int):
@@ -604,6 +637,9 @@ class Smoke:
 
         c, counts = self.counted(lambda: plan.execute(a, a))
         expect(counts, {key: 1}, "plan.execute")
+        exec_classes = self.class_counts
+        check(exec_classes["classify"] == 1 and exec_classes["plain"] == 0,
+              f"{label}: plan.execute's class launches {exec_classes}")
 
         # the plain version on the same operands, and the per-entry
         # product counts for the ulp bound
@@ -683,6 +719,7 @@ class Smoke:
                      c_s.shape, pc, pv, counts_pp)
         print(f"{label}: outputs match the plain versions; launches per "
               f"path {paths}", flush=True)
+        classes = self.hash_classes(label, plan, a, exec_classes)
 
         # ---- timings (phase 5) ------------------------------------------
         m = a.n_rows
@@ -728,11 +765,15 @@ class Smoke:
                                      a.indices[:nnz_a].long(),
                                      a.data[:nnz_a], size=a.shape)
         t["torch_sparse_mm"] = self.time_ms(lambda: torch.sparse.mm(sp, sp))
+        t["plain_classify"] = self.time_ms(lambda: ref.row_classes_plain(
+            plan.offsets, plan.bin_tsize, plan.indptr_c,
+            table_size=plan.table_size))
         print(json.dumps({"timing": label, "card": self.card,
                           "n": m, "nnz_a": nnz_a, "flop": flop,
                           "nnz_c": nnz_c, "algorithm": algo,
                           "ms": t, "bound_ms": {"numeric": bound_num,
                                                 "symbolic": bound_sym},
+                          "classes": classes["per_class"],
                           "plan_s": plan_s}), flush=True)
         # `launches`: the count on the first path that runs the kernel --
         # plan.execute for the recipe's probe mode, the explicit plan's
@@ -750,11 +791,138 @@ class Smoke:
                 "bound_ms": bound_num if num else bound_sym,
                 "bound_by": bound_num_by if num else "bytes",
                 "library_ms": t["torch_sparse_mm"] if num else None})
+        # the classifying kernel (replaces no TPU kernel): its device time
+        # in the numeric kernel's trace (phase 21), the bytes it must move
+        # (indptr_c read, each row's table size and each listed row id
+        # written)
+        n_listed = sum(v["rows"] for v in classes["per_class"].values())
+        classify_row = {
+            "name": f"spgemm_hash_classify[{label}]", "route": "cuda",
+            "source": KERNEL_SOURCE,
+            "replaces": "none: lists the rows of "
+                        + REPLACES["numeric"] + "'s port by table class",
+            "launches": exec_classes["classify"],
+            "max_abs_err": classes["max_abs_err"],
+            "ms": None,
+            "plain_ms": t["plain_classify"],
+            "bound_ms": (4 * (m + 1) + 4 * m + 4 * n_listed)
+            / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes", "library_ms": None}
+        self.rows.append(classify_row)
+        self.class_profiles.append((label, args, plan.cap_c,
+                                    plan.table_size, num_err, classify_row))
         self.library_ms[label] = t["torch_sparse_mm"]
         del plan, plan_o, c, c_d, c_o, c_p, c_s, pc, pv, pc_d, pv_d
         core.clear_plan_cache()
         torch.cuda.empty_cache()
         return a, a_d, label
+
+    def hash_classes(self, label, plan, a, exec_classes) -> dict:
+        """Phase 4's table classes of the numeric rows: the classifying
+        kernel against its plain version (counts, each class's rows as a
+        set, each row's table), then rows, flop, nnz(C) and table slots
+        per class, and the classes the execute launched.  G500 s16 must
+        put rows on clusters of 2, 4 and 8 blocks and none on a
+        device-memory table; ER s18 none on a cluster."""
+        torch, K, ref = self.torch, self.K, self.ref
+        err = torch.zeros(1, dtype=torch.int32, device=self.dev)
+        counts, rows, row_tsz = K.row_classes(
+            plan.offsets, plan.bin_tsize, a.indptr, a.indptr, plan.indptr_c,
+            a.indices, table_size=plan.table_size, errors=err)
+        p_counts, p_rows, p_tsz = ref.row_classes_plain(
+            plan.offsets, plan.bin_tsize, plan.indptr_c,
+            table_size=plan.table_size)
+        torch.cuda.synchronize()
+        check(int(err) == 0, f"{label}: classify errors {int(err)}")
+        check(torch.equal(counts, p_counts), f"{label}: class counts "
+              f"{counts.tolist()} != plain {p_counts.tolist()}")
+        check(torch.equal(row_tsz, p_tsz), f"{label}: row tables differ "
+              f"from the plain version's")
+        for c, (got, want) in enumerate(zip(rows, p_rows)):
+            check(torch.equal(torch.sort(got).values, want),
+                  f"{label}: class {K.CLASS_NAMES[c]} rows differ")
+        per = {}
+        for c, r in enumerate(p_rows):
+            rl = r.long()
+            per[K.CLASS_NAMES[c]] = {
+                "rows": int(r.shape[0]),
+                "flop": int(plan.flop[rl].long().sum()),
+                "nnz_c": int(plan.row_nnz_c[rl].long().sum()),
+                "table_slots": int(p_tsz[rl].long().sum()),
+                "launched": exec_classes[K.CLASS_NAMES[c]]}
+        empty = int((plan.row_nnz_c == 0).sum())
+        clusters = [per[n]["rows"] for n in ("cluster_2", "cluster_4",
+                                            "cluster_8")]
+        if label.startswith("G500"):
+            check(all(clusters) and per["global"]["rows"] == 0,
+                  f"{label}: want rows on clusters of 2, 4 and 8 and none "
+                  f"in device memory, got {per}")
+        if label.startswith("ER"):
+            check(not any(clusters) and per["global"]["rows"] == 0,
+                  f"{label}: a row on a cluster or in device memory: {per}")
+        for name, v in per.items():
+            if v["rows"]:
+                check(v["launched"] == 1, f"{label}: class {name} holds "
+                      f"rows but launched {v['launched']} times")
+        print(f"{label}: numeric row classes (rows, flop, nnz(C), table "
+              f"slots; {empty} rows empty, in none): " + "; ".join(
+                  f"{n} {v['rows']}, {v['flop']}, {v['nnz_c']}, "
+                  f"{v['table_slots']}" for n, v in per.items()),
+              flush=True)
+        return {"per_class": per, "max_abs_err": 0.0}
+
+    # ---- phase 21 ----------------------------------------------------------
+    def hash_class_times(self):
+        """The hash numeric kernel's device time per table class and the
+        classifying kernel's, from a ``torch.profiler`` trace of one call
+        per probe mode on each phase-4 input; the classifying kernel's
+        time goes into its row of the kernels line.  Last of all the
+        traces: in phase 5, traces over the cluster launches left later
+        ``key_averages`` sums short (phase 7's G500-pattern BCSR kernel
+        21.4 ms traced against 28.5 ms by CUDA events)."""
+        K = self.K
+        for label, args, cap_c, table_size, err, row in self.class_profiles:
+            class_ms = {}
+            for vector, name in ((False, "numeric"),
+                                 (True, "numeric_vector")):
+                class_ms[name] = self.class_device_ms(
+                    lambda: K.numeric_call(*args, cap_c=cap_c,
+                                           table_size=table_size,
+                                           vector=vector, errors=err))
+            self.torch.cuda.synchronize()
+            check(int(err) == 0, f"{label}: kernel errors while tracing")
+            row["ms"] = class_ms["numeric"]["classify"]
+            print(json.dumps({"hash_class_device_ms": label,
+                              "card": self.card, **class_ms}), flush=True)
+        self.class_profiles = []
+
+    def class_device_ms(self, fn) -> dict:
+        """Device ms of one call of ``fn`` per kernel of the numeric
+        path, from a ``torch.profiler`` trace: ``classify`` and each
+        table class by its :data:`CLASS_NAMES` name (0 where the class
+        ran no kernel)."""
+        import re
+        from torch.profiler import ProfilerActivity, profile
+        torch, K = self.torch, self.K
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        out = dict.fromkeys(("classify",) + K.CLASS_NAMES, 0.0)
+        for e in prof.key_averages():
+            us = getattr(e, "device_time_total", 0)
+            if not us:
+                continue
+            m = re.search(r"hash_class_kernel(?:<(?:true|false), "
+                          r"|ILb[01]ELi)(\d)", e.key)
+            if m:
+                out[K.CLASS_NAMES[int(m.group(1))]] += us / 1e3
+            elif "classify_kernel" in e.key:
+                out["classify"] += us / 1e3
+        check(out["classify"] > 0, "the profiler saw no classify kernel")
+        return out
 
     # ---- phase 6 -----------------------------------------------------------
     def sorted_pb(self, a, a_d, label):
@@ -3153,6 +3321,7 @@ def main() -> int:
     smoke.serve(flash_rows)                                      # phase 18
     ssd_rows = smoke.ssd_kernel()                                # phase 19
     smoke.serve_ssd(ssd_rows)                                    # phase 20
+    smoke.hash_class_times()                                     # phase 21
 
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": smoke.rows}), flush=True)       # phase 15

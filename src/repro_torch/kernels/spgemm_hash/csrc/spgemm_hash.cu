@@ -7,9 +7,9 @@
 //   batched_symbolic_call (_batched_symbolic_kernel) and
 //     batched_numeric_call (_batched_numeric_kernel): symbolic_call and
 //     numeric_call over the grid (members, bins) of a fleet of products
+// and adds one kernel that replaces none, classify_kernel (below).
 //
-// What each computes, per output row i of a bin whose table holds tsz slots
-// (tsz a power of two, the plan's min(bin_tsize[b], table_size)):
+// What each computes, per output row i:
 //   insert every column k of B's rows selected by A's row i into a table
 //   keyed by column, hashed as (uint32(col) * 0x9E3779B9) & (tsz - 1)
 //   (the TPU kernel's int32 product by -1640531527: same bits), probing
@@ -17,255 +17,716 @@
 //   a_ij * b_jk into the slot and flushes the occupied slots, unsorted, to
 //   out[indptr_c[i] + cnt].
 //
-// Design on this card:
-//   * The TPU grid walks 8 equal-flop bins in order on one core.  Here one
-//     thread block owns one row at a time, and a launch covers one bin, so
-//     every row of a bin runs concurrently across the 132 SMs.
-//   * Inside the block, warp w takes A entries a0+w, a0+w+nwarps, ...; its
-//     lanes take that B row's entries.  Inserts race, so keys go in with
-//     atomicCAS and values with atomicAdd: the column order of a row is
-//     free (the contract is "some order") and float sums may round in
-//     another order, within 1 ulp per product (exact on dyadic values).
-//     Products are rounded before the add (__fmul_rn): no FMA, no TF32.
-//   * Tables of up to 16,384 slots (128 KB of key + value) live in dynamic
-//     shared memory; larger bins use a per-block table in global memory
-//     (workspace allocated by the caller), and the launch loops each block
-//     over many rows.
-//   * The output is zeroed by the caller before launch: blocks run in no
-//     order, so nothing like the TPU kernel's "zero at bin 0" is possible.
-//   * The flush counts each row's occupied slots with __ballot_sync/__popc
-//     and a block-wide prefix.  A count that disagrees with indptr_c, or a
-//     probe that runs past a full table, adds one to errors[0] and writes
-//     nothing outside the row.
-//   * Vector mode (Fig. 8b): groups of 8 lanes probe a chunk of 8 slots
-//     together; __ballot_sync + __ffs give the first lane holding the key,
-//     else the first EMPTY lane (claimed with atomicCAS), else the next
-//     chunk -- the TPU kernel's CHUNK = 8, so any plan table (>= 8 slots)
-//     is valid.
-//   * Batched (a fleet of products that share static capacities), both
-//     phases: one launch per bin index, blockIdx.y the member, one x block
-//     per row of the member with the most rows in the bin while the tables
-//     fit in shared memory (blocks that walk many work items ran the PB
-//     batched kernels 2x slower).  Every array argument, the schedule
-//     included, takes a member stride, 0 for one all members share, so a
-//     shared B or a plan's shared bins are read in place and never copied
-//     per member.  Each member probes its own table size, as the TPU
-//     kernel does; dynamic shared memory is sized for the largest table of
-//     the launch that fits, and members with larger tables use the global
-//     workspace.  The row body (hash_row) is the same code as the
-//     single-product kernel's.
-//
 // Bound: memory.  Each product reads one B index and value and does one
 // probe and one atomic in the table; the output is written once.  The
 // least time is the bytes of A, B's touched entries and C over HBM rate.
+// A table that lives in device memory adds its own bytes: clearing and
+// flushing a table of tsz slots moves 16 * tsz bytes, so the design keeps
+// tables small and on chip.
+//
+// Design on this card:
+//   * A table per row.  The TPU kernel gives every row of a bin the bin's
+//     table (min(bin_tsize[b], table_size) slots, the cap).  Here row i
+//     probes tsz_i = min(cap, lowest_p2(max(2 * need_i, CHUNK))) slots,
+//     need_i its output count (numeric, from indptr_c) or its product
+//     count (symbolic, summed over A's row in the row body): at most half
+//     full, and never larger than the plan's table, so a plan sized at
+//     load factor 1 stays exactly full and one past fill still errors.  A
+//     row with no output clears, probes and flushes nothing.  Clearing
+//     and flushing touch tsz_i slots, not the cap.
+//   * The single-product numeric kernel runs rows by table class, not by
+//     plan bin.  classify_kernel (one thread a row; replaces no TPU kernel:
+//     the TPU grid walks bins in order and needs no row lists) writes each
+//     row's tsz_i and appends the row to its class's list in device memory,
+//     so grouping costs the execute no host synchronisation.  Then one
+//     persistent launch per class that can hold rows (the host knows the
+//     largest bin table): as many blocks (or clusters) as the card holds at
+//     once, each popping rows from its class's list with an atomic counter
+//     (the next row is popped while the current one runs).  Classes:
+//       0-2  tables of <= 1,024 / 4,096 / 16,384 slots in one block's
+//            shared memory (8 / 32 / 128 KB of key + value; 128 / 256 /
+//            1,024 threads);
+//       3-5  32,768 / 65,536 / 131,072 slots in a thread-block cluster of
+//            2 / 4 / 8 blocks of 1,024 threads: one contiguous slice of
+//            16,384 slots (a multiple of CHUNK: a chunk never straddles two
+//            blocks) in each block's shared memory, reached by the others
+//            through distributed shared memory (map_shared_rank).  Keys go
+//            in with atomicCAS and values with atomicAdd on the owning
+//            block's slice.  Each block flushes its own slice at the sum of
+//            the lower ranks' counts, read across the cluster after a
+//            cluster barrier; every block leaves the kernel through one more
+//            cluster barrier, so none exits while another may still read its
+//            shared memory;
+//       6    larger tables: a per-block workspace in device memory (grid
+//            GLOBAL_BLOCKS), each row using its own tsz_i slots of it.
+//   * Inside a team (a block, or a cluster's blocks) a row's products are
+//     spread evenly over every thread, one key a thread: A's row is staged
+//     blockDim entries at a time in shared memory (each entry's B row start
+//     and the scan of the B rows' lengths), and a thread finds the entry of
+//     its product q by a binary search of the scan.  (One warp per A entry,
+//     lanes over its B row, left a row waiting on its longest B row: G500's
+//     hubs hold thousands of entries.)  Each thread loads its next
+//     product's B index and values while it probes the current one.
+//     Inserts race, so the column order of
+//     a row is free (the contract is "some order") and float sums may round
+//     in another order, within 1 ulp per product (exact on dyadic values).
+//     Products are rounded before the add (__fmul_rn): no FMA, no TF32.
+//   * Chunked probing (Fig. 8b, vector mode), one lane per key: the lane
+//     reads the 8-slot chunk hash(col) & (tsz / 8 - 1) as 16-byte loads
+//     (the second half only when the first holds neither the key nor an
+//     EMPTY slot), takes the first slot holding the key, else claims the
+//     first EMPTY slot with atomicCAS (a lost CAS re-reads the same chunk),
+//     else moves to the next chunk -- the TPU kernel's one vector compare
+//     of a chunk, in registers.  Tables stay >= CHUNK slots and 16-byte
+//     aligned.
+//   * Every barrier of the row body is the non-aligned barrier.sync (and
+//     barrier.cluster.arrive/wait): lanes leave the probe loops at
+//     different times, and with the aligned forms that __syncthreads() and
+//     cluster.sync() compile to, about one call in thirty of the G500 s16
+//     vector product left one block's late lanes a barrier behind for the
+//     rest of its rows.
+//   * The flush takes positions a warp at a time (__ballot_sync, one
+//     shared atomic on the row's cursor): no block-wide sync per 32 slots.
+//     A count that disagrees with indptr_c, or a probe that runs past a
+//     full table, adds one to errors[0] and writes nothing outside the row;
+//     so does a row that indptr_c leaves empty but that has products.
+//   * The output is zeroed by the caller before launch: blocks run in no
+//     order, so nothing like the TPU kernel's "zero at bin 0" is possible.
+//   * The symbolic kernel keeps one launch per bin (one block per row while
+//     the bin's table fits in shared memory, else GLOBAL_BLOCKS blocks over
+//     a device-memory workspace), and the batched grids of both phases one
+//     launch per bin index, blockIdx.y the member (every array argument
+//     takes a member stride, 0 for one that all members share).  They run
+//     the same row body, hash_row, so they size each row's table as above.
 //
 // Plain C interface, loaded with ctypes; every launch reports
 // cudaGetLastError().
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kEmpty = -1;
 constexpr unsigned kHashConst = 0x9E3779B9u;  // == -1640531527 mod 2^32
 constexpr int kChunk = 8;
+//: one block's largest table: 16,384 slots, 128 KB of key + value
+constexpr int kSliceSlots = 16384;
+constexpr int kClasses = 7;
+constexpr int kGlobalClass = kClasses - 1;
+
+// Largest table of class c (slots), its blocks (a cluster past one) and
+// threads a block.
+__host__ __device__ constexpr int class_slots(int c) {
+  return c == 0 ? 1024 : c == 1 ? 4096 : c == 2 ? 16384 : c == 3 ? 32768
+       : c == 4 ? 65536 : c == 5 ? 131072 : 0x7fffffff;
+}
+__host__ __device__ constexpr int class_blocks(int c) {
+  return c == 3 ? 2 : c == 4 ? 4 : c == 5 ? 8 : 1;
+}
+__host__ __device__ constexpr int class_threads(int c) {
+  return c == 0 ? 128 : c == 1 ? 256 : c == kGlobalClass ? 512 : 1024;
+}
+// Table slots in a class's block's shared memory: its table, or its slice.
+__host__ __device__ constexpr int class_smem_slots(int c) {
+  return c == kGlobalClass ? 0 : c < 3 ? class_slots(c) : kSliceSlots;
+}
+
+__device__ __forceinline__ int class_of(int tsz) {
+  int c = 0;
+  while (c < kGlobalClass && tsz > class_slots(c)) ++c;
+  return c;
+}
+
+// A row's table: min(cap, lowest power of two >= max(2 * need, CHUNK)),
+// 0 for a row with nothing to insert.
+__device__ __forceinline__ int row_table(int cap, long long need) {
+  if (need <= 0 || cap <= 0) return 0;
+  if (need >= cap) return cap;
+  int p = kChunk;
+  while (p < 2 * need) p <<= 1;
+  return p < cap ? p : cap;
+}
 
 __device__ __forceinline__ unsigned hash_of(int col, unsigned mask) {
   return (static_cast<unsigned>(col) * kHashConst) & mask;
 }
 
+// Tables are filled by atomics: read them past any stale cached line.
+__device__ __forceinline__ int load_key(const int* p) {
+  return *reinterpret_cast<const volatile int*>(p);
+}
+__device__ __forceinline__ float load_val(const float* p) {
+  return *reinterpret_cast<const volatile float*>(p);
+}
+// Four slots of a chunk in one 16-byte load.
+__device__ __forceinline__ void load_quad(const int* p, int k[4]) {
+  asm volatile("ld.volatile.v4.s32 {%0, %1, %2, %3}, [%4];"
+               : "=r"(k[0]), "=r"(k[1]), "=r"(k[2]), "=r"(k[3])
+               : "l"(p) : "memory");
+}
+
+// Per-block scratch of the row body, two of each by row parity: row k
+// uses [k & 1] and resets [(k + 1) & 1] after its first team sync, when no
+// block of the team can still read the previous row's.
+struct Scratch {
+  int count[2];     // keys this block inserted
+  int cursor[2];    // flush positions this block took
+  int occupied[2];  // occupied slots of this block's slice (cluster)
+  int row[2];       // the next row (class kernels; rank 0's is read)
+  unsigned long long flop[2];  // the row's products past its first chunk
+  int warp_sum[32];  // the chunk scan's per-warp totals
+};
+
+// A staged chunk of A's row, one entry a thread, in dynamic shared memory
+// after the table (kStageBytes a thread): each entry's inclusive end in
+// the chunk's products (the scan of its B row lengths), its B row start
+// less its first product (so product q of the entry reads B at bofs + q)
+// and its A value.
+constexpr int kStageBytes = 12;
+struct Stage {
+  int* end;
+  int* bofs;
+  float* av;
+};
+
+__device__ __forceinline__ Stage stage_at(int* p) {
+  return {p, p + blockDim.x, reinterpret_cast<float*>(p + 2 * blockDim.x)};
+}
+
+__device__ __forceinline__ void scratch_reset(Scratch* sh, int p) {
+  sh->count[p] = 0;
+  sh->cursor[p] = 0;
+  sh->occupied[p] = 0;
+  sh->flop[p] = 0ull;
+}
+
+// Block and cluster barriers that count every thread: after the
+// data-dependent probe loops the lanes of a warp reach them apart, and the
+// aligned forms __syncthreads() and cluster.sync() compile to (every lane
+// of a warp at the same instruction, at once) let a warp's late lanes fall
+// one barrier behind the rest of the block.
+__device__ __forceinline__ void block_sync() {
+  asm volatile("barrier.sync 0;" ::: "memory");
+}
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\n\t"
+               "barrier.cluster.wait.acquire;" ::: "memory");
+}
+
+// A table that one block owns: its shared memory, or its slice of a
+// workspace in device memory.
+struct BlockTable {
+  static constexpr int kBlocks = 1;
+  int* keys;
+  float* vals;
+  __device__ int rank() const { return 0; }
+  __device__ void sync() const { block_sync(); }
+  __device__ void size(int) {}
+  __device__ int own_slots(int tsz) const { return tsz; }
+  __device__ int* key(int s) const { return keys + s; }
+  __device__ float* val(int s) const { return vals + s; }
+  __device__ Scratch* scratch_of(Scratch* sh, int) const { return sh; }
+};
+
+// A table of tsz slots cut into kBlocksT slices of tsz / kBlocksT, slice r
+// in the shared memory of the cluster's block r.
+template <int kBlocksT>
+struct ClusterTable {
+  static constexpr int kBlocks = kBlocksT;
+  int* keys;    // this block's slice
+  float* vals;
+  int my_rank;
+  int shift;    // log2 of the slice
+  __device__ int rank() const { return my_rank; }
+  __device__ void sync() const { cluster_sync(); }
+  __device__ void size(int tsz) { shift = __ffs(tsz / kBlocks) - 1; }
+  __device__ int own_slots(int tsz) const { return tsz / kBlocks; }
+  template <class T>
+  __device__ T* at(T* base, int s) const {
+    const int owner = s >> shift;
+    T* p = base + (s & ((1 << shift) - 1));
+    return owner == my_rank ? p : cg::this_cluster().map_shared_rank(p, owner);
+  }
+  __device__ int* key(int s) const { return at(keys, s); }
+  __device__ float* val(int s) const { return at(vals, s); }
+  __device__ Scratch* scratch_of(Scratch* sh, int r) const {
+    return cg::this_cluster().map_shared_rank(sh, r);
+  }
+};
+
 // Linear probing (Fig. 8a).  Returns the slot that holds col (claiming an
-// EMPTY one if needed), or -1 when every slot holds another key.
-__device__ __forceinline__ int insert_scalar(int* keys, int tsz, int col,
+// EMPTY one if needed), or -1 when every slot holds another key.  Each
+// step is one atomicCAS, whose old value says all a read would: EMPTY
+// (claimed), col (found) or another key (next slot): one round trip a
+// step, where a read and then a CAS take two for a new key.
+template <class Tab>
+__device__ __forceinline__ int insert_scalar(const Tab& tab, int tsz, int col,
                                              int* inserted) {
   const unsigned mask = static_cast<unsigned>(tsz) - 1u;
-  volatile int* vkeys = keys;
   unsigned h = hash_of(col, mask);
   *inserted = 0;
   for (int step = 0; step < tsz; ++step) {
-    const int k = vkeys[h];
-    if (k == col) return static_cast<int>(h);
-    if (k == kEmpty) {
-      const int old = atomicCAS(keys + h, kEmpty, col);
-      if (old == kEmpty) {
-        *inserted = 1;
-        return static_cast<int>(h);
-      }
-      if (old == col) return static_cast<int>(h);
+    const int old = atomicCAS(tab.key(static_cast<int>(h)), kEmpty, col);
+    if (old == kEmpty) {
+      *inserted = 1;
+      return static_cast<int>(h);
     }
+    if (old == col) return static_cast<int>(h);
     h = (h + 1u) & mask;
   }
   return -1;
 }
 
-// Chunked probing (Fig. 8b) by the 8 lanes of gmask, all holding col.
-// Every lane returns the same slot; *inserted is 1 on one lane when the
-// group claimed a new slot.
-__device__ __forceinline__ int insert_vector(int* keys, int tsz, int col,
-                                             unsigned gmask, int lane8,
+// Chunked probing (Fig. 8b) by one lane: slots only ever go from EMPTY to
+// a key, and a key is claimed in the first EMPTY slot of the first chunk
+// that has one, so a chunk with an EMPTY slot and no col ends the search.
+// By the same order a chunk fills from its first slot, so its first half
+// decides whenever it holds col or an EMPTY slot; the second half is read
+// only when the first is full of other keys.
+template <class Tab>
+__device__ __forceinline__ int insert_vector(const Tab& tab, int tsz, int col,
                                              int* inserted) {
   const unsigned cmask = static_cast<unsigned>(tsz / kChunk) - 1u;
-  const int base_lane = __ffs(gmask) - 1;
-  volatile int* vkeys = keys;
   unsigned c = hash_of(col, cmask);
   *inserted = 0;
   // each step moves to the next chunk or follows a slot that another key
   // just took, so tsz / kChunk + tsz steps visit everything
   const int max_steps = tsz / kChunk + tsz + 1;
   for (int step = 0; step < max_steps; ++step) {
-    const int k = vkeys[c * kChunk + lane8];
-    const unsigned hit = (__ballot_sync(gmask, k == col) >> base_lane) & 0xffu;
-    if (hit) return static_cast<int>(c * kChunk) + __ffs(hit) - 1;
-    const unsigned empty =
-        (__ballot_sync(gmask, k == kEmpty) >> base_lane) & 0xffu;
-    if (!empty) {
+    const int first = static_cast<int>(c) * kChunk;
+    int* p = tab.key(first);
+    int hit = -1, empty = -1;
+#pragma unroll
+    for (int half = 0; half < kChunk; half += 4) {
+      int k[4];
+      load_quad(p + half, k);
+#pragma unroll
+      for (int i = 3; i >= 0; --i) {
+        if (k[i] == col) hit = half + i;
+        if (k[i] == kEmpty) empty = half + i;
+      }
+      if (hit >= 0 || empty >= 0) break;
+    }
+    if (hit >= 0) return first + hit;
+    if (empty < 0) {
       c = (c + 1u) & cmask;
       continue;
     }
-    const int first = __ffs(empty) - 1;
-    const int slot = static_cast<int>(c * kChunk) + first;
-    int old = 0;
-    if (lane8 == first) old = atomicCAS(keys + slot, kEmpty, col);
-    old = __shfl_sync(gmask, old, base_lane + first);
+    const int old = atomicCAS(p + empty, kEmpty, col);
     if (old == kEmpty) {
-      *inserted = (lane8 == first);
-      return slot;
+      *inserted = 1;
+      return first + empty;
     }
-    if (old == col) return slot;
+    if (old == col) return first + empty;
     // another key took the slot: read the same chunk again
   }
   return -1;
 }
 
-// One output row, by every thread of the block: fill the row's table of
-// tsz slots (reset first: Fig. 7 reinitialises the table per row, it does
-// not reallocate it), then write its count (symbolic) or flush it to
-// out[indptr_c[row] ...] (numeric).  s_count and s_warp are the block's
-// shared scratch.
-template <bool kNumeric, bool kVector>
-__device__ __forceinline__ void hash_row(
-    int row, int tsz, int cap_c, int* keys, float* vals,
-    const int* __restrict__ indptr_a, const int* __restrict__ a_idx,
+struct NoPublish {
+  __device__ void operator()() const {}
+};
+
+__device__ __forceinline__ int warp_sum(int v) {
+#pragma unroll
+  for (int o = 16; o; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// The staged entry holding product q: the first at or after e whose end
+// passes q (n_ent entries staged).
+__device__ __forceinline__ int find_entry(const int* end, int e, int n_ent,
+                                          int q) {
+  int hi = n_ent - 1;
+  while (e < hi) {
+    const int mid = (e + hi) >> 1;
+    if (end[mid] > q) hi = mid; else e = mid + 1;
+  }
+  return e;
+}
+
+// Stage A's entries [c0, c0 + blockDim) of a row ending at a1, every
+// thread of the block calling; returns the chunk's products.  Three block
+// syncs: the last makes the stage visible.
+template <bool kNumeric>
+__device__ __forceinline__ int stage_chunk(
+    const Stage& st, int c0, int a1, const int* __restrict__ a_idx,
     const float* __restrict__ a_val, const int* __restrict__ indptr_b,
-    const int* __restrict__ b_idx, const float* __restrict__ b_val,
-    const int* __restrict__ indptr_c, int* __restrict__ out_cols,
-    float* __restrict__ out_vals, int* __restrict__ row_nnz,
-    int* __restrict__ errors, int* s_count, int* s_warp) {
+    Scratch* sh) {
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int nwarps = blockDim.x >> 5;
-
-  for (int s = tid; s < tsz; s += blockDim.x) {
-    keys[s] = kEmpty;
-    if (kNumeric) vals[s] = 0.0f;
-  }
-  if (tid == 0) *s_count = 0;
-  __syncthreads();
-
-  int mine = 0;
-  const int a1 = indptr_a[row + 1];
-  for (int j = indptr_a[row] + warp; j < a1; j += nwarps) {
+  const int j = c0 + tid;
+  int len = 0, bst = 0;
+  float av = 0.0f;
+  if (j < a1) {
     const int k = a_idx[j];
-    const float av = kNumeric ? a_val[j] : 0.0f;
-    const int b1 = indptr_b[k + 1];
-    if (kVector) {
-      const int lane8 = lane & 7;
-      const int grp = lane >> 3;
-      const unsigned gmask = 0xffu << (grp * 8);
-      for (int t = indptr_b[k] + grp; t < b1; t += 4) {
-        int ins;
-        const int slot = insert_vector(keys, tsz, b_idx[t], gmask, lane8,
-                                       &ins);
-        if (slot < 0) {
-          if (lane8 == 0) atomicAdd(errors, 1);
-          continue;
-        }
-        mine += ins;
-        if (kNumeric && lane8 == 0)
-          atomicAdd(vals + slot, __fmul_rn(av, b_val[t]));
-      }
-    } else {
-      for (int t = indptr_b[k] + lane; t < b1; t += 32) {
-        int ins;
-        const int slot = insert_scalar(keys, tsz, b_idx[t], &ins);
-        if (slot < 0) {
-          atomicAdd(errors, 1);
-          continue;
-        }
-        mine += ins;
-        if (kNumeric) atomicAdd(vals + slot, __fmul_rn(av, b_val[t]));
-      }
-    }
+    bst = indptr_b[k];
+    len = indptr_b[k + 1] - bst;
+    if (kNumeric) av = a_val[j];
   }
-  if (mine) atomicAdd(s_count, mine);
-  __syncthreads();
-  const int count = *s_count;
-
-  if (!kNumeric) {
-    if (tid == 0) row_nnz[row] = count;
-  } else {
-    // flush in table order: unsorted columns (C8)
-    const int base = indptr_c[row];
-    const int want = indptr_c[row + 1] - base;
-    // the table was filled by atomics: read it past any stale L1 line
-    volatile const int* vkeys = keys;
-    volatile const float* vvals = vals;
-    int running = 0;
-    for (int s0 = 0; s0 < tsz; s0 += blockDim.x) {
-      const int s = s0 + tid;
-      const int key = s < tsz ? vkeys[s] : kEmpty;
-      const bool occupied = key != kEmpty;
-      const unsigned ballot = __ballot_sync(0xffffffffu, occupied);
-      if (lane == 0) s_warp[warp] = __popc(ballot);
-      __syncthreads();
-      int before = running;
-      int total = 0;
-      for (int w = 0; w < nwarps; ++w) {
-        if (w < warp) before += s_warp[w];
-        total += s_warp[w];
-      }
-      if (occupied) {
-        const int pos = before + __popc(ballot & ((1u << lane) - 1u));
-        if (pos < want && base + pos < cap_c) {
-          out_cols[base + pos] = key;
-          out_vals[base + pos] = vvals[s];
-        }
-      }
-      running += total;
-      __syncthreads();
-    }
-    if (tid == 0 && (running != want || count != want)) atomicAdd(errors, 1);
+  int x = len;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, x, o);
+    if (lane >= o) x += y;
   }
-  __syncthreads();
+  if (lane == 31) sh->warp_sum[warp] = x;
+  block_sync();
+  if (warp == 0) {
+    int y = lane < nwarps ? sh->warp_sum[lane] : 0;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int z = __shfl_up_sync(0xffffffffu, y, o);
+      if (lane >= o) y += z;
+    }
+    if (lane < nwarps) sh->warp_sum[lane] = y;
+  }
+  block_sync();
+  if (warp > 0) x += sh->warp_sum[warp - 1];
+  const int total = sh->warp_sum[nwarps - 1];
+  st.end[tid] = x;
+  st.bofs[tid] = bst - (x - len);
+  if (kNumeric) st.av[tid] = av;
+  block_sync();
+  return total;
 }
 
-template <bool kNumeric, bool kVector>
-__global__ void hash_rows_kernel(
-    int row_begin, int row_end, int tsz, int cap_c,
+// One output row by a team (one block, or the blocks of a cluster), every
+// thread calling: size the row's table from cap (the plan's table for the
+// row) and its need, clear this block's part, fill it, then write the
+// count (symbolic) or flush it to out[indptr_c[row] ...] (numeric).  The
+// table is left as it is: the next row clears what it uses.  A's row is
+// taken blockDim entries at a time and its products spread evenly over
+// the team's threads (a thread finds its product's entry by a binary
+// search of the staged ends), so no warp walks a long B row alone.  p is
+// the row's parity (Scratch); thread 0 calls publish() once after the
+// first team sync (the class kernels pop their next row there).
+template <bool kNumeric, bool kVector, class Tab, class Publish>
+__device__ __forceinline__ void hash_row(
+    Tab& tab, int row, int cap, int p, int cap_c,
     const int* __restrict__ indptr_a, const int* __restrict__ a_idx,
     const float* __restrict__ a_val, const int* __restrict__ indptr_b,
     const int* __restrict__ b_idx, const float* __restrict__ b_val,
     const int* __restrict__ indptr_c, int* __restrict__ out_cols,
     float* __restrict__ out_vals, int* __restrict__ row_nnz,
-    int* __restrict__ errors, int* ws_keys, float* ws_vals) {
-  extern __shared__ int smem[];
-  __shared__ int s_count;
-  __shared__ int s_warp[32];
-  int* keys;
-  float* vals = nullptr;
-  if (ws_keys != nullptr) {
-    keys = ws_keys + static_cast<size_t>(blockIdx.x) * tsz;
-    if (kNumeric) vals = ws_vals + static_cast<size_t>(blockIdx.x) * tsz;
-  } else {
-    keys = smem;
-    if (kNumeric) vals = reinterpret_cast<float*>(smem + tsz);
+    int* __restrict__ errors, Scratch* sh, const Stage& st,
+    const Publish& publish) {
+  static_assert(kNumeric || Tab::kBlocks == 1, "symbolic rows run on a block");
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int a0 = indptr_a[row];
+  const int a1 = indptr_a[row + 1];
+
+  int total = stage_chunk<kNumeric>(st, a0, a1, a_idx, a_val, indptr_b, sh);
+  long long need = 0;
+  int base = 0, want = 0;
+  if (kNumeric) {
+    base = indptr_c[row];
+    want = indptr_c[row + 1] - base;
+    need = want;
   }
-  for (int row = row_begin + blockIdx.x; row < row_end; row += gridDim.x)
-    hash_row<kNumeric, kVector>(row, tsz, cap_c, keys, vals, indptr_a, a_idx,
-                                a_val, indptr_b, b_idx, b_val, indptr_c,
-                                out_cols, out_vals, row_nnz, errors, &s_count,
-                                s_warp);
+  long long flop = total;
+  if ((!kNumeric || want == 0) && a1 - a0 > static_cast<int>(blockDim.x)) {
+    // the products past the first chunk
+    unsigned long long f = 0;
+    for (int j = a0 + blockDim.x + tid; j < a1; j += blockDim.x) {
+      const int k = a_idx[j];
+      f += static_cast<unsigned long long>(indptr_b[k + 1] - indptr_b[k]);
+    }
+#pragma unroll
+    for (int o = 16; o; o >>= 1) f += __shfl_xor_sync(0xffffffffu, f, o);
+    if (lane == 0 && f) atomicAdd(&sh->flop[p], f);
+    block_sync();
+    flop += static_cast<long long>(sh->flop[p]);
+  }
+  if (!kNumeric) need = flop;
+  const int tsz = row_table(cap, need);
+
+  if (tsz == 0) {
+    // no table: a numeric row that indptr_c leaves empty has no product
+    if (tid == 0) {
+      if (kNumeric && (want < 0 || flop > 0)) atomicAdd(errors, 1);
+      if (!kNumeric) row_nnz[row] = 0;
+      scratch_reset(sh, p ^ 1);
+      publish();
+    }
+    block_sync();
+    return;
+  }
+
+  tab.size(tsz);
+  const int own = tab.own_slots(tsz);
+  for (int s = tid; s < own; s += blockDim.x) {
+    tab.keys[s] = kEmpty;
+    if (kNumeric) tab.vals[s] = 0.0f;
+  }
+  tab.sync();  // A: every part clear
+  if (tid == 0) {
+    scratch_reset(sh, p ^ 1);
+    publish();
+  }
+
+  int mine = 0;
+  const int team_threads = Tab::kBlocks * blockDim.x;
+  for (int c0 = a0;;) {
+    const int n_ent = min(static_cast<int>(blockDim.x), a1 - c0);
+    int e = 0;
+    // software-pipelined: the next product's operands load while this
+    // one probes
+    int q = tab.rank() * blockDim.x + tid;
+    int col = 0, t = 0;
+    float av = 0.0f, bv = 0.0f;
+    if (q < total) {
+      e = find_entry(st.end, e, n_ent, q);
+      t = st.bofs[e] + q;
+      col = b_idx[t];
+      if (kNumeric) {
+        av = st.av[e];
+        bv = b_val[t];
+      }
+    }
+    while (q < total) {
+      const int qn = q + team_threads;
+      int col_n = 0;
+      float av_n = 0.0f, bv_n = 0.0f;
+      if (qn < total) {
+        e = find_entry(st.end, e, n_ent, qn);
+        const int tn = st.bofs[e] + qn;
+        col_n = b_idx[tn];
+        if (kNumeric) {
+          av_n = st.av[e];
+          bv_n = b_val[tn];
+        }
+      }
+      int ins;
+      const int slot = kVector ? insert_vector(tab, tsz, col, &ins)
+                               : insert_scalar(tab, tsz, col, &ins);
+      if (slot < 0) {
+        atomicAdd(errors, 1);
+      } else {
+        mine += ins;
+        if (kNumeric) atomicAdd(tab.val(slot), __fmul_rn(av, bv));
+      }
+      q = qn;
+      col = col_n;
+      av = av_n;
+      bv = bv_n;
+    }
+    c0 += blockDim.x;
+    if (c0 >= a1) break;
+    block_sync();  // the stage is read
+    total = stage_chunk<kNumeric>(st, c0, a1, a_idx, a_val, indptr_b, sh);
+  }
+  if (mine) atomicAdd(&sh->count[p], mine);
+  tab.sync();  // B: every insert done
+
+  if (!kNumeric) {
+    if (tid == 0) row_nnz[row] = sh->count[p];
+    return;
+  }
+
+  // flush this block's part in table order: unsorted columns (C8)
+  int before = 0;  // entries of the lower ranks' slices
+  if (Tab::kBlocks > 1) {
+    int n = 0;
+    for (int s0 = 0; s0 < own; s0 += blockDim.x) {
+      const int s = s0 + tid;
+      const bool occ = s < own && load_key(tab.keys + s) != kEmpty;
+      n += __popc(__ballot_sync(0xffffffffu, occ));
+    }
+    if (lane == 0 && n) atomicAdd(&sh->occupied[p], n);
+    tab.sync();  // C: every slice counted
+    int occ_r = 0, ins_r = 0;
+    if (lane < Tab::kBlocks) {
+      const Scratch* o = tab.scratch_of(sh, lane);
+      occ_r = o->occupied[p];
+      ins_r = o->count[p];
+    }
+    before = warp_sum(lane < tab.rank() ? occ_r : 0);
+    const int occupied = warp_sum(occ_r);
+    const int inserted = warp_sum(ins_r);
+    if (tid == 0 && tab.rank() == 0 &&
+        (occupied != want || inserted != want))
+      atomicAdd(errors, 1);
+  }
+  for (int s0 = 0; s0 < own; s0 += blockDim.x) {
+    const int s = s0 + tid;
+    const int key = s < own ? load_key(tab.keys + s) : kEmpty;
+    const bool occ = key != kEmpty;
+    const unsigned ballot = __ballot_sync(0xffffffffu, occ);
+    if (ballot) {
+      int w = 0;
+      if (lane == 0) w = atomicAdd(&sh->cursor[p], __popc(ballot));
+      w = __shfl_sync(0xffffffffu, w, 0);
+      if (occ) {
+        const int pos = before + w + __popc(ballot & ((1u << lane) - 1u));
+        if (pos < want && base + pos < cap_c) {
+          out_cols[base + pos] = key;
+          out_vals[base + pos] = load_val(tab.vals + s);
+        }
+      }
+    }
+  }
+  block_sync();  // D: this block's flush done
+  if (Tab::kBlocks == 1 && tid == 0 &&
+      (sh->cursor[p] != want || sh->count[p] != want))
+    atomicAdd(errors, 1);
+}
+
+// Table classes (see the header): one thread a row.  Row i of the bin b
+// that holds it gets tsz_i (row_tsz[i]) and a place in list[c * m ...] of
+// its class c; counts[c] gains one.  An empty row joins no class; one
+// that indptr_c leaves empty but that has products adds one to errors, as
+// does a row whose class was not launched (c >= n_classes).
+__global__ void classify_kernel(
+    int m, int n_bins, int table_size, int n_classes,
+    const int* __restrict__ offsets, const int* __restrict__ bin_tsize,
+    const int* __restrict__ indptr_a, const int* __restrict__ a_idx,
+    const int* __restrict__ indptr_b, const int* __restrict__ indptr_c,
+    int* __restrict__ counts, int* __restrict__ list,
+    int* __restrict__ row_tsz, int* __restrict__ errors) {
+  __shared__ int s_n[kClasses];
+  __shared__ int s_base[kClasses];
+  if (threadIdx.x < kClasses) s_n[threadIdx.x] = 0;
+  __syncthreads();
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  int cls = -1, pos = 0;
+  if (i < m) {
+    // the bin of row i: the last b with offsets[b] <= i
+    int lo = 0, hi = n_bins - 1;
+    while (lo < hi) {
+      const int mid = (lo + hi + 1) >> 1;
+      if (offsets[mid] <= i) lo = mid; else hi = mid - 1;
+    }
+    if (offsets[lo] <= i && i < offsets[lo + 1]) {
+      const int want = indptr_c[i + 1] - indptr_c[i];
+      const int tsz = row_table(min(bin_tsize[lo], table_size), want);
+      if (tsz > 0) {
+        row_tsz[i] = tsz;
+        cls = class_of(tsz);
+        if (cls < n_classes) {
+          pos = atomicAdd(&s_n[cls], 1);
+        } else {
+          atomicAdd(errors, 1);
+          cls = -1;
+        }
+      } else {
+        bool bad = want < 0;
+        for (int j = indptr_a[i]; j < indptr_a[i + 1] && !bad; ++j) {
+          const int k = a_idx[j];
+          bad = indptr_b[k + 1] > indptr_b[k];
+        }
+        if (bad) atomicAdd(errors, 1);
+      }
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x < n_classes && s_n[threadIdx.x])
+    s_base[threadIdx.x] = atomicAdd(counts + threadIdx.x, s_n[threadIdx.x]);
+  __syncthreads();
+  if (cls >= 0) list[static_cast<size_t>(cls) * m + s_base[cls] + pos] = i;
+}
+
+// The numeric rows of table class kClass: a persistent grid whose blocks
+// (classes 0-2, 6) or clusters (3-5) pop rows from this class's list
+// (count *n, pop counter *pop) until it runs dry.  Class 6 keeps each
+// block's table in the device-memory workspace (ws_tsz slots a block).
+template <bool kVector, int kClass>
+__global__ void __launch_bounds__(1024) hash_class_kernel(
+    int cap_c, int ws_tsz, const int* __restrict__ n, int* pop,
+    const int* __restrict__ list, const int* __restrict__ row_tsz,
+    const int* __restrict__ indptr_a, const int* __restrict__ a_idx,
+    const float* __restrict__ a_val, const int* __restrict__ indptr_b,
+    const int* __restrict__ b_idx, const float* __restrict__ b_val,
+    const int* __restrict__ indptr_c, int* __restrict__ out_cols,
+    float* __restrict__ out_vals, int* __restrict__ errors, int* ws_keys,
+    float* ws_vals) {
+  constexpr int kBlocks = class_blocks(kClass);
+  using Tab = typename std::conditional<kBlocks == 1, BlockTable,
+                                        ClusterTable<kBlocks>>::type;
+  extern __shared__ __align__(16) int smem[];
+  __shared__ Scratch sh;
+  Tab tab;
+  if constexpr (kBlocks == 1) {
+    if (kClass == kGlobalClass) {
+      const size_t off = static_cast<size_t>(blockIdx.x) * ws_tsz;
+      tab.keys = ws_keys + off;
+      tab.vals = ws_vals + off;
+    } else {
+      tab.keys = smem;
+      tab.vals = reinterpret_cast<float*>(smem + class_smem_slots(kClass));
+    }
+  } else {
+    tab.keys = smem;
+    tab.vals = reinterpret_cast<float*>(smem + kSliceSlots);
+    tab.my_rank = static_cast<int>(cg::this_cluster().block_rank());
+    tab.shift = 0;
+  }
+  const Stage st = stage_at(smem + 2 * class_smem_slots(kClass));
+  const bool leader = tab.rank() == 0;
+  const int rows = *n;
+  if (threadIdx.x == 0) {
+    scratch_reset(&sh, 0);
+    scratch_reset(&sh, 1);
+    if (leader) {
+      const int idx = atomicAdd(pop, 1);
+      sh.row[0] = idx < rows ? list[idx] : -1;
+    }
+  }
+  tab.sync();
+  for (int p = 0;; p ^= 1) {
+    const int row = tab.scratch_of(&sh, 0)->row[p];
+    if (row < 0) break;
+    const auto publish = [&] {
+      if (leader) {
+        const int idx = atomicAdd(pop, 1);
+        sh.row[p ^ 1] = idx < rows ? list[idx] : -1;
+      }
+    };
+    hash_row<true, kVector>(tab, row, row_tsz[row], p, cap_c, indptr_a,
+                            a_idx, a_val, indptr_b, b_idx, b_val, indptr_c,
+                            out_cols, out_vals, nullptr, errors, &sh, st,
+                            publish);
+  }
+  // no block leaves while another may still read its shared memory
+  if (kBlocks > 1) tab.sync();
+}
+
+// The symbolic rows [row_begin, row_end) of one bin whose table holds tsz
+// slots: in dynamic shared memory, or in this block's tsz slots of the
+// workspace ws_keys.
+template <bool kVector>
+__global__ void hash_symbolic_kernel(
+    int row_begin, int row_end, int tsz, const int* __restrict__ indptr_a,
+    const int* __restrict__ a_idx, const int* __restrict__ indptr_b,
+    const int* __restrict__ b_idx, int* __restrict__ row_nnz,
+    int* __restrict__ errors, int* ws_keys) {
+  extern __shared__ __align__(16) int smem[];
+  __shared__ Scratch sh;
+  BlockTable tab{ws_keys != nullptr
+                     ? ws_keys + static_cast<size_t>(blockIdx.x) * tsz
+                     : smem,
+                 nullptr};
+  const Stage st = stage_at(smem + (ws_keys != nullptr ? 0 : tsz));
+  if (threadIdx.x == 0) {
+    scratch_reset(&sh, 0);
+    scratch_reset(&sh, 1);
+  }
+  __syncthreads();
+  int p = 0;
+  for (int row = row_begin + blockIdx.x; row < row_end;
+       row += gridDim.x, p ^= 1)
+    hash_row<false, kVector>(tab, row, tsz, p, 0, indptr_a, a_idx, nullptr,
+                             indptr_b, b_idx, nullptr, nullptr, nullptr,
+                             nullptr, row_nnz, errors, &sh, st,
+                             NoPublish{});
 }
 
 // The batched grid of one phase (kNumeric: numeric, else symbolic) for
@@ -273,13 +734,14 @@ __global__ void hash_rows_kernel(
 // stride over e's rows [offsets[e][bin], offsets[e][bin + 1]).  Member e's
 // arrays start at base + e * stride; stride 0 shares one array among all
 // members (a plan's schedule is shared by every member of a value fleet).
-// Its table holds min(bin_tsize[e][bin], table_size) slots: in dynamic
+// The member's cap is min(bin_tsize[e][bin], table_size) slots: in dynamic
 // shared memory when that fits smem_slots, else in the block's slice of
-// the global workspace (ws_tsz slots per member and x block).  The
-// symbolic phase writes row_nnz[e * n_rows + row], the numeric phase
-// out_cols/out_vals[e * cap_c + ...].  A schedule the launch cannot hold
-// (rows past n_rows, a table that is not a power of two or fits neither
-// place) adds one to errors and runs nothing.
+// the global workspace (ws_tsz slots per member and x block); each row
+// uses its own table of at most the cap.  The symbolic phase writes
+// row_nnz[e * n_rows + row], the numeric phase out_cols/out_vals[e * cap_c
+// + ...].  A schedule the launch cannot hold (rows past n_rows, a table
+// that is not a power of two or fits neither place) adds one to errors and
+// runs nothing.
 template <bool kNumeric, bool kVector>
 __global__ void hash_rows_batched_kernel(
     int bin, int n_rows, int table_size, int smem_slots, int ws_tsz,
@@ -290,9 +752,8 @@ __global__ void hash_rows_batched_kernel(
     long long s_bi, const float* b_val, long long s_bv, const int* indptr_c,
     long long s_ic, int* out_cols, float* out_vals, int* row_nnz,
     int* errors, int* ws_keys, float* ws_vals) {
-  extern __shared__ int smem[];
-  __shared__ int s_count;
-  __shared__ int s_warp[32];
+  extern __shared__ __align__(16) int smem[];
+  __shared__ Scratch sh;
   const long long e = blockIdx.y;
   const int r0 = offsets[e * s_off + bin];
   const int r1 = offsets[e * s_off + bin + 1];
@@ -304,81 +765,189 @@ __global__ void hash_rows_batched_kernel(
     if (threadIdx.x == 0 && blockIdx.x == 0) atomicAdd(errors, 1);
     return;
   }
-  int* keys;
-  float* vals = nullptr;
+  BlockTable tab;
   if (in_smem) {
-    keys = smem;
-    if (kNumeric) vals = reinterpret_cast<float*>(smem + tsz);
+    tab.keys = smem;
+    tab.vals = kNumeric ? reinterpret_cast<float*>(smem + tsz) : nullptr;
   } else {
     const size_t slot =
         (static_cast<size_t>(e) * gridDim.x + blockIdx.x) * ws_tsz;
-    keys = ws_keys + slot;
-    if (kNumeric) vals = ws_vals + slot;
+    tab.keys = ws_keys + slot;
+    tab.vals = kNumeric ? ws_vals + slot : nullptr;
   }
+  if (threadIdx.x == 0) {
+    scratch_reset(&sh, 0);
+    scratch_reset(&sh, 1);
+  }
+  __syncthreads();
   const int* ic = kNumeric ? indptr_c + e * s_ic : nullptr;
   int* oc = kNumeric ? out_cols + e * cap_c : nullptr;
   float* ov = kNumeric ? out_vals + e * cap_c : nullptr;
   int* rn = kNumeric ? nullptr : row_nnz + e * n_rows;
-  for (int row = r0 + blockIdx.x; row < r1; row += gridDim.x)
+  const Stage st = stage_at(smem + smem_slots * (kNumeric ? 2 : 1));
+  int p = 0;
+  for (int row = r0 + blockIdx.x; row < r1; row += gridDim.x, p ^= 1)
     hash_row<kNumeric, kVector>(
-        row, tsz, cap_c, keys, vals, indptr_a + e * s_ia, a_idx + e * s_ai,
+        tab, row, tsz, p, cap_c, indptr_a + e * s_ia, a_idx + e * s_ai,
         a_val + e * s_av, indptr_b + e * s_ib, b_idx + e * s_bi,
-        b_val + e * s_bv, ic, oc, ov, rn, errors, &s_count, s_warp);
+        b_val + e * s_bv, ic, oc, ov, rn, errors, &sh, st, NoPublish{});
 }
 
-template <bool kNumeric, bool kVector>
-int launch(int row_begin, int row_end, int tsz, int cap_c, int grid,
-           int block, int smem_bytes, const int* indptr_a, const int* a_idx,
-           const float* a_val, const int* indptr_b, const int* b_idx,
-           const float* b_val, const int* indptr_c, int* out_cols,
-           float* out_vals, int* row_nnz, int* errors, int* ws_keys,
-           float* ws_vals, cudaStream_t stream) {
-  auto kernel = hash_rows_kernel<kNumeric, kVector>;
-  if (smem_bytes > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
-    if (err != cudaSuccess) return static_cast<int>(err);
+using ClassKernel = void (*)(int, int, const int*, int*, const int*,
+                             const int*, const int*, const int*, const float*,
+                             const int*, const int*, const float*, const int*,
+                             int*, float*, int*, int*, float*);
+
+template <bool kVector>
+ClassKernel class_kernel_of(int c) {
+  switch (c) {
+    case 0: return hash_class_kernel<kVector, 0>;
+    case 1: return hash_class_kernel<kVector, 1>;
+    case 2: return hash_class_kernel<kVector, 2>;
+    case 3: return hash_class_kernel<kVector, 3>;
+    case 4: return hash_class_kernel<kVector, 4>;
+    case 5: return hash_class_kernel<kVector, 5>;
+    default: return hash_class_kernel<kVector, 6>;
   }
-  kernel<<<grid, block, smem_bytes, stream>>>(
-      row_begin, row_end, tsz, cap_c, indptr_a, a_idx, a_val, indptr_b, b_idx,
-      b_val, indptr_c, out_cols, out_vals, row_nnz, errors, ws_keys, ws_vals);
-  return static_cast<int>(cudaGetLastError());
+}
+
+ClassKernel class_kernel(int vector, int c) {
+  return vector ? class_kernel_of<true>(c) : class_kernel_of<false>(c);
+}
+
+int set_smem(const void* kernel, int smem_bytes) {
+  if (smem_bytes <= 48 * 1024) return 0;
+  return static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes));
 }
 
 }  // namespace
 
-// One launch over rows [row_begin, row_end) of one bin.  numeric = 0 runs
-// the symbolic phase (writes row_nnz; cap_c/indptr_c/out_* unused), 1 the
-// numeric phase, which writes nothing at or past cap_c.  ws_keys/ws_vals
-// null: tables in shared memory (smem_bytes = tsz * 4 or 8); else a table
-// of tsz slots per block in global memory.
-extern "C" int spgemm_hash_launch(
-    int numeric, int vector, int row_begin, int row_end, int tsz, int cap_c,
-    int grid, int block, int smem_bytes, const int* indptr_a, const int* a_idx,
-    const float* a_val, const int* indptr_b, const int* b_idx,
-    const float* b_val, const int* indptr_c, int* out_cols, float* out_vals,
-    int* row_nnz, int* errors, int* ws_keys, float* ws_vals, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (numeric) {
-    if (vector)
-      return launch<true, true>(row_begin, row_end, tsz, cap_c, grid, block,
-                                smem_bytes, indptr_a, a_idx, a_val, indptr_b,
-                                b_idx, b_val, indptr_c, out_cols, out_vals,
-                                row_nnz, errors, ws_keys, ws_vals, s);
-    return launch<true, false>(row_begin, row_end, tsz, cap_c, grid, block,
-                               smem_bytes, indptr_a, a_idx, a_val, indptr_b,
-                               b_idx, b_val, indptr_c, out_cols, out_vals,
-                               row_nnz, errors, ws_keys, ws_vals, s);
+// One launch of the symbolic phase over rows [row_begin, row_end) of one
+// bin: ws_keys null, the table in shared memory (smem_bytes = tsz * 4);
+// else a table of tsz slots per block in global memory.  The launch adds
+// the stage's kStageBytes a thread to smem_bytes.
+extern "C" int spgemm_hash_symbolic_launch(
+    int vector, int row_begin, int row_end, int tsz, int grid, int block,
+    int smem_bytes, const int* indptr_a, const int* a_idx,
+    const int* indptr_b, const int* b_idx, int* row_nnz, int* errors,
+    int* ws_keys, void* stream) {
+  auto kernel = vector ? hash_symbolic_kernel<true>
+                       : hash_symbolic_kernel<false>;
+  smem_bytes += kStageBytes * block;
+  const int err = set_smem(reinterpret_cast<const void*>(kernel), smem_bytes);
+  if (err) return err;
+  kernel<<<grid, block, smem_bytes, static_cast<cudaStream_t>(stream)>>>(
+      row_begin, row_end, tsz, indptr_a, a_idx, indptr_b, b_idx, row_nnz,
+      errors, ws_keys);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The table classes of the numeric rows (classify_kernel): counts holds
+// n_classes zeroed counts, list n_classes * m row ids, row_tsz m sizes.
+extern "C" int spgemm_hash_classify(
+    int m, int n_bins, int table_size, int n_classes, const int* offsets,
+    const int* bin_tsize, const int* indptr_a, const int* a_idx,
+    const int* indptr_b, const int* indptr_c, int* counts, int* list,
+    int* row_tsz, int* errors, void* stream) {
+  if (m <= 0) return 0;
+  if (n_bins < 1 || n_classes < 1 || n_classes > kClasses)
+    return static_cast<int>(cudaErrorInvalidValue);
+  constexpr int kThreads = 256;
+  classify_kernel<<<(m + kThreads - 1) / kThreads, kThreads, 0,
+                    static_cast<cudaStream_t>(stream)>>>(
+      m, n_bins, table_size, n_classes, offsets, bin_tsize, indptr_a, a_idx,
+      indptr_b, indptr_c, counts, list, row_tsz, errors);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The launch shape of class c's kernel (vector: the chunked probe) on the
+// current device: out = {blocks a cluster, threads a block, dynamic shared
+// memory bytes a block, resident blocks (the persistent grid), resident
+// clusters (cudaOccupancyMaxActiveClusters; 0 below two blocks)}.
+extern "C" int spgemm_hash_class_shape(int vector, int c, int* out) {
+  if (c < 0 || c >= kClasses) return static_cast<int>(cudaErrorInvalidValue);
+  const ClassKernel kernel = class_kernel(vector, c);
+  const void* fn = reinterpret_cast<const void*>(kernel);
+  const int blocks = class_blocks(c), threads = class_threads(c);
+  const int smem = class_smem_slots(c) * 8 + kStageBytes * threads;
+  int err = set_smem(fn, smem);
+  if (err) return err;
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  err = static_cast<int>(
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev));
+  if (err) return err;
+  int resident = 0, clusters = 0;
+  if (blocks == 1) {
+    int per_sm = 0;
+    err = static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, fn, threads, smem));
+    resident = per_sm * sms;
+  } else {
+    cudaLaunchConfig_t cfg = {};
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = blocks;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.gridDim = dim3(blocks);
+    cfg.blockDim = dim3(threads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    err = static_cast<int>(cudaOccupancyMaxActiveClusters(&clusters, fn,
+                                                          &cfg));
+    resident = clusters * blocks;
   }
-  if (vector)
-    return launch<false, true>(row_begin, row_end, tsz, cap_c, grid, block,
-                               smem_bytes, indptr_a, a_idx, a_val, indptr_b,
-                               b_idx, b_val, indptr_c, out_cols, out_vals,
-                               row_nnz, errors, ws_keys, ws_vals, s);
-  return launch<false, false>(row_begin, row_end, tsz, cap_c, grid, block,
-                              smem_bytes, indptr_a, a_idx, a_val, indptr_b,
-                              b_idx, b_val, indptr_c, out_cols, out_vals,
-                              row_nnz, errors, ws_keys, ws_vals, s);
+  if (err) return err;
+  out[0] = blocks;
+  out[1] = threads;
+  out[2] = smem;
+  out[3] = resident;
+  out[4] = clusters;
+  return 0;
+}
+
+// One class's numeric launch: grid blocks (a multiple of the class's
+// cluster), the rows list[c * m ...] counted by counts[c] and popped
+// through counts[n_classes_total + c] (counts holds 2 * 7 ints); ws_keys
+// and ws_vals hold grid * ws_tsz slots for class 6, null otherwise.
+extern "C" int spgemm_hash_class_launch(
+    int vector, int c, int m, int cap_c, int grid, int ws_tsz, int* counts,
+    const int* list, const int* row_tsz, const int* indptr_a,
+    const int* a_idx, const float* a_val, const int* indptr_b,
+    const int* b_idx, const float* b_val, const int* indptr_c,
+    int* out_cols, float* out_vals, int* errors, int* ws_keys,
+    float* ws_vals, void* stream) {
+  if (c < 0 || c >= kClasses) return static_cast<int>(cudaErrorInvalidValue);
+  const int blocks = class_blocks(c);
+  if (grid < blocks || grid % blocks ||
+      (c == kGlobalClass && (ws_keys == nullptr || ws_vals == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const ClassKernel kernel = class_kernel(vector, c);
+  const int smem = class_smem_slots(c) * 8 + kStageBytes * class_threads(c);
+  const int err = set_smem(reinterpret_cast<const void*>(kernel), smem);
+  if (err) return err;
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = blocks;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(class_threads(c));
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cfg.attrs = attr;
+  cfg.numAttrs = blocks > 1 ? 1 : 0;
+  const int* n = counts + c;
+  int* pop = counts + kClasses + c;
+  const int* rows = list + static_cast<size_t>(c) * m;
+  cudaLaunchKernelEx(&cfg, kernel, cap_c, ws_tsz, n, pop, rows, row_tsz,
+                     indptr_a, a_idx, a_val, indptr_b, b_idx, b_val,
+                     indptr_c, out_cols, out_vals, errors, ws_keys, ws_vals);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // One phase (numeric = 0: symbolic, 1: numeric) for bin index `bin` of
@@ -389,8 +958,9 @@ extern "C" int spgemm_hash_launch(
 // writes row_nnz (n_members, n_rows) (indptr_c/out_* unused); numeric
 // writes out_cols/out_vals (n_members, cap_c), zeroed by the caller
 // (row_nnz unused).  smem_bytes = smem_slots * 4 (symbolic) or 8
-// (numeric); ws_keys (and, numeric, ws_vals) hold grid_x * n_members *
-// ws_tsz slots (null when ws_tsz is 0).
+// (numeric), to which the launch adds the stage's kStageBytes a thread;
+// ws_keys (and, numeric, ws_vals) hold grid_x * n_members * ws_tsz slots
+// (null when ws_tsz is 0).
 extern "C" int spgemm_hash_batched_launch(
     int numeric, int vector, int bin, int n_rows, int table_size,
     int smem_slots, int ws_tsz, int cap_c, int grid_x, int n_members,
@@ -405,11 +975,9 @@ extern "C" int spgemm_hash_batched_launch(
                                   : &hash_rows_batched_kernel<true, false>)
                         : (vector ? &hash_rows_batched_kernel<false, true>
                                   : &hash_rows_batched_kernel<false, false>);
-  if (smem_bytes > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
+  smem_bytes += kStageBytes * block;
+  const int err = set_smem(reinterpret_cast<const void*>(kernel), smem_bytes);
+  if (err) return err;
   kernel<<<dim3(grid_x, n_members), block, smem_bytes,
            static_cast<cudaStream_t>(stream)>>>(
       bin, n_rows, table_size, smem_slots, ws_tsz, cap_c, offsets, s_off,

@@ -6,7 +6,15 @@ wrappers.
 ``symbolic_call``, the ``_probe_vector`` mode of both, and
 ``batched_symbolic_call`` and ``batched_numeric_call``, the two phases over
 a fleet); its header says how the design maps the TPU's sequential bin
-grid onto the card.  It is
+grid onto the card.  Every row probes a table sized from its own output
+count (numeric) or product count (symbolic), at most its bin's.  The
+single-product numeric kernel runs rows by table class
+(:data:`CLASS_NAMES`): a classifying kernel, which replaces no TPU kernel,
+lists each class's rows in device memory, and one persistent launch per
+class that can hold rows runs them -- tables of up to :data:`SMEM_SLOTS`
+in one block's shared memory, up to :data:`CLUSTER_SLOTS` across a
+thread-block cluster's distributed shared memory, larger ones in a
+device-memory workspace.  It is
 compiled with ``nvcc`` for ``sm_90a`` at first use, into a shared library
 with a plain C interface under ``build/torch_ext/`` at the root of the
 checkout, and loaded with ``ctypes``.  Nothing is compiled at import, so
@@ -14,7 +22,8 @@ the module imports on a machine without CUDA.
 
 :func:`symbolic_call` and :func:`numeric_call` take the reference
 builders' arguments; :func:`batched_symbolic_call` and
-:func:`batched_numeric_call` take them with a member axis on any of them.
+:func:`batched_numeric_call` take them with a member axis on any of them;
+:func:`row_classes` is the classifying kernel alone.
 On CPU tensors they run the plain versions of
 ``ref.py``; on CUDA tensors they launch the kernel or raise -- a build or
 launch failure is never answered with the plain version.
@@ -43,15 +52,35 @@ KERNEL_CALLS = {"symbolic": 0, "numeric": 0, "symbolic_vector": 0,
                 "batched_symbolic_vector": 0, "batched_numeric": 0,
                 "batched_numeric_vector": 0, "plain": 0, "batched_plain": 0}
 
-#: Largest table kept in shared memory: 16,384 slots, 128 KB of key+value.
+#: Largest table of one block's shared memory: 16,384 slots, 128 KB of
+#: key + value; the slice each block of a cluster holds.
 SMEM_SLOTS = 16384
-#: Blocks that share the global-memory tables of a bin with larger tables.
+#: Largest table in a cluster's distributed shared memory: 8 slices.
+CLUSTER_SLOTS = 8 * SMEM_SLOTS
+#: The numeric kernel's table classes, by the largest table of each
+#: (``ref.CLASS_SLOTS``; the last, past ``CLUSTER_SLOTS``, in device
+#: memory) and the blocks that hold one (a cluster past one).
+CLASS_NAMES = ("smem_1024", "smem_4096", "smem_16384", "cluster_2",
+               "cluster_4", "cluster_8", "global")
+CLASS_BLOCKS = (1, 1, 1, 2, 4, 8, 1)
+#: Blocks that share the device-memory tables: of the symbolic kernel's
+#: bins past ``SMEM_SLOTS``, and of the numeric kernel's global class.
 GLOBAL_BLOCKS = 264
+
+#: Launches of the numeric kernel's parts, extra to :data:`KERNEL_CALLS`
+#: (one ``numeric``/``numeric_vector`` per call stays the proof of path):
+#: ``classify`` per run of the classifying kernel, one per class launch
+#: under its :data:`CLASS_NAMES` name, ``plain`` per run of
+#: :func:`row_classes`' plain version.
+CLASS_CALLS = dict.fromkeys(("classify",) + CLASS_NAMES + ("plain",), 0)
 
 SOURCE = Path(__file__).parent / "csrc" / "spgemm_hash.cu"
 _P, _L = ctypes.c_void_p, ctypes.c_longlong
 _FUNCTIONS = {
-    "spgemm_hash_launch": [ctypes.c_int] * 9 + [_P] * 14,
+    "spgemm_hash_symbolic_launch": [ctypes.c_int] * 7 + [_P] * 8,
+    "spgemm_hash_classify": [ctypes.c_int] * 4 + [_P] * 11,
+    "spgemm_hash_class_shape": [ctypes.c_int] * 2 + [_P],
+    "spgemm_hash_class_launch": [ctypes.c_int] * 6 + [_P] * 16,
     # ints; each array's pointer before its member stride; outputs, errors,
     # workspace and the stream
     "spgemm_hash_batched_launch":
@@ -68,6 +97,7 @@ ARG_NAMES = ("offsets", "bin_tsize", "indptr_a", "indptr_b", "indptr_c",
 _C_ORDER = ("offsets", "bin_tsize", "indptr_a", "a_idx", "a_val",
             "indptr_b", "b_idx", "b_val", "indptr_c")
 _lib = None
+_shapes: dict = {}
 
 
 def build() -> dict:
@@ -83,10 +113,31 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _launch_bins(numeric, vector, offsets, bin_tsize, table_size, indptr_a,
-                 indptr_b, a_idx, a_val, b_idx, b_val, indptr_c, out_cols,
-                 out_vals, row_nnz, errors):
-    cap_c = 0 if out_cols is None else out_cols.shape[0]
+def class_shape(cls: int, vector: bool) -> dict:
+    """The launch shape of class ``cls``'s numeric kernel on the current
+    card: ``{"blocks"`` (a cluster), ``"threads"``, ``"smem_bytes"``,
+    ``"resident_blocks"`` (its persistent grid), ``"resident_clusters"``
+    (``cudaOccupancyMaxActiveClusters``, 0 below two blocks)``}``.
+    Cached per class, probe mode and device."""
+    build()
+    key = (cls, bool(vector), torch.cuda.current_device())
+    if key not in _shapes:
+        out = (ctypes.c_int * 5)()
+        err = _lib.spgemm_hash_class_shape(int(vector), cls, out)
+        if err != 0:
+            raise RuntimeError(f"spgemm_hash class {CLASS_NAMES[cls]}: "
+                               f"occupancy query failed: CUDA error {err}")
+        _shapes[key] = dict(zip(("blocks", "threads", "smem_bytes",
+                                 "resident_blocks", "resident_clusters"),
+                                list(out)))
+        if _shapes[key]["resident_blocks"] < 1:
+            raise RuntimeError(f"spgemm_hash class {CLASS_NAMES[cls]}: no "
+                               f"block of {_shapes[key]} fits the card")
+    return _shapes[key]
+
+
+def _check_operands(indptr_a, indptr_b, a_idx, a_val, b_idx, b_val,
+                    indptr_c, errors):
     dev = a_idx.device
     for name, t in (("indptr_a", indptr_a), ("indptr_b", indptr_b),
                     ("a_idx", a_idx), ("b_idx", b_idx)):
@@ -96,15 +147,20 @@ def _launch_bins(numeric, vector, offsets, bin_tsize, table_size, indptr_a,
     if indptr_c is not None:
         _build.check_tensor("indptr_c", indptr_c, torch.int32, dev)
     _build.check_tensor("errors", errors, torch.int32, dev)
-    build()
+
+
+def _bin_tables(offsets, bin_tsize, table_size, m, vector) -> list:
+    """``(r0, r1, tsz)`` of every bin that holds rows, from the schedule
+    read back to the host (the execute's only synchronisation); raises
+    ``ValueError`` for bins that do not partition ``m`` rows or tables
+    that are not powers of two (at least :data:`CHUNK` in vector mode)."""
     bounds = offsets.tolist()
     sizes = bin_tsize.tolist()
-    m = indptr_a.shape[0] - 1
     if len(bounds) != len(sizes) + 1 or \
             any(not 0 <= r0 <= r1 <= m for r0, r1 in zip(bounds, bounds[1:])):
         raise ValueError(f"bin offsets {bounds} do not partition {m} rows "
                          f"into {len(sizes)} bins")
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    bins = []
     for b, tsz in enumerate(sizes):
         r0, r1 = bounds[b], bounds[b + 1]
         if r1 <= r0:
@@ -113,25 +169,150 @@ def _launch_bins(numeric, vector, offsets, bin_tsize, table_size, indptr_a,
         if tsz < 1 or tsz & (tsz - 1) or (vector and tsz < CHUNK):
             raise ValueError(f"bin {b}: table size {tsz} is not a power of "
                              f"two{' >= CHUNK' if vector else ''}")
-        ws_keys = ws_vals = None
+        bins.append((r0, r1, tsz))
+    return bins
+
+
+def _n_classes(largest: int) -> int:
+    """Classes that can hold a row when no table exceeds ``largest``."""
+    return 1 + sum(s < largest for s in ref.CLASS_SLOTS)
+
+
+def _launch_symbolic(vector, offsets, bin_tsize, table_size, indptr_a,
+                     indptr_b, a_idx, b_idx, row_nnz, errors):
+    """One launch per bin that holds rows: one block per row while the
+    bin's table fits in shared memory, else :data:`GLOBAL_BLOCKS` blocks
+    over a device-memory workspace of the bin's table each."""
+    dev = a_idx.device
+    build()
+    m = indptr_a.shape[0] - 1
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for r0, r1, tsz in _bin_tables(offsets, bin_tsize, table_size, m,
+                                   vector):
+        ws_keys = None
         if tsz <= SMEM_SLOTS:
-            grid, smem = r1 - r0, tsz * (8 if numeric else 4)
+            grid, smem = r1 - r0, tsz * 4
             block = 64 if tsz <= 256 else (128 if tsz <= 4096 else 256)
         else:
             grid, smem, block = min(r1 - r0, GLOBAL_BLOCKS), 0, 512
             ws_keys = torch.empty(grid * tsz, dtype=torch.int32, device=dev)
-            if numeric:
-                ws_vals = torch.empty(grid * tsz, dtype=torch.float32,
-                                      device=dev)
-        err = _lib.spgemm_hash_launch(
-            int(numeric), int(vector), r0, r1, tsz, cap_c, grid, block, smem,
-            _ptr(indptr_a), _ptr(a_idx), _ptr(a_val), _ptr(indptr_b),
-            _ptr(b_idx), _ptr(b_val), _ptr(indptr_c), _ptr(out_cols),
-            _ptr(out_vals), _ptr(row_nnz), _ptr(errors), _ptr(ws_keys),
-            _ptr(ws_vals), stream)
+        err = _lib.spgemm_hash_symbolic_launch(
+            int(vector), r0, r1, tsz, grid, block, smem, _ptr(indptr_a),
+            _ptr(a_idx), _ptr(indptr_b), _ptr(b_idx), _ptr(row_nnz),
+            _ptr(errors), _ptr(ws_keys), stream)
         if err != 0:
-            raise RuntimeError(f"spgemm_hash launch failed for bin {b}: "
-                               f"CUDA error {err}")
+            raise RuntimeError(f"spgemm_hash symbolic launch failed for rows "
+                               f"[{r0}, {r1}): CUDA error {err}")
+
+
+def _classify(bins, offsets, bin_tsize, table_size, indptr_a, indptr_b,
+              indptr_c, a_idx, errors):
+    """The classifying kernel: ``(counts (2 * 7,), lists (n, m), row_tsz
+    (m,), n)`` for the ``n`` classes that ``bins``' largest table allows;
+    ``counts[:7]`` holds each class's rows, ``counts[7:]`` the class
+    kernels' pop counters (zero)."""
+    dev = a_idx.device
+    m = indptr_a.shape[0] - 1
+    n = _n_classes(max(t for _, _, t in bins))
+    counts = torch.zeros(2 * len(CLASS_NAMES), dtype=torch.int32, device=dev)
+    lists = torch.empty(n, m, dtype=torch.int32, device=dev)
+    row_tsz = torch.zeros(m, dtype=torch.int32, device=dev)
+    _build.check_tensor("offsets", offsets, torch.int32, dev)
+    _build.check_tensor("bin_tsize", bin_tsize, torch.int32, dev)
+    err = _lib.spgemm_hash_classify(
+        m, bin_tsize.shape[0], table_size, n, _ptr(offsets),
+        _ptr(bin_tsize), _ptr(indptr_a), _ptr(a_idx), _ptr(indptr_b),
+        _ptr(indptr_c), _ptr(counts), _ptr(lists), _ptr(row_tsz),
+        _ptr(errors), torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"spgemm_hash classify launch failed: CUDA "
+                           f"error {err}")
+    CLASS_CALLS["classify"] += 1
+    return counts, lists, row_tsz, n
+
+
+def _launch_numeric(vector, offsets, bin_tsize, table_size, indptr_a,
+                    indptr_b, a_idx, a_val, b_idx, b_val, indptr_c, out_cols,
+                    out_vals, errors):
+    """Classify the rows, then one persistent launch per class that can
+    hold rows."""
+    dev = a_idx.device
+    build()
+    m = indptr_a.shape[0] - 1
+    bins = _bin_tables(offsets, bin_tsize, table_size, m, vector)
+    if not bins:
+        return
+    counts, lists, row_tsz, n = _classify(
+        bins, offsets, bin_tsize, table_size, indptr_a, indptr_b, indptr_c,
+        a_idx, errors)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for cls in range(n):
+        ws_keys = ws_vals = None
+        ws_tsz = 0
+        if cls == len(CLASS_NAMES) - 1:
+            grid = GLOBAL_BLOCKS
+            ws_tsz = max(t for _, _, t in bins)
+            ws_keys = torch.empty(grid * ws_tsz, dtype=torch.int32,
+                                  device=dev)
+            ws_vals = torch.empty(grid * ws_tsz, dtype=torch.float32,
+                                  device=dev)
+        else:
+            grid = class_shape(cls, vector)["resident_blocks"]
+        err = _lib.spgemm_hash_class_launch(
+            int(vector), cls, m, out_cols.shape[0], grid, ws_tsz,
+            _ptr(counts), _ptr(lists), _ptr(row_tsz), _ptr(indptr_a),
+            _ptr(a_idx), _ptr(a_val), _ptr(indptr_b), _ptr(b_idx),
+            _ptr(b_val), _ptr(indptr_c), _ptr(out_cols), _ptr(out_vals),
+            _ptr(errors), _ptr(ws_keys), _ptr(ws_vals), stream)
+        if err != 0:
+            raise RuntimeError(f"spgemm_hash numeric launch failed for class "
+                               f"{CLASS_NAMES[cls]}: CUDA error {err}")
+        CLASS_CALLS[CLASS_NAMES[cls]] += 1
+
+
+def row_classes(offsets, bin_tsize, indptr_a, indptr_b, indptr_c, a_idx, *,
+                table_size: int, errors: torch.Tensor | None = None):
+    """The numeric kernel's row classes alone: ``(counts (7,) int32, rows,
+    row_tsz (m,) int32)``, ``rows[c]`` class c's row ids (in no order on
+    a card, ascending in the plain version) and ``row_tsz`` each listed
+    row's table (0 for a row with no output).
+
+    On a card it runs the classifying kernel as the numeric wrapper does
+    (``errors``: as for :func:`numeric_call`, gaining one per row that
+    ``indptr_c`` leaves empty but that has products); on the CPU
+    ``ref.row_classes_plain``.
+    """
+    if a_idx.device.type == "cpu":
+        CLASS_CALLS["plain"] += 1
+        return ref.row_classes_plain(offsets, bin_tsize, indptr_c,
+                                     table_size=table_size)
+    dev = a_idx.device
+    for name, t in (("indptr_a", indptr_a), ("indptr_b", indptr_b),
+                    ("indptr_c", indptr_c), ("a_idx", a_idx)):
+        _build.check_tensor(name, t, torch.int32, dev)
+    if errors is not None:
+        _build.check_tensor("errors", errors, torch.int32, dev)
+    build()
+    m = indptr_a.shape[0] - 1
+    own = errors is None
+    if own:
+        errors = torch.zeros(1, dtype=torch.int32, device=a_idx.device)
+    bins = _bin_tables(offsets, bin_tsize, table_size, m, False)
+    n_all = len(CLASS_NAMES)
+    if not bins:
+        empty = torch.zeros(0, dtype=torch.int32, device=a_idx.device)
+        return (torch.zeros(n_all, dtype=torch.int32, device=a_idx.device),
+                [empty] * n_all, torch.zeros(m, dtype=torch.int32,
+                                             device=a_idx.device))
+    counts, lists, row_tsz, n = _classify(
+        bins, offsets, bin_tsize, table_size, indptr_a, indptr_b, indptr_c,
+        a_idx, errors)
+    if own:
+        _build.raise_on_errors(errors, "spgemm_hash classify")
+    sizes = counts[:n_all].tolist()
+    rows = [lists[c, :sizes[c]] if c < n else lists.new_zeros(0)
+            for c in range(n_all)]
+    return counts[:n_all].clone(), rows, row_tsz
 
 
 def symbolic_call(offsets, bin_tsize, indptr_a, indptr_b, a_idx, a_val,
@@ -155,9 +336,10 @@ def symbolic_call(offsets, bin_tsize, indptr_a, indptr_b, a_idx, a_val,
     own = errors is None
     if own:
         errors = torch.zeros(1, dtype=torch.int32, device=dev)
-    _launch_bins(False, vector, offsets, bin_tsize, table_size, indptr_a,
-                 indptr_b, a_idx, a_val, b_idx, b_val, None, None, None,
-                 row_nnz, errors)
+    _check_operands(indptr_a, indptr_b, a_idx, a_val, b_idx, b_val, None,
+                    errors)
+    _launch_symbolic(vector, offsets, bin_tsize, table_size, indptr_a,
+                     indptr_b, a_idx, b_idx, row_nnz, errors)
     KERNEL_CALLS["symbolic_vector" if vector else "symbolic"] += 1
     if own:
         _build.raise_on_errors(errors, "spgemm_hash symbolic")
@@ -188,9 +370,11 @@ def numeric_call(offsets, bin_tsize, indptr_a, indptr_b, indptr_c, a_idx,
     own = errors is None
     if own:
         errors = torch.zeros(1, dtype=torch.int32, device=dev)
-    _launch_bins(True, vector, offsets, bin_tsize, table_size, indptr_a,
-                 indptr_b, a_idx, a_val, b_idx, b_val, indptr_c, out_cols,
-                 out_vals, None, errors)
+    _check_operands(indptr_a, indptr_b, a_idx, a_val, b_idx, b_val,
+                    indptr_c, errors)
+    _launch_numeric(vector, offsets, bin_tsize, table_size, indptr_a,
+                    indptr_b, a_idx, a_val, b_idx, b_val, indptr_c, out_cols,
+                    out_vals, errors)
     KERNEL_CALLS["numeric_vector" if vector else "numeric"] += 1
     if own:
         _build.raise_on_errors(errors, "spgemm_hash numeric")

@@ -7,6 +7,11 @@ segment in expansion order (one rounding per product) and emit each row
 in sorted column order.  The per-bin table sizes only shape the kernels'
 internal layout, so the plain versions accept and ignore them.
 
+The kernels size each row's table from its own need, at most its bin's
+(:func:`row_table_sizes_plain`), and the single-product numeric kernel
+runs rows by table class (:func:`row_classes_plain`, the classifying
+kernel's function); neither changes what the kernels compute.
+
 The semantic contract of the kernels (per phase):
   * symbolic: exact nnz per output row;
   * numeric:  (indices, values) at ``indptr_c``, where each row holds the
@@ -24,6 +29,12 @@ import torch
 from .._build import member_view
 
 _COL_BITS = 31
+
+#: The numeric kernel's table classes: the largest table (slots) of each
+#: but the last, which holds every larger one (``kernel.CLASS_NAMES``).
+CLASS_SLOTS = (1024, 4096, 16384, 32768, 65536, 131072)
+#: the smallest table a row gets (the chunked probe's width)
+_MIN_TABLE = 8
 
 
 def _expand_keys(indptr_a, indptr_b, a_idx, b_idx):
@@ -143,3 +154,57 @@ def products_per_entry(indptr_a, indptr_b, indptr_c, a_idx, b_idx, cap_c):
     out = torch.zeros(cap_c, dtype=torch.int64, device=dev)
     out[pos[keep]] = counts[keep]
     return out
+
+
+def _bin_caps(offsets, bin_tsize, table_size, m):
+    """Each row's plan table, ``min(bin_tsize[b], table_size)`` of the bin
+    b that holds it, 0 for a row outside every bin; ``(m,) int64``."""
+    dev = offsets.device
+    off = offsets.long()
+    rows = torch.arange(m, device=dev)
+    b = torch.searchsorted(off, rows, right=True) - 1
+    n_bins = bin_tsize.shape[0]
+    inside = (b >= 0) & (b < n_bins)
+    bc = b.clamp(0, max(n_bins - 1, 0))
+    inside &= rows < off[(bc + 1).clamp(max=off.shape[0] - 1)]
+    cap = bin_tsize.long()[bc].clamp(max=table_size) if n_bins else \
+        torch.zeros(m, dtype=torch.long, device=dev)
+    return torch.where(inside, cap, torch.zeros_like(cap))
+
+
+def row_table_sizes_plain(offsets, bin_tsize, need, *, table_size):
+    """Each row's table, ``(m,) int32``: ``min(cap, lowest_p2(max(2 *
+    need, 8)))`` with ``cap`` its bin's table (:func:`_bin_caps`), 0 where
+    ``need`` (output count for numeric, product count for symbolic) or
+    ``cap`` is 0."""
+    need = need.long()
+    cap = _bin_caps(offsets, bin_tsize, table_size, need.shape[0])
+    want = torch.clamp(2 * torch.minimum(need, cap), min=_MIN_TABLE)
+    e = torch.ceil(torch.log2(want.double())).long()
+    p2 = torch.ones_like(want) << e
+    p2 = torch.where(p2 < want, p2 * 2, p2)
+    tsz = torch.minimum(cap, p2)
+    return torch.where((need > 0) & (cap > 0), tsz,
+                       torch.zeros_like(tsz)).to(torch.int32)
+
+
+def row_classes_plain(offsets, bin_tsize, indptr_c, *, table_size):
+    """The classifying kernel's function: ``(counts (7,) int32, rows,
+    row_tsz (m,) int32)``: each numeric row's table
+    (:func:`row_table_sizes_plain` of its output count), ``rows[c]`` the
+    ascending ids of the rows whose table falls in class c (the first
+    :data:`CLASS_SLOTS` entry it fits, else the last class), empty rows in
+    none."""
+    need = indptr_c[1:].long() - indptr_c[:-1].long()
+    row_tsz = row_table_sizes_plain(offsets, bin_tsize, need,
+                                    table_size=table_size)
+    bounds = torch.tensor(CLASS_SLOTS, dtype=torch.int32,
+                          device=row_tsz.device)
+    cls = torch.searchsorted(bounds, row_tsz)
+    listed = row_tsz > 0
+    ids = torch.arange(row_tsz.shape[0], device=row_tsz.device,
+                       dtype=torch.int32)
+    rows = [ids[listed & (cls == c)] for c in range(len(CLASS_SLOTS) + 1)]
+    counts = torch.tensor([r.shape[0] for r in rows], dtype=torch.int32,
+                          device=row_tsz.device)
+    return counts, rows, row_tsz

@@ -21,6 +21,8 @@ a few ulps of |cum|); bfloat16 y within one bf16 ulp of the plain output
 plus that.
 """
 import dataclasses
+import os
+import sys
 
 import numpy as np
 import pytest
@@ -44,6 +46,11 @@ from repro_torch.kernels.ssd_chunk import ref as ssd_ref
 from repro_torch.models import transformer
 from repro_torch.parallel.sharding import single_device_ctx
 from repro_torch.serve import Engine, Request
+
+sys.path.insert(0, os.path.dirname(__file__))
+
+from _hash_ladder import (LADDER, LADDER_CLASSES,  # noqa: E402
+                          LADDER_TABLE, ladder, saturated_row)
 
 DYADIC = np.array([0.5, 1.0, 1.5, 2.0], np.float32)
 CASES = [("ER", 9, 8, True), ("G500", 10, 16, False), ("G500", 12, 16, True)]
@@ -164,6 +171,124 @@ def test_table_too_small_raises(cuda, vector):
     with pytest.raises(RuntimeError, match="full-table"):
         ops.spgemm_hash(a, b, d, vector=vector, table_size=K.CHUNK,
                         schedule=(off, tsz), indptr_c=indptr_c)
+
+
+def check_product(a, b, indptr_c, cols, vals, pc, pv, dyadic):
+    """``check_numeric`` for ``A @ B``: per-row column sets bitwise, the
+    tail zero, values bitwise (dyadic) or within one ulp per product."""
+    nnz = int(indptr_c[-1])
+    s = CSR(indptr_c, cols, vals, indptr_c[-1], (a.n_rows, b.n_cols),
+            False).sort_rows()
+    assert torch.equal(s.indices[:nnz], pc[:nnz])
+    assert bool((cols[nnz:] == 0).all()) and bool((vals[nnz:] == 0).all())
+    if dyadic:
+        assert torch.equal(s.data[:nnz], pv[:nnz])
+        return
+    k = ref.products_per_entry(a.indptr, b.indptr, indptr_c, a.indices,
+                               b.indices, cols.shape[0])[:nnz]
+    ulp = torch.nextafter(pv[:nnz].abs(), torch.full_like(
+        pv[:nnz], float("inf"))) - pv[:nnz].abs()
+    assert bool(((s.data[:nnz] - pv[:nnz]).abs() <= k * ulp).all())
+
+
+def reset_class_calls():
+    K.CLASS_CALLS.update(dict.fromkeys(K.CLASS_CALLS, 0))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("forced", (True, False), ids=("one-bin", "natural"))
+@pytest.mark.parametrize("dyadic", (True, False), ids=("dyadic", "uniform"))
+@pytest.mark.parametrize("vector", (False, True))
+def test_ladder_reaches_every_table_class(cuda, vector, dyadic, forced):
+    """Rows of 0 to 70,000 distinct columns (``_hash_ladder``): under one
+    bin of 262,144 slots every class runs -- the three shared-memory
+    classes, clusters of 2, 4 and 8 blocks and the device-memory table --
+    and under the plan's own bins no table passes the largest cluster.
+    The classifying kernel equals its plain version; both phases equal
+    theirs, with no kernel error."""
+    (ar, ac, av, ash), (br, bc, bv, bsh) = ladder(dyadic)
+    a = CSR.from_numpy_coo(ar, ac, av, ash, device=cuda)
+    b = CSR.from_numpy_coo(br, bc, bv, bsh, device=cuda)
+    if forced:
+        off = torch.tensor([0, len(LADDER)], dtype=torch.int32, device=cuda)
+        tsz = torch.tensor([LADDER_TABLE], dtype=torch.int32, device=cuda)
+        table = LADDER_TABLE
+    else:
+        off, tsz, table = ops.hash_schedule(a, b, n_bins=8)
+    args = (off, tsz, a.indptr, b.indptr, a.indices, a.data, b.indices,
+            b.data)
+    errors = torch.zeros(1, dtype=torch.int32, device=cuda)
+    rows = K.symbolic_call(*args, table_size=table, vector=vector,
+                           errors=errors)
+    assert torch.equal(rows, ref.symbolic_plain(*args, table_size=table,
+                                                vector=vector))
+    assert rows.tolist() == list(LADDER)
+    indptr_c = prefix_sum(rows).to(torch.int32)
+    counts, lists, row_tsz = K.row_classes(
+        off, tsz, a.indptr, b.indptr, indptr_c, a.indices, table_size=table,
+        errors=errors)
+    p_counts, p_lists, p_tsz = ref.row_classes_plain(off, tsz, indptr_c,
+                                                     table_size=table)
+    assert torch.equal(counts, p_counts) and torch.equal(row_tsz, p_tsz)
+    for got, want in zip(lists, p_lists):
+        assert torch.equal(torch.sort(got).values, want)
+    if forced:
+        assert [next((c for c, r in enumerate(p_lists) if i in r.tolist()),
+                     -1) for i in range(len(LADDER))] == list(LADDER_CLASSES)
+    cap = int(indptr_c[-1]) + 5
+    nargs = (off, tsz, a.indptr, b.indptr, indptr_c, a.indices, a.data,
+             b.indices, b.data)
+    reset_class_calls()
+    cols, vals = K.numeric_call(*nargs, cap_c=cap, table_size=table,
+                                vector=vector, errors=errors)
+    torch.cuda.synchronize()
+    assert int(errors) == 0
+    launched = [k for k in K.CLASS_NAMES if K.CLASS_CALLS[k]]
+    assert K.CLASS_CALLS["classify"] == 1
+    assert all(K.CLASS_CALLS[k] == 1 for k in launched)
+    if forced:
+        assert launched == list(K.CLASS_NAMES)
+    pc, pv = ref.numeric_plain(*nargs, cap_c=cap, table_size=table,
+                               vector=vector)
+    check_product(a, b, indptr_c, cols, vals, pc, pv, dyadic)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("vector", (False, True))
+def test_cluster_table_load_factor_one_and_one_past_fill(cuda, vector):
+    """A table of 32,768 slots (a cluster of two blocks) for a row of
+    exactly 32,768 distinct columns is full and right; one more column
+    raises "full-table" in both phases."""
+    t = 2 * K.SMEM_SLOTS
+    off = torch.tensor([0, 1], dtype=torch.int32, device=cuda)
+    tsz = torch.tensor([t], dtype=torch.int32, device=cuda)
+    for d in (t, t + 1):
+        (ar, ac, av, ash), (br, bc, bv, bsh) = saturated_row(d)
+        a = CSR.from_numpy_coo(ar, ac, av, ash, device=cuda)
+        b = CSR.from_numpy_coo(br, bc, bv, bsh, device=cuda)
+        indptr_c = torch.tensor([0, d], dtype=torch.int32, device=cuda)
+        args = (off, tsz, a.indptr, b.indptr, a.indices, a.data, b.indices,
+                b.data)
+        nargs = args[:4] + (indptr_c,) + args[4:]
+        _, lists, row_tsz = K.row_classes(off, tsz, a.indptr, b.indptr,
+                                          indptr_c, a.indices, table_size=t)
+        assert row_tsz.tolist() == [t]
+        assert lists[K.CLASS_NAMES.index("cluster_2")].tolist() == [0]
+        if d > t:
+            with pytest.raises(RuntimeError, match="full-table"):
+                K.symbolic_call(*args, table_size=t, vector=vector)
+            with pytest.raises(RuntimeError, match="full-table"):
+                K.numeric_call(*nargs, cap_c=d, table_size=t, vector=vector)
+            continue
+        assert K.symbolic_call(*args, table_size=t,
+                               vector=vector).tolist() == [d]
+        reset_class_calls()
+        cols, vals = K.numeric_call(*nargs, cap_c=d, table_size=t,
+                                    vector=vector)
+        assert K.CLASS_CALLS["cluster_2"] == 1
+        pc, pv = ref.numeric_plain(*nargs, cap_c=d, table_size=t,
+                                   vector=vector)
+        check_product(a, b, indptr_c, cols, vals, pc, pv, True)
 
 
 PB_CASES = [("ER", 10, 8), ("G500", 8, 16)]
