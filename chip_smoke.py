@@ -68,15 +68,25 @@ Phases; any failure exits non-zero:
      ``plan_spgemm(a, a)`` must route to ``bcsr`` by itself;
   8. SpMM (``core.spmm``, the CSR x dense kernel) on ER s18 ef16 and on
      the graph of phase 9, X (n, 64) float32 from a seeded generator and
-     dyadic values, plus (on ER) k = 100 and a bfloat16 X: one launch per
-     call and no plain version; the kernel bitwise equal to its plain
-     version, and within 1 ulp per accumulated product of scipy's float64
-     ``A @ X`` (exactly equal on dyadic values).  Then its median time
-     beside the byte bound, the plain version and ``torch.sparse.mm(A,
-     X)``;
+     dyadic values, plus (on ER) k = 100 and a bfloat16 X: the row lists
+     (the classifying kernel) made once per CSR and memoized on it, then
+     one SpMM launch per call and no plain version; the kernel bitwise
+     equal to its plain version, and within 1 ulp per accumulated product
+     of scipy's float64 ``A @ X`` (exactly equal on dyadic values); which
+     copy path took the long rows' X rows.  The classifying kernel's lists
+     equal to its plain version's; rows, nonzeros and the median time per
+     length class (CUDA events around a launch with the other classes'
+     counts zeroed: ``torch.profiler`` traces taken after phase 5's lose
+     kernels, and more of them here left phase 21's trace without its
+     classifying kernel), the launch shape, the longest row.  Then the
+     median times
+     of the SpMM launch, of it with the classifying kernel, of the front
+     door, beside the byte bound, the plain version and
+     ``torch.sparse.mm(A, X)``;
   9. the paper's graph workloads (sections 5.5-5.6) on R-MAT G500 s16
      ef16, seed 1, symmetrized: the triangle count (masked L.U) equal to
-     scipy's; dense (SpMM, one launch per hop) and masked-frontier BFS
+     scipy's; dense (SpMM, one launch per hop, one classifying launch for
+     all hops) and masked-frontier BFS
      from 64 sources over 6 hops equal to each other and to scipy's
      ``shortest_path``; the repeat masked BFS plans nothing new.  One
      timing line;
@@ -1806,13 +1816,17 @@ class Smoke:
         core.clear_plan_cache()
 
     # ---- phase 8 -----------------------------------------------------------
-    def spmm_input(self, a, a_d, label, paths, widths=True):
+    def spmm_input(self, a, a_d, label, paths, widths=True,
+                   classify_paths=None):
         """The SpMM kernel on ``a`` (and its dyadic copy ``a_d``): the front
         door's launches, the kernel against its plain version and scipy,
-        then the timings.  ``paths`` holds the launches of the runs that
-        reached the kernel through a workload (the dense BFS).  ``widths``
-        adds k = SPMM_K_ODD and a bfloat16 X (run on one input: the plain
-        version of a skewed graph takes a second a call)."""
+        the row classes (the classifying kernel against its plain version;
+        rows, nonzeros and device time per class), then the timings.
+        ``paths`` holds the launches of the runs that reached the kernel
+        through a workload (the dense BFS), ``classify_paths`` those of
+        the classifying kernel.  ``widths`` adds k = SPMM_K_ODD and a
+        bfloat16 X (run on one input: the plain version of a skewed graph
+        takes a second a call)."""
         import scipy.sparse as sps
         torch, SK, sref = self.torch, self.SK, self.spmm_ref
         m, n = a.shape
@@ -1822,6 +1836,8 @@ class Smoke:
                                host[1][:nnz], host[0]), shape=a.shape)
         row_nnz = torch.from_numpy(np.diff(host[0])).to(self.dev)
         rng = np.random.default_rng(2)
+        classify_paths = {} if classify_paths is None else classify_paths
+        copy_paths = {}
 
         def x_of(k, values="uniform"):
             x = rng.uniform(0.5, 1.5, (n, k)) if values == "uniform" else \
@@ -1829,10 +1845,22 @@ class Smoke:
             return torch.from_numpy(x.astype(np.float32)).to(self.dev)
 
         def run(mat, x, what):
-            """Front door: one launch, no plain version; the kernel equals
-            its plain version bitwise.  Returns (y, plain)."""
+            """The row lists first (the classifying kernel once on a CSR
+            not classified yet, then memoized on it), then the front door:
+            one SpMM launch, no plain version, no classifying launch; the
+            kernel equals its plain version bitwise.  Returns y."""
+            _, counts = self.counted(lambda: self.spmm_ops.row_classes(mat))
+            n_cls = counts["spmm_classify"]
+            check(n_cls <= 1, f"{label} spmm {what}: {n_cls} classifying "
+                  f"launches for one CSR")
+            self.expect(counts, {"spmm_classify": n_cls} if n_cls else {},
+                        f"{label} spmm row classes {what}")
+            if n_cls and not classify_paths:
+                classify_paths["core.spmm (row lists memoized on the CSR)"] \
+                    = n_cls
             y, counts = self.counted(lambda: self.core.spmm(mat, x))
             self.expect(counts, {"spmm_spmm": 1}, f"{label} spmm {what}")
+            copy_paths[what] = next(k for k, v in SK.COPY_PATHS.items() if v)
             plain = sref.spmm_plain(mat.indptr, mat.indices,
                                     mat.data.float(), x, mat.nnz)
             check(y.dtype == x.dtype and torch.equal(y, plain),
@@ -1866,24 +1894,62 @@ class Smoke:
             f"k={SPMM_K}, dyadic"
         print(f"{label} spmm: kernel bitwise equal to its plain version "
               f"({cases}), within 1 ulp per product of scipy (max abs diff "
-              f"{err}), exact on dyadic values", flush=True)
+              f"{err}), exact on dyadic values; long rows' X rows by "
+              f"{copy_paths}", flush=True)
+
+        # ---- row classes ---------------------------------------------------
+        data = a.data.float()
+        args = (a.indptr, a.indices, data, x, a.nnz)
+        cls = SK.classify(a.indptr, a.nnz, a.cap)
+        counts_k, rows_k = SK.row_classes(a.indptr, a.nnz, a.cap)
+        counts_p, rows_p = sref.row_classes_plain(a.indptr, a.nnz, a.cap)
+        check(torch.equal(counts_k, counts_p) and all(
+            torch.equal(torch.sort(r).values, w)
+            for r, w in zip(rows_k, rows_p)),
+              f"{label} spmm: the classifying kernel's lists differ from its "
+              f"plain version's")
+        length = sref.live_lengths(a.indptr, a.nnz, a.cap)
+        per_class = {}
+        for c, name in enumerate(SK.CLASS_NAMES):
+            rows = int(counts_p[c])
+            entry = {"rows": rows,
+                     "nnz": int(length[rows_p[c].long()].sum()), "ms": 0.0}
+            if rows:
+                mask = torch.zeros(len(SK.CLASS_NAMES), dtype=torch.int32,
+                                   device=self.dev)
+                mask[c] = 1
+                only = SK.RowClasses(cls.counts * mask, cls.lists)
+                entry["ms"] = self.time_ms(
+                    lambda: SK.spmm_call(*args, classes=only))
+            per_class[name] = entry
+        vw = SK.vector_width(SPMM_K, 4, x.data_ptr())
+        shape = SK.launch_shape(x.dtype, vw)
+        shape["grid"] = min(shape["blocks_per_sm"] * shape["sms"],
+                            -(-m // shape["chunk_rows"]))
+        print(json.dumps({"spmm_classes": label, "card": self.card,
+                          "k": SPMM_K, "launch": shape,
+                          "max_row_nnz": int(row_nnz.max()),
+                          "classes": per_class}), flush=True)
 
         # ---- timings ------------------------------------------------------
         by = 4 * (m + 1) + 8 * nnz + 4 * n * SPMM_K + 4 * m * SPMM_K
         ops_n = 2 * nnz * SPMM_K
         bound = max(by / HBM_BYTES_PER_S, ops_n / FP32_FLOP_PER_S) * 1e3
-        data = a.data.float()
-        args = (a.indptr, a.indices, data, x, a.nnz)
         sp = torch.sparse_csr_tensor(a.indptr.long(), a.indices[:nnz].long(),
                                      data[:nnz], size=a.shape)
         max_row = int(row_nnz.max())
         slow = max_row > 1000           # one plain step per slot of a row
-        t = {"kernel": self.time_ms(lambda: SK.spmm_call(*args)),
+        t = {"kernel": self.time_ms(lambda: SK.spmm_call(*args, classes=cls)),
+             "kernel_classify": self.time_ms(lambda: SK.spmm_call(*args)),
              "spmm": self.time_ms(lambda: self.core.spmm(a, x)),
              "plain": self.time_ms(lambda: sref.spmm_plain(*args),
                                    reps=1 if slow else REPS,
                                    warm=0 if slow else 2),
-             "torch_sparse_mm": self.time_ms(lambda: torch.sparse.mm(sp, x))}
+             "torch_sparse_mm": self.time_ms(lambda: torch.sparse.mm(sp, x)),
+             "classify": self.time_ms(
+                 lambda: SK.classify(a.indptr, a.nnz, a.cap)),
+             "plain_classify": self.time_ms(
+                 lambda: sref.row_classes_plain(a.indptr, a.nnz, a.cap))}
         print(json.dumps({"timing": f"{label} spmm", "card": self.card,
                           "m": m, "n": n, "nnz_a": nnz, "k": SPMM_K,
                           "max_row_nnz": max_row, "ms": t,
@@ -1898,6 +1964,19 @@ class Smoke:
             "bound_by": "bytes" if by / HBM_BYTES_PER_S >=
             ops_n / FP32_FLOP_PER_S else "operations",
             "library_ms": t["torch_sparse_mm"]})
+        # the classifying kernel (replaces no TPU kernel): reads the row
+        # pointer, writes each row id once and the counts
+        self.rows.append({
+            "name": f"spmm_classify[{label}]", "route": "cuda",
+            "source": SPMM_SOURCE,
+            "replaces": "none: lists the rows of " + REPLACES["spmm"]
+                        + "'s port by live length",
+            "launches": next(iter(classify_paths.values()), 0),
+            "launches_by_path": classify_paths, "max_abs_err": 0.0,
+            "ms": t["classify"], "plain_ms": t["plain_classify"],
+            "bound_ms": (4 * (m + 1) + 4 * m + 4 * len(SK.CLASS_NAMES))
+            / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes", "library_ms": None})
         torch.cuda.empty_cache()
 
     def dyadic_copy(self, a, seed):
@@ -1971,8 +2050,11 @@ class Smoke:
             n, BFS_SOURCES, replace=False).tolist()
         dist, counts = self.counted(lambda: ga.multi_source_bfs(
             g, sources, BFS_HOPS))
-        self.expect(counts, {"spmm_spmm": BFS_HOPS}, f"{label} dense BFS")
+        # one SpMM launch a hop, and the row lists made once for all hops
+        self.expect(counts, {"spmm_spmm": BFS_HOPS, "spmm_classify": 1},
+                    f"{label} dense BFS")
         paths = {"multi_source_bfs": counts["spmm_spmm"]}
+        classify_paths = {"multi_source_bfs": counts["spmm_classify"]}
         core.clear_plan_cache()
         t0 = time.perf_counter()
         dist_m, counts = self.counted(lambda: ga.multi_source_bfs_masked(
@@ -2013,7 +2095,7 @@ class Smoke:
         del dist, dist_m, dist_r
         core.clear_plan_cache()
         torch.cuda.empty_cache()
-        return g, label, paths
+        return g, label, paths, classify_paths
 
     # ---- phase 10 ----------------------------------------------------------
     def tall_skinny(self, a, label):
@@ -3309,9 +3391,9 @@ def main() -> int:
     for preset, scale, ef in BCSR_INPUTS:                        # phase 7
         smoke.bcsr_input(preset, scale, ef)
     smoke.bcsr_auto()
-    graph, label, paths = smoke.graph()                          # phase 9
+    graph, label, paths, cls_paths = smoke.graph()               # phase 9
     smoke.spmm_input(graph, smoke.dyadic_copy(graph, 3), label, paths,
-                     widths=False)
+                     widths=False, classify_paths=cls_paths)
     del graph
     smoke.tall_skinny(g500, g500_label)                          # phase 10
     smoke.bcsr_large_tile()                                      # phase 11

@@ -1,36 +1,74 @@
 """Hand-written CUDA SpMM kernel (CSR times dense) and its wrapper.
 
 ``csrc/spmm.cu`` replaces the Pallas kernel ``spmm_call`` of
-``repro/kernels/spmm/kernel.py``; its header says why the TPU's bins of
-equal nnz are gone (one warp per row).  It is built like the other kernels
-(:mod:`repro_torch.kernels._build`): ``nvcc`` for ``sm_90a`` at first use,
-a plain C interface, ``ctypes``.
+``repro/kernels/spmm/kernel.py``; its header gives the design.  A
+classifying kernel (which replaces no TPU kernel) lists the rows by live
+length on the device in ``ref.N_CLASSES`` power-of-two classes: rows of at
+most 256 nonzeros take a warp each, longer rows a whole block each.  Then one persistent launch takes the block rows first,
+longest class first (four producer warps bring the X rows into a ring in
+shared memory -- by bulk copies, ``cp.async`` or registers as the shape
+allows -- and consumer warps over k add in slot order), then the warp
+rows, longest class first.  Nothing is read back to the host: the grid is
+the card's resident blocks, and blocks and warps pop rows with atomic
+counters.  The kernels are built like the others
+(:mod:`repro_torch.kernels._build`): ``nvcc`` for ``sm_90a`` at first
+use, a plain C interface, ``ctypes``.
 
-:func:`spmm_call` takes the kernel's arguments.  On CPU tensors it runs
-the plain version of ``ref.py``; on CUDA tensors it launches the kernel or
-raises -- a build or launch failure is never answered with the plain
-version.
+:func:`spmm_call` takes the kernel's arguments and, optionally, the row
+lists (:func:`classify`; ``ops.spmm_kernel`` memoizes them on the CSR).
+On CPU tensors it runs the plain version of ``ref.py``; on CUDA tensors it
+launches the kernels or raises -- a build or launch failure is never
+answered with the plain version.
 """
 from __future__ import annotations
 
 import ctypes
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
 from .. import _build
 from . import ref
 
-#: Launch counters: ``spmm`` gains one where the wrapper launches the
-#: kernel, ``plain`` where it runs the plain version.
-KERNEL_CALLS = {"spmm": 0, "plain": 0}
+#: Launch counters: ``spmm`` gains one where the wrapper launches the SpMM
+#: kernel, ``classify`` where it launches the classifying kernel,
+#: ``plain`` where it runs the plain version.
+KERNEL_CALLS = {"spmm": 0, "classify": 0, "plain": 0}
+
+#: How the SpMM launches bring long rows' X rows into shared memory, one
+#: count a launch, picked from the shape and X's address before the launch:
+#: ``bulk`` (``cp.async.bulk``, 1-D TMA) where X and its rows are 16-byte
+#: aligned; else ``async`` (``cp.async`` of 4, 8 or 16 bytes a lane) where
+#: they are 4-byte aligned; else ``register`` (2-byte loads and shared
+#: stores: 16-bit X at an odd k, or X at a 2-byte offset).
+COPY_PATHS = {"bulk": 0, "async": 0, "register": 0}
 
 #: X's dtypes the kernel takes, with their code in the C interface.
 DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
+#: the length classes' names, by their upper bound in live nonzeros; the
+#: first four take a warp a row, the others a block
+CLASS_NAMES = tuple(f"<={b}" for b in ref.CLASS_BOUNDS) \
+    + (f">{ref.CLASS_BOUNDS[-1]}",)
+
 SOURCE = Path(__file__).parent / "csrc" / "spmm.cu"
-_FUNCTIONS = {"spmm_launch": [ctypes.c_int] * 5 + [ctypes.c_void_p] * 7}
+_P = ctypes.c_void_p
+_FUNCTIONS = {
+    "spmm_launch": [ctypes.c_int] * 7 + [ctypes.c_longlong] + [_P] * 10,
+    "spmm_classify": [ctypes.c_int] * 2 + [ctypes.c_longlong] + [_P] * 5,
+    "spmm_shape": [ctypes.c_int] * 2 + [_P],
+}
 _lib = None
+
+
+class RowClasses(NamedTuple):
+    """The classifying kernel's output, on the card: ``counts``
+    ``(N_CLASSES,) int32`` rows per class, ``lists`` the row ids, each
+    class's at the sum of the earlier classes' rooms
+    (``ref.class_rooms``)."""
+    counts: torch.Tensor
+    lists: torch.Tensor
 
 
 def build() -> dict:
@@ -40,6 +78,57 @@ def build() -> dict:
     info = _build.load(SOURCE, _FUNCTIONS)
     _lib = info["lib"]
     return info
+
+
+def _stream(dev):
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _check_on_card(name, t, dtype, index: int) -> None:
+    """``_build.check_tensor`` for the per-call path: compares the device
+    index, not device objects (the checks are part of each call's host
+    time, which a CUDA-event time of one call includes)."""
+    if t.dtype != dtype or t.get_device() != index or not t.is_contiguous():
+        raise ValueError(f"{name}: want a contiguous {dtype} tensor on "
+                         f"cuda:{index}, got {t.dtype} on {t.device}")
+
+
+def vector_width(k: int, itemsize: int, ptr: int) -> int:
+    """X elements a lane loads at once on a short row: the least power of
+    two with 32 of them covering k, at most 16 bytes, halved until it
+    divides k and X's address is aligned to it."""
+    vw = 1
+    while 32 * vw < k and 2 * vw * itemsize <= 16:
+        vw *= 2
+    while vw > 1 and (k % vw or ptr % (vw * itemsize)):
+        vw //= 2
+    return vw
+
+
+def copy_unit(k: int, itemsize: int, ptr: int) -> int:
+    """How long rows' X rows reach shared memory: 0 for bulk copies (X's
+    address and its rows 16-byte aligned), else the bytes a lane's copy
+    moves at once, the largest of 16, 8, 4, 2 dividing both (2: through
+    registers, else ``cp.async``)."""
+    row = k * itemsize
+    if row % 16 == 0 and ptr % 16 == 0:
+        return 0
+    return next(u for u in (16, 8, 4, 2) if row % u == 0 and ptr % u == 0)
+
+
+def launch_shape(dtype: torch.dtype = torch.float32, vw: int = 1) -> dict:
+    """The SpMM kernel's launch shape on the current card (builds the
+    library): threads and dynamic shared memory a block, resident blocks an
+    SM, SMs, short rows a warp pops at once, the long-row threshold, ring
+    stages and bytes a stage."""
+    build()
+    out = (ctypes.c_int * 8)()
+    err = _lib.spmm_shape(DTYPES[dtype], vw, ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError(f"spmm shape query failed: CUDA error {err}")
+    keys = ("threads", "smem_bytes", "blocks_per_sm", "sms", "chunk_rows",
+            "long_row", "stages", "stage_bytes")
+    return dict(zip(keys, out))
 
 
 def _check_shapes(indptr, indices, data, x, nnz) -> None:
@@ -58,10 +147,54 @@ def _check_shapes(indptr, indices, data, x, nnz) -> None:
                          f"{tuple(nnz.shape)}")
 
 
-def spmm_call(indptr, indices, data, x, nnz) -> torch.Tensor:
+def classify(indptr, nnz, cap: int) -> RowClasses:
+    """The classifying kernel on the card: the rows of a CSR with row
+    pointer ``indptr``, ``cap`` slots and live length ``nnz`` (0-dim int32)
+    listed by live length (``ref.row_classes_plain``'s classes, each list
+    in no order)."""
+    dev = indptr.device
+    _build.check_tensor("indptr", indptr, torch.int32, dev)
+    _build.check_tensor("nnz", nnz, torch.int32, dev)
+    m = indptr.shape[0] - 1
+    build()
+    counts = torch.zeros(ref.N_CLASSES, dtype=torch.int32, device=dev)
+    lists = torch.empty(sum(ref.class_rooms(m, cap)), dtype=torch.int32,
+                        device=dev)
+    err = _lib.spmm_classify(m, cap, lists.shape[0], nnz.data_ptr(),
+                             indptr.data_ptr(), counts.data_ptr(),
+                             lists.data_ptr(), _stream(dev))
+    if err != 0:
+        raise RuntimeError(f"spmm classify launch failed: CUDA error {err}")
+    KERNEL_CALLS["classify"] += 1
+    return RowClasses(counts, lists)
+
+
+def row_classes(indptr, nnz, cap: int):
+    """``(counts (N_CLASSES,) int32, rows)``: ``rows[c]`` class c's row ids
+    -- on a card the classifying kernel's lists (in no order), read back;
+    on the CPU ``ref.row_classes_plain`` (ascending)."""
+    if indptr.device.type == "cpu":
+        return ref.row_classes_plain(indptr, nnz, cap)
+    cls = classify(indptr, nnz, cap)
+    counts = cls.counts.tolist()
+    rows, off = [], 0
+    for c, room in enumerate(ref.class_rooms(indptr.shape[0] - 1, cap)):
+        rows.append(cls.lists[off:off + min(counts[c], room)])
+        off += room
+    return torch.tensor([r.shape[0] for r in rows], dtype=torch.int32,
+                        device=indptr.device), rows
+
+
+def spmm_call(indptr, indices, data, x, nnz,
+              classes: RowClasses | None = None) -> torch.Tensor:
     """``y (m, k)`` in ``x``'s dtype: ``y[i] = sum_j data[j] * x[indices[j]]``
     over row ``i``'s slots below ``min(nnz, cap)``, in float32 in slot
-    order; ``nnz`` is a 0-dim int32 tensor (the CSR's live length)."""
+    order; ``nnz`` is a 0-dim int32 tensor (the CSR's live length).
+
+    ``classes``: :func:`classify`'s lists for this ``indptr``, ``nnz`` and
+    capacity (the SpMM launch alone); without them a card call classifies
+    first.  Ignored on the CPU.
+    """
     _check_shapes(indptr, indices, data, x, nnz)
     dev = x.device
     if dev.type == "cpu":
@@ -71,21 +204,40 @@ def spmm_call(indptr, indices, data, x, nnz) -> torch.Tensor:
                                  f"SpMM kernel takes tensors on one device")
         KERNEL_CALLS["plain"] += 1
         return ref.spmm_plain(indptr, indices, data, x, nnz)
-    for name, t in (("indptr", indptr), ("indices", indices), ("nnz", nnz)):
-        _build.check_tensor(name, t, torch.int32, dev)
-    _build.check_tensor("data", data, torch.float32, dev)
-    _build.check_tensor("x", x, x.dtype, dev)
+    index = x.get_device()
+    for name, t, dtype in (("indptr", indptr, torch.int32),
+                           ("indices", indices, torch.int32),
+                           ("nnz", nnz, torch.int32),
+                           ("data", data, torch.float32),
+                           ("x", x, x.dtype)):
+        _check_on_card(name, t, dtype, index)
     m = indptr.shape[0] - 1
     n, k = x.shape
-    if m == 0 or n == 0 or k == 0 or indices.shape[0] == 0:
+    cap = indices.shape[0]
+    if m == 0 or n == 0 or k == 0 or cap == 0:
         return torch.zeros((m, k), dtype=x.dtype, device=dev)
     build()
+    if classes is None:
+        classes = classify(indptr, nnz, cap)
+    _check_on_card("classes.counts", classes.counts, torch.int32, index)
+    _check_on_card("classes.lists", classes.lists, torch.int32, index)
+    if classes.counts.shape != (ref.N_CLASSES,):
+        raise ValueError(f"classes.counts must be ({ref.N_CLASSES},), got "
+                         f"{tuple(classes.counts.shape)}")
+    itemsize = x.element_size()
+    vw = vector_width(k, itemsize, x.data_ptr())
+    unit = copy_unit(k, itemsize, x.data_ptr())
     y = torch.empty((m, k), dtype=x.dtype, device=dev)
+    pops = torch.empty(2, dtype=torch.int32, device=dev)
     err = _lib.spmm_launch(
-        DTYPES[x.dtype], m, n, k, indices.shape[0], nnz.data_ptr(),
-        indptr.data_ptr(), indices.data_ptr(), data.data_ptr(), x.data_ptr(),
-        y.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        DTYPES[x.dtype], vw, unit, m, n, k, cap, classes.lists.shape[0],
+        nnz.data_ptr(), indptr.data_ptr(), indices.data_ptr(),
+        data.data_ptr(), x.data_ptr(), y.data_ptr(), classes.counts.data_ptr(),
+        classes.lists.data_ptr(), pops.data_ptr(),
+        torch._C._cuda_getCurrentRawStream(index))
     if err != 0:
         raise RuntimeError(f"spmm launch failed: CUDA error {err}")
     KERNEL_CALLS["spmm"] += 1
+    COPY_PATHS["bulk" if unit == 0 else "register" if unit == 2
+               else "async"] += 1
     return y

@@ -51,6 +51,7 @@ sys.path.insert(0, os.path.dirname(__file__))
 
 from _hash_ladder import (LADDER, LADDER_CLASSES,  # noqa: E402
                           LADDER_TABLE, ladder, saturated_row)
+import _spmm_ladder  # noqa: E402
 
 DYADIC = np.array([0.5, 1.0, 1.5, 2.0], np.float32)
 CASES = [("ER", 9, 8, True), ("G500", 10, 16, False), ("G500", 12, 16, True)]
@@ -921,7 +922,7 @@ def test_spmm_kernel_matches_plain_version(cuda, skewed, k, dtype):
     sops.reset_kernel_calls()
     y = sops.spmm_kernel(a, x)
     torch.cuda.synchronize()
-    assert SK.KERNEL_CALLS == {"spmm": 1, "plain": 0}
+    assert SK.KERNEL_CALLS == {"spmm": 1, "classify": 1, "plain": 0}
     assert y.dtype == dtype and tuple(y.shape) == (1024, k)
     want = sref.spmm_plain(a.indptr, a.indices, a.data, x, a.nnz)
     assert torch.equal(y, want)
@@ -930,8 +931,9 @@ def test_spmm_kernel_matches_plain_version(cuda, skewed, k, dtype):
 @pytest.mark.gpu
 def test_spmm_padding_and_front_door(cuda):
     """Slots past nnz count as 0; ``core.spmm`` launches the kernel once
-    per call; the dense BFS launches it once per hop and agrees with the
-    masked BFS."""
+    per call (and the classifying kernel once per CSR); the dense BFS
+    launches it once per hop, classifies once, and agrees with the masked
+    BFS."""
     from repro_torch.core import spmm
     from repro_torch.data.rmat import symmetrize
     from repro_torch.examples import graph_analytics as ga
@@ -943,14 +945,130 @@ def test_spmm_padding_and_front_door(cuda):
     x = torch.rand((1024, 16), device=cuda)
     sops.reset_kernel_calls()
     assert torch.equal(spmm(pad, x), spmm(a, x))
-    assert sops.kernel_call_counts() == {"spmm": 2, "plain": 0}
+    assert sops.kernel_call_counts() == {"spmm": 2, "classify": 2,
+                                         "plain": 0}
     g = symmetrize(rmat.rmat_csr(8, 8, "G500", seed=1, device=cuda),
                    device=cuda)
     sops.reset_kernel_calls()
     dense = ga.multi_source_bfs(g, [0, 17, 42, 100], 6)
-    assert sops.kernel_call_counts() == {"spmm": 6, "plain": 0}
+    assert sops.kernel_call_counts() == {"spmm": 6, "classify": 1,
+                                         "plain": 0}
     assert torch.equal(dense, ga.multi_source_bfs_masked(
         g, [0, 17, 42, 100], 6))
+
+
+def spmm_ladder(cuda, values="signed", seed=0):
+    """``_spmm_ladder``'s CSR on the card: a row at every length-class
+    edge, to 20,000 nonzeros with repeated columns."""
+    indptr, indices, data, shape, _ = _spmm_ladder.ladder(values, seed)
+    return CSR.from_numpy(indptr, indices, data, len(indices), shape,
+                          sorted_cols=False, device=cuda)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16,
+                                   torch.float16),
+                         ids=("f32", "bf16", "f16"))
+@pytest.mark.parametrize("k", (1, 8, 64, 100, 300))
+def test_spmm_ladder_every_class_and_copy_path(cuda, k, dtype):
+    """The ladder on signed values, bitwise against the plain version:
+    the classifying kernel puts rows in every class (its lists equal the
+    plain classifier's), one SpMM launch takes them all, and the launch
+    brought the long rows' X rows in by bulk copies where X's rows are a
+    multiple of 16 bytes, by ``cp.async`` where they are a multiple of 4,
+    else through registers."""
+    from repro_torch.kernels.spmm import kernel as SK
+    from repro_torch.kernels.spmm import ops as sops
+    from repro_torch.kernels.spmm import ref as sref
+    a = spmm_ladder(cuda, seed=k)
+    x = torch.from_numpy(np.random.default_rng(k).uniform(
+        -1, 1, (a.n_cols, k)).astype(np.float32)).to(cuda).to(dtype)
+    sops.reset_kernel_calls()
+    y = sops.spmm_kernel(a, x)
+    torch.cuda.synchronize()
+    assert SK.KERNEL_CALLS == {"spmm": 1, "classify": 1, "plain": 0}
+    row = k * x.element_size()
+    path = "bulk" if row % 16 == 0 else "async" if row % 4 == 0 \
+        else "register"
+    assert SK.COPY_PATHS == {"bulk": 0, "async": 0, "register": 0, path: 1}
+    assert y.dtype == dtype and tuple(y.shape) == (a.n_rows, k)
+    assert torch.equal(y, sref.spmm_plain(a.indptr, a.indices, a.data, x,
+                                          a.nnz))
+    counts, rows = SK.row_classes(a.indptr, a.nnz, a.cap)
+    want_counts, want_rows = sref.row_classes_plain(a.indptr, a.nnz, a.cap)
+    assert torch.equal(counts, want_counts)
+    assert all(int(c) > 0 for c in counts)
+    for r, w in zip(rows, want_rows):
+        assert torch.equal(torch.sort(r).values, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(("dtype", "offset", "path"), [
+    (torch.float32, 4, "async"), (torch.bfloat16, 4, "async"),
+    (torch.bfloat16, 2, "register")], ids=("f32-4", "bf16-4", "bf16-2"))
+def test_spmm_unaligned_x_skips_bulk_copies(cuda, dtype, offset, path):
+    """X at a 4- or 2-byte offset (k 64): not 16-byte aligned, so the long
+    rows' X rows come by ``cp.async`` or, at a 2-byte offset, through
+    registers, and the short rows load 4 or 2 bytes a lane; bitwise
+    against the plain version."""
+    from repro_torch.kernels.spmm import kernel as SK
+    from repro_torch.kernels.spmm import ops as sops
+    from repro_torch.kernels.spmm import ref as sref
+    a = spmm_ladder(cuda, seed=3)
+    n, k = a.n_cols, 64
+    off = offset // torch.tensor([], dtype=dtype).element_size()
+    buf = torch.empty(n * k + off, dtype=dtype, device=cuda)
+    x = buf[off:].view(n, k)
+    x.copy_(torch.from_numpy(np.random.default_rng(4).uniform(
+        -1, 1, (n, k)).astype(np.float32)).to(dtype))
+    assert x.data_ptr() % 16 == offset and x.is_contiguous()
+    assert SK.copy_unit(k, x.element_size(), x.data_ptr()) == offset
+    assert SK.vector_width(k, x.element_size(), x.data_ptr()) \
+        * x.element_size() == offset
+    sops.reset_kernel_calls()
+    y = sops.spmm_kernel(a, x)
+    torch.cuda.synchronize()
+    assert SK.COPY_PATHS == {"bulk": 0, "async": 0, "register": 0, path: 1}
+    assert torch.equal(y, sref.spmm_plain(a.indptr, a.indices, a.data, x,
+                                          a.nnz))
+
+
+@pytest.mark.gpu
+def test_spmm_row_classes_are_memoized(cuda):
+    """A second call on one CSR classifies nothing; a write in place to
+    ``indptr`` or ``nnz`` classifies again, and the product follows the
+    new structure."""
+    from repro_torch.core import spmm
+    from repro_torch.kernels.spmm import ops as sops
+    from repro_torch.kernels.spmm import ref as sref
+    a = spmm_ladder(cuda, seed=5)
+    x = torch.rand((a.n_cols, 64), device=cuda)
+    sops.reset_kernel_calls()
+    spmm(a, x)
+    y = spmm(a, x)
+    assert sops.kernel_call_counts() == {"spmm": 2, "classify": 1,
+                                         "plain": 0}
+    assert torch.equal(y, sref.spmm_plain(a.indptr, a.indices, a.data, x,
+                                          a.nnz))
+    # row 0 (empty) takes row 1's slots; row 1 becomes empty
+    a.indptr[1] = a.indptr[2]
+    y = spmm(a, x)
+    assert sops.kernel_call_counts() == {"spmm": 3, "classify": 2,
+                                         "plain": 0}
+    assert torch.equal(y, sref.spmm_plain(a.indptr, a.indices, a.data, x,
+                                          a.nnz))
+    # a live length that cuts the 20,000-nonzero row (the last rung, before
+    # the last three short rows) to 300
+    a.nnz.fill_(int(a.indptr[-5]) + 300)
+    y = spmm(a, x)
+    assert sops.kernel_call_counts() == {"spmm": 4, "classify": 3,
+                                         "plain": 0}
+    assert torch.equal(y, sref.spmm_plain(a.indptr, a.indices, a.data, x,
+                                          a.nnz))
+    counts, _ = sref.row_classes_plain(a.indptr, a.nnz, a.cap)
+    assert int(counts[-1]) == 1          # 8,193 left; 20,000 cut to 300
+    y = spmm(a, x)
+    assert sops.kernel_call_counts()["classify"] == 3
 
 
 @pytest.mark.gpu

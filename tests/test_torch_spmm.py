@@ -3,9 +3,12 @@ kernel) against ``repro.core.spgemm.spmm`` and scipy.
 
 Same host operands in one process, made with numpy from a seed: R-MAT ER
 and G500 at scales 5 and 8, k in {1, 8, 32, 100}, float32 and bfloat16 X,
-padded and truncated CSRs, empty rows.  Values are bitwise equal on dyadic
-inputs (every product and sum exact) and within one ulp per accumulated
-product otherwise.  The reference's Pallas kernel cannot run on the
+padded and truncated CSRs, empty rows, and the ladder of
+``_spmm_ladder.py`` (a row at every length-class edge of the card's
+kernel, to 20,000 nonzeros).  The classifying kernel's plain version
+(``ref.row_classes_plain``) is held against a numpy count.  Values are
+bitwise equal on dyadic inputs (every product and sum exact) and within
+one ulp per accumulated product otherwise.  The reference's Pallas kernel cannot run on the
 installed jax (no ``pl.load``), so the port is held against its jnp
 ``spmm``, scipy and an in-order numpy loop.  On CPU tensors the CUDA kernel
 is never launched.
@@ -24,10 +27,12 @@ import jax.numpy as jnp  # noqa: E402
 import repro.core as J  # noqa: E402
 from repro.data import rmat as jrmat  # noqa: E402
 import repro_torch.core as T  # noqa: E402
+from repro_torch.data import rmat as trmat  # noqa: E402
 from repro_torch.kernels.spmm import kernel as K  # noqa: E402
 from repro_torch.kernels.spmm import ops  # noqa: E402
 from repro_torch.kernels.spmm import ref  # noqa: E402
 from _fuzz import VALS  # noqa: E402
+from _spmm_ladder import LADDER_CLASSES, ladder  # noqa: E402
 
 sp = pytest.importorskip("scipy.sparse")
 
@@ -84,7 +89,8 @@ def test_spmm_matches_reference_and_scipy(case, values, k):
     yj = np.asarray(J.spmm(a, jnp.asarray(x)))
     ops.reset_kernel_calls()
     yt = T.spmm(to_port(a), torch.from_numpy(x))
-    assert ops.kernel_call_counts() == {"spmm": 0, "plain": 1}
+    assert ops.kernel_call_counts() == {"spmm": 0, "classify": 0,
+                                        "plain": 1}
     assert yt.dtype == torch.float32 and tuple(yt.shape) == yj.shape
     yt = yt.numpy()
     y64 = scipy_of(a) @ x.astype(np.float64)
@@ -188,7 +194,7 @@ def test_cpu_never_launches_and_rejects_bad_operands():
     ops.reset_kernel_calls()
     ops.spmm_kernel(a, x)
     T.spmm(a, x.to(torch.float16))
-    assert K.KERNEL_CALLS == {"spmm": 0, "plain": 2}
+    assert K.KERNEL_CALLS == {"spmm": 0, "classify": 0, "plain": 2}
     with pytest.raises(ValueError, match="float32, bfloat16 or float16"):
         T.spmm(a, x.double())
     with pytest.raises(ValueError):              # wrong number of rows
@@ -196,3 +202,139 @@ def test_cpu_never_launches_and_rejects_bad_operands():
     with pytest.raises(ValueError):              # not 2-D
         T.spmm(a, x[:, 0])
     assert K.KERNEL_CALLS["spmm"] == 0
+
+
+# ---- row classes (the card's classifying kernel) and the class ladder ----
+
+
+def numpy_classes(indptr, nnz, cap):
+    """Each row's live length and class, counted with numpy: class 0 up to
+    32 live nonzeros, then one class a doubling, the last past 8,192."""
+    ip = np.asarray(indptr, np.int64)
+    live = min(int(nnz), cap)
+    length = np.maximum(np.minimum(ip[1:], live) - ip[:-1], 0)
+    cls = np.zeros(length.shape[0], np.int64)
+    for c, lo in enumerate((32, 64, 128, 256, 512, 1024, 2048, 4096, 8192),
+                           start=1):
+        cls[length > lo] = c
+    return length, cls
+
+
+def assert_classes(counts, rows, cls):
+    want = np.bincount(cls, minlength=ref.N_CLASSES)
+    assert counts.dtype == torch.int32
+    assert counts.tolist() == want.tolist()
+    for c in range(ref.N_CLASSES):
+        assert rows[c].dtype == torch.int32
+        assert rows[c].tolist() == np.flatnonzero(cls == c).tolist()
+
+
+@pytest.mark.parametrize("preset", ("ER", "G500"))
+@pytest.mark.parametrize("symmetric", (False, True), ids=("a", "sym"))
+def test_row_classes_plain_matches_numpy(preset, symmetric):
+    """R-MAT at scale 8 (and its symmetrized graph): the plain classifier
+    against a numpy count; every row lands in exactly one class."""
+    a = trmat.rmat_csr(8, 16, preset, seed=3, device="cpu")
+    if symmetric:
+        a = trmat.symmetrize(a, cap=2 * a.cap, device="cpu")
+    counts, rows = K.row_classes(a.indptr, a.nnz, a.cap)
+    _, cls = numpy_classes(a.indptr.numpy(), int(a.nnz), a.cap)
+    assert_classes(counts, rows, cls)
+    assert int(counts.sum()) == a.n_rows
+    rooms = ref.class_rooms(a.n_rows, a.cap)
+    assert all(int(n) <= r for n, r in zip(counts, rooms))
+
+
+def test_row_classes_plain_ladder():
+    """A row at every class edge (0, 1, 32, 33, ..., 255, 256, 257, ...,
+    8,193, 20,000 nonzeros), short rows between them: each rung in its
+    class."""
+    indptr, indices, data, shape, rung_rows = ladder("dyadic")
+    ip = torch.from_numpy(indptr.astype(np.int32))
+    counts, rows = ref.row_classes_plain(ip, torch.tensor(len(indices)),
+                                         len(indices))
+    _, cls = numpy_classes(indptr, len(indices), len(indices))
+    assert cls[rung_rows].tolist() == list(LADDER_CLASSES)
+    assert_classes(counts, rows, cls)
+    assert all(int(counts[c]) > 0 for c in range(ref.N_CLASSES))
+    rooms = ref.class_rooms(shape[0], len(indices))
+    assert all(int(n) <= r for n, r in zip(counts, rooms))
+
+
+def test_padded_csr_classifies_by_live_length():
+    """A row pointer that counts 5,000 slots in row 1 but a live length
+    that cuts it to 100: row 1 is a warp's row, row 2 (all past nnz) is
+    empty, row 0 (300) a block's; the garbage past nnz counts as 0 in the
+    product too."""
+    rng = np.random.default_rng(12)
+    indptr = np.array([0, 300, 5300, 5400], np.int32)
+    nnz, cap = 400, 5400
+    idx = rng.integers(0, 50, cap).astype(np.int32)
+    dat = rng.choice(VALS, cap).astype(np.float32)
+    counts, rows = ref.row_classes_plain(torch.from_numpy(indptr),
+                                         torch.tensor(nnz), cap)
+    length, cls = numpy_classes(indptr, nnz, cap)
+    assert length.tolist() == [300, 100, 0]
+    assert_classes(counts, rows, cls)
+    assert counts.tolist() == [1, 0, 1, 0, 1, 0, 0, 0, 0, 0]
+    a = J.CSR(jnp.asarray(indptr), jnp.asarray(idx), jnp.asarray(dat),
+              jnp.asarray(nnz, jnp.int32), (3, 50), False)
+    x = x_of(50, 8, "dyadic")
+    ops.reset_kernel_calls()
+    yt = T.spmm(to_port(a), torch.from_numpy(x)).numpy()
+    assert ops.kernel_call_counts() == {"spmm": 0, "classify": 0,
+                                        "plain": 1}
+    assert np.array_equal(yt, np.asarray(J.spmm(a, jnp.asarray(x))))
+    live = np.zeros((3, 50), np.float64)
+    for i in range(3):
+        for j in range(indptr[i], min(indptr[i + 1], nnz)):
+            live[i, idx[j]] += dat[j]
+    assert np.array_equal(yt, (live @ x).astype(np.float32))
+
+
+@pytest.mark.parametrize("k", (1, 64, 100))
+@pytest.mark.parametrize("values", ("dyadic", "uniform"))
+def test_ladder_spmm_matches_reference_and_scipy(values, k):
+    """The class ladder (rows to 20,000 nonzeros, repeated columns) on CPU
+    tensors: the plain version runs, nothing launches, and the values
+    match the reference's ``spmm`` and scipy (bitwise on dyadic values,
+    within one ulp per accumulated product otherwise)."""
+    indptr, indices, data, shape, _ = ladder(values, seed=k)
+    a = J.CSR(jnp.asarray(indptr.astype(np.int32)), jnp.asarray(indices),
+              jnp.asarray(data), jnp.asarray(len(indices), jnp.int32),
+              shape, False)
+    x = x_of(shape[1], k, values, seed=k)
+    ops.reset_kernel_calls()
+    yt = T.spmm(to_port(a), torch.from_numpy(x))
+    assert ops.kernel_call_counts() == {"spmm": 0, "classify": 0,
+                                        "plain": 1}
+    assert yt.dtype == torch.float32 and tuple(yt.shape) == (shape[0], k)
+    yt = yt.numpy()
+    yj = np.asarray(J.spmm(a, jnp.asarray(x)))
+    y64 = scipy_of(a) @ x.astype(np.float64)
+    if values == "dyadic":
+        assert np.array_equal(yt, yj)
+        assert np.array_equal(yt, y64.astype(np.float32))
+        return
+    counts = np.diff(indptr)
+    assert within_ulps(yt, yj.astype(np.float64), counts)
+    assert within_ulps(yt, y64, counts)
+
+
+@pytest.mark.parametrize(("k", "itemsize", "ptr", "vw", "unit"), [
+    (64, 4, 0, 2, 0),      # float32 k 64: 8-byte lanes, bulk copies
+    (64, 4, 4, 1, 4),      # X at a 4-byte offset: 4-byte lanes, registers
+    (100, 4, 0, 4, 0),     # 400-byte rows: 16-byte lanes, bulk
+    (100, 2, 0, 4, 8),     # bf16 k 100: 200-byte rows, 8-byte register copy
+    (300, 2, 0, 4, 8),     # bf16 k 300: 8 does not divide 300
+    (300, 4, 0, 4, 0),
+    (8, 4, 0, 1, 0),
+    (1, 4, 0, 1, 4),       # k 1: registers, any dtype
+    (1, 2, 0, 1, 2),
+    (64, 2, 2, 1, 2),      # bf16 X at a 2-byte offset
+])
+def test_launch_choices(k, itemsize, ptr, vw, unit):
+    """The wrapper's choices from the shape before a launch: the short
+    rows' load width and the long rows' copy path (0: bulk copies)."""
+    assert K.vector_width(k, itemsize, ptr) == vw
+    assert K.copy_unit(k, itemsize, ptr) == unit
