@@ -72,17 +72,19 @@ Phases; any failure exits non-zero:
      (the classifying kernel) made once per CSR and memoized on it, then
      one SpMM launch per call and no plain version; the kernel bitwise
      equal to its plain version, and within 1 ulp per accumulated product
-     of scipy's float64 ``A @ X`` (exactly equal on dyadic values); which
-     copy path took the long rows' X rows.  The classifying kernel's lists
-     equal to its plain version's; rows, nonzeros and the median time per
-     length class (CUDA events around a launch with the other classes'
-     counts zeroed: ``torch.profiler`` traces taken after phase 5's lose
-     kernels, and more of them here left phase 21's trace without its
-     classifying kernel), the launch shape, the longest row.  Then the
-     median times
-     of the SpMM launch, of it with the classifying kernel, of the front
-     door, beside the byte bound, the plain version and
-     ``torch.sparse.mm(A, X)``;
+     of scipy's float64 ``A @ X`` (exactly equal on dyadic values); where
+     rows pass 256 nonzeros, which copy path took their X rows.  The
+     classifying kernel's lists equal to its plain version's; rows,
+     nonzeros and the device time per length class (a launch with the
+     other classes' counts zeroed, timed back to back: one CUDA event pair
+     around 20 launches, divided by 20, beside the host's time to issue
+     one; ``torch.profiler`` traces taken after phase 5's lose kernels,
+     and more of them here left phase 21's trace without its classifying
+     kernel), the launch shape, the longest row.  Then the median
+     single-call times of the SpMM launch, of it with the classifying
+     kernel, of the front door, beside the byte bound, the plain version
+     and ``torch.sparse.mm(A, X)``, and the back-to-back times of the
+     launch and of ``torch.sparse.mm``;
   9. the paper's graph workloads (sections 5.5-5.6) on R-MAT G500 s16
      ef16, seed 1, symmetrized: the triangle count (masked L.U) equal to
      scipy's; dense (SpMM, one launch per hop, one classifying launch for
@@ -218,7 +220,8 @@ Phases; any failure exits non-zero:
  21. the hash numeric kernel's device time per table class and the
      classifying kernel's, from a ``torch.profiler`` trace of one call per
      probe mode on each phase-4 input (last: traces over the cluster
-     launches left later traces' sums short);
+     launches left later traces' sums short; a trace without the
+     classifying kernel lost records and is taken again, at most three);
  15. one ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``.
 
 Usage: ``python3 chip_smoke.py`` (one card, no arguments).  A quick first
@@ -450,6 +453,30 @@ class Smoke:
             times.append(t0.elapsed_time(t1))
         times.sort()
         return times[len(times) // 2]
+
+    def stream_ms(self, fn, launches: int = 20, reps: int = 3):
+        """(ms a call on the card, ms a call on the host): one CUDA event
+        pair around ``launches`` back-to-back calls of ``fn`` with no
+        synchronise between them, divided by ``launches`` (the host issues
+        the next call while the card runs the last, so this is the card's
+        time a call wherever that exceeds the host's), and the host's time
+        to issue one call; medians of ``reps``."""
+        torch = self.torch
+        fn()
+        torch.cuda.synchronize()
+        dev, host = [], []
+        for _ in range(reps):
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            h0 = time.perf_counter()
+            for _ in range(launches):
+                fn()
+            host.append((time.perf_counter() - h0) * 1e3 / launches)
+            t1.record()
+            t1.synchronize()
+            dev.append(t0.elapsed_time(t1) / launches)
+        return sorted(dev)[reps // 2], sorted(host)[reps // 2]
 
     def device_ms(self, fn, kernel: str):
         """Device time in ms of the CUDA kernels whose name holds
@@ -906,31 +933,38 @@ class Smoke:
                               "card": self.card, **class_ms}), flush=True)
         self.class_profiles = []
 
-    def class_device_ms(self, fn) -> dict:
+    def class_device_ms(self, fn, traces: int = 3) -> dict:
         """Device ms of one call of ``fn`` per kernel of the numeric
         path, from a ``torch.profiler`` trace: ``classify`` and each
         table class by its :data:`CLASS_NAMES` name (0 where the class
-        ran no kernel)."""
+        ran no kernel).  A trace that holds no classifying kernel lost
+        records (the kernel runs on every call), so up to ``traces`` are
+        taken, each reported, and the first that holds it is used."""
         import re
         from torch.profiler import ProfilerActivity, profile
         torch, K = self.torch, self.K
         fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        out = dict.fromkeys(("classify",) + K.CLASS_NAMES, 0.0)
-        for e in prof.key_averages():
-            us = getattr(e, "device_time_total", 0)
-            if not us:
-                continue
-            m = re.search(r"hash_class_kernel(?:<(?:true|false), "
-                          r"|ILb[01]ELi)(\d)", e.key)
-            if m:
-                out[K.CLASS_NAMES[int(m.group(1))]] += us / 1e3
-            elif "classify_kernel" in e.key:
-                out["classify"] += us / 1e3
+        for attempt in range(1, traces + 1):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            out = dict.fromkeys(("classify",) + K.CLASS_NAMES, 0.0)
+            for e in prof.key_averages():
+                us = getattr(e, "device_time_total", 0)
+                if not us:
+                    continue
+                m = re.search(r"hash_class_kernel(?:<(?:true|false), "
+                              r"|ILb[01]ELi)(\d)", e.key)
+                if m:
+                    out[K.CLASS_NAMES[int(m.group(1))]] += us / 1e3
+                elif "classify_kernel" in e.key:
+                    out["classify"] += us / 1e3
+            if out["classify"] > 0:
+                break
+            print(f"phase 21: trace {attempt} of {traces} holds no "
+                  f"classify kernel", flush=True)
         check(out["classify"] > 0, "the profiler saw no classify kernel")
         return out
 
@@ -1892,10 +1926,15 @@ class Smoke:
               f"{label} spmm dyadic: not equal to scipy's exact product")
         cases = f"k={SPMM_K}, k={SPMM_K_ODD}, bf16, dyadic" if widths else \
             f"k={SPMM_K}, dyadic"
+        length = sref.live_lengths(a.indptr, a.nnz, a.cap)
+        n_long = int((length > sref.CLASS_BOUNDS[3]).sum())
         print(f"{label} spmm: kernel bitwise equal to its plain version "
               f"({cases}), within 1 ulp per product of scipy (max abs diff "
-              f"{err}), exact on dyadic values; long rows' X rows by "
-              f"{copy_paths}", flush=True)
+              f"{err}), exact on dyadic values; " + (
+                  f"{n_long} rows past {sref.CLASS_BOUNDS[3]} nonzeros, "
+                  f"their X rows by {copy_paths}" if n_long else
+                  f"no row past {sref.CLASS_BOUNDS[3]} nonzeros"),
+              flush=True)
 
         # ---- row classes ---------------------------------------------------
         data = a.data.float()
@@ -1908,18 +1947,18 @@ class Smoke:
             for r, w in zip(rows_k, rows_p)),
               f"{label} spmm: the classifying kernel's lists differ from its "
               f"plain version's")
-        length = sref.live_lengths(a.indptr, a.nnz, a.cap)
         per_class = {}
         for c, name in enumerate(SK.CLASS_NAMES):
             rows = int(counts_p[c])
             entry = {"rows": rows,
-                     "nnz": int(length[rows_p[c].long()].sum()), "ms": 0.0}
+                     "nnz": int(length[rows_p[c].long()].sum()), "ms": 0.0,
+                     "host_ms": 0.0}
             if rows:
                 mask = torch.zeros(len(SK.CLASS_NAMES), dtype=torch.int32,
                                    device=self.dev)
                 mask[c] = 1
                 only = SK.RowClasses(cls.counts * mask, cls.lists)
-                entry["ms"] = self.time_ms(
+                entry["ms"], entry["host_ms"] = self.stream_ms(
                     lambda: SK.spmm_call(*args, classes=only))
             per_class[name] = entry
         vw = SK.vector_width(SPMM_K, 4, x.data_ptr())
@@ -1950,6 +1989,11 @@ class Smoke:
                  lambda: SK.classify(a.indptr, a.nnz, a.cap)),
              "plain_classify": self.time_ms(
                  lambda: sref.row_classes_plain(a.indptr, a.nnz, a.cap))}
+        # back to back: the card's time a call, and the host's to issue one
+        t["kernel_stream"], t["kernel_host"] = self.stream_ms(
+            lambda: SK.spmm_call(*args, classes=cls))
+        t["torch_sparse_mm_stream"], t["torch_sparse_mm_host"] = \
+            self.stream_ms(lambda: torch.sparse.mm(sp, x))
         print(json.dumps({"timing": f"{label} spmm", "card": self.card,
                           "m": m, "n": n, "nnz_a": nnz, "k": SPMM_K,
                           "max_row_nnz": max_row, "ms": t,

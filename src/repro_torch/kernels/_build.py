@@ -105,10 +105,14 @@ def load(source: Path, functions: dict) -> dict:
 
 def check_tensor(name, t, dtype, device) -> None:
     """Raise ``ValueError`` unless ``t`` is a contiguous ``dtype`` tensor
-    on ``device`` -- what a kernel's plain C interface takes."""
-    if t.device != device or t.dtype != dtype or not t.is_contiguous():
+    on the CUDA device ``device`` (a ``torch.device`` with an index, or the
+    index) -- what a kernel's plain C interface takes.  Compares device
+    indices, not device objects: the check is part of every launch's host
+    time."""
+    index = device if isinstance(device, int) else device.index
+    if t.get_device() != index or t.dtype != dtype or not t.is_contiguous():
         raise ValueError(f"{name}: want a contiguous {dtype} tensor on "
-                         f"{device}, got {t.dtype} on {t.device}")
+                         f"cuda:{index}, got {t.dtype} on {t.device}")
 
 
 def member_stride(name, t, dim: int, n: int) -> int:

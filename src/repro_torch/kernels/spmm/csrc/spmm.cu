@@ -53,16 +53,19 @@
 //       - with cp.async.bulk (1-D TMA), one copy a row, completion on the
 //         stage's mbarrier through expect_tx, where X and its rows are
 //         16-byte aligned;
-//       - else with cp.async of 4 or 8 bytes a lane (X and its rows 4-byte
-//         aligned: bf16 and f16 at k = 100, float32 at k = 1 or at an
-//         unaligned X), reported by cp.async.mbarrier.arrive.noinc;
-//       - else through registers, 2 bytes a lane (16-bit X at an odd k or
-//         a 2-byte offset).
-//     The host picks the path from k, the dtype and X's address before the
-//     launch.  Each consumer lane owns kCols (2) adjacent columns of a
-//     256-column strip (one 8- or 4-byte shared load a slot feeds two
-//     independent sums) and adds the stage's slots in order; wider k walks
-//     the row once per strip, so shared memory stays the same for any k.
+//       - else through registers (bf16 and f16 at k = 100, any dtype at
+//         k = 1, an X not 16-byte aligned): 2-byte loads, eight a lane in
+//         flight, then shared stores, reported by the lanes' arrivals.
+//         Wider loads (the widest of 8, 4, 2 bytes the row allows) took
+//         registers from the whole kernel: it spilled, and the bulk-copy
+//         launch on the symmetrized G500 s16 graph went from 0.14 to 0.27
+//         ms on an H100.
+//     The host picks the path from k, the dtype and X's address before
+//     the launch.  Each consumer lane owns
+//     kCols (2) adjacent columns of a 256-column strip (one 8- or 4-byte
+//     shared load a slot feeds two independent sums) and adds the stage's
+//     slots in order; wider k walks the row once per strip, so shared
+//     memory stays the same for any k.
 //     Every stage has a full and an empty mbarrier, waited on with an
 //     explicit phase parity from the block's running stage count (see
 //     consume for why a parity is never ambiguous); consumer warps with no
@@ -189,19 +192,12 @@ __device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src,
       : "memory");
 }
 
-// Ampere-style asynchronous copies of 4, 8 or 16 bytes a thread; a
-// thread's copies are grouped by commit and waited on by group, or reported
-// to an mbarrier as one arrival when they have all landed.
-template <int U>
-__device__ __forceinline__ void async_copy(uint32_t dst, const void* src) {
-  if constexpr (U == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;"
-                 :: "r"(dst), "l"(reinterpret_cast<uint64_t>(src))
-                 : "memory");
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;"
-                 :: "r"(dst), "l"(reinterpret_cast<uint64_t>(src)), "n"(U)
-                 : "memory");
+// Ampere-style asynchronous 4-byte copies (the producers' column ids and
+// values), grouped by commit and waited on by group.
+__device__ __forceinline__ void async_copy4(uint32_t dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;"
+               :: "r"(dst), "l"(reinterpret_cast<uint64_t>(src))
+               : "memory");
 }
 __device__ __forceinline__ void async_commit() {
   asm volatile("cp.async.commit_group;" ::: "memory");
@@ -209,10 +205,6 @@ __device__ __forceinline__ void async_commit() {
 template <int N>
 __device__ __forceinline__ void async_wait() {
   asm volatile("cp.async.wait_group %0;" :: "n"(N) : "memory");
-}
-__device__ __forceinline__ void async_arrive(uint32_t bar) {
-  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];"
-               :: "r"(bar) : "memory");
 }
 
 __device__ __forceinline__ float load_f(const float* p) { return *p; }
@@ -316,41 +308,10 @@ __device__ __forceinline__ void store_vec(T* p, const float (&v)[VW]) {
   }
 }
 
-// The producer's copies of a stage's X rows by cp.async (4 or 8 bytes a
-// lane; 16-byte-aligned rows take bulk copies): rows q < cnt, upr units of U bytes each, from X row col
-// (held by lane q) at byte offset off, into the stage's rows of pitch
-// bytes.  A row of fewer than 32 units takes rpp = 32 / upr rows a warp
-// step, lane (qo, u) = (lane / upr, lane % upr), both set once a pass; a
-// longer row takes the lanes over its units.  Reported to the stage's full
-// barrier by async_arrive.
-template <int U>
-__device__ __forceinline__ void async_rows(
-    unsigned char* stage, int pitch, int col, int cnt,
-    const unsigned char* x, size_t row_stride, size_t off, int upr, int rpp,
-    int qo, int u, int lane) {
-  if (upr >= 32) {
-    for (int q = 0; q < cnt; ++q) {
-      const int c = __shfl_sync(kFull, col, q);
-      const unsigned char* src = x + c * row_stride + off;
-      for (int v = lane; v < upr; v += 32)
-        async_copy<U>(smem_u32(stage + q * pitch + v * U), src + v * U);
-    }
-    return;
-  }
-  const int steps = (cnt + rpp - 1) / rpp;
-#pragma unroll 8
-  for (int t = 0; t < steps; ++t) {
-    const int q = qo + t * rpp;
-    const int c = __shfl_sync(kFull, col, q & 31);
-    if (qo < rpp && q < cnt)
-      async_copy<U>(smem_u32(stage + q * pitch + u * U),
-                    x + c * row_stride + off + u * U);
-  }
-}
-
-// The producer's copies of 16-bit X rows at an odd k or a 2-byte offset:
-// 2-byte loads into registers, eight a lane in flight, then shared stores;
-// lanes over the units of each row q < cnt (column ids from cols).
+// The producer's copies of a stage's X rows where bulk copies cannot take
+// them: 2-byte loads into registers, eight a lane in flight, then shared
+// stores; lanes over the upr units of each row q < cnt, from X row
+// cols[q] at byte offset off, into the stage's rows of pitch bytes.
 __device__ __forceinline__ void register_rows(
     unsigned char* stage, int pitch, const int* cols, int cnt,
     const unsigned char* x, size_t row_stride, size_t off, int upr,
@@ -425,7 +386,7 @@ __device__ int long_row(int t, int m, int cap, const int* counts,
 // stands between the warp and its next copies.
 template <typename T>
 __device__ __forceinline__ void produce(
-    int p0, int p1, int c0, int w, int k, int n, int unit, int rows_a_stage,
+    int p0, int p1, int c0, int w, int k, int n, int bulk, int rows_a_stage,
     int pitch, uint32_t it, int pw, unsigned char* ring, float* vals,
     int* colsm, int* idc, float* idv, uint64_t* full, uint64_t* empty,
     const int* __restrict__ indices, const float* __restrict__ data,
@@ -433,11 +394,6 @@ __device__ __forceinline__ void produce(
   const int S = rows_a_stage;
   const int n_stages = (p1 - p0 + S - 1) / S;
   const int row_bytes = w * static_cast<int>(sizeof(T));
-  // the copy units of a row without bulk copies, and this lane's share
-  const int upr = unit ? row_bytes / unit : 0;
-  const int rpp = upr && upr < 32 ? 32 / upr : 1;
-  const int qo = upr && upr < 32 ? lane / upr : 0;
-  const int uo = upr && upr < 32 ? lane % upr : 0;
   // this warp's t-th stage of the pass is j = j0 + t * kProducerWarps
   const int j0 = (pw - static_cast<int>(it % kProducerWarps) +
                   kProducerWarps) % kProducerWarps;
@@ -446,8 +402,8 @@ __device__ __forceinline__ void produce(
     const int q = p0 + j * S + lane;
     if (j < n_stages && lane < S && q < p1) {
       const int slot = (t % kIdStages) * 32 + lane;
-      async_copy<4>(smem_u32(idc + slot), indices + q);
-      async_copy<4>(smem_u32(idv + slot), data + q);
+      async_copy4(smem_u32(idc + slot), indices + q);
+      async_copy4(smem_u32(idv + slot), data + q);
     }
     async_commit();
   };
@@ -468,7 +424,7 @@ __device__ __forceinline__ void produce(
     __syncwarp();
     const uint32_t bar = smem_u32(full + s);
     unsigned char* stage = ring + s * kStageBytes;
-    if (unit == 0) {
+    if (bulk) {
       if (lane == 0) mbar_arrive_tx(bar, cnt * row_bytes);
       __syncwarp();
       if (lane < cnt)
@@ -479,22 +435,9 @@ __device__ __forceinline__ void produce(
       const unsigned char* xb = reinterpret_cast<const unsigned char*>(x);
       const size_t stride = static_cast<size_t>(k) * sizeof(T);
       const size_t off = static_cast<size_t>(c0) * sizeof(T);
-      switch (unit) {
-        case 8:
-          async_rows<8>(stage, pitch, col, cnt, xb, stride, off, upr, rpp,
-                        qo, uo, lane);
-          break;
-        case 4:
-          async_rows<4>(stage, pitch, col, cnt, xb, stride, off, upr, rpp,
-                        qo, uo, lane);
-          break;
-        default:
-          register_rows(stage, pitch, colsm + s * 32, cnt, xb, stride, off,
-                        upr, lane);
-          break;
-      }
+      register_rows(stage, pitch, colsm + s * 32, cnt, xb, stride, off,
+                    row_bytes / 2, lane);
       mbar_arrive(bar, 1);
-      if (unit != 2) async_arrive(bar);
     }
     fetch(t + kIdStages);  // into the slot this lane just read
   }
@@ -557,7 +500,7 @@ __device__ __forceinline__ void consume(
 
 template <typename T, int VW>
 __global__ void __launch_bounds__(kThreads, kMinBlocks) spmm_kernel(
-    int m, int n, int k, int cap, int unit, const int* __restrict__ nnz,
+    int m, int n, int k, int cap, int bulk, const int* __restrict__ nnz,
     const int* __restrict__ indptr, const int* __restrict__ indices,
     const float* __restrict__ data, const T* __restrict__ x,
     T* __restrict__ y, const int* __restrict__ counts,
@@ -580,9 +523,8 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) spmm_kernel(
   // ---- long rows: the whole block a row, longest class first ----------
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s) {
-      // the producer's lanes arrive once a stage, and on the cp.async
-      // path once more each when their copies land
-      mbar_init(smem_u32(full + s), unit == 0 || unit == 2 ? 32 : 64);
+      // the producer's lanes arrive once a stage
+      mbar_init(smem_u32(full + s), 32);
       mbar_init(smem_u32(empty + s), kConsumerWarps);
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
@@ -604,7 +546,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) spmm_kernel(
       const int w = min(kStrip, k - c0);
       const int cw = warp - kProducerWarps;
       if (cw < 0)
-        produce<T>(p0, p1, c0, w, k, n, unit, rows_a_stage, pitch, it, warp,
+        produce<T>(p0, p1, c0, w, k, n, bulk, rows_a_stage, pitch, it, warp,
                    ring, vals, colsm, idc + warp * kIdStages * 32,
                    idv + warp * kIdStages * 32, full, empty, indices, data,
                    x, lane);
@@ -821,15 +763,13 @@ extern "C" int spmm_shape(int dtype, int vw, int* out) {
 // y (m, k) = A (m, n; CSR with cap slots, nnz live on the device) @ x
 // (n, k).  dtype: 0 float32, 1 bfloat16, 2 float16 (x and y alike); data
 // is float32.  vw: X elements a lane loads at once on short rows (k a
-// multiple of it, x aligned to vw elements).  unit: 0 for bulk copies of
-// long rows' X rows (x and k * sizeof(T) 16-byte aligned), else the
-// bytes a lane's copy moves at once, dividing k * sizeof(T) and x's
-// address: 4 or 8 by cp.async, 2 through registers.  counts and lists: classify_kernel's for
-// this indptr, nnz and cap (lists list_length long, checked); pops:
-// two counters, zeroed here on the stream before the launch.  m, n, k >=
-// 1.  One launch: the grid is the card's resident blocks, at most one a
-// chunk of short rows.
-extern "C" int spmm_launch(int dtype, int vw, int unit, int m, int n, int k,
+// multiple of it, x aligned to vw elements).  bulk: 1 for bulk copies of
+// long rows' X rows (x and k * sizeof(T) 16-byte aligned), 0 for the
+// register path.  counts and lists: classify_kernel's for this indptr, nnz
+// and cap (lists list_length long, checked); pops: two counters, zeroed
+// here on the stream before the launch.  m, n, k >= 1.  One launch: the
+// grid is the card's resident blocks, at most one a chunk of short rows.
+extern "C" int spmm_launch(int dtype, int vw, int bulk, int m, int n, int k,
                            int cap, long long list_length, const int* nnz,
                            const int* indptr, const int* indices,
                            const float* data, const void* x, void* y,
@@ -839,7 +779,7 @@ extern "C" int spmm_launch(int dtype, int vw, int unit, int m, int n, int k,
   const void* fn = pick(dtype, vw, &index);
   if (fn == nullptr || m < 1 || n < 1 || k < 1 ||
       list_length != class_offset(kClasses, m, cap) ||
-      (unit != 0 && unit != 2 && unit != 4 && unit != 8))
+      (bulk != 0 && bulk != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   int per_sm = 0, sms = 0;
   int err = resident(fn, index, &per_sm, &sms);
@@ -849,7 +789,7 @@ extern "C" int spmm_launch(int dtype, int vw, int unit, int m, int n, int k,
   if (err) return err;
   const int chunks = (m + kChunk - 1) / kChunk;
   const int grid = max(1, min(per_sm * sms, chunks));
-  void* args[] = {&m, &n, &k, &cap, &unit, &nnz, &indptr, &indices, &data,
+  void* args[] = {&m, &n, &k, &cap, &bulk, &nnz, &indptr, &indices, &data,
                   &x, &y, &counts, &lists, &pops};
   err = static_cast<int>(cudaLaunchKernel(fn, dim3(grid), dim3(kThreads),
                                           args, kSmemBytes, s));

@@ -4,15 +4,15 @@
 ``repro/kernels/spmm/kernel.py``; its header gives the design.  A
 classifying kernel (which replaces no TPU kernel) lists the rows by live
 length on the device in ``ref.N_CLASSES`` power-of-two classes: rows of at
-most 256 nonzeros take a warp each, longer rows a whole block each.  Then one persistent launch takes the block rows first,
-longest class first (four producer warps bring the X rows into a ring in
-shared memory -- by bulk copies, ``cp.async`` or registers as the shape
-allows -- and consumer warps over k add in slot order), then the warp
-rows, longest class first.  Nothing is read back to the host: the grid is
-the card's resident blocks, and blocks and warps pop rows with atomic
-counters.  The kernels are built like the others
-(:mod:`repro_torch.kernels._build`): ``nvcc`` for ``sm_90a`` at first
-use, a plain C interface, ``ctypes``.
+most 256 nonzeros take a warp each, longer rows a whole block each.  Then
+one persistent launch takes the block rows first, longest class first
+(four producer warps bring the X rows into a ring in shared memory -- by
+bulk copies or through registers as the shape allows -- and consumer warps
+over k add in slot order), then the warp rows, longest class first.
+Nothing is read back to the host: the grid is the card's resident blocks,
+and blocks and warps pop rows with atomic counters.  The kernels are built
+like the others (:mod:`repro_torch.kernels._build`): ``nvcc`` for
+``sm_90a`` at first use, a plain C interface, ``ctypes``.
 
 :func:`spmm_call` takes the kernel's arguments and, optionally, the row
 lists (:func:`classify`; ``ops.spmm_kernel`` memoizes them on the CSR).
@@ -39,10 +39,9 @@ KERNEL_CALLS = {"spmm": 0, "classify": 0, "plain": 0}
 #: How the SpMM launches bring long rows' X rows into shared memory, one
 #: count a launch, picked from the shape and X's address before the launch:
 #: ``bulk`` (``cp.async.bulk``, 1-D TMA) where X and its rows are 16-byte
-#: aligned; else ``async`` (``cp.async`` of 4, 8 or 16 bytes a lane) where
-#: they are 4-byte aligned; else ``register`` (2-byte loads and shared
-#: stores: 16-bit X at an odd k, or X at a 2-byte offset).
-COPY_PATHS = {"bulk": 0, "async": 0, "register": 0}
+#: aligned, else ``register`` (2-byte loads into registers, then shared
+#: stores).
+COPY_PATHS = {"bulk": 0, "register": 0}
 
 #: X's dtypes the kernel takes, with their code in the C interface.
 DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -84,15 +83,6 @@ def _stream(dev):
     return torch.cuda.current_stream(dev).cuda_stream
 
 
-def _check_on_card(name, t, dtype, index: int) -> None:
-    """``_build.check_tensor`` for the per-call path: compares the device
-    index, not device objects (the checks are part of each call's host
-    time, which a CUDA-event time of one call includes)."""
-    if t.dtype != dtype or t.get_device() != index or not t.is_contiguous():
-        raise ValueError(f"{name}: want a contiguous {dtype} tensor on "
-                         f"cuda:{index}, got {t.dtype} on {t.device}")
-
-
 def vector_width(k: int, itemsize: int, ptr: int) -> int:
     """X elements a lane loads at once on a short row: the least power of
     two with 32 of them covering k, at most 16 bytes, halved until it
@@ -105,15 +95,10 @@ def vector_width(k: int, itemsize: int, ptr: int) -> int:
     return vw
 
 
-def copy_unit(k: int, itemsize: int, ptr: int) -> int:
-    """How long rows' X rows reach shared memory: 0 for bulk copies (X's
-    address and its rows 16-byte aligned), else the bytes a lane's copy
-    moves at once, the largest of 16, 8, 4, 2 dividing both (2: through
-    registers, else ``cp.async``)."""
-    row = k * itemsize
-    if row % 16 == 0 and ptr % 16 == 0:
-        return 0
-    return next(u for u in (16, 8, 4, 2) if row % u == 0 and ptr % u == 0)
+def bulk_copies(k: int, itemsize: int, ptr: int) -> bool:
+    """Whether long rows' X rows reach shared memory by bulk copies (X's
+    address and its rows 16-byte aligned), else through registers."""
+    return (k * itemsize) % 16 == 0 and ptr % 16 == 0
 
 
 def launch_shape(dtype: torch.dtype = torch.float32, vw: int = 1) -> dict:
@@ -210,7 +195,7 @@ def spmm_call(indptr, indices, data, x, nnz,
                            ("nnz", nnz, torch.int32),
                            ("data", data, torch.float32),
                            ("x", x, x.dtype)):
-        _check_on_card(name, t, dtype, index)
+        _build.check_tensor(name, t, dtype, index)
     m = indptr.shape[0] - 1
     n, k = x.shape
     cap = indices.shape[0]
@@ -219,18 +204,19 @@ def spmm_call(indptr, indices, data, x, nnz,
     build()
     if classes is None:
         classes = classify(indptr, nnz, cap)
-    _check_on_card("classes.counts", classes.counts, torch.int32, index)
-    _check_on_card("classes.lists", classes.lists, torch.int32, index)
+    _build.check_tensor("classes.counts", classes.counts, torch.int32,
+                        index)
+    _build.check_tensor("classes.lists", classes.lists, torch.int32, index)
     if classes.counts.shape != (ref.N_CLASSES,):
         raise ValueError(f"classes.counts must be ({ref.N_CLASSES},), got "
                          f"{tuple(classes.counts.shape)}")
     itemsize = x.element_size()
     vw = vector_width(k, itemsize, x.data_ptr())
-    unit = copy_unit(k, itemsize, x.data_ptr())
+    bulk = bulk_copies(k, itemsize, x.data_ptr())
     y = torch.empty((m, k), dtype=x.dtype, device=dev)
     pops = torch.empty(2, dtype=torch.int32, device=dev)
     err = _lib.spmm_launch(
-        DTYPES[x.dtype], vw, unit, m, n, k, cap, classes.lists.shape[0],
+        DTYPES[x.dtype], vw, int(bulk), m, n, k, cap, classes.lists.shape[0],
         nnz.data_ptr(), indptr.data_ptr(), indices.data_ptr(),
         data.data_ptr(), x.data_ptr(), y.data_ptr(), classes.counts.data_ptr(),
         classes.lists.data_ptr(), pops.data_ptr(),
@@ -238,6 +224,5 @@ def spmm_call(indptr, indices, data, x, nnz,
     if err != 0:
         raise RuntimeError(f"spmm launch failed: CUDA error {err}")
     KERNEL_CALLS["spmm"] += 1
-    COPY_PATHS["bulk" if unit == 0 else "register" if unit == 2
-               else "async"] += 1
+    COPY_PATHS["bulk" if bulk else "register"] += 1
     return y

@@ -975,8 +975,7 @@ def test_spmm_ladder_every_class_and_copy_path(cuda, k, dtype):
     the classifying kernel puts rows in every class (its lists equal the
     plain classifier's), one SpMM launch takes them all, and the launch
     brought the long rows' X rows in by bulk copies where X's rows are a
-    multiple of 16 bytes, by ``cp.async`` where they are a multiple of 4,
-    else through registers."""
+    multiple of 16 bytes, else through registers."""
     from repro_torch.kernels.spmm import kernel as SK
     from repro_torch.kernels.spmm import ops as sops
     from repro_torch.kernels.spmm import ref as sref
@@ -988,9 +987,8 @@ def test_spmm_ladder_every_class_and_copy_path(cuda, k, dtype):
     torch.cuda.synchronize()
     assert SK.KERNEL_CALLS == {"spmm": 1, "classify": 1, "plain": 0}
     row = k * x.element_size()
-    path = "bulk" if row % 16 == 0 else "async" if row % 4 == 0 \
-        else "register"
-    assert SK.COPY_PATHS == {"bulk": 0, "async": 0, "register": 0, path: 1}
+    path = "bulk" if row % 16 == 0 else "register"
+    assert SK.COPY_PATHS == {"bulk": 0, "register": 0, path: 1}
     assert y.dtype == dtype and tuple(y.shape) == (a.n_rows, k)
     assert torch.equal(y, sref.spmm_plain(a.indptr, a.indices, a.data, x,
                                           a.nnz))
@@ -1003,14 +1001,13 @@ def test_spmm_ladder_every_class_and_copy_path(cuda, k, dtype):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize(("dtype", "offset", "path"), [
-    (torch.float32, 4, "async"), (torch.bfloat16, 4, "async"),
-    (torch.bfloat16, 2, "register")], ids=("f32-4", "bf16-4", "bf16-2"))
-def test_spmm_unaligned_x_skips_bulk_copies(cuda, dtype, offset, path):
+@pytest.mark.parametrize(("dtype", "offset"), [
+    (torch.float32, 4), (torch.bfloat16, 4), (torch.bfloat16, 2)],
+    ids=("f32-4", "bf16-4", "bf16-2"))
+def test_spmm_unaligned_x_skips_bulk_copies(cuda, dtype, offset):
     """X at a 4- or 2-byte offset (k 64): not 16-byte aligned, so the long
-    rows' X rows come by ``cp.async`` or, at a 2-byte offset, through
-    registers, and the short rows load 4 or 2 bytes a lane; bitwise
-    against the plain version."""
+    rows' X rows come through registers, and the short rows load 4 or 2
+    bytes a lane; bitwise against the plain version."""
     from repro_torch.kernels.spmm import kernel as SK
     from repro_torch.kernels.spmm import ops as sops
     from repro_torch.kernels.spmm import ref as sref
@@ -1022,13 +1019,13 @@ def test_spmm_unaligned_x_skips_bulk_copies(cuda, dtype, offset, path):
     x.copy_(torch.from_numpy(np.random.default_rng(4).uniform(
         -1, 1, (n, k)).astype(np.float32)).to(dtype))
     assert x.data_ptr() % 16 == offset and x.is_contiguous()
-    assert SK.copy_unit(k, x.element_size(), x.data_ptr()) == offset
+    assert not SK.bulk_copies(k, x.element_size(), x.data_ptr())
     assert SK.vector_width(k, x.element_size(), x.data_ptr()) \
         * x.element_size() == offset
     sops.reset_kernel_calls()
     y = sops.spmm_kernel(a, x)
     torch.cuda.synchronize()
-    assert SK.COPY_PATHS == {"bulk": 0, "async": 0, "register": 0, path: 1}
+    assert SK.COPY_PATHS == {"bulk": 0, "register": 1}
     assert torch.equal(y, sref.spmm_plain(a.indptr, a.indices, a.data, x,
                                           a.nnz))
 

@@ -321,20 +321,21 @@ def test_ladder_spmm_matches_reference_and_scipy(values, k):
     assert within_ulps(yt, y64, counts)
 
 
-@pytest.mark.parametrize(("k", "itemsize", "ptr", "vw", "unit"), [
-    (64, 4, 0, 2, 0),      # float32 k 64: 8-byte lanes, bulk copies
-    (64, 4, 4, 1, 4),      # X at a 4-byte offset: 4-byte lanes, registers
-    (100, 4, 0, 4, 0),     # 400-byte rows: 16-byte lanes, bulk
-    (100, 2, 0, 4, 8),     # bf16 k 100: 200-byte rows, 8-byte register copy
-    (300, 2, 0, 4, 8),     # bf16 k 300: 8 does not divide 300
-    (300, 4, 0, 4, 0),
-    (8, 4, 0, 1, 0),
-    (1, 4, 0, 1, 4),       # k 1: registers, any dtype
-    (1, 2, 0, 1, 2),
-    (64, 2, 2, 1, 2),      # bf16 X at a 2-byte offset
+@pytest.mark.parametrize(("k", "itemsize", "ptr", "vw", "bulk"), [
+    (64, 4, 0, 2, True),      # float32 k 64: 8-byte lanes, bulk copies
+    (64, 4, 4, 1, False),     # X at a 4-byte offset: 4-byte lanes, registers
+    (100, 4, 0, 4, True),     # 400-byte rows: 16-byte lanes, bulk
+    (100, 2, 0, 4, False),    # bf16 k 100: 200-byte rows, registers
+    (300, 2, 0, 4, False),    # bf16 k 300: 600-byte rows, registers
+    (300, 4, 0, 4, True),
+    (8, 4, 0, 1, True),
+    (1, 4, 0, 1, False),      # k 1: registers, any dtype
+    (1, 2, 0, 1, False),
+    (64, 2, 2, 1, False),     # bf16 X at a 2-byte offset
 ])
-def test_launch_choices(k, itemsize, ptr, vw, unit):
+def test_launch_choices(k, itemsize, ptr, vw, bulk):
     """The wrapper's choices from the shape before a launch: the short
-    rows' load width and the long rows' copy path (0: bulk copies)."""
+    rows' load width and the long rows' copy path (bulk copies or
+    registers)."""
     assert K.vector_width(k, itemsize, ptr) == vw
-    assert K.copy_unit(k, itemsize, ptr) == unit
+    assert K.bulk_copies(k, itemsize, ptr) is bulk

@@ -32,9 +32,10 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import sys
 from pathlib import Path
+
+import _timing
 
 ROOT = Path(__file__).resolve().parents[1]
 SCALES = {"ER": 18, "G500": 16}
@@ -45,18 +46,7 @@ MOE = dict(n_experts=128, top_k=8, tokens=16384, d_model=2048,
 
 
 def time_ms(torch, fn) -> float:
-    for _ in range(WARM):
-        fn()
-    times = []
-    for _ in range(REPS):
-        t0 = torch.cuda.Event(enable_timing=True)
-        t1 = torch.cuda.Event(enable_timing=True)
-        t0.record()
-        fn()
-        t1.record()
-        t1.synchronize()
-        times.append(t0.elapsed_time(t1))
-    return sorted(times)[REPS // 2]
+    return _timing.median_ms(torch, fn, REPS, WARM)
 
 
 def main() -> int:
@@ -79,10 +69,7 @@ def main() -> int:
     from repro_torch.data import rmat
     from repro_torch.kernels.spgemm_hash import kernel as K
     from repro_torch.kernels.spgemm_hash import ops
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip().splitlines()[0]
+    card = _timing.card()
     K.build()
     numeric_op = getattr(ops, "numeric_op", None)
     dev = torch.device("cuda")

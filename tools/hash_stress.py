@@ -22,9 +22,10 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import sys
 from pathlib import Path
+
+import _timing
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -46,10 +47,7 @@ def main() -> int:
     from repro_torch.data import rmat
     from repro_torch.kernels.spgemm_hash import kernel as K
     from repro_torch.kernels.spgemm_hash import ref
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip().splitlines()[0]
+    card = _timing.card()
     dev = torch.device("cuda")
     a = rmat.rmat_csr(16, 16, "G500", seed=0, device=dev)
     plan = core.plan_spgemm(a, a, algorithm="hash")

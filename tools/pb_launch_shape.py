@@ -28,28 +28,17 @@ from __future__ import annotations
 
 import contextlib
 import json
-import subprocess
 import sys
 from pathlib import Path
+
+import _timing
 
 ROOT = Path(__file__).resolve().parents[1]
 REPS = 15
 
 
 def median_ms(torch, fn, reps: int = REPS) -> float:
-    for _ in range(2):
-        fn()
-    times = []
-    for _ in range(reps):
-        t0 = torch.cuda.Event(enable_timing=True)
-        t1 = torch.cuda.Event(enable_timing=True)
-        t0.record()
-        fn()
-        t1.record()
-        t1.synchronize()
-        times.append(t0.elapsed_time(t1))
-    times.sort()
-    return times[len(times) // 2]
+    return _timing.median_ms(torch, fn, reps)
 
 
 def main() -> int:
@@ -62,10 +51,7 @@ def main() -> int:
     from repro_torch.data import rmat
     from repro_torch.kernels.spgemm_pb import kernel as K
 
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip().splitlines()[0]
+    card = _timing.card()
     print(card, flush=True)
     a = rmat.rmat_csr(18, 16, "ER", seed=0, device=torch.device("cuda"))
     p = core.plan_pb(a, a)

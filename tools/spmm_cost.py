@@ -4,7 +4,7 @@
 On ``chip_smoke.py``'s two SpMM inputs (phase 8: R-MAT ER s18 ef16, seed
 0; phase 9's graph: R-MAT G500 s16 ef16, seed 1, symmetrized), with X
 ``(n, 64)`` float32 uniform in [0.5, 1.5) from seed 2, prints the median
-CUDA-event times (``--reps`` runs after 2 warm-ups) of:
+single-call CUDA-event times (``--reps`` runs after 2 warm-ups) of:
 
 * ``kernel``: the SpMM launch alone -- ``kernel.spmm_call`` with the row
   lists made beforehand, where the tree has a classifying kernel, else
@@ -17,8 +17,12 @@ CUDA-event times (``--reps`` runs after 2 warm-ups) of:
 * on the graph, ``dense_bfs``: ``multi_source_bfs`` from 64 sources over 6
   hops (one SpMM a hop);
 
-and the spread of the kernel's runs (min, max).  Each result is checked
-bitwise against the tree's plain version once.
+and the spread of the kernel's runs (min, max).  A single call's time
+holds the wrapper's host work; ``stream_ms`` gives the card's time a call
+for ``kernel`` and ``torch_sparse_mm`` (20 calls back to back inside one
+CUDA event pair, divided by 20) and ``host_ms`` the host's time to issue
+one.  Each result is checked bitwise against the tree's plain version
+once.
 
 ``--src`` names the tree's ``src`` directory, so two trees (a parent and
 its change, unpacked with ``git archive`` into a directory that
@@ -33,14 +37,15 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import sys
 from pathlib import Path
 
 import numpy as np
 
+import _timing
+
 ROOT = Path(__file__).resolve().parents[1]
-K, WARM = 64, 2
+K = 64
 
 
 def main() -> int:
@@ -60,25 +65,11 @@ def main() -> int:
     from repro_torch.examples import graph_analytics as ga
     from repro_torch.kernels.spmm import kernel as SK
     from repro_torch.kernels.spmm import ref as sref
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip().splitlines()[0]
+    card = _timing.card()
     dev = torch.device("cuda")
 
     def times(fn):
-        for _ in range(WARM):
-            fn()
-        out = []
-        for _ in range(args.reps):
-            t0 = torch.cuda.Event(enable_timing=True)
-            t1 = torch.cuda.Event(enable_timing=True)
-            t0.record()
-            fn()
-            t1.record()
-            t1.synchronize()
-            out.append(t0.elapsed_time(t1))
-        return sorted(out)
+        return _timing.event_times(torch, fn, args.reps)
 
     for name in args.inputs.split(","):
         if name == "ER":
@@ -114,6 +105,10 @@ def main() -> int:
         ms["spmm"] = t[len(t) // 2]
         t = times(lambda: torch.sparse.mm(sp, x))
         ms["torch_sparse_mm"] = t[len(t) // 2]
+        stream, host = {}, {}
+        stream["kernel"], host["kernel"] = _timing.stream_ms(torch, kernel)
+        stream["torch_sparse_mm"], host["torch_sparse_mm"] = \
+            _timing.stream_ms(torch, lambda: torch.sparse.mm(sp, x))
         if name != "ER":
             sources = np.random.default_rng(0).choice(
                 n, 64, replace=False).tolist()
@@ -123,7 +118,8 @@ def main() -> int:
             "label": args.label, "input": name, "card": card,
             "m": a.n_rows, "nnz": nnz, "k": K,
             "max_row_nnz": int((a.indptr[1:] - a.indptr[:-1]).max()),
-            "reps": args.reps, "ms": ms,
+            "reps": args.reps, "ms": ms, "stream_ms": stream,
+            "host_ms": host,
             "kernel_spread_ms": [k_times[0], k_times[-1]]}), flush=True)
         del a, x, sp
         torch.cuda.empty_cache()

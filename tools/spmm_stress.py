@@ -9,7 +9,7 @@ lists made once by the classifying kernel as the front door memoizes
 them, and compares
 each call bitwise with the plain version (computed once a case).  Cases:
 ``f32_k64`` (X float32, k 64: long rows' X rows by bulk copies) and
-``bf16_k100`` (X bfloat16, k 100: 200-byte rows, by ``cp.async``).  A wrong
+``bf16_k100`` (X bfloat16, k 100: 200-byte rows, through registers).  A wrong
 call prints the rows that differ, with their length class and live
 length.  A race that a single ``chip_smoke.py`` call can miss (a late
 lane a barrier behind, a ring slot read before it filled) shows here as a
@@ -25,11 +25,12 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import sys
 from pathlib import Path
 
 import numpy as np
+
+import _timing
 
 ROOT = Path(__file__).resolve().parents[1]
 CASES = {"f32_k64": ("float32", 64), "bf16_k100": ("bfloat16", 100)}
@@ -49,10 +50,7 @@ def main() -> int:
     from repro_torch.data import rmat
     from repro_torch.kernels.spmm import kernel as SK
     from repro_torch.kernels.spmm import ref as sref
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip().splitlines()[0]
+    card = _timing.card()
     dev = torch.device("cuda")
     g = rmat.rmat_csr(16, 16, "G500", seed=1, device=dev)
     a = rmat.symmetrize(g, cap=2 * g.cap, device=dev)
