@@ -50,8 +50,8 @@ Phases; any failure exits non-zero:
      custom op (``scatter_op``, ``merge_op``: the op's own cost);
   7. block-sparse products (BCSR, 8x8 tiles): an R-MAT pattern over the
      block grid with every occupied tile dense -- ER at scale 13 (n =
-     65,536, 65,501 tiles, table in shared memory) and G500 at scale 10
-     (a 2,048-slot table in global memory), edge factor 8, seed 0.
+     65,536, 65,501 tiles) and G500 at scale 10 (2,048-slot tables, a hub
+     row of 245 A blocks), edge factor 8, seed 0.
      ``plan_spgemm(a, a, algorithm="bcsr")`` must launch the hash symbolic
      kernel once (the block-pattern inspection); ``plan.execute`` and
      ``BCSRPlan.execute`` the block kernel once each, no plain version and
@@ -59,11 +59,18 @@ Phases; any failure exits non-zero:
      ``plan_bcsr(vector=True)`` runs the chunked-probe modes.  Block rows
      and their block-column sets equal the plain version's and the plan's
      symbolic counts; tiles bitwise on dyadic values and within 1 ulp per
-     product on uniform ones; the CSR output has the scalar hash plan's
-     structure.  Then the timings (the execute's re-blocking and
-     flattening apart, the kernel alone and through the custom op the
-     execute calls, the kernel's device time from a ``torch.profiler``
-     trace), beside the bound and ``torch.sparse.mm``.  Last, a small
+     product on uniform ones; two calls and the two probe modes give the
+     same bits; the CSR output has the scalar hash plan's structure.  The
+     block kernel's row classes: the classifying kernels against their
+     plain version, each execute one classification and one launch per
+     class that can hold rows (G500: its hub row first in the largest
+     shared-memory class); rows, block pairs, outputs and each class's
+     launch alone back to back.  Then the timings (the execute's
+     re-blocking and flattening apart, the kernel alone -- a single call
+     and 20 back to back, beside the host's time to issue one -- and
+     through the custom op the execute calls, the class kernels' device
+     time from a ``torch.profiler`` trace), beside the bound, the plain
+     version and ``torch.sparse.mm``.  Last, a small
      block-clustered input (a 128 x 128 grid of 8x8 tiles) that
      ``plan_spgemm(a, a)`` must route to ``bcsr`` by itself;
   8. SpMM (``core.spmm``, the CSR x dense kernel) on ER s18 ef16 and on
@@ -95,9 +102,10 @@ Phases; any failure exits non-zero:
  10. the square x tall-skinny product of section 5.5 (2^6 columns of the
      G500 s16 graph itself): ``plan_spgemm(a, b).execute`` launches the
      hash numeric kernel once; structure and values as in phase 4;
- 11. BCSR at 64x64 tiles (4,096 output lanes a tile, a global-memory
-     table): ``plan_spgemm(algorithm="bcsr", block=(64, 64)).execute``
-     against the plain version and the hash plan;
+ 11. BCSR at 64x64 tiles (4,096 output lanes a tile, the largest
+     shared-memory class): ``plan_spgemm(algorithm="bcsr", block=(64,
+     64)).execute`` against the plain version and the hash plan, its row
+     classes against their plain version, the kernel's times;
  12. the batched fleet planner, ``plan_batch(pairs).execute``, on three
      fleets: MoE dispatch at qwen3-moe-30b-a3b's routing widths (128
      experts, top-8, d_model 2,048, 16,384 tokens, feature density 0.05,
@@ -119,7 +127,8 @@ Phases; any failure exits non-zero:
      products), on phase 7's inputs: the ER pattern with 8 members of A's
      tiles against a shared B (a dyadic and a uniform fleet), with 4
      members of both A's and B's tiles, and through ``plan_bcsr(vector=
-     True)``; the G500 pattern (global-memory tables) with 4 members; and
+     True)``; the G500 pattern (launches with a workspace: rows staged in
+     the largest shared-memory block, direct past it) with 4 members; and
      4 members at 64x64 tiles.  Each vmapped call must run the custom op's
      vmap rule once -- the batched block kernel, once per bin index
      holding rows -- and nothing else; every member against the batched
@@ -256,6 +265,8 @@ DYADIC = (0.5, 1.0, 1.5, 2.0)
 #: factor); tiles of BLOCK, every occupied tile dense
 BCSR_INPUTS = (("ER", 13, 8), ("G500", 10, 8))
 BLOCK = (8, 8)
+#: the block kernel's (bm, bk, bn) for BLOCK tiles
+BLOCK3 = BLOCK + BLOCK[1:]
 #: the automatic route's input: a GRID x GRID block grid (2^20 cells)
 AUTO_GRID, AUTO_DENSITY = 128, 0.03
 #: tiles past 1,024 lanes: a GRID x GRID block grid of LARGE_BLOCK tiles
@@ -420,7 +431,8 @@ class Smoke:
         (the PB, BCSR, SpMM, flash-attention and SSD counters under
         ``pb_``, ``bcsr_``, ``spmm_``, ``flash_`` and ``ssd_`` names; the
         hash numeric kernel's class launches, extra to its one count a
-        call, in ``self.class_counts``)."""
+        call, in ``self.class_counts``, the BCSR kernel's in
+        ``self.bcsr_class_counts``)."""
         others = {"pb": self.pb_ops, "bcsr": self.bcsr_ops,
                   "spmm": self.spmm_ops, "flash": self.fa_ops,
                   "ssd": self.ssd_ops}
@@ -429,9 +441,12 @@ class Smoke:
             mod.reset_kernel_calls()
         classes = self.K.CLASS_CALLS
         classes.update(dict.fromkeys(classes, 0))
+        bcsr_classes = self.BK.CLASS_CALLS
+        bcsr_classes.update(dict.fromkeys(bcsr_classes, 0))
         out = fn()
         self.torch.cuda.synchronize()
         self.class_counts = dict(classes)
+        self.bcsr_class_counts = dict(bcsr_classes)
         counts = self.ops.kernel_call_counts()
         for prefix, mod in others.items():
             counts.update({f"{prefix}_{k}": v for k, v in
@@ -1592,6 +1607,105 @@ class Smoke:
                        a.nnz, a.shape, True)
         return a, a_d, int(key.shape[0])
 
+    def bcsr_classes(self, label, bp, ab, preset) -> dict:
+        """Phase 7's row classes of the block kernel: the classifying
+        kernels against their plain version (counts per (class, A-block
+        bucket), each row's table, each class's rows as a set and in bucket
+        order), then rows, block pairs, A blocks and outputs per class.
+        The G500 pattern's longest row (its hub) must be in the largest
+        staged class, in its first bucket."""
+        torch, BK, bref = self.torch, self.BK, self.bcsr_ref
+        err = torch.zeros(1, dtype=torch.int32, device=self.dev)
+        counts, rows, row_tsz = BK.row_classes(
+            bp.offsets, bp.bin_tsize, ab.indptr, ab.indptr, bp.indptr_cb,
+            ab.indices, table_size=bp.table_size, vector=False,
+            block=BLOCK3, errors=err)
+        p_counts, p_rows, p_tsz = bref.row_classes_plain(
+            bp.offsets, bp.bin_tsize, ab.indptr, bp.indptr_cb,
+            table_size=bp.table_size, vector=False, block=BLOCK3)
+        check(int(err) == 0 and torch.equal(counts.cpu(), p_counts.cpu())
+              and torch.equal(row_tsz.cpu(), p_tsz.cpu()),
+              f"{label}: the classifying kernels differ from their plain "
+              f"version")
+        ia = ab.indptr.long().cpu()
+        na = ia[1:] - ia[:-1]
+        nnzb = int(ia[-1])
+        # block pairs per row (B is A): the B row lengths of each A block
+        pairs = torch.zeros(na.shape[0], dtype=torch.long)
+        pairs.index_add_(0, torch.repeat_interleave(
+            torch.arange(na.shape[0]), na), na[ab.indices[:nnzb].long().cpu()])
+        need = (bp.indptr_cb[1:] - bp.indptr_cb[:-1]).long().cpu()
+        per_class = {}
+        for c, (r, pr) in enumerate(zip(rows, p_rows)):
+            r, pr = r.long().cpu(), pr.long().cpu()
+            check(sorted(r.tolist()) == sorted(pr.tolist()) and torch.equal(
+                bref.len_bucket(na[r].clamp(min=1)),
+                bref.len_bucket(na[pr].clamp(min=1))),
+                f"{label}: class {BK.CLASS_NAMES[c]}'s rows differ from "
+                f"the plain version's")
+            if r.numel():
+                per_class[BK.CLASS_NAMES[c]] = {
+                    "rows": r.numel(), "pairs": int(pairs[r].sum()),
+                    "outputs": int(need[r].sum()),
+                    "max_a_blocks": int(na[r].max()),
+                    "first_row_a_blocks": int(na[r[0]])}
+        if preset == "G500":
+            hub = int(torch.argmax(na))
+            staged = BK.CLASS_NAMES[len(BK.CLASS_NAMES) - 2]
+            r = rows[len(BK.CLASS_NAMES) - 2].long().cpu()
+            check(hub in r.tolist() and int(bref.len_bucket(na[r[0]])) ==
+                  int(bref.len_bucket(na[hub])),
+                  f"{label}: the hub row ({int(na[hub])} A blocks) does not "
+                  f"start first in {staged}")
+        print(f"{label}: row classes equal to the plain version's: "
+              f"{per_class}", flush=True)
+        return {"per_class": per_class, "max_abs_err": 0.0}
+
+    def bcsr_class_times(self, label, classes, args, kw, errors) -> dict:
+        """Each class's launch alone, back to back (one event pair around
+        20 launches, each after its pop counter is zeroed), beside the
+        host's time to issue one and the class's launch shape; then the
+        classifying kernels' single-call time and their plain version's.
+        Returns ``{class: {...}, "classify": (ms, plain ms)}``."""
+        torch, BK, bref = self.torch, self.BK, self.bcsr_ref
+        (offsets, bin_tsize, ia, ib, ic, a_bcol, a_blk, b_bcol,
+         b_blk) = args
+        table_size = kw["table_size"]
+        counts, work = BK.classify_rows(False, offsets, bin_tsize,
+                                        table_size, ia, ib, ic, a_bcol,
+                                        BLOCK3, errors)
+        n_keys = len(BK.CLASS_NAMES) * bref.LEN_BUCKETS
+        out_c = torch.zeros(kw["bcap_c"], dtype=torch.int32, device=self.dev)
+        out_b = torch.zeros((kw["bcap_c"],) + BLOCK, device=self.dev)
+        res = {}
+        for c, name in enumerate(BK.CLASS_NAMES):
+            info = classes["per_class"].get(name)
+            if info is None:
+                continue
+
+            def run(c=c):
+                counts[n_keys + c].zero_()
+                BK.launch_class(c, counts, work, pdl=False,
+                                table_size=table_size, vector=False,
+                                indptr_a=ia, indptr_b=ib, indptr_c=ic,
+                                a_bcol=a_bcol, a_blk=a_blk, b_bcol=b_bcol,
+                                b_blk=b_blk, out_bcol=out_c, out_blk=out_b,
+                                errors=errors)
+            dev_ms, host_ms = self.stream_ms(run)
+            shape = BK.class_shape(c, False) if c < len(BK.CLASS_NAMES) - 1 \
+                else {"blocks": BK.GLOBAL_BLOCKS}
+            res[name] = {**info, "back_to_back_ms": dev_ms,
+                         "host_ms": host_ms, "shape": shape}
+        res["classify"] = (
+            self.time_ms(lambda: BK.classify_rows(
+                False, offsets, bin_tsize, table_size, ia, ib, ic, a_bcol,
+                BLOCK3, errors)),
+            self.time_ms(lambda: bref.row_classes_plain(
+                offsets, bin_tsize, ia, ic, table_size=table_size,
+                vector=False, block=BLOCK3), reps=3, warm=1))
+        del out_c, out_b, counts, work
+        return res
+
     def bcsr_input(self, preset, scale, ef):
         """The block-sparse route on an R-MAT block pattern."""
         torch, core = self.torch, self.core
@@ -1612,16 +1726,16 @@ class Smoke:
         self.expect(plan_counts, {"symbolic": 1, "bcsr_symbolic": 1},
                     f"{label} plan_spgemm(bcsr)")
         bp = plan.bcsr_plan
-        smem = bp.table_size * 4 * (1 + BLOCK[0] * BLOCK[1]) <= BK.SMEM_BUDGET
         print(f"{label}: block flop {bp.total_flop}, nnzb(C) {bp.nnzb_c}, "
-              f"nnz(C) {plan.nnz_c}, table_size {bp.table_size} "
-              f"({'shared' if smem else 'global'} memory), bin_tsize "
+              f"nnz(C) {plan.nnz_c}, table_size {bp.table_size}, bin_tsize "
               f"{bp.bin_tsize.tolist()}, offsets {bp.offsets.tolist()} "
               f"(planned in {plan_s:.2f} s)", flush=True)
-        check(smem == (preset == "ER"), f"{label}: table_size "
-              f"{bp.table_size} not in the expected memory")
         ab = core.csr_to_bcsr(a, BLOCK)
         ab_d = core.csr_to_bcsr(a_d, BLOCK)
+        classes = self.bcsr_classes(label, bp, ab, preset)
+        launched = bref.launch_classes(BLOCK3, bp.table_size, bp.bcap_c)
+        want_classes = dict(dict.fromkeys(BK.CLASS_CALLS, 0), classify=1,
+                            **{BK.CLASS_NAMES[x]: 1 for x in launched})
         again, counts = self.counted(lambda: (
             core.plan_spgemm(a, a, algorithm="bcsr"), core.plan_bcsr(ab, ab)))
         self.expect(counts, {}, f"{label} repeat plans")
@@ -1639,6 +1753,10 @@ class Smoke:
         c, counts = self.counted(lambda: plan.execute(a, a))
         self.expect(counts, {"bcsr_numeric": 1}, f"{label} plan.execute")
         paths["plan.execute"] = counts["bcsr_numeric"]
+        exec_classes = self.bcsr_class_counts
+        check(exec_classes == want_classes, f"{label} plan.execute: class "
+              f"launches {exec_classes}, want {want_classes} (one "
+              f"classification, one launch per class that can hold rows)")
         c_d, counts = self.counted(lambda: plan.execute(a_d, a_d))
         self.expect(counts, {"bcsr_numeric": 1},
                     f"{label} plan.execute dyadic")
@@ -1715,6 +1833,17 @@ class Smoke:
                   f"past 1 ulp per product (max abs diff {float(diff.max())})")
             errs[mode] = float(diff.max())
 
+        # two calls, and the two probe modes, give the same bits, rows
+        # unsorted: tiles in order of first appearance, summed in A-block
+        # order
+        calls = [BK.numeric_call(*args, **{**kw, "vector": v})
+                 for v in (False, False, True)]
+        for other in calls[1:]:
+            check(torch.equal(other[0], calls[0][0]) and
+                  torch.equal(other[1], calls[0][1]),
+                  f"{label}: two calls (or the probe modes) differ")
+        del calls
+
         # the CSR output: the scalar hash plan's structure; on dyadic
         # values every order sums exactly, so the values agree bitwise
         check(int(c.nnz) == plan.nnz_c, f"{label}: nnz(C) {int(c.nnz)} != "
@@ -1773,10 +1902,23 @@ class Smoke:
              "plain_symbolic": self.time_ms(lambda: href.symbolic_plain(
                  *pat, table_size=bp.table_size, vector=False)),
              "torch_sparse_mm": self.time_ms(lambda: torch.sparse.mm(sp, sp))}
-        # the kernel's own device time (every bin's launch), without the
-        # wrapper's host work and the gaps between launches
+        # the card's time a call: 20 calls back to back in one event pair
+        # (and the host's time to issue one)
+        b2b, host = {}, {}
+        for key, fn in (
+                ("kernel", lambda: BK.numeric_call(*args, **kw,
+                                                   errors=num_err)),
+                ("kernel_vector", lambda: BK.numeric_call(
+                    *args, **{**kw, "vector": True}, errors=num_err)),
+                ("bcsr_execute", lambda: direct.execute(ab, ab)),
+                ("torch_sparse_mm", lambda: torch.sparse.mm(sp, sp))):
+            b2b[key], host[key] = self.stream_ms(fn)
+        # the class kernels' device time in a trace (they overlap: the sum
+        # passes the call's time)
         t["kernel_device"] = self.device_ms(lambda: BK.numeric_call(
-            *args, **kw, errors=num_err), "bcsr_rows_kernel")
+            *args, **kw, errors=num_err), "bcsr_class_kernel")
+        per_class = self.bcsr_class_times(label, classes, args, kw, num_err)
+        t["classify"], t["plain_classify"] = per_class.pop("classify")
         torch.cuda.synchronize()
         check(int(num_err) == 0 and int(sym_err) == 0,
               f"{label}: kernel errors while timing")
@@ -1785,8 +1927,10 @@ class Smoke:
                           "block_flop": bp.total_flop,
                           "scalar_flop": plan.total_flop, "nnzb_c": nnzb_c,
                           "nnz_c": plan.nnz_c, "table_size": bp.table_size,
-                          "ms": t, "bound_ms": {"numeric": bound,
-                                                "symbolic": bound_sym},
+                          "ms": t, "back_to_back_ms": b2b,
+                          "host_ms_to_issue": host, "classes": per_class,
+                          "bound_ms": {"numeric": bound,
+                                       "symbolic": bound_sym},
                           "bound_bytes": by, "bound_operations": ops_n,
                           "plan_s": plan_s}), flush=True)
         bound_by = "bytes" if by / HBM_BYTES_PER_S >= \
@@ -1799,9 +1943,25 @@ class Smoke:
                 "source": BCSR_SOURCE,
                 "replaces": REPLACES[f"bcsr_{mode}"],
                 "launches": next(iter(launches.values())),
-                "launches_by_path": launches, "max_abs_err": errs[mode],
-                "ms": t[key], "plain_ms": t["plain"], "bound_ms": bound,
-                "bound_by": bound_by, "library_ms": t["torch_sparse_mm"]})
+                "launches_by_path": launches,
+                "class_launches": exec_classes, "max_abs_err": errs[mode],
+                "ms": b2b[key], "single_call_ms": t[key],
+                "plain_ms": t["plain"], "bound_ms": bound,
+                "bound_by": bound_by, "library_ms": b2b["torch_sparse_mm"]})
+        # the classifying kernels (replace no TPU kernel): read the row
+        # pointers of A and C and the schedule, write each row's table, key
+        # and rank, and the class lists
+        m = ab.grid[0]
+        self.rows.append({
+            "name": f"spgemm_bcsr_classify[{label}]", "route": "cuda",
+            "source": BCSR_SOURCE,
+            "replaces": "none: lists the rows of "
+                        + REPLACES["bcsr_numeric"] + "'s port by class",
+            "launches": exec_classes["classify"],
+            "max_abs_err": classes["max_abs_err"], "ms": t["classify"],
+            "plain_ms": t["plain_classify"],
+            "bound_ms": 4 * (2 * (m + 1) + 4 * m) / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes", "library_ms": None})
         self.rows.append({
             "name": f"spgemm_hash_symbolic[{label} block pattern]",
             "route": "cuda", "source": KERNEL_SOURCE,
@@ -2186,7 +2346,9 @@ class Smoke:
     def bcsr_large_tile(self):
         """Tiles of 4,096 output lanes through ``plan_spgemm(algorithm=
         "bcsr", block=(64, 64))``, against the plain version and the hash
-        plan; dyadic values, so everything is bitwise."""
+        plan; dyadic values, so everything is bitwise.  The rows' classes
+        (the classifying kernels against their plain version) and the
+        kernel's times, single call and back to back."""
         torch, core, BK, bref = self.torch, self.core, self.BK, self.bcsr_ref
         rng = np.random.default_rng(9)
         occ = np.nonzero(rng.random((LARGE_GRID, LARGE_GRID)) < 0.5)
@@ -2197,17 +2359,32 @@ class Smoke:
         core.clear_plan_cache()
         plan = core.plan_spgemm(a, a, algorithm="bcsr", block=LARGE_BLOCK)
         bp = plan.bcsr_plan
-        tile = LARGE_BLOCK[0] * LARGE_BLOCK[1]
-        check(bp.table_size * 4 * (1 + tile) > BK.SMEM_BUDGET,
-              f"{label}: expected a global-memory table")
         c, counts = self.counted(lambda: plan.execute(a, a))
         self.expect(counts, {"bcsr_numeric": 1}, f"{label} plan.execute")
+        block3 = LARGE_BLOCK + LARGE_BLOCK[1:]
+        launched = bref.launch_classes(block3, bp.table_size, bp.bcap_c)
+        want = dict(dict.fromkeys(BK.CLASS_CALLS, 0), classify=1,
+                    **{BK.CLASS_NAMES[x]: 1 for x in launched})
+        check(self.bcsr_class_counts == want, f"{label} plan.execute: class "
+              f"launches {self.bcsr_class_counts}, want {want}")
         ab = core.csr_to_bcsr(a, LARGE_BLOCK)
+        n_rows, _, _ = BK.row_classes(
+            bp.offsets, bp.bin_tsize, ab.indptr, ab.indptr, bp.indptr_cb,
+            ab.indices, table_size=bp.table_size, vector=False, block=block3)
+        p_rows, _, _ = bref.row_classes_plain(
+            bp.offsets, bp.bin_tsize, ab.indptr, bp.indptr_cb,
+            table_size=bp.table_size, vector=False, block=block3)
+        check(torch.equal(n_rows.cpu(), p_rows.cpu()),
+              f"{label}: the classifying kernels differ from their plain "
+              f"version")
+        per_class = {BK.CLASS_NAMES[k]: int(v) for k, v in
+                     enumerate(n_rows.sum(1).tolist()) if v}
         args = (bp.offsets, bp.bin_tsize, ab.indptr, ab.indptr, bp.indptr_cb,
                 ab.indices, ab.blocks, ab.indices, ab.blocks)
         kw = dict(bcap_c=bp.bcap_c, table_size=bp.table_size, vector=False)
         kc, kb = BK.numeric_call(*args, **kw)
         pc, pb = bref.numeric_plain(*args, **kw)
+        kc, kb = bref.sort_block_rows(bp.indptr_cb, kc, kb)
         check(torch.equal(kc, pc) and torch.equal(kb, pb),
               f"{label}: the block kernel differs from its plain version")
         c_h = core.plan_spgemm(a, a, algorithm="hash").execute(
@@ -2220,9 +2397,23 @@ class Smoke:
             if row["name"].startswith("spgemm_bcsr_numeric["):
                 row["launches_by_path"][f"plan.execute [{label}]"] = \
                     counts["bcsr_numeric"]
-        print(f"{label}: plan.execute launched the block kernel once "
-              f"(global-memory table of {bp.table_size} slots); equal to "
-              f"the plain version and the hash plan", flush=True)
+        err = torch.zeros(1, dtype=torch.int32, device=self.dev)
+        single = self.time_ms(lambda: BK.numeric_call(*args, **kw,
+                                                      errors=err))
+        b2b, host = self.stream_ms(lambda: BK.numeric_call(*args, **kw,
+                                                           errors=err))
+        torch.cuda.synchronize()
+        check(int(err) == 0, f"{label}: kernel errors while timing")
+        print(f"{label}: plan.execute launched the block kernel once (rows "
+              f"by class {per_class}, tables of at most {bp.table_size} "
+              f"slots); equal to the plain version and the hash plan",
+              flush=True)
+        print(json.dumps({"timing": label, "card": self.card,
+                          "nnzb_c": bp.nnzb_c, "block_flop": bp.total_flop,
+                          "classes": per_class,
+                          "ms": {"kernel": single,
+                                 "kernel_back_to_back": b2b,
+                                 "host_ms_to_issue": host}}), flush=True)
         core.clear_plan_cache()
 
     # ---- phase 12 ----------------------------------------------------------
@@ -2733,7 +2924,7 @@ class Smoke:
             else:
                 check(bp.table_size * 4 * (1 + BLOCK[0] * BLOCK[1])
                       > self.BK.SMEM_BUDGET,
-                      f"{label}: expected a global-memory table")
+                      f"{label}: expected launches with a workspace")
                 m = FLEET_MEMBERS_G500
                 self.fleet_case(f"{label}, {m} members, A batched", ab, bp,
                                 fleets(ab, m, 60))

@@ -15,20 +15,156 @@ ignores them.
 for every member of a fleet, each argument stacked along a member axis or
 shared by all members.
 
+The single-product kernel sizes each block row's table from its own
+output count and runs rows by class (:func:`row_classes_plain`, the
+classifying kernels' function: the row's shared-memory bytes, then its
+A-block count); that changes what the kernel computes in no way.
+
 The kernel's contract: each block row holds the right {bcol: tile} set in
-*some* order (hash order, C8).  ``index_add_`` adds in expansion order on
-the CPU, the kernel's order; on the card it adds with atomics in some
+*some* order (C8; the kernel's is the order of first appearance in the
+expansion).  ``index_add_`` adds in expansion order on the CPU, the
+kernel's order; on the card it adds with atomics in some
 order, so values agree bitwise on dyadic inputs and to 1 ulp per
 accumulated product otherwise.  The CPU path runs this function; on the
 card it serves only as the yardstick the kernel is checked against.
 """
 from __future__ import annotations
 
+import bisect
+import functools
+
 import torch
 
 from .._build import member_view
+from ..spgemm_hash.ref import _bin_caps, row_table_sizes_plain
 
 _COL_BITS = 31
+
+#: The single-product kernel's row classes (``kernel.CLASS_NAMES``): a
+#: block's dynamic shared memory in each staged class (7 / 4 / 2 / 1
+#: blocks an SM), then the direct class (tables in device memory).
+CLASS_SMEM = (30 * 1024, 54 * 1024, 111 * 1024, 225 * 1024)
+CLASS_NAMES = ("smem_30k", "smem_54k", "smem_111k", "smem_225k", "direct")
+#: A-block count classes within a row class: ``[2^L, 2^(L + 1))``, the last
+#: open; a class's rows run longest bucket first.
+LEN_BUCKETS = 16
+#: B tiles a staged row's stage buffers are sized for at least: STAGE_MIN,
+#: or as many as STAGE_FLOATS lanes hold for large tiles, or the row's
+#: output count when smaller (no B row is longer than the row's output).
+STAGE_MIN = 8
+STAGE_FLOATS = 2048
+#: Stage buffers of a staged row: BUFFERS, or 3 when A's and B's tiles
+#: together pass STAGE_FLOATS lanes.
+BUFFERS = 4
+
+
+def _r16(x):
+    return (x + 15) // 16 * 16
+
+
+def table_bytes(tsz, need, tile):
+    """A staged row's table in shared memory: keys and slot-to-tile map
+    (``tsz`` each) and ``need`` tiles of ``tile`` float32 lanes."""
+    return _r16(8 * tsz + 4 * tile * need)
+
+
+def half_bytes(n, bm, bk, bn):
+    """One stage buffer of ``n`` B tiles: A's tile, the block columns (with
+    room for their 16-byte aligned cover) and the B tiles, each 16-byte
+    aligned."""
+    return _r16(4 * bm * bk) + _r16(4 * n) + 16 + _r16(4 * bk * bn * n)
+
+
+def stage_buffers(bm, bk, bn):
+    """Stage buffers of a staged row."""
+    return 3 if bm * bk + bk * bn > STAGE_FLOATS else BUFFERS
+
+
+def stage_min(need, bk, bn):
+    """The B tiles a staged row's stage buffers are sized for (``need``
+    an int or an int64 tensor)."""
+    s = min(STAGE_MIN, max(1, STAGE_FLOATS // (bk * bn)))
+    return need.clamp(max=s) if torch.is_tensor(need) else min(need, s)
+
+
+def row_bytes(tsz, need, bm, bk, bn):
+    """Shared memory a staged row asks for: its table and
+    :func:`stage_buffers` buffers of :func:`stage_min` tiles (ints or
+    int64 tensors)."""
+    return table_bytes(tsz, need, bm * bn) + stage_buffers(bm, bk, bn) * \
+        half_bytes(stage_min(need, bk, bn), bm, bk, bn)
+
+
+def class_of_bytes(nbytes):
+    """The row class of a row asking for ``nbytes`` (an int, or an int64
+    tensor of them): the first staged class whose shared memory holds it,
+    else the direct class."""
+    if not torch.is_tensor(nbytes):
+        return bisect.bisect_left(CLASS_SMEM, nbytes)
+    bounds = torch.tensor(CLASS_SMEM, dtype=torch.int64)
+    return torch.searchsorted(bounds, nbytes.long().cpu())
+
+
+def len_bucket(na):
+    """The A-block count class of rows with ``na >= 1`` A blocks."""
+    na = torch.as_tensor(na).long()
+    return (torch.floor(torch.log2(na.double())).long()).clamp(
+        max=LEN_BUCKETS - 1)
+
+
+def row_classes_plain(offsets, bin_tsize, indptr_a, indptr_c, *,
+                      table_size, vector, block):
+    """The classifying kernels' function: ``(counts (classes, LEN_BUCKETS)
+    int32, rows, row_tsz (m,) int32)``.  ``row_tsz`` is each row's table
+    (``row_table_sizes_plain`` of its output count, 0 for a row with no
+    output), ``rows[c]`` the ids of class c's rows in the order the class
+    pops them: longest A-block bucket first, ascending ids within a bucket
+    (the kernels' order within a bucket is free).  Rows whose table cannot
+    hold their output (outside every bin, a table that is not a power of
+    two or, ``vector``, below 8 slots, output past the table, no A block)
+    join no class: the kernels count them as errors.  ``block`` is
+    ``(bm, bk, bn)``."""
+    bm, bk, bn = block
+    dev = indptr_c.device
+    need = (indptr_c[1:].long() - indptr_c[:-1].long()).cpu()
+    na = (indptr_a[1:].long() - indptr_a[:-1].long()).cpu()
+    m = need.shape[0]
+    cap = _bin_caps(offsets.cpu(), bin_tsize.cpu(), table_size, m)
+    tsz = row_table_sizes_plain(offsets.cpu(), bin_tsize.cpu(), need,
+                                table_size=table_size).long()
+    ok = (need > 0) & (cap >= 1) & ((cap & (cap - 1)) == 0) & \
+        (need <= cap) & (na >= 1)
+    if vector:
+        ok &= cap >= 8
+    cls = class_of_bytes(row_bytes(tsz, need, bm, bk, bn))
+    bucket = len_bucket(na.clamp(min=1))
+    n_cls = len(CLASS_NAMES)
+    counts = torch.zeros(n_cls, LEN_BUCKETS, dtype=torch.int32)
+    rows = []
+    ids = torch.arange(m)
+    for c in range(n_cls):
+        mine = ok & (cls == c)
+        counts[c] = torch.bincount(bucket[mine], minlength=LEN_BUCKETS)
+        order = torch.argsort(-bucket[mine] * (m + 1) + ids[mine])
+        rows.append(ids[mine][order].to(torch.int32).to(dev))
+    row_tsz = torch.where(ok, tsz, torch.zeros_like(tsz))
+    return counts.to(dev), rows, row_tsz.to(torch.int32).to(dev)
+
+
+@functools.lru_cache(maxsize=256)
+def launch_classes(block, table_size, bcap_c) -> list:
+    """The classes that can hold a row of a product with ``block`` ``(bm,
+    bk, bn)`` tiles, tables of at most ``table_size`` slots and ``bcap_c``
+    output blocks, known on the host: from the smallest row's class (one
+    output, an 8-slot table) to the largest's (``min(table_size,
+    bcap_c)`` outputs in a ``table_size``-slot table).  Largest first: the
+    order of the single-product kernel's launches."""
+    bm, bk, bn = block
+    t = max(int(table_size), 1)
+    lo = int(class_of_bytes(row_bytes(min(t, 8), 1, bm, bk, bn)))
+    need = max(1, min(t, int(bcap_c)))
+    hi = int(class_of_bytes(row_bytes(t, need, bm, bk, bn)))
+    return tuple(range(hi, lo - 1, -1))
 
 def _expand_pairs(indptr_a, indptr_b, a_bcol, b_bcol):
     """``(key, j, t)`` of every block pair of ``A @ B`` in A-slot order."""

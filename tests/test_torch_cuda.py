@@ -52,6 +52,7 @@ sys.path.insert(0, os.path.dirname(__file__))
 from _hash_ladder import (LADDER, LADDER_CLASSES,  # noqa: E402
                           LADDER_TABLE, ladder, saturated_row)
 import _spmm_ladder  # noqa: E402
+import _bcsr_ladder  # noqa: E402
 
 DYADIC = np.array([0.5, 1.0, 1.5, 2.0], np.float32)
 CASES = [("ER", 9, 8, True), ("G500", 10, 16, False), ("G500", 12, 16, True)]
@@ -555,12 +556,13 @@ def test_bcsr_kernel_matches_plain_version(cuda, case, vector):
 @pytest.mark.gpu
 @pytest.mark.parametrize("vector", (False, True))
 def test_bcsr_global_memory_table(cuda, vector):
-    """One block row whose table (1,024 slots of 8x8 tiles, 1 MB) is past
-    the shared-memory budget: the kernel's global-memory path."""
+    """Two block rows of 900 output blocks each: a 1,024-slot table of 8x8
+    tiles (238 KB) past the largest block's shared memory, the direct
+    class (keys in device memory, tiles summed in place in the output)."""
     from repro_torch.core import BCSR, plan_bcsr
     from repro_torch.kernels.spgemm_bcsr import kernel as BK
     from repro_torch.kernels.spgemm_bcsr import ops as bops
-    n_b = 700
+    n_b = 900
     rng = np.random.default_rng(3)
     a = BCSR.from_dense(torch.from_numpy(rng.choice(DYADIC, (16, 8)).astype(
         np.float32)).to(cuda), (8, 8))
@@ -568,8 +570,14 @@ def test_bcsr_global_memory_table(cuda, vector):
                                          .astype(np.float32)).to(cuda),
                         (8, 8))
     plan = plan_bcsr(a, b, vector=vector, cache=False)
-    assert plan.table_size * 4 * (1 + 64) > BK.SMEM_BUDGET
+    counts, rows, _ = BK.row_classes(
+        plan.offsets, plan.bin_tsize, a.indptr, b.indptr, plan.indptr_cb,
+        a.indices, table_size=plan.table_size, vector=vector,
+        block=(8, 8, 8))
+    assert sorted(rows[-1].tolist()) == [0, 1]
+    assert int(counts.sum()) == 2
     bops.reset_kernel_calls()
+    BK.CLASS_CALLS.update(dict.fromkeys(BK.CLASS_CALLS, 0))
     c = plan.execute(a, b)
     torch.cuda.synchronize()
     key = "numeric_vector" if vector else "numeric"
@@ -578,6 +586,7 @@ def test_bcsr_global_memory_table(cuda, vector):
                                          "batched_numeric": 0,
                                          "batched_numeric_vector": 0,
                                          "batched_plain": 0, key: 1}
+    assert BK.CLASS_CALLS["direct"] == 1 and BK.CLASS_CALLS["classify"] == 1
     check_bcsr(a, b, plan, c.indices, c.blocks, True)
 
 
@@ -637,22 +646,27 @@ def test_bcsr_planned_execute_launches_only_the_kernel(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("block", ((64, 64, 64, True), (32, 16, 48, False)),
+@pytest.mark.parametrize("block", ((64, 64, 64, 3), (32, 16, 48, 0)),
                          ids=("64x64x64", "32x16x48"))
 @pytest.mark.parametrize("dyadic", (True, False))
 def test_bcsr_tiles_past_1024_lanes(cuda, block, dyadic):
-    """Tiles of 4,096 and 1,536 output lanes: each of the 1,024 threads
-    owns several lanes.  An 8-slot table of 64x64 tiles (131 KB) passes
-    the shared-memory budget (the global path); one of 32x48 tiles (49 KB)
-    stays in shared memory."""
+    """Tiles of 4,096 and 1,536 output lanes, more than a block's threads:
+    each thread walks several (pair, lane) items.  Every block row is
+    staged in shared memory, 64x64 tiles in the largest class."""
     from repro_torch.core import plan_bcsr
     from repro_torch.kernels.spgemm_bcsr import kernel as BK
-    bm, bk, bn, global_table = block
+    bm, bk, bn, lowest = block
     a = block_operand(5, 5, bm, bk, 0.5, 11, cuda, dyadic)
     b = block_operand(5, 5, bk, bn, 0.5, 12, cuda, dyadic)
     plan = plan_bcsr(a, b, cache=False)
     assert plan.table_size == 8
-    assert (8 * 4 * (1 + bm * bn) > BK.SMEM_BUDGET) == global_table
+    counts, _, _ = BK.row_classes(
+        plan.offsets, plan.bin_tsize, a.indptr, b.indptr, plan.indptr_cb,
+        a.indices, table_size=plan.table_size, vector=False,
+        block=(bm, bk, bn))
+    per_class = counts.sum(1).tolist()
+    assert sum(per_class[:lowest]) == 0 and per_class[-1] == 0
+    assert sum(per_class) > 0
     errors = torch.zeros(1, dtype=torch.int32, device=cuda)
     bcol, blk = BK.numeric_call(
         plan.offsets, plan.bin_tsize, a.indptr, b.indptr, plan.indptr_cb,
@@ -665,21 +679,26 @@ def test_bcsr_tiles_past_1024_lanes(cuda, block, dyadic):
 
 @pytest.mark.gpu
 def test_bcsr_64x64_tile_shared_memory_table(cuda):
-    """A 64x64 tile with a 4-slot table (keys and tiles, 65.6 KB) in shared
-    memory: a 4 x 4 block grid has at most 4 block columns per row."""
+    """A 64x64 tile with a 4-slot table: a 4 x 4 block grid has at most 4
+    block columns per row, each row's table and stage in one block's
+    shared memory; bitwise equal to the plain version after a per-row
+    sort (the kernel flushes in order of first appearance)."""
     from repro_torch.core import plan_bcsr
     from repro_torch.kernels.spgemm_bcsr import kernel as BK
     from repro_torch.kernels.spgemm_bcsr import ref as bref
     a = block_operand(4, 4, 64, 64, 0.6, 13, cuda)
     plan = plan_bcsr(a, a, cache=False)
     tsz = torch.full_like(plan.bin_tsize, 4)
-    assert 4 * 4 * (1 + 64 * 64) <= BK.SMEM_BUDGET
     args = (plan.offsets, tsz, a.indptr, a.indptr, plan.indptr_cb,
             a.indices, a.blocks, a.indices, a.blocks)
     kw = dict(bcap_c=plan.bcap_c, table_size=4, vector=False)
+    counts, _, _ = BK.row_classes(*args[:5], a.indices, table_size=4,
+                                  vector=False, block=(64, 64, 64))
+    assert int(counts[-1].sum()) == 0 and int(counts.sum()) > 0
     bcol, blk = BK.numeric_call(*args, **kw)
     pc, pb = bref.numeric_plain(*args, **kw)
-    assert torch.equal(bcol, pc) and torch.equal(blk, pb)
+    sc, sb = bref.sort_block_rows(plan.indptr_cb, bcol, blk)
+    assert torch.equal(sc, pc) and torch.equal(sb, pb)
 
 
 @pytest.mark.gpu
@@ -750,8 +769,9 @@ BCSR_FLEET_CASES = [(8, 8, 8, 48, 0.2, True), (8, 8, 8, 48, 0.2, False),
                          ids=lambda c: f"{c[0]}x{c[1]}x{c[2]}-{c[5]}")
 def test_bcsr_batched_kernel_matches_plain_version(cuda, case, vector):
     """The batched block kernel (A's tiles stacked, everything else shared)
-    against ``batched_numeric_plain``, shared-memory tables (64x64 tiles:
-    global), one launch per bin index holding rows."""
+    against ``batched_numeric_plain``, rows staged in shared memory (64x64
+    tiles: in a launch with a workspace), one launch per bin index holding
+    rows."""
     from repro_torch.core import plan_bcsr
     from repro_torch.kernels.spgemm_bcsr import kernel as BK
     from repro_torch.kernels.spgemm_bcsr import ops as bops
@@ -783,20 +803,21 @@ def test_bcsr_batched_kernel_matches_plain_version(cuda, case, vector):
 @pytest.mark.gpu
 @pytest.mark.parametrize("vector", (False, True))
 def test_bcsr_batched_kernel_global_memory_table(cuda, vector):
-    """Members whose one block row needs a 1,024-slot table of 8x8 tiles
-    (past the shared-memory budget): the workspace per member and x
-    block, members not trampling each other."""
+    """Members whose block rows need 900 output blocks in a 1,024-slot
+    table of 8x8 tiles (past the largest block's shared memory): direct
+    rows with keys in the workspace per member and x block and tiles in
+    each member's output, members not trampling each other."""
     from repro_torch.core import BCSR, plan_bcsr
     from repro_torch.kernels.spgemm_bcsr import kernel as BK
     from repro_torch.kernels.spgemm_bcsr import ref as bref
     rng = np.random.default_rng(31)
     a = BCSR.from_dense(torch.from_numpy(rng.choice(DYADIC, (16, 8)).astype(
         np.float32)).to(cuda), (8, 8))
-    b = BCSR.from_dense(torch.from_numpy(rng.choice(DYADIC, (8, 8 * 700))
+    b = BCSR.from_dense(torch.from_numpy(rng.choice(DYADIC, (8, 8 * 900))
                                          .astype(np.float32)).to(cuda),
                         (8, 8))
     plan = plan_bcsr(a, b, vector=vector, cache=False)
-    assert plan.table_size * 4 * (1 + 64) > BK.SMEM_BUDGET
+    assert bref.row_bytes(1024, 900, 8, 8, 8) > BK.MAX_SMEM
     stack = torch.from_numpy(rng.choice(DYADIC, (4,) + tuple(
         a.blocks.shape)).astype(np.float32)).to(cuda)
     args = (plan.offsets, plan.bin_tsize, a.indptr, b.indptr,
@@ -885,6 +906,154 @@ def test_bcsr_vmap_table_too_small_raises(cuda):
 
     with pytest.raises(RuntimeError, match="full-table"):
         torch.func.vmap(one)(stack)
+
+
+def ladder_operands(cuda, rungs, block, dyadic, seed=0):
+    """``_bcsr_ladder``'s A and B as BCSRs on the card."""
+    from repro_torch.core import BCSR
+    (ai, ax, ab, ash), (bi, bx, bb, bsh) = _bcsr_ladder.ladder(
+        rungs, block, dyadic, seed)
+    a = BCSR.from_numpy(ai, ax, ab, ax.shape[0], ash, block[:2], device=cuda)
+    b = BCSR.from_numpy(bi, bx, bb, bx.shape[0], bsh, block[1:],
+                        device=cuda)
+    return a, b
+
+
+BCSR_LADDERS = {
+    "8x8": (_bcsr_ladder.LADDER, (8, 8, 8), _bcsr_ladder.LADDER_CLASSES),
+    "64x64": (_bcsr_ladder.LADDER_LARGE, (64, 64, 64),
+              _bcsr_ladder.LADDER_LARGE_CLASSES)}
+
+
+def check_bcsr_classes(a, b, plan, vector, block, want):
+    """The classifying kernels against their plain version: counts per
+    (class, A-block bucket), row tables, each class's rows (a set, in
+    bucket order), and each rung's class ``want``."""
+    from repro_torch.kernels.spgemm_bcsr import kernel as BK
+    from repro_torch.kernels.spgemm_bcsr import ref as bref
+    counts, rows, row_tsz = BK.row_classes(
+        plan.offsets, plan.bin_tsize, a.indptr, b.indptr, plan.indptr_cb,
+        a.indices, table_size=plan.table_size, vector=vector, block=block)
+    pc, prows, ptsz = bref.row_classes_plain(
+        plan.offsets.cpu(), plan.bin_tsize.cpu(), a.indptr.cpu(),
+        plan.indptr_cb.cpu(), table_size=plan.table_size, vector=vector,
+        block=block)
+    assert torch.equal(counts.cpu(), pc) and torch.equal(row_tsz.cpu(), ptsz)
+    na = (a.indptr[1:] - a.indptr[:-1]).cpu()
+    got = [-1] * (a.indptr.shape[0] - 1)
+    for c, (r, pr) in enumerate(zip(rows, prows)):
+        r = r.cpu()
+        assert sorted(r.tolist()) == sorted(pr.tolist()), c
+        assert torch.equal(bref.len_bucket(na[r.long()].clamp(min=1)),
+                           bref.len_bucket(na[pr.long()].clamp(min=1))), c
+        for i in r.tolist():
+            got[i] = c
+    assert got == list(want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dyadic", (True, False))
+@pytest.mark.parametrize("vector", (False, True))
+@pytest.mark.parametrize("name", sorted(BCSR_LADDERS))
+def test_bcsr_ladder_every_class(cuda, name, vector, dyadic):
+    """``_bcsr_ladder``'s block rows reach every row class (8x8 tiles: the
+    four shared-memory classes and direct, the G500 hub's shape in the
+    largest staged class; 64x64: 225 KB and direct): the
+    classifying kernels list them as the plain version does, the execute
+    launches them once and each class that can hold rows once, and the
+    product equals the plain version."""
+    from repro_torch.core import plan_bcsr
+    from repro_torch.kernels.spgemm_bcsr import kernel as BK
+    from repro_torch.kernels.spgemm_bcsr import ops as bops
+    from repro_torch.kernels.spgemm_bcsr import ref as bref
+    rungs, block, want = BCSR_LADDERS[name]
+    a, b = ladder_operands(cuda, rungs, block, dyadic)
+    plan = plan_bcsr(a, b, vector=vector, cache=False)
+    check_bcsr_classes(a, b, plan, vector, block, want)
+    bops.reset_kernel_calls()
+    BK.CLASS_CALLS.update(dict.fromkeys(BK.CLASS_CALLS, 0))
+    c = plan.execute(a, b)
+    torch.cuda.synchronize()
+    launched = bref.launch_classes(block, plan.table_size, plan.bcap_c)
+    assert set(launched) >= {x for x in want if x >= 0}
+    assert BK.CLASS_CALLS == dict(
+        dict.fromkeys(BK.CLASS_CALLS, 0), classify=1,
+        **{BK.CLASS_NAMES[x]: 1 for x in launched})
+    key = "numeric_vector" if vector else "numeric"
+    assert bops.kernel_call_counts()[key] == 1
+    check_bcsr(a, b, plan, c.indices, c.blocks, dyadic)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("vector", (False, True))
+def test_bcsr_hub_shaped_row(cuda, vector):
+    """One block row of the G500 pattern's hub shape -- 245 A blocks (its
+    B row bounds read in four windows), 666 output blocks, a 2,048-slot
+    table -- alone, in the largest staged class, against the plain
+    version on uniform values."""
+    from repro_torch.core import plan_bcsr
+    from repro_torch.kernels.spgemm_bcsr import kernel as BK
+    a, b = ladder_operands(cuda, ((666, 245),), (8, 8, 8), False, seed=3)
+    plan = plan_bcsr(a, b, vector=vector, cache=False)
+    assert int(plan.indptr_cb[-1]) == 666
+    check_bcsr_classes(a, b, plan, vector, (8, 8, 8), (3,))
+    errors = torch.zeros(1, dtype=torch.int32, device=cuda)
+    bcol, blk = BK.numeric_call(
+        plan.offsets, plan.bin_tsize, a.indptr, b.indptr, plan.indptr_cb,
+        a.indices, a.blocks, b.indices, b.blocks, bcap_c=plan.bcap_c,
+        table_size=plan.table_size, vector=vector, errors=errors)
+    torch.cuda.synchronize()
+    assert int(errors) == 0
+    check_bcsr(a, b, plan, bcol, blk, False)
+
+
+@pytest.mark.gpu
+def test_bcsr_two_calls_bitwise(cuda):
+    """Two calls, and the two probe modes, give the same bits on the
+    8x8 ladder's uniform values, unsorted rows included: tiles are handed
+    out in order of first appearance and summed in A-block order."""
+    from repro_torch.core import plan_bcsr
+    from repro_torch.kernels.spgemm_bcsr import kernel as BK
+    a, b = ladder_operands(cuda, _bcsr_ladder.LADDER, (8, 8, 8), False)
+    plan = plan_bcsr(a, b, cache=False)
+    args = (plan.offsets, plan.bin_tsize, a.indptr, b.indptr,
+            plan.indptr_cb, a.indices, a.blocks, b.indices, b.blocks)
+    kw = dict(bcap_c=plan.bcap_c, table_size=plan.table_size)
+    c1, b1 = BK.numeric_call(*args, **kw, vector=False)
+    c2, b2 = BK.numeric_call(*args, **kw, vector=False)
+    c3, b3 = BK.numeric_call(*args, **kw, vector=True)
+    for c, blk in ((c2, b2), (c3, b3)):
+        assert torch.equal(c, c1) and torch.equal(blk, b1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("vector", (False, True))
+def test_bcsr_batched_ladder(cuda, vector):
+    """The batched kernel's row body on the 8x8 ladder, 2 members of A's
+    tiles: rows staged in the launch's shared memory and the 900-block
+    row direct, against the batched plain version."""
+    from repro_torch.core import plan_bcsr
+    from repro_torch.kernels.spgemm_bcsr import kernel as BK
+    from repro_torch.kernels.spgemm_bcsr import ref as bref
+    a, b = ladder_operands(cuda, _bcsr_ladder.LADDER, (8, 8, 8), True)
+    plan = plan_bcsr(a, b, vector=vector, cache=False)
+    rng = np.random.default_rng(40)
+    stack = torch.from_numpy(rng.choice(DYADIC, (2,) + tuple(
+        a.blocks.shape)).astype(np.float32)).to(cuda)
+    args = (plan.offsets, plan.bin_tsize, a.indptr, b.indptr,
+            plan.indptr_cb, a.indices, stack, b.indices, b.blocks)
+    kw = dict(n_members=2, bcap_c=plan.bcap_c, table_size=plan.table_size,
+              vector=vector)
+    launches = BK.launch_list(plan.offsets, plan.bin_tsize, n_members=2,
+                              n_rows=a.grid[0], table_size=plan.table_size,
+                              tile=64, vector=vector)
+    assert any(BK.batched_smem(x, (8, 8, 8))[1] for x in launches)
+    errors = torch.zeros(1, dtype=torch.int32, device=cuda)
+    bcol, blk = BK.batched_numeric_call(*args, **kw, errors=errors)
+    torch.cuda.synchronize()
+    assert int(errors) == 0
+    pc, pb = bref.batched_numeric_plain(*args, **kw)
+    check_bcsr_fleet(a, b, plan, bcol, blk, pc, pb, True)
 
 
 def spmm_operand(cuda, skewed=False, seed=21):
