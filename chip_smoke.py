@@ -204,28 +204,34 @@ Phases; any failure exits non-zero:
      line: prefill ms per prompt length, decode-step ms at batch 4,
      tokens/s; the 2,048-token prefill's device time and the flash
      kernels' share of it;
- 19. the SSD chunk-scan kernel at mamba2-780m's widths (48 heads of head
+ 19. the SSD chunk-scan kernels at mamba2-780m's widths (48 heads of head
      dim 64, one group, state 128, chunks of up to 256; log_a = -softplus
-     (N(0, 1)) A with A the config's span 1-16) against its plain version,
-     float32 (y and final state within 1e-4 plus 8 float32 ulps of the
-     chunk's largest |cumsum of log_a|, of the largest |value|) and
-     bfloat16 (y within one bf16 ulp more), at (B 1, S 4,096), (B 1, S
-     1,000: chunks of 250), (B 2, S 2,048) and two groups at S 2,048; at
-     S 4,096 and 32,768 bf16, median CUDA-event times beside the plain
-     version and the bound (bytes at 3.35 TB/s or the least operations
-     at 989 TFLOP/s, C B^T shared by a group's heads);
+     (N(0, 1)) A with A the config's span 1-16) against their plain
+     version: float32 on the CUDA-core kernel (y and final state within
+     1e-4 plus 8 float32 ulps of the chunk's largest |cumsum of log_a|,
+     of the largest |value|) and bfloat16 on the tensor-core kernel (y
+     within one bf16 ulp more), each case's variant counted, at (B 1, S
+     4,096), (B 1, S 1,000: chunks of 250), (B 2, S 2,048) and two groups
+     at S 2,048; the tensor-core kernel's three passes one by one against
+     ``ref.py``'s plain passes at S 4,096 and 1,000; at S 4,096 and
+     32,768 bf16, two calls bitwise equal, the median single-call
+     CUDA-event time and the card's time a call back to back (20 calls in
+     one event pair), each pass's device time (``torch.profiler``), the
+     plain version and the bound (bytes at 3.35 TB/s or the least
+     operations at 989 TFLOP/s, C B^T shared by a group's heads);
  20. serving mamba2-780m at full width (48 SSD layers, random float32
      weights from seed 0, bf16 compute) through ``Engine(max_batch=4,
      max_len=4,096)``: six prompts as ``launch/serve.py`` draws them, one
      of 1,000 and one of 2,048 tokens, 16 new tokens each; each admission
-     launches the SSD kernel 48 times and no plain version, a decode step
-     nothing, every request finishes.  The gate that does not pass through
-     the kernel: at float32 a 300-token prompt (two chunks of 150) through
-     the kernel's prefill against the same tokens fed one at a time
-     through ``decode_step`` (the recurrence) from empty caches, last
-     logits and every layer's state and conv window within a relative L2
-     distance of 1e-3; then phase 18's float32 greedy-equals-re-prefill
-     check.  Timing line as phase 18's;
+     launches the tensor-core SSD kernel 48 times and no plain version, a
+     decode step nothing, every request finishes; the SSD kernels' share
+     of the 2,048-token prefill's device time.  The gate that does not
+     pass through the kernel: at float32 a 300-token prompt (two chunks
+     of 150) through the CUDA-core kernel's prefill against the same
+     tokens fed one at a time through ``decode_step`` (the recurrence)
+     from empty caches, last logits and every layer's state and conv
+     window within a relative L2 distance of 1e-3; then phase 18's
+     float32 greedy-equals-re-prefill check.  Timing line as phase 18's;
  21. the hash numeric kernel's device time per table class and the
      classifying kernel's, from a ``torch.profiler`` trace of one call per
      probe mode on each phase-4 input (last: traces over the cluster
@@ -350,7 +356,7 @@ BCSR_SOURCE = "src/repro_torch/kernels/spgemm_bcsr/csrc/spgemm_bcsr.cu"
 SPMM_SOURCE = "src/repro_torch/kernels/spmm/csrc/spmm.cu"
 FLASH_WGMMA_SOURCE = \
     "src/repro_torch/kernels/flash_attention/csrc/flash_attention_wgmma.cu"
-SSD_SOURCE = "src/repro_torch/kernels/ssd_chunk/csrc/ssd_chunk.cu"
+SSD_SOURCE = "src/repro_torch/kernels/ssd_chunk/csrc/ssd_chunk_wgmma.cu"
 REPLACES = {
     "numeric": "src/repro/kernels/spgemm_hash/kernel.py:266",
     "numeric_vector": "src/repro/kernels/spgemm_hash/kernel.py:87",
@@ -3198,8 +3204,9 @@ class Smoke:
         the kernel ``key`` (counters under ``prefix``, as :meth:`counted`
         names them) once per layer and its plain version never, a decode
         step neither, nothing else runs, and every request finishes; with
-        ``variant``, every launch of an admission ran that flash kernel
-        (``fa_ops.variant_call_counts``).  Then the device's busy share of
+        ``variant``, every launch of an admission ran that kernel variant
+        (the ops module's ``variant_call_counts``).  Then the device's busy
+        share of
         a decode step at batch SERVE_BATCH and of a prefill of the last
         prompt (``ms_name``: the kernel's own device ms).  Returns (counts,
         timing)."""
@@ -3215,7 +3222,7 @@ class Smoke:
         def snapshot():
             c = ops_mod.kernel_call_counts()
             if variant is not None:
-                c.update(self.fa_ops.variant_call_counts())
+                c.update(ops_mod.variant_call_counts())
             return c
 
         def timed(inner, log, what):
@@ -3245,7 +3252,7 @@ class Smoke:
         per_admission = {key: cfg.n_layers, "plain": 0}
         if variant is not None:
             per_admission.update({v: cfg.n_layers if v == variant else 0
-                                  for v in self.fa_ops.variant_call_counts()})
+                                  for v in ops_mod.variant_call_counts()})
         for n, _, c in prefills:
             check(c == per_admission,
                   f"{phase}: the admission of a {n}-token prompt launched "
@@ -3376,23 +3383,34 @@ class Smoke:
         return (x * dt[..., None]).to(dtype), -dt * A, Bm, Cm
 
     def ssd_kernel(self):
-        """Phase 19: the SSD chunk kernel at mamba2-780m's widths against
-        its plain version (float32 within ``ssd_tol``; bfloat16 within one
-        bf16 ulp of the plain output plus that), then CUDA-event medians
-        beside the plain version and the bound.  Returns the rows' numbers
-        by length."""
+        """Phase 19: the SSD chunk kernels at mamba2-780m's widths against
+        their plain version, each case on the kernel ``SSDK.variant`` names
+        (float32 on the CUDA-core kernel, within ``ssd_tol``; bfloat16 on
+        the tensor-core kernel, within one bf16 ulp of the plain output
+        plus that), the variant counters checked; the tensor-core kernel's
+        passes one by one against ``ref.py``'s plain passes (phase 19b);
+        then at each timed length two calls bitwise equal, CUDA-event
+        medians of a single call, the card's time a call back to back, each
+        pass's device time, the plain version and the bound.  Returns the
+        rows' numbers by length."""
         torch, SSDK, ref = self.torch, self.SSDK, self.ssd_ref
         from repro_torch.models.ssm import _pick_chunk
         errs = {}
         for dtype in (torch.float32, torch.bfloat16):
+            want = "tc" if dtype == torch.bfloat16 else "fma"
             for i, (b, s, g) in enumerate(SSD_CHECKS):
                 q = _pick_chunk(s, SSD_CHUNK)
                 xd, la, Bm, Cm = self.ssd_inputs(b, s, g, dtype, 300 + i)
+                self.ssd_ops.reset_kernel_calls()
                 y, hT = SSDK.ssd_fwd(xd, la, Bm, Cm, q)
                 yw, hw = ref.ssd_chunked(xd, la, Bm, Cm, q)
                 hw = hw.transpose(-1, -2)
                 torch.cuda.synchronize()
                 what = f"ssd_chunk {str(dtype)[6:]} B {b} S {s} g {g} Q {q}"
+                variants = self.ssd_ops.variant_call_counts()
+                check(variants == {"tc": int(want == "tc"),
+                                   "fma": int(want == "fma")},
+                      f"{what}: launched {variants}, want one {want}")
                 check(y.shape == yw.shape and y.dtype == dtype and
                       hT.shape == hw.shape and
                       bool(torch.isfinite(y).all()) and
@@ -3413,20 +3431,34 @@ class Smoke:
                 check(herr <= self.ssd_tol(la, q, hw), f"{what}: final "
                       f"state max abs diff {herr} against the plain version")
                 errs[(dtype, s, b, g)] = err
-                print(f"phase 19: {what}: max abs diff {err:.3g} (y, "
-                      f"tolerance {tol:.3g}), {herr:.3g} (final state) to "
-                      f"the plain version", flush=True)
+                print(f"phase 19: {what} ({want} kernel): max abs diff "
+                      f"{err:.3g} (y, tolerance {tol:.3g}), {herr:.3g} "
+                      f"(final state) to the plain version", flush=True)
                 del xd, la, Bm, Cm, y, hT, yw, hw, d
         torch.cuda.empty_cache()
+        self.ssd_passes()
 
         rows = {}
         for s in SSD_TIMED:
             q = _pick_chunk(s, SSD_CHUNK)
             xd, la, Bm, Cm = self.ssd_inputs(1, s, 1, torch.bfloat16,
                                              400 + s)
-            t = {"kernel": self.time_ms(
-                lambda: SSDK.ssd_fwd(xd, la, Bm, Cm, q))}
-            y, hT = SSDK.ssd_fwd(xd, la, Bm, Cm, q)
+            check(SSDK.variant(xd, Bm, Cm) == "tc",
+                  f"ssd_chunk bf16 S {s}: not on the tensor-core kernel")
+
+            def call():
+                return SSDK.ssd_fwd(xd, la, Bm, Cm, q)
+            y, hT = call()
+            y2, h2 = call()
+            torch.cuda.synchronize()
+            check(torch.equal(y, y2) and torch.equal(hT, h2),
+                  f"ssd_chunk bf16 S {s}: two calls differ")
+            del y2, h2
+            t = {"kernel": self.time_ms(call)}
+            t["kernel_back_to_back"], t["kernel_host"] = self.stream_ms(call)
+            passes = {name: self.device_ms(call, f"ssd_chunk_{kname}")
+                      for name, kname in (("a", "states"), ("b", "pass"),
+                                          ("c", "output"))}
             if (torch.bfloat16, s, 1, 1) in errs:
                 err = errs[(torch.bfloat16, s, 1, 1)]
             else:
@@ -3438,8 +3470,9 @@ class Smoke:
                 check(bad == 0, f"ssd_chunk bf16 S {s}: {bad} values past "
                       f"one bf16 ulp (+ {tol}) of the plain version (max "
                       f"abs diff {err})")
-                print(f"phase 19: ssd_chunk bf16 B 1 S {s} Q {q}: max abs "
-                      f"diff {err:.3g} to the plain version", flush=True)
+                print(f"phase 19: ssd_chunk bf16 B 1 S {s} Q {q} (tc "
+                      f"kernel): max abs diff {err:.3g} to the plain "
+                      f"version", flush=True)
                 del yw, d
             t["plain"] = self.time_ms(
                 lambda: ref.ssd_chunked(xd, la, Bm, Cm, q), reps=3, warm=1)
@@ -3454,27 +3487,82 @@ class Smoke:
             print(json.dumps({
                 "timing": f"ssd_chunk bf16 B 1 nh {SSD_HEADS} hp "
                 f"{SSD_HEAD_DIM} g 1 n {SSD_STATE} S {s} Q {q}",
-                "card": self.card, "ms": t, "bound_ms": bound,
+                "card": self.card, "variant": "tc", "ms": t,
+                "passes_device_ms": passes, "bound_ms": bound,
                 "bound_by": bound_by, "ops": ops, "bytes": by,
-                "gflop_per_s": ops / t["kernel"] / 1e6}), flush=True)
-            rows[s] = {"ms": t["kernel"], "plain_ms": t["plain"],
+                "gflop_per_s": ops / t["kernel"] / 1e6,
+                "gflop_per_s_back_to_back":
+                    ops / t["kernel_back_to_back"] / 1e6}), flush=True)
+            rows[s] = {"ms": t["kernel"],
+                       "ms_back_to_back": t["kernel_back_to_back"],
+                       "plain_ms": t["plain"],
                        "bound_ms": bound, "bound_by": bound_by,
                        "library_ms": None, "max_abs_err": err}
             del xd, la, Bm, Cm, y, hT
             torch.cuda.empty_cache()
         return rows
 
+    def ssd_passes(self):
+        """Phase 19b: the tensor-core kernel's passes one by one
+        (``SSDK.tc_passes``) against ``ref.py``'s plain passes on the same
+        inputs, bf16 at mamba2-780m's widths, S 4,096 and 1,000 (chunks of
+        250): (a)'s cumsum within 8 float32 ulps of its largest |value|
+        and chunk states within ``ssd_tol``, (b)'s entering states (the
+        bf16 hi + lo pair) and last state within ``ssd_tol``, (c)'s output
+        within one bf16 ulp plus ``ssd_tol`` of the plain pass fed the
+        kernel's cumsum and the plain entering states."""
+        torch, SSDK, ref = self.torch, self.SSDK, self.ssd_ref
+        from repro_torch.models.ssm import _pick_chunk
+        eps = torch.finfo(torch.float32).eps
+        for s in (4096, 1000):
+            q = _pick_chunk(s, SSD_CHUNK)
+            xd, la, Bm, Cm = self.ssd_inputs(1, s, 1, torch.bfloat16, 500 + s)
+            what = f"phase 19b: tc passes S {s} Q {q}"
+            got = SSDK.tc_passes(xd, la, Bm, Cm, q, passes=1)
+            cum = ref.chunk_cumsum(la, q)
+            cerr = float((got["cum"] - cum).abs().max())
+            check(cerr <= 8 * eps * float(cum.abs().max()),
+                  f"{what}: cumsum max abs diff {cerr}")
+            S = ref.chunk_states(xd, got["cum"], Bm, q)
+            serr = float((got["states"] - S).abs().max())
+            check(serr <= self.ssd_tol(la, q, S),
+                  f"{what}: (a) chunk states max abs diff {serr}")
+            got = SSDK.tc_passes(xd, la, Bm, Cm, q, passes=3)
+            entering, h = ref.pass_states(S, got["cum"], q)
+            eerr = float((SSDK.states_entering(got["states"]) - entering)
+                         .abs().max())
+            herr = float((got["hT"] - h.transpose(-1, -2)).abs().max())
+            check(eerr <= self.ssd_tol(la, q, entering) and
+                  herr <= self.ssd_tol(la, q, h),
+                  f"{what}: (b) entering states max abs diff {eerr}, last "
+                  f"state {herr}")
+            got = SSDK.tc_passes(xd, la, Bm, Cm, q)
+            yw = ref.chunk_output(xd, got["cum"], Bm, Cm, entering, q)
+            d = (got["y"].float() - yw.float()).abs()
+            bad = int((d > self.bf16_ulp(yw) +
+                       self.ssd_tol(la, q, yw)).sum())
+            check(bad == 0, f"{what}: (c) {bad} values of y past one bf16 "
+                  f"ulp plus the tolerance (max abs diff {float(d.max())})")
+            print(f"{what}: max abs diff cumsum {cerr:.3g}, (a) chunk states "
+                  f"{serr:.3g}, (b) entering states {eerr:.3g} (bf16 hi + "
+                  f"lo), last state {herr:.3g}, (c) y {float(d.max()):.3g}",
+                  flush=True)
+            del xd, la, Bm, Cm, got, cum, S, entering, h, yw, d
+            torch.cuda.empty_cache()
+
     # ---- phase 20 ----------------------------------------------------------
     def serve_ssd(self, ssd_rows):
         """Phase 20: serve mamba2-780m at full width (random weights from a
         seeded generator, bf16) through ``Engine``: 8 requests, every
-        admission launching the SSD chunk kernel once per layer and no
-        plain version, decode launching nothing; then the float32 gate
-        that does not pass through the kernel -- a prompt of
-        SSD_GATE_LEN tokens (two chunks) through the kernel's prefill
-        against the same tokens fed one at a time through ``decode_step``
-        (the recurrence) from empty caches -- and a float32 copy's greedy
-        decode against re-prefill.  Adds the SSD kernel's rows."""
+        admission launching the tensor-core SSD kernel once per layer and
+        no plain version, decode launching nothing, and the SSD kernels'
+        share of a 2,048-token prefill's device time; then the float32
+        gate that does not pass through the kernel -- a prompt of
+        SSD_GATE_LEN tokens (two chunks) through the CUDA-core kernel's
+        prefill against the same tokens fed one at a time through
+        ``decode_step`` (the recurrence) from empty caches -- and a float32
+        copy's greedy decode against re-prefill.  Adds the SSD kernel's
+        rows."""
         import dataclasses
         torch = self.torch
         from repro_torch.configs import get
@@ -3510,9 +3598,16 @@ class Smoke:
         prompts = self.serve_prompts(cfg, model, pctx, SSD_LONG)
         counts, timing = self.serve_run(cfg, model, pctx, prompts, "ssd",
                                         "ssd_chunk", "ssd_chunk_ms",
-                                        "phase 20")
+                                        "phase 20", variant="tc")
         print(json.dumps({"timing": f"{SSD_ARCH} serving", "card": self.card,
                           **timing}), flush=True)
+        pre = timing[f"prefill_{SSD_LONG[-1]}"]
+        if pre["device_busy_ms"]:
+            share = pre["ssd_chunk_ms"] / pre["device_busy_ms"]
+            print(f"phase 20: the {SSD_LONG[-1]}-token prefill: SSD kernels "
+                  f"{pre['ssd_chunk_ms']:.3f} of {pre['device_busy_ms']:.3f} "
+                  f"device ms ({share:.1%}), host {pre['host_ms']:.3f} ms; "
+                  f"{cfg.n_layers} tc launches an admission", flush=True)
 
         # the gate: float32 prefill through the kernel against the
         # recurrence, token by token from empty caches
@@ -3523,10 +3618,12 @@ class Smoke:
         check(S._pick_chunk(SSD_GATE_LEN, cfg.ssm.chunk) * 2 == SSD_GATE_LEN,
               "phase 20: the gate's prompt is not two chunks")
         before = ssd_ops.kernel_call_counts()["ssd_chunk"]
+        fma_before = ssd_ops.variant_call_counts()["fma"]
         want, wc = T.prefill(model, gate, cfg32, pctx)
         check(ssd_ops.kernel_call_counts()["ssd_chunk"] - before ==
-              cfg.n_layers, "phase 20: the float32 prefill did not launch "
-              "the kernel once per layer")
+              cfg.n_layers and ssd_ops.variant_call_counts()["fma"] -
+              fma_before == cfg.n_layers, "phase 20: the float32 prefill "
+              "did not launch the CUDA-core kernel once per layer")
         caches = T.init_caches(cfg32, 1, SSD_GATE_LEN + 1, torch.float32,
                                self.dev)
         t0 = time.perf_counter()
@@ -3569,6 +3666,7 @@ class Smoke:
             self.rows.append({
                 "name": f"ssd_chunk[bf16 S{s}]", "route": "cuda",
                 "source": SSD_SOURCE, "replaces": REPLACES["ssd_chunk"],
+                "variant": "tc",
                 "launches": counts["ssd_ssd_chunk"],
                 "launches_per_admission": cfg.n_layers,
                 "launches_per_decode_step": 0, **row})
@@ -3597,13 +3695,14 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import kernel as FK
     from repro_torch.kernels.ssd_chunk import kernel as SSDK
     seconds = _build.compile_sources([K.SOURCE, PK.SOURCE, BK.SOURCE,
-                                      SK.SOURCE, *FK.SOURCES, SSDK.SOURCE])
-    flash = FK.build()
+                                      SK.SOURCE, *FK.SOURCES, *SSDK.SOURCES])
+    flash, ssd = FK.build(), SSDK.build()
     for info, src in ((K.build(), K.SOURCE), (PK.build(), PK.SOURCE),
                       (BK.build(), BK.SOURCE), (SK.build(), SK.SOURCE),
                       (flash["fma"], FK.SOURCE),
                       (flash["wgmma"], FK.WGMMA_SOURCE),
-                      (SSDK.build(), SSDK.SOURCE)):
+                      (ssd["fma"], SSDK.SOURCE),
+                      (ssd["tc"], SSDK.TC_SOURCE)):
         print(f"phase 2: built {info['path']} in {seconds[src]:.1f} s",
               flush=True)
         for line in info["ptxas"].splitlines():

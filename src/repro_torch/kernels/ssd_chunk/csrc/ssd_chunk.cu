@@ -1,7 +1,12 @@
-// Mamba-2 SSD (state-space duality) chunk scan for Hopper (sm_90a).
+// Mamba-2 SSD (state-space duality) chunk scan for Hopper (sm_90a) on the
+// CUDA cores.
 //
 // Replaces the Pallas TPU kernel ssd_call of
-// repro/kernels/ssd_chunk/kernel.py (_ssd_kernel).  For xd (b, s, nh, hp)
+// repro/kernels/ssd_chunk/kernel.py (_ssd_kernel) for float32, for widths
+// that are no multiple of 16 and for operands TMA cannot address;
+// ssd_chunk_wgmma.cu beside it takes bfloat16 at multiples of 16 on the
+// tensor cores (kernel.py's variant picks one of the two: the model's
+// bfloat16 prefill runs there, its float32 gate here).  For xd (b, s, nh, hp)
 // (inputs already scaled by dt), log_a (b, s, nh) float32 and B, C
 // (b, s, g, n), head h reading group h / (nh / g), the sequence is cut into
 // chunks of Q steps and, per (batch, head), chunk by chunk in order:
@@ -68,7 +73,9 @@
 // What it does not do about its bound: every product runs at the float32
 // CUDA-core rate (67 TFLOP/s), with no wgmma or TMA, C B^T is recomputed
 // for every head of a group and every head-dim slice, and the chunks of a
-// head run one after another in one block.  Those are later work.
+// head run one after another in one block.  ssd_chunk_wgmma.cu does those
+// for bfloat16; float32 keeps this kernel, whose gates a bf16 product
+// could not hold.
 //
 // Plain C interface, loaded with ctypes; the launch reports
 // cudaGetLastError().

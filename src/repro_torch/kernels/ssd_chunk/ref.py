@@ -63,3 +63,87 @@ def ssd_chunked(xd, log_a, Bm, Cm, chunk: int):
         "bcihn,bchpn->bcihp", C_, h_prev)
     y = (y_intra + y_inter).reshape(b, s, nh, hp)
     return y.to(xd.dtype), h
+
+
+# ---- the tensor-core kernel's three passes, in plain PyTorch ---------------
+#
+# The same function cut as ``csrc/ssd_chunk_wgmma.cu`` cuts it, so that its
+# passes can be checked one by one: (a) each chunk's cumsum and own state,
+# (b) the states passed from chunk to chunk, (c) each chunk's output.  The
+# states are (hp, n)-ordered, as the kernel keeps them.
+
+def chunk_cumsum(log_a, chunk: int):
+    """Pass (a)'s cumsum of log_a within each chunk: (b, s, nh) float32."""
+    b, s, nh = log_a.shape
+    return torch.cumsum(log_a.float().reshape(b, s // chunk, chunk, nh),
+                        dim=2).reshape(b, s, nh)
+
+
+def chunk_states(xd, cum, Bm, chunk: int):
+    """Pass (a): each chunk's own state, the inputs of the chunk decayed to
+    its end, S_c = (exp(cum_Q - cum) o xd)^T B: (b, nc, nh, hp, n)
+    float32."""
+    b, s, nh, hp = xd.shape
+    g, n = Bm.shape[2], Bm.shape[3]
+    nc = s // chunk
+    c = cum.reshape(b, nc, chunk, nh)
+    w = torch.exp(c[:, :, -1:, :] - c)                    # (b, nc, Q, nh)
+    x = xd.reshape(b, nc, chunk, nh, hp).float() * w[..., None]
+    B_ = Bm.reshape(b, nc, chunk, g, n).float().repeat_interleave(
+        nh // g, dim=3)
+    return torch.einsum("bcjhp,bcjhn->bchpn", x, B_)
+
+
+def pass_states(S, cum, chunk: int):
+    """Pass (b): H_c = exp(cum_Q) H_{c-1} + S_c from H = 0.  Returns the
+    state entering each chunk (b, nc, nh, hp, n) and the last (b, nh, hp,
+    n), float32."""
+    b, nc, nh = S.shape[:3]
+    a = torch.exp(cum.reshape(b, nc, chunk, nh)[:, :, -1, :])   # (b, nc, nh)
+    h = torch.zeros_like(S[:, 0])
+    entering = []
+    for c in range(nc):
+        entering.append(h)
+        h = h * a[:, c, :, None, None] + S[:, c]
+    return torch.stack(entering, dim=1), h
+
+
+def chunk_output(xd, cum, Bm, Cm, entering, chunk: int):
+    """Pass (c): y = ((C B^T) o L) xd + exp(cum) o (C H_{c-1}), C B^T once
+    per group, L masked before exp; (b, s, nh, hp) in xd's dtype."""
+    b, s, nh, hp = xd.shape
+    g, n = Bm.shape[2], Bm.shape[3]
+    nc, rep = s // chunk, nh // g
+    f32 = torch.float32
+    C_ = Cm.reshape(b, nc, chunk, g, n).to(f32)
+    B_ = Bm.reshape(b, nc, chunk, g, n).to(f32)
+    CB = torch.einsum("bcign,bcjgn->bcgij", C_, B_)      # (b, nc, g, Qi, Qj)
+    CB = CB.repeat_interleave(rep, dim=2)                 # (b, nc, nh, Qi, Qj)
+    c = cum.reshape(b, nc, chunk, nh).permute(0, 1, 3, 2)  # (b, nc, nh, Q)
+    seg = c[..., :, None] - c[..., None, :]
+    tri = torch.ones((chunk, chunk), dtype=torch.bool,
+                     device=xd.device).tril()
+    L = torch.exp(torch.where(tri, seg, NEG_BIG))
+    x = xd.reshape(b, nc, chunk, nh, hp).to(f32)
+    y = torch.einsum("bchij,bcjhp->bcihp", CB * L, x)
+    C_h = C_.repeat_interleave(rep, dim=3)                # (b, nc, Q, nh, n)
+    y = y + torch.exp(c).permute(0, 1, 3, 2)[..., None] * torch.einsum(
+        "bcihn,bchpn->bcihp", C_h, entering)
+    return y.reshape(b, s, nh, hp).to(xd.dtype)
+
+
+def ssd_passes(xd, log_a, Bm, Cm, chunk: int):
+    """The three passes composed: the same contract as
+    :func:`ssd_chunked` (y in xd's dtype, the last state (b, nh, hp, n)
+    float32)."""
+    cum = chunk_cumsum(log_a, chunk)
+    entering, h = pass_states(chunk_states(xd, cum, Bm, chunk), cum, chunk)
+    return chunk_output(xd, cum, Bm, Cm, entering, chunk), h
+
+
+def split_bf16(v):
+    """A float32 operand as the kernel feeds it to the tensor cores: hi =
+    bf16(v), lo = bf16(v - hi); hi + lo is v within 2^-16 |v| (each part
+    keeps 8 significant bits)."""
+    hi = v.to(torch.bfloat16)
+    return hi, (v - hi.float()).to(torch.bfloat16)

@@ -1,5 +1,5 @@
 """The hand-written CUDA kernels (hash, propagation blocking, BCSR, SpMM,
-flash attention) against their plain versions.
+flash attention, SSD chunk scan) against their plain versions.
 
 Every test here needs an NVIDIA GPU (marker ``gpu``) and skips without one:
 the kernels have no CPU mode.  The module imports neither jax nor the
@@ -18,7 +18,8 @@ SSD chunk scan: float32 y and final state within 1e-4 plus 8 float32 ulps
 of the chunk's largest |cumsum of log_a|, of the largest |value| (each
 cum_i - cum_j carries the rounding of two cumsums taken in another order,
 a few ulps of |cum|); bfloat16 y within one bf16 ulp of the plain output
-plus that.
+plus that, on either kernel (the tensor-core one feeds its float32
+operands as bf16 hi + lo pairs, 2^-16 of each term).
 """
 import dataclasses
 import os
@@ -1909,3 +1910,137 @@ def test_ssd_wrapper_raises_rather_than_falls_back(cuda):
                      torch.zeros((1, 512, 1, 8), device=cuda),
                      torch.zeros((1, 512, 1, 8), device=cuda), 512)
     assert ssd_ops.kernel_call_counts() == {"ssd_chunk": 0, "plain": 0}
+
+
+# ---- SSD chunk scan: the tensor-core kernel ---------------------------------
+
+def ssd_check(y, hT, xd, la, Bm, Cm, chunk):
+    """y within one bf16 ulp of the plain output plus ``ssd_tol``, hT (the
+    kernel's (n, hp) order) within ``ssd_tol`` of the plain last state."""
+    yw, hw = ssd_ref.ssd_chunked(xd, la, Bm, Cm, chunk)
+    hw = hw.transpose(-1, -2)
+    assert y.dtype == xd.dtype and y.shape == yw.shape
+    assert hT.dtype == torch.float32 and hT.shape == hw.shape
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(hT).all())
+    d = (y.float() - yw.float()).abs()
+    assert bool((d <= bf16_ulp(yw) + ssd_tol(la, chunk, yw)).all()), \
+        float(d.max())
+    assert float((hT - hw).abs().max()) <= ssd_tol(la, chunk, hw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,nh,hp,g,n,chunk,decay", [
+    (1, 512, 8, 64, 1, 128, 256, 1.0),    # mamba2-780m's head and state
+    (2, 1000, 4, 64, 1, 128, 250, 1.0),   # ragged chunks of 250
+    (1, 300, 4, 64, 1, 128, 150, 16.0),   # 150, cum near -1,200: underflow
+    (1, 37, 4, 64, 1, 128, 1, 0.5),       # a prime length: chunks of 1
+    (1, 512, 8, 64, 2, 128, 256, 1.0),    # two groups
+    (1, 256, 20, 64, 1, 128, 256, 1.0),   # a group of 20: head sets 6, 6, 6, 2
+    (1, 256, 4, 128, 1, 64, 64, 1.0),     # two head-dim slices, one k block
+    (1, 192, 2, 32, 1, 256, 96, 0.5),     # a partial slice, state 256
+])
+def test_ssd_tc_kernel_matches_plain_version(cuda, b, s, nh, hp, g, n,
+                                             chunk, decay):
+    gen = torch.Generator(cuda).manual_seed(s + n + nh)
+    xd, la, Bm, Cm = ssd_inputs(gen, b, s, nh, hp, g, n, torch.bfloat16,
+                                decay, cuda)
+    assert SSDK.variant(xd, Bm, Cm) == "tc"
+    ssd_ops.reset_kernel_calls()
+    y, hT = ssd_ops.ssd_chunk(xd, la, Bm, Cm, chunk)
+    torch.cuda.synchronize()
+    assert ssd_ops.kernel_call_counts() == {"ssd_chunk": 1, "plain": 0}
+    assert ssd_ops.variant_call_counts() == {"tc": 1, "fma": 0}
+    ssd_check(y, hT, xd, la, Bm, Cm, chunk)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("chunk", (256, 150))
+def test_ssd_tc_passes_match_their_plain_versions(cuda, chunk):
+    """Pass by pass: (a)'s cumsum and chunk states, (b)'s entering states
+    (the bf16 hi + lo pair) and last state, (c)'s output, each against
+    ``ref.py``'s plain pass on the same inputs."""
+    b, s, nh, hp, g, n = 2, 3 * chunk, 8, 64, 2, 128
+    gen = torch.Generator(cuda).manual_seed(chunk)
+    xd, la, Bm, Cm = ssd_inputs(gen, b, s, nh, hp, g, n, torch.bfloat16,
+                                1.0, cuda)
+    got = SSDK.tc_passes(xd, la, Bm, Cm, chunk, passes=1)
+    cum = ssd_ref.chunk_cumsum(la, chunk)
+    eps = torch.finfo(torch.float32).eps
+    assert float((got["cum"] - cum).abs().max()) <= \
+        8 * eps * float(cum.abs().max())
+    S = ssd_ref.chunk_states(xd, got["cum"], Bm, chunk)
+    assert float((got["states"] - S).abs().max()) <= ssd_tol(la, chunk, S)
+    got = SSDK.tc_passes(xd, la, Bm, Cm, chunk, passes=3)
+    entering, h = ssd_ref.pass_states(S, got["cum"], chunk)
+    assert float((SSDK.states_entering(got["states"]) - entering).abs()
+                 .max()) <= ssd_tol(la, chunk, entering)
+    assert float((got["hT"] - h.transpose(-1, -2)).abs().max()) <= \
+        ssd_tol(la, chunk, h)
+    got = SSDK.tc_passes(xd, la, Bm, Cm, chunk)
+    yw = ssd_ref.chunk_output(xd, got["cum"], Bm, Cm, entering, chunk)
+    d = (got["y"].float() - yw.float()).abs()
+    assert bool((d <= bf16_ulp(yw) + ssd_tol(la, chunk, yw)).all())
+
+
+@pytest.mark.gpu
+def test_ssd_tc_takes_the_models_strided_operands(cuda):
+    """B and C as ``models/ssm.apply_full`` slices them out of one (b, s,
+    d_in + 2 g n) tensor: row stride d_in + 2 g n, 16-byte offsets."""
+    gen = torch.Generator(cuda).manual_seed(3)
+    b, s, nh, hp, g, n = 2, 512, 4, 64, 2, 128
+    d_in = nh * hp
+    xd, la, _, _ = ssd_inputs(gen, b, s, nh, hp, g, n, torch.bfloat16, 1.0,
+                              cuda)
+    xbc = torch.randn((b, s, d_in + 2 * g * n), generator=gen,
+                      device=cuda).to(torch.bfloat16)
+    _, Bm, Cm = torch.split(xbc, [d_in, g * n, g * n], dim=-1)
+    Bm, Cm = Bm.reshape(b, s, g, n), Cm.reshape(b, s, g, n)
+    assert not Bm.is_contiguous() and SSDK.variant(xd, Bm, Cm) == "tc"
+    ssd_ops.reset_kernel_calls()
+    y, hT = ssd_ops.ssd_chunk(xd, la, Bm, Cm, 256)
+    torch.cuda.synchronize()
+    assert ssd_ops.variant_call_counts() == {"tc": 1, "fma": 0}
+    ssd_check(y, hT, xd, la, Bm.contiguous(), Cm.contiguous(), 256)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ("offset", "row_stride", "head_dim",
+                                  "state", "float32"))
+def test_ssd_unaligned_or_odd_operands_take_the_fma_kernel(cuda, case):
+    """An operand TMA cannot address (a base off 16 bytes, a row stride
+    that is no multiple of 16 bytes), a width that is no multiple of 16,
+    or float32: the CUDA-core kernel, counted as such, right all the
+    same."""
+    gen = torch.Generator(cuda).manual_seed(4)
+    b, s, nh, g = 1, 256, 4, 1
+    hp = 24 if case == "head_dim" else 64
+    n = 40 if case == "state" else 128
+    dtype = torch.float32 if case == "float32" else torch.bfloat16
+    xd, la, Bm, Cm = ssd_inputs(gen, b, s, nh, hp, g, n, dtype, 1.0, cuda)
+    if case in ("offset", "row_stride"):
+        pad = 3 if case == "offset" else 0
+        extra = 0 if case == "offset" else 4
+        xbc = torch.randn((b, s, pad + 2 * g * n + extra), generator=gen,
+                          device=cuda).to(dtype)
+        Bm = xbc[..., pad:pad + g * n].reshape(b, s, g, n)
+        Cm = xbc[..., pad + g * n:pad + 2 * g * n].reshape(b, s, g, n)
+    assert SSDK.variant(xd, Bm, Cm) == "fma"
+    ssd_ops.reset_kernel_calls()
+    y, hT = ssd_ops.ssd_chunk(xd, la, Bm, Cm, 128)
+    torch.cuda.synchronize()
+    assert ssd_ops.kernel_call_counts() == {"ssd_chunk": 1, "plain": 0}
+    assert ssd_ops.variant_call_counts() == {"tc": 0, "fma": 1}
+    ssd_check(y, hT, xd, la, Bm.contiguous(), Cm.contiguous(), 128)
+    with pytest.raises(ValueError, match="tc SSD kernel does not take"):
+        SSDK.tc_passes(xd, la, Bm, Cm, 128)
+
+
+@pytest.mark.gpu
+def test_ssd_tc_two_calls_bitwise_equal(cuda):
+    gen = torch.Generator(cuda).manual_seed(5)
+    xd, la, Bm, Cm = ssd_inputs(gen, 1, 1024, 8, 64, 1, 128,
+                                torch.bfloat16, 1.0, cuda)
+    y1, h1 = ssd_ops.ssd_chunk(xd, la, Bm, Cm, 256)
+    y2, h2 = ssd_ops.ssd_chunk(xd, la, Bm, Cm, 256)
+    torch.cuda.synchronize()
+    assert torch.equal(y1, y2) and torch.equal(h1, h2)
