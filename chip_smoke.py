@@ -111,14 +111,19 @@ Phases; any failure exits non-zero:
      experts, top-8, d_model 2,048, 16,384 tokens, feature density 0.05,
      one F shared by every expert); ``benchmarks/common.py``'s mixed
      ``rmat_fleet(64, 10)`` (also pinned to ``hash_vector``); and two G500
-     s16 ef16 squares, whose 131,072-slot tables take the global-memory
-     branch.  Each execute must launch the batched numeric kernel once
-     per bin index holding rows, per class, and nothing else; every member
-     against the batched plain version and the per-product planned loop
-     (row pointers and columns bitwise, values within 1 ulp per product),
-     the MoE outputs bitwise against the gathered feature rows.  Timings:
-     the batched execute, the per-product loop, the kernels alone, the
-     plain version and a loop of ``torch.sparse.mm`` per member; for the
+     s16 ef16 squares, whose rows of up to 131,072-slot tables run on
+     clusters.  Each execute must launch, per plan class, the classifying
+     kernel once and one batched numeric launch per table class its
+     largest table allows, and nothing else; every member against the
+     batched plain version and the per-product planned loop (row pointers
+     and columns bitwise, values within 1 ulp per product), the MoE
+     outputs bitwise against the gathered feature rows.  Each phase's
+     table classes on the plan's arguments: the classifying kernel
+     against its plain version, rows, products and nnz(C) per class, each
+     class launch's device ms.  Timings: the batched execute, the
+     per-product loop, the kernels alone (numeric, and symbolic on the
+     same arguments; single calls and back to back), the plain version
+     and a loop of ``torch.sparse.mm`` per member; for the
      MoE fleet also a serving call (``plan_batch(pairs).execute`` under
      ``torch.inference_mode()``) on its tensors and on copies made under
      inference mode, which must hit the plan cache;
@@ -161,14 +166,17 @@ Phases; any failure exits non-zero:
      pinned over 8 members (the batched symbolic kernel too); G500 s16
      over 2 members (global-memory tables), planned and planless; a
      dyadic and a uniform fleet each.  Each vmapped call must run the ops'
-     vmap rules -- one batched launch per bin index holding rows, per
-     phase -- and nothing else; row pointers the plan's; the batched
+     vmap rules -- per phase one classifying launch and one batched launch
+     per table class the plan's largest table allows -- and nothing else;
+     row pointers the plan's; the batched
      symbolic counts bitwise the plan's ESC counts and the batched plain
      version's; the batched numeric kernel and every member against the
      batched plain version (columns bitwise, values bitwise on dyadic
      values, else within 1 ulp per product), each dyadic member bitwise
-     equal to the single-product execute.  Timings: the vmapped call,
-     each batched kernel, the single-product kernels once per member, the
+     equal to the single-product execute; each phase's table classes as
+     in phase 12.  Timings: the vmapped call, each batched kernel (single
+     calls and back to back), the single-product kernels once per member
+     and one of them back to back, the
      per-member loop, the batched plain versions and a loop of
      ``torch.sparse.mm`` per member, beside the byte bound (shared index
      arrays counted once);
@@ -976,11 +984,11 @@ class Smoke:
                 us = getattr(e, "device_time_total", 0)
                 if not us:
                     continue
-                m = re.search(r"hash_class_kernel(?:<(?:true|false), "
-                              r"|ILb[01]ELi)(\d)", e.key)
+                m = re.search(r"hash_class_kernel(?:<true, (?:true|false), "
+                              r"|ILb1ELb[01]ELi)(\d)", e.key)
                 if m:
                     out[K.CLASS_NAMES[int(m.group(1))]] += us / 1e3
-                elif "classify_kernel" in e.key:
+                elif "classify_kernel" in e.key or "place_kernel" in e.key:
                     out["classify"] += us / 1e3
             if out["classify"] > 0:
                 break
@@ -1331,15 +1339,19 @@ class Smoke:
         """One value-fleet case of phase 16: ``torch.func.vmap`` of
         ``execute`` (A·A on ``plan``'s structure, the hash family) over the
         members' values (``cases``: ``(values, xa, xb)``, each a ``(n,
-        cap)`` stack or a shared vector), launching the batched kernels once
-        per bin index holding rows (the numeric one; ``planless``: the
-        symbolic one too) and nothing else.  Checks: row pointers the
-        plan's; the batched symbolic counts the plan's ESC counts and the
-        batched plain version's; the batched numeric kernel and the vmapped
-        output against the batched plain version (columns bitwise, values
-        bitwise on dyadic values, else within 1 ulp per product); on dyadic
-        values every member bitwise equal to the single-product execute
-        (rows sorted).  Then the timings of the uniform fleet."""
+        cap)`` stack or a shared vector), launching the batched kernels of
+        each phase -- one classifying launch, then one launch per table
+        class the plan's largest table allows (the numeric phase;
+        ``planless``: the symbolic one too) -- and nothing else.  Checks:
+        row pointers the plan's; the batched symbolic counts the plan's ESC
+        counts and the batched plain version's; the batched numeric kernel
+        and the vmapped output against the batched plain version (columns
+        bitwise, values bitwise on dyadic values, else within 1 ulp per
+        product); on dyadic values every member bitwise equal to the
+        single-product execute (rows sorted).  Each phase's classes
+        (:meth:`fleet_classes`).  Then the timings of the uniform fleet:
+        both batched kernels as single calls and back to back, beside the
+        single-product kernels."""
         import dataclasses
         torch, K, ref = self.torch, self.K, self.ref
         vector = plan.algorithm == "hash_vector"
@@ -1369,14 +1381,12 @@ class Smoke:
 
         n = max(x.shape[0] for _, xa, xb in cases for x in (xa, xb)
                 if x.dim() == 2)
-        bounds = plan.offsets.tolist()
-        launch_list = K.batched_launches([bounds] * n,
-                                         [plan.bin_tsize.tolist()] * n,
-                                         table, m, vector)
-        n_launches = sum(1 for r0, r1 in zip(bounds, bounds[1:]) if r1 > r0)
-        check(len(launch_list) == n_launches,
-              f"{label}: {len(launch_list)} batched launches for "
-              f"{n_launches} bins holding rows")
+        largest = K.fleet_table([plan.offsets.tolist()] * n,
+                                [plan.bin_tsize.tolist()] * n, table, m,
+                                vector)
+        n_launches = len(K.launch_classes(largest))
+        check(0 < n_launches <= len(K.CLASS_NAMES),
+              f"{label}: {n_launches} class launches a phase")
         want = {f"batched_numeric{sfx}": n_launches}
         if planless:
             want[f"batched_symbolic{sfx}"] = n_launches
@@ -1390,6 +1400,9 @@ class Smoke:
             dyadic = values == "dyadic"
             (ip, cols, data), counts = self.counted(lambda: vmapped(xa, xb))
             self.expect(counts, want, f"{what} vmap")
+            check(self.class_counts["classify"] == 1 + planless,
+                  f"{what} vmap: {self.class_counts['classify']} "
+                  f"classifying launches")
             launches = {"batched_numeric": counts[f"batched_numeric{sfx}"],
                         "batched_symbolic": counts[f"batched_symbolic{sfx}"]}
             check(data.shape == cols.shape == (n, cap_c),
@@ -1426,15 +1439,17 @@ class Smoke:
                                  s.data)
                     del single, s
             del kc, kv, pc, pv, cols, data
-        print(f"{label}: {n} members, {len(cases)} fleets; {n_launches} "
-              f"batched launches a phase; row counts the plan's, every "
-              f"member equal to the plain version and (dyadic) the "
-              f"single-product execute; max abs diff numeric "
+        print(f"{label}: {n} members, {len(cases)} fleets; 1 classifying "
+              f"and {n_launches} class launches a phase; row counts the "
+              f"plan's, every member equal to the plain version and "
+              f"(dyadic) the single-product execute; max abs diff numeric "
               f"{err['batched_numeric']}", flush=True)
 
         # ---- timings (the uniform fleet) ---------------------------------
         _, xa, xb = next(c for c in cases if c[0] == "uniform")
         errors = torch.zeros(1, dtype=torch.int32, device=self.dev)
+        classes = self.fleet_classes(label, num_args(xa, xb), n, table,
+                                     cap_c, vector, largest)
         nnz = int(a.nnz)
         m_a = [dataclasses.replace(a, data=member(xa, e)) for e in range(n)]
         m_b = [dataclasses.replace(a, data=member(xb, e)) for e in range(n)]
@@ -1451,14 +1466,18 @@ class Smoke:
                           errors=errors, **({"cap_c": cap_c} if extra
                                             else {}))
 
+        def batched_numeric():
+            return K.batched_numeric_call(*num_args(xa, xb), cap_c=cap_c,
+                                          **kw, errors=errors,
+                                          largest=largest)
+
+        def batched_symbolic():
+            return K.batched_symbolic_call(*sym_args(xa, xb), **kw,
+                                           errors=errors, largest=largest)
+
         t = {"vmap_execute": self.time_ms(lambda: vmapped(xa, xb)),
-             "batched_numeric": self.time_ms(lambda: K.batched_numeric_call(
-                 *num_args(xa, xb), cap_c=cap_c, **kw, errors=errors,
-                 launches=launch_list)),
-             "batched_symbolic": self.time_ms(
-                 lambda: K.batched_symbolic_call(
-                     *sym_args(xa, xb), **kw, errors=errors,
-                     launches=launch_list)),
+             "batched_numeric": self.time_ms(batched_numeric),
+             "batched_symbolic": self.time_ms(batched_symbolic),
              "loop_numeric": self.time_ms(lambda: [
                  single(K.numeric_call, e, ic) for e in range(n)]),
              "loop_symbolic": self.time_ms(lambda: [
@@ -1475,6 +1494,11 @@ class Smoke:
              "torch_sparse_mm_loop": self.time_ms(
                  lambda: [torch.sparse.mm(x, y) for x, y in
                           zip(sp_a, sp_b)])}
+        b2b = {k: self.stream_ms(f)[0] for k, f in (
+            ("batched_numeric", batched_numeric),
+            ("batched_symbolic", batched_symbolic),
+            ("single_numeric", lambda: single(K.numeric_call, 0, ic)),
+            ("single_symbolic", lambda: single(K.symbolic_call, 0)))}
         torch.cuda.synchronize()
         check(int(errors) == 0, f"{label}: {int(errors)} kernel errors")
         # least time: the shared index arrays once (A's row pointer and
@@ -1503,7 +1527,9 @@ class Smoke:
                           "batched": {"a": n_a > 1, "b": n_b > 1},
                           "nnz_a": nnz, "flop": plan.total_flop,
                           "nnz_c": plan.nnz_c, "table_size": table,
-                          "launches": launches, "ms": t, "bound_ms": bound,
+                          "launches": launches, "classes": classes,
+                          "ms": t, "back_to_back_ms": b2b,
+                          "bound_ms": bound,
                           "bound_bytes": by, "bound_operations": ops_n,
                           "shared_index_arrays": "counted once"}),
               flush=True)
@@ -1522,6 +1548,87 @@ class Smoke:
                 if k == "batched_numeric" else None})
         del m_a, m_b, sp_a, sp_b
         torch.cuda.empty_cache()
+
+    def fleet_classes(self, label, args, n, table, cap_c, vector,
+                      largest) -> dict:
+        """Each batched phase's table classes on a fleet's numeric
+        arguments ``args`` (stacked or shared; the symbolic phase takes
+        them without ``indptr_c``): the classifying kernel against its
+        plain version (counts, each pair's table, each class's pairs as a
+        set), rows, products and (numeric) nnz(C) per class, every class
+        that holds pairs among the launched ones, and the device ms of the
+        classifying launch and of each class launch, CUDA events around it
+        in one call of the batched kernel (``K.CLASS_EVENTS``).  Printed;
+        returns ``{phase: {"classify_ms", class: {"rows", "products",
+        "nnz_c", "ms"}}}``."""
+        from repro_torch.kernels._build import member_view
+        torch, K, ref = self.torch, self.K, self.ref
+        off, bts, ia, ib, ic, ai = args[:6]
+        m = min(ia.shape[-1], ic.shape[-1]) - 1
+        flop = torch.stack([ref.row_flop_plain(
+            member_view(ia, 1, e)[:m + 1], member_view(ib, 1, e),
+            member_view(ai, 1, e)) for e in range(n)])
+        nnz = torch.stack([member_view(ic, 1, e)[1:m + 1].long()
+                           - member_view(ic, 1, e)[:m].long()
+                           for e in range(n)])
+        launched = K.launch_classes(largest)
+        kw = dict(n_members=n, table_size=table, vector=vector)
+        err = torch.zeros(1, dtype=torch.int32, device=self.dev)
+        out = {}
+        for numeric in (False, True):
+            phase = "numeric" if numeric else "symbolic"
+            c_ic = ic if numeric else None
+            counts, pairs, row_tsz = K.batched_row_classes(
+                off, bts, ia, ib, c_ic, ai, n_members=n, table_size=table,
+                numeric=numeric, errors=err)
+            p_counts, p_pairs, p_tsz = ref.batched_row_classes_plain(
+                off, bts, ia, ib, c_ic, ai, n_members=n, table_size=table,
+                numeric=numeric)
+            torch.cuda.synchronize()
+            check(int(err) == 0, f"{label}: {phase} classify errors "
+                  f"{int(err)}")
+            check(torch.equal(counts, p_counts) and
+                  torch.equal(row_tsz, p_tsz), f"{label}: {phase} classes "
+                  f"{counts.tolist()} differ from the plain version's "
+                  f"{p_counts.tolist()}")
+            for c, (got, want) in enumerate(zip(pairs, p_pairs)):
+                key = got[:, 0] * m + got[:, 1]
+                check(torch.equal(torch.sort(key).values,
+                                  p_pairs[c][:, 0] * m + p_pairs[c][:, 1]),
+                      f"{label}: {phase} class {K.CLASS_NAMES[c]} pairs "
+                      f"differ from the plain version's")
+                check(not want.shape[0] or c in launched,
+                      f"{label}: {phase} class {K.CLASS_NAMES[c]} holds "
+                      f"pairs but is not launched")
+            fn = (lambda: K.batched_numeric_call(
+                *args, cap_c=cap_c, **kw, errors=err, largest=largest)) \
+                if numeric else (lambda: K.batched_symbolic_call(
+                    *args[:4], *args[5:], **kw, errors=err,
+                    largest=largest))
+            fn()
+            K.CLASS_EVENTS = []
+            fn()
+            torch.cuda.synchronize()
+            ms = {name: t0.elapsed_time(t1)
+                  for _, name, t0, t1 in K.CLASS_EVENTS}
+            K.CLASS_EVENTS = None
+            check(int(err) == 0, f"{label}: {phase} kernel errors")
+            out[phase] = {"classify_ms": ms["classify"]}
+            for c, want in enumerate(p_pairs):
+                e, r = want[:, 0], want[:, 1]
+                out[phase][K.CLASS_NAMES[c]] = {
+                    "rows": int(want.shape[0]),
+                    "products": int(flop[e, r].sum()),
+                    "nnz_c": int(nnz[e, r].sum()),
+                    "ms": ms.get(K.CLASS_NAMES[c])}
+            print(f"{label}: {phase} classes (rows, products, nnz(C), "
+                  f"device ms; classify {ms['classify']:.4f} ms): "
+                  + "; ".join(
+                      f"{name} {v['rows']}, {v['products']}, {v['nnz_c']}, "
+                      + ("-" if v["ms"] is None else f"{v['ms']:.4f}")
+                      for name, v in out[phase].items()
+                      if name != "classify_ms"), flush=True)
+        return out
 
     def hash_value_fleet(self, a, a_d, label, members, both=0,
                          other=False):
@@ -2477,11 +2584,12 @@ class Smoke:
 
     def batch_fleet(self, label, pairs, gather_oracle=False,
                     vector_too=False, serve_too=False):
-        """``plan_batch(pairs).execute`` on the card: one batched kernel
-        launch per bin index holding rows, per hash class, no plain
-        version; every member against the batched plain version, the
-        port's per-product planned loop (and, for the MoE fleet, the
-        gathered feature rows); then the timings (``serve_too``: also
+        """``plan_batch(pairs).execute`` on the card: per hash class one
+        classifying launch and one launch per table class its largest
+        table allows, no plain version; every member against the batched
+        plain version, the port's per-product planned loop (and, for the
+        MoE fleet, the gathered feature rows); each phase's classes
+        (:meth:`fleet_classes`); then the timings (``serve_too``: also
         :meth:`serve_times`)."""
         torch, core, K, ref = self.torch, self.core, self.K, self.ref
         core.clear_plan_cache()
@@ -2493,18 +2601,23 @@ class Smoke:
         check(len(hash_cls) == plan.n_classes,
               f"{label}: the recipe chose {sorted(set(plan.algorithms))}, "
               f"not the hash kernel, for some class")
-        n_bins = hash_cls[0].hash_sched[1].shape[1]
 
         def want(vector):
-            return sum(len(K.batched_launches(*c.hash_host, c.table_size,
-                                              c.shape_a[0], vector=vector))
-                       for c in hash_cls)
+            return sum(len(K.launch_classes(K.fleet_table(
+                *c.hash_host, c.table_size, c.shape_a[0], vector)))
+                for c in hash_cls)
 
         outs, counts = self.counted(lambda: plan.execute(pairs))
         launches = want(False)
+        check(launches == sum(len(K.launch_classes(c.hash_largest))
+                              for c in hash_cls),
+              f"{label}: the plan's largest tables")
         self.expect(counts, {"batched_numeric": launches},
                     f"{label} plan_batch.execute")
-        check(launches <= n_bins * len(hash_cls),
+        check(self.class_counts["classify"] == len(hash_cls),
+              f"{label}: {self.class_counts['classify']} classifying "
+              f"launches for {len(hash_cls)} classes")
+        check(launches <= len(K.CLASS_NAMES) * len(hash_cls),
               f"{label}: {launches} launches for {len(hash_cls)} classes")
         outs2, counts = self.counted(lambda: plan.execute(pairs))
         self.expect(counts, {"batched_numeric": launches},
@@ -2585,16 +2698,24 @@ class Smoke:
         # ---- timings ------------------------------------------------------
         errors = torch.zeros(1, dtype=torch.int32, device=self.dev)
 
-        # the launch lists, as the class executors hold them
-        launches_of = {(id(cls), v): K.batched_launches(
-            *cls.hash_host, cls.table_size, cls.shape_a[0], v)
-            for cls, _, _ in class_args for v in (False, True)}
+        # each class's table classes, as the class executors launch them
+        classes = [self.fleet_classes(
+            f"{label} class {i}", args, cls.n_members, cls.table_size,
+            cls.cap_c, False, cls.hash_largest)
+            for i, (cls, args, _) in enumerate(class_args)]
 
         def kernels(vector):
             for cls, args, kw in class_args:
                 K.batched_numeric_call(
                     *args, **{**kw, "vector": vector}, errors=errors,
-                    launches=launches_of[(id(cls), vector)])
+                    largest=cls.hash_largest)
+
+        def symbolic():
+            for cls, args, kw in class_args:
+                K.batched_symbolic_call(
+                    *args[:4], *args[5:], n_members=cls.n_members,
+                    table_size=cls.table_size, vector=False, errors=errors,
+                    largest=cls.hash_largest)
 
         def plain_fleet():
             for cls, args, kw in class_args:
@@ -2614,11 +2735,15 @@ class Smoke:
         t = {"execute": self.time_ms(lambda: plan.execute(pairs)),
              "loop": self.time_ms(loop),
              "kernel": self.time_ms(lambda: kernels(False)),
+             "kernel_symbolic": self.time_ms(symbolic),
              "plain": self.time_ms(plain_fleet, reps=3, warm=1),
              "torch_sparse_mm_loop": self.time_ms(
                  lambda: [torch.sparse.mm(x, y) for x, y in sp_pairs])}
         if vector_too:
             t["kernel_vector"] = self.time_ms(lambda: kernels(True))
+        b2b = {"kernel": self.stream_ms(lambda: kernels(False))[0],
+               "kernel_symbolic": self.stream_ms(symbolic)[0],
+               "loop": self.stream_ms(loop)[0]}
         if serve_too:
             t.update(self.serve_times(label, pairs, launches))
         torch.cuda.synchronize()
@@ -2643,7 +2768,8 @@ class Smoke:
             "algorithms": sorted(set(plan.algorithms)),
             "total_flop": plan.total_flop, "nnz_c": plan.nnz_c,
             "table_sizes": [c.table_size for c in plan.classes],
-            "launches": launches, "ms": t, "bound_ms": bound,
+            "launches": launches, "table_classes": classes, "ms": t,
+            "back_to_back_ms": b2b, "bound_ms": bound,
             "bound_bytes": nbytes, "plan_s": plan_s}), flush=True)
         print(f"batch {label}: {plan.n_products} products in "
               f"{plan.n_classes} classes, {launches} batched launches; "

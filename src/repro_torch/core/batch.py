@@ -13,11 +13,12 @@ built once per class, sortedness and operand sharing, and one algorithm,
 chosen from the class's aggregate statistics
 (:func:`repro_torch.core.recipe.aggregate_stats`, ``use_case="batch"``).
 
-A hash class runs the hand-written batched numeric kernel
+A hash class runs the hand-written batched numeric kernels
 (``kernels/spgemm_hash``): the plan freezes each member's schedule (bin
 offsets, per-bin table sizes, ``indptr_c``) stacked along the class axis,
 and the executor stacks the members' operands once, padded to the class's
-static shape, and launches one grid per bin index over every member.  An
+static shape, and launches one classifying kernel and one persistent
+kernel per table class over every member's rows.  An
 operand that every member of the class shares goes to the kernel once,
 never copied per member (the reference's ``vmap(in_axes=None)``).  The
 other classes -- ``esc``, ``heap``, ``hash_jnp``, masked members and
@@ -141,7 +142,6 @@ def _build_class_program(cls: "BatchClass",
     sortedness, sharing), so a fleet builds ``n_classes`` executors and a
     repeat execute builds none.
     """
-    from repro_torch.kernels.spgemm_hash import kernel as hash_kernel
     from repro_torch.kernels.spgemm_hash import ops as hash_ops
     sr = resolve_semiring(semiring)
     algo = cls.algorithm
@@ -156,10 +156,8 @@ def _build_class_program(cls: "BatchClass",
         offsets, bin_tsize, indptr_c = cls.hash_sched
         vector = algo == "hash_vector"
         table_size = cls.table_size
-        # everything static is cut once: the launch geometry from the
-        # plan's host lists, each member's row pointer and nnz views
-        launches = hash_kernel.batched_launches(*cls.hash_host, table_size,
-                                                M, vector)
+        # everything static is cut once: each member's row pointer and
+        # nnz views
         statics = [(indptr_c[j, :shapes_a[j][0] + 1], indptr_c[j, M],
                     (shapes_a[j][0], shapes_b[j][1])) for j in range(n)]
         indexes: dict = {}
@@ -177,7 +175,7 @@ def _build_class_program(cls: "BatchClass",
             cols, vals = hash_ops.spgemm_hash_batched(
                 a_proc, b_proc, cls.cap_c, vector=vector,
                 table_size=table_size, schedule=(offsets, bin_tsize),
-                indptr_c=indptr_c, launches=launches)
+                indptr_c=indptr_c, largest=cls.hash_largest)
             cols = cols.unbind(0)
             vals = vals.to(a_proc.dtype).unbind(0)
             return tuple(finalize(CSR(ip, cols[j], vals[j], nnz, shape,
@@ -269,9 +267,12 @@ class BatchClass:
     hash_sched: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] \
         = dataclasses.field(default=None, repr=False)
     #: ``(offsets, bin_tsize)`` of ``hash_sched`` as host lists, read back
-    #: once at plan time: the kernel's launch geometry, with no device read
-    #: per execute.
+    #: once at plan time, with no device read per execute.
     hash_host: Optional[tuple] = dataclasses.field(default=None, repr=False)
+    #: the largest bin table of ``hash_host`` (``kernel.fleet_table``):
+    #: the table classes the batched kernels launch
+    #: (``kernel.launch_classes``) and the global class's workspace.
+    hash_largest: int = 0
 
     @property
     def n_members(self) -> int:
@@ -503,11 +504,12 @@ def plan_batch(pairs: Sequence[Tuple[CSR, CSR]], *,
         # Each member's bin sizes clamp against its own natural table, so
         # the class-max table allocation changes no probe.  General
         # requests (semirings, masks) keep the sort-based body instead.
-        table_size = 0
+        table_size = hash_largest = 0
         hash_sched = hash_host = None
         if algo in ("hash", "hash_vector") and not masked and \
                 sr.name == "plus_times":
-            from repro_torch.kernels.spgemm_hash.kernel import CHUNK
+            from repro_torch.kernels.spgemm_hash.kernel import CHUNK, \
+                fleet_table
             per_off, per_bts, per_ic, tables = [], [], [], []
             for i in idxs:
                 b_i = pairs[i][1]
@@ -529,6 +531,8 @@ def plan_batch(pairs: Sequence[Tuple[CSR, CSR]], *,
             hash_sched = (torch.stack(per_off), torch.stack(per_bts),
                           torch.stack(per_ic))
             hash_host = (hash_sched[0].tolist(), hash_sched[1].tolist())
+            hash_largest = fleet_table(*hash_host, table_size, M,
+                                       algo == "hash_vector")
         cls = BatchClass(
             members=tuple(idxs), algorithm=algo, shape_a=(M, K),
             shape_b=(K, N),
@@ -543,7 +547,7 @@ def plan_batch(pairs: Sequence[Tuple[CSR, CSR]], *,
             a_sorted=a_sorted, b_sorted=b_sorted, mask_parts=mask_parts,
             total_flop=sum(infos[i]["total_flop"] for i in idxs),
             table_size=table_size, hash_sched=hash_sched,
-            hash_host=hash_host)
+            hash_host=hash_host, hash_largest=hash_largest)
         for i in idxs:
             class_of[i] = len(classes)
         classes.append(cls)

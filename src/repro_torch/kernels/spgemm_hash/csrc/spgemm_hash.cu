@@ -29,36 +29,52 @@
 //     table (min(bin_tsize[b], table_size) slots, the cap).  Here row i
 //     probes tsz_i = min(cap, lowest_p2(max(2 * need_i, CHUNK))) slots,
 //     need_i its output count (numeric, from indptr_c) or its product
-//     count (symbolic, summed over A's row in the row body): at most half
+//     count (symbolic: the sum of its B rows' lengths): at most half
 //     full, and never larger than the plan's table, so a plan sized at
 //     load factor 1 stays exactly full and one past fill still errors.  A
 //     row with no output clears, probes and flushes nothing.  Clearing
 //     and flushing touch tsz_i slots, not the cap.
-//   * The single-product numeric kernel runs rows by table class, not by
-//     plan bin.  classify_kernel (one thread a row; replaces no TPU kernel:
-//     the TPU grid walks bins in order and needs no row lists) writes each
-//     row's tsz_i and appends the row to its class's list in device memory,
-//     so grouping costs the execute no host synchronisation.  Then one
-//     persistent launch per class that can hold rows (the host knows the
-//     largest bin table): as many blocks (or clusters) as the card holds at
-//     once, each popping rows from its class's list with an atomic counter
-//     (the next row is popped while the current one runs).  Classes:
+//   * A fleet is n members, each array at base + e * stride (stride 0: one
+//     array that every member shares, as a value fleet shares its plan's
+//     schedule); the single product is the fleet of one member.  Both
+//     phases of a fleet, and the single-product numeric phase, run rows by
+//     table class, not by plan bin.  classify_kernel (one thread a
+//     (member, row) pair; replaces no TPU kernel: the TPU grid walks bins
+//     in order and needs no row lists) writes each pair's tsz_i and its
+//     rank among its class's pairs, counting each class; place_kernel, in
+//     the same call, lays the pairs out in one list of n * m entries,
+//     class after class, so grouping costs the execute no host
+//     synchronisation.  An entry is e * m + i (int32; the host checks n * m
+//     < 2^31).  A long A row's product count is summed by its whole warp,
+//     and stops at the cap (any count past half the cap gives the cap).
+//     Then one persistent launch per class that can hold rows (the host
+//     knows the largest bin table of the fleet): as many blocks (or
+//     clusters) as the card holds at once, each popping entries from its
+//     class's part of the list with an atomic counter (the next entry is
+//     popped while the current row runs), every member's rows in one
+//     launch; the single product (one member) takes its arrays as they
+//     are, with no member arithmetic in the row loop.  Classes:
 //       0-2  tables of <= 1,024 / 4,096 / 16,384 slots in one block's
-//            shared memory (8 / 32 / 128 KB of key + value; 128 / 256 /
-//            1,024 threads);
+//            shared memory (numeric 8 / 32 / 128 KB of key + value,
+//            symbolic half: keys only; 128 / 256 / 1,024 threads, the
+//            symbolic class 0 64: its short rows wait on a chain of
+//            dependent loads, and twice the blocks an SM hide more of
+//            it);
 //       3-5  32,768 / 65,536 / 131,072 slots in a thread-block cluster of
 //            2 / 4 / 8 blocks of 1,024 threads: one contiguous slice of
 //            16,384 slots (a multiple of CHUNK: a chunk never straddles two
 //            blocks) in each block's shared memory, reached by the others
 //            through distributed shared memory (map_shared_rank).  Keys go
 //            in with atomicCAS and values with atomicAdd on the owning
-//            block's slice.  Each block flushes its own slice at the sum of
-//            the lower ranks' counts, read across the cluster after a
-//            cluster barrier; every block leaves the kernel through one more
-//            cluster barrier, so none exits while another may still read its
-//            shared memory;
+//            block's slice.  After a cluster barrier the numeric phase
+//            flushes each block's slice at the sum of the lower ranks'
+//            counts and the symbolic phase writes the sum of the ranks'
+//            inserts, both read across the cluster; every block leaves the
+//            kernel through one more cluster barrier, so none exits while
+//            another may still read its shared memory;
 //       6    larger tables: a per-block workspace in device memory (grid
-//            GLOBAL_BLOCKS), each row using its own tsz_i slots of it.
+//            GLOBAL_BLOCKS, the fleet's largest table a block), each row
+//            using its own tsz_i slots of it.
 //   * Inside a team (a block, or a cluster's blocks) a row's products are
 //     spread evenly over every thread, one key a thread: A's row is staged
 //     blockDim entries at a time in shared memory (each entry's B row start
@@ -92,12 +108,10 @@
 //     so does a row that indptr_c leaves empty but that has products.
 //   * The output is zeroed by the caller before launch: blocks run in no
 //     order, so nothing like the TPU kernel's "zero at bin 0" is possible.
-//   * The symbolic kernel keeps one launch per bin (one block per row while
-//     the bin's table fits in shared memory, else GLOBAL_BLOCKS blocks over
-//     a device-memory workspace), and the batched grids of both phases one
-//     launch per bin index, blockIdx.y the member (every array argument
-//     takes a member stride, 0 for one that all members share).  They run
-//     the same row body, hash_row, so they size each row's table as above.
+//   * The single-product symbolic kernel keeps one launch per bin (one
+//     block per row while the bin's table fits in shared memory, else
+//     GLOBAL_BLOCKS blocks over a device-memory workspace) and the same
+//     row body, hash_row, so it sizes each row's table as above.
 //
 // Plain C interface, loaded with ctypes; every launch reports
 // cudaGetLastError().
@@ -108,6 +122,29 @@
 #include <type_traits>
 
 namespace cg = cooperative_groups;
+
+// The arrays of a fleet of n products (kernel.py's _Fleet lays out the
+// same fields): member e's array starts at base + e * stride (elements;
+// stride 0 shares one array among all members).  Numeric writes member
+// e's output at out_* + e * cap_c, symbolic its counts at row_nnz + e * m.
+// The single product is the fleet of one member.  Outside the anonymous
+// namespace: the C interface takes it.
+struct Fleet {
+  const int* offsets;   long long s_off;  // n_bins + 1 a member
+  const int* bin_tsize; long long s_bt;   // n_bins a member
+  const int* indptr_a;  long long s_ia;
+  const int* a_idx;     long long s_ai;
+  const float* a_val;   long long s_av;
+  const int* indptr_b;  long long s_ib;
+  const int* b_idx;     long long s_bi;
+  const float* b_val;   long long s_bv;
+  const int* indptr_c;  long long s_ic;   // numeric only
+  int* out_cols;                          // numeric only
+  float* out_vals;                        // numeric only
+  int* row_nnz;                           // symbolic only
+  long long cap_c;
+  int n, m, n_bins, table_size;
+};
 
 namespace {
 
@@ -120,7 +157,7 @@ constexpr int kClasses = 7;
 constexpr int kGlobalClass = kClasses - 1;
 
 // Largest table of class c (slots), its blocks (a cluster past one) and
-// threads a block.
+// threads a block (by phase: numeric or symbolic).
 __host__ __device__ constexpr int class_slots(int c) {
   return c == 0 ? 1024 : c == 1 ? 4096 : c == 2 ? 16384 : c == 3 ? 32768
        : c == 4 ? 65536 : c == 5 ? 131072 : 0x7fffffff;
@@ -128,8 +165,9 @@ __host__ __device__ constexpr int class_slots(int c) {
 __host__ __device__ constexpr int class_blocks(int c) {
   return c == 3 ? 2 : c == 4 ? 4 : c == 5 ? 8 : 1;
 }
-__host__ __device__ constexpr int class_threads(int c) {
-  return c == 0 ? 128 : c == 1 ? 256 : c == kGlobalClass ? 512 : 1024;
+__host__ __device__ constexpr int class_threads(int numeric, int c) {
+  return c == 0 ? (numeric ? 128 : 64) : c == 1 ? 256
+       : c == kGlobalClass ? 512 : 1024;
 }
 // Table slots in a class's block's shared memory: its table, or its slice.
 __host__ __device__ constexpr int class_smem_slots(int c) {
@@ -177,7 +215,8 @@ struct Scratch {
   int count[2];     // keys this block inserted
   int cursor[2];    // flush positions this block took
   int occupied[2];  // occupied slots of this block's slice (cluster)
-  int row[2];       // the next row (class kernels; rank 0's is read)
+  int item[2];      // the next list entry (class kernels; rank 0's is
+                    // read)
   unsigned long long flop[2];  // the row's products past its first chunk
   int warp_sum[32];  // the chunk scan's per-warp totals
 };
@@ -400,15 +439,16 @@ __device__ __forceinline__ int stage_chunk(
 
 // One output row by a team (one block, or the blocks of a cluster), every
 // thread calling: size the row's table from cap (the plan's table for the
-// row) and its need, clear this block's part, fill it, then write the
-// count (symbolic) or flush it to out[indptr_c[row] ...] (numeric).  The
-// table is left as it is: the next row clears what it uses.  A's row is
-// taken blockDim entries at a time and its products spread evenly over
-// the team's threads (a thread finds its product's entry by a binary
-// search of the staged ends), so no warp walks a long B row alone.  p is
-// the row's parity (Scratch); thread 0 calls publish() once after the
-// first team sync (the class kernels pop their next row there).
-template <bool kNumeric, bool kVector, class Tab, class Publish>
+// row) and its need (kSized: cap is the row's own table, classify_kernel's
+// tsz_i), clear this block's part, fill it, then write the count
+// (symbolic) or flush it to out[indptr_c[row] ...] (numeric).  The table
+// is left as it is: the next row clears what it uses.  A's row is taken
+// blockDim entries at a time and its products spread evenly over the
+// team's threads (a thread finds its product's entry by a binary search
+// of the staged ends), so no warp walks a long B row alone.  p is the
+// row's parity (Scratch); thread 0 calls publish() once after the first
+// team sync (the class kernels pop their next row there).
+template <bool kNumeric, bool kVector, bool kSized, class Tab, class Publish>
 __device__ __forceinline__ void hash_row(
     Tab& tab, int row, int cap, int p, int cap_c,
     const int* __restrict__ indptr_a, const int* __restrict__ a_idx,
@@ -418,7 +458,6 @@ __device__ __forceinline__ void hash_row(
     float* __restrict__ out_vals, int* __restrict__ row_nnz,
     int* __restrict__ errors, Scratch* sh, const Stage& st,
     const Publish& publish) {
-  static_assert(kNumeric || Tab::kBlocks == 1, "symbolic rows run on a block");
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int a0 = indptr_a[row];
@@ -433,7 +472,8 @@ __device__ __forceinline__ void hash_row(
     need = want;
   }
   long long flop = total;
-  if ((!kNumeric || want == 0) && a1 - a0 > static_cast<int>(blockDim.x)) {
+  if (!kSized && (!kNumeric || want == 0) &&
+      a1 - a0 > static_cast<int>(blockDim.x)) {
     // the products past the first chunk
     unsigned long long f = 0;
     for (int j = a0 + blockDim.x + tid; j < a1; j += blockDim.x) {
@@ -447,7 +487,7 @@ __device__ __forceinline__ void hash_row(
     flop += static_cast<long long>(sh->flop[p]);
   }
   if (!kNumeric) need = flop;
-  const int tsz = row_table(cap, need);
+  const int tsz = kSized ? cap : row_table(cap, need);
 
   if (tsz == 0) {
     // no table: a numeric row that indptr_c leaves empty has no product
@@ -528,7 +568,15 @@ __device__ __forceinline__ void hash_row(
   tab.sync();  // B: every insert done
 
   if (!kNumeric) {
-    if (tid == 0) row_nnz[row] = sh->count[p];
+    // the ranks' inserts, read after B; no block resets count[p] before
+    // the next row's barrier A, which rank 0 reaches after this read
+    if (Tab::kBlocks == 1) {
+      if (tid == 0) row_nnz[row] = sh->count[p];
+    } else if (tab.rank() == 0 && tid < 32) {
+      const int n = warp_sum(
+          lane < Tab::kBlocks ? tab.scratch_of(sh, lane)->count[p] : 0);
+      if (lane == 0) row_nnz[row] = n;
+    }
     return;
   }
 
@@ -580,120 +628,249 @@ __device__ __forceinline__ void hash_row(
     atomicAdd(errors, 1);
 }
 
-// Table classes (see the header): one thread a row.  Row i of the bin b
-// that holds it gets tsz_i (row_tsz[i]) and a place in list[c * m ...] of
-// its class c; counts[c] gains one.  An empty row joins no class; one
-// that indptr_c leaves empty but that has products adds one to errors, as
-// does a row whose class was not launched (c >= n_classes).
-__global__ void classify_kernel(
-    int m, int n_bins, int table_size, int n_classes,
-    const int* __restrict__ offsets, const int* __restrict__ bin_tsize,
-    const int* __restrict__ indptr_a, const int* __restrict__ a_idx,
-    const int* __restrict__ indptr_b, const int* __restrict__ indptr_c,
-    int* __restrict__ counts, int* __restrict__ list,
-    int* __restrict__ row_tsz, int* __restrict__ errors) {
+// counts (kCountInts ints, zeroed by the caller): [0, 7) each class's
+// listed pairs, [7, 14) the class kernels' pop counters.
+constexpr int kPops = kClasses;
+constexpr int kCountInts = 2 * kClasses;
+static_assert(kCountInts == 14, "kernel.py's COUNT_INTS");
+constexpr int kClassifyThreads = 256;
+// a longer A row's product count is summed by its whole warp
+constexpr int kOwnEntries = 32;
+
+// The plan's table of member e's row i: min(bin_tsize[b], table_size) of
+// the bin b that holds it; -1 for a row outside every bin, which the TPU
+// grid never visits either.
+__device__ __forceinline__ int bin_cap(const Fleet& f, long long e, int i) {
+  const int* off = f.offsets + e * f.s_off;
+  int lo = 0, hi = f.n_bins - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (off[mid] <= i) lo = mid; else hi = mid - 1;
+  }
+  if (off[lo] > i || i >= off[lo + 1]) return -1;
+  return min(f.bin_tsize[e * f.s_bt + lo], f.table_size);
+}
+
+// The products of A's entries [a0, a1), summed until they reach cap.
+__device__ __forceinline__ long long flop_upto(const int* __restrict__ a_idx,
+                                               const int* __restrict__ ib,
+                                               int a0, int a1, int cap) {
+  long long f = 0;
+  for (int j = a0; j < a1 && f < cap; j += 4) {
+    int k[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) k[u] = j + u < a1 ? a_idx[j + u] : -1;
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      if (k[u] >= 0) f += ib[k[u] + 1] - ib[k[u]];
+  }
+  return f;
+}
+
+// The symbolic need of each lane's pair (cap < 0: none): its product
+// count, summed until it reaches the cap (any count past half the cap
+// gives the cap's table).  A lane sums an A row of up to kOwnEntries
+// entries itself; the warp sums each longer row together, 32 entries a
+// step (a G500 hub row holds thousands).  Every lane of the warp calls.
+__device__ long long symbolic_need(const Fleet& f, long long e, int a0,
+                                   int a1, int cap) {
+  const int lane = threadIdx.x & 31;
+  const bool own = cap > 0 && a1 - a0 <= kOwnEntries;
+  long long need = own ? flop_upto(f.a_idx + e * f.s_ai,
+                                   f.indptr_b + e * f.s_ib, a0, a1, cap)
+                       : 0;
+  unsigned rows = __ballot_sync(0xffffffffu, cap > 0 && !own);
+  while (rows) {
+    const int src = __ffs(rows) - 1;
+    rows &= rows - 1;
+    const long long se = __shfl_sync(0xffffffffu, e, src);
+    const int s0 = __shfl_sync(0xffffffffu, a0, src);
+    const int s1 = __shfl_sync(0xffffffffu, a1, src);
+    const int scap = __shfl_sync(0xffffffffu, cap, src);
+    const int* ai = f.a_idx + se * f.s_ai;
+    const int* ib = f.indptr_b + se * f.s_ib;
+    long long sum = 0;
+    for (int j0 = s0; j0 < s1 && sum < scap; j0 += 32) {
+      long long len = 0;
+      const int j = j0 + lane;
+      if (j < s1) {
+        const int k = ai[j];
+        len = ib[k + 1] - ib[k];
+      }
+#pragma unroll
+      for (int o = 16; o; o >>= 1) len += __shfl_xor_sync(0xffffffffu, len, o);
+      sum += len;
+    }
+    if (lane == src) need = sum;
+  }
+  return need;
+}
+
+// Table classes (see the header), one thread a pair p = e * m + i: each
+// pair's tsz_i goes to row_tsz[p] (0: no table) and, for a listed pair,
+// its rank among its class's pairs to row_rank[p]; counts[c] gains one per
+// pair of class c.  A numeric pair that indptr_c leaves empty but that
+// has products adds one to errors, as does a pair whose class was not
+// launched (c >= n_classes), which joins no list.  Pairs outside every bin
+// get no table and no error.
+template <bool kNumeric>
+__global__ void __launch_bounds__(kClassifyThreads) classify_kernel(
+    Fleet f, int n_classes, int* __restrict__ counts,
+    int* __restrict__ row_tsz, int* __restrict__ row_rank,
+    int* __restrict__ errors) {
   __shared__ int s_n[kClasses];
   __shared__ int s_base[kClasses];
   if (threadIdx.x < kClasses) s_n[threadIdx.x] = 0;
-  __syncthreads();
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  int cls = -1, pos = 0;
-  if (i < m) {
-    // the bin of row i: the last b with offsets[b] <= i
-    int lo = 0, hi = n_bins - 1;
-    while (lo < hi) {
-      const int mid = (lo + hi + 1) >> 1;
-      if (offsets[mid] <= i) lo = mid; else hi = mid - 1;
-    }
-    if (offsets[lo] <= i && i < offsets[lo + 1]) {
-      const int want = indptr_c[i + 1] - indptr_c[i];
-      const int tsz = row_table(min(bin_tsize[lo], table_size), want);
-      if (tsz > 0) {
-        row_tsz[i] = tsz;
-        cls = class_of(tsz);
-        if (cls < n_classes) {
-          pos = atomicAdd(&s_n[cls], 1);
-        } else {
-          atomicAdd(errors, 1);
-          cls = -1;
-        }
-      } else {
-        bool bad = want < 0;
-        for (int j = indptr_a[i]; j < indptr_a[i + 1] && !bad; ++j) {
-          const int k = a_idx[j];
-          bad = indptr_b[k + 1] > indptr_b[k];
-        }
-        if (bad) atomicAdd(errors, 1);
-      }
+  block_sync();
+  const long long total = static_cast<long long>(f.n) * f.m;
+  const long long p =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  long long e = 0;
+  int i = 0, cap = -1, a0 = 0, a1 = 0;
+  if (p < total) {
+    e = p / f.m;
+    i = static_cast<int>(p - e * f.m);
+    cap = bin_cap(f, e, i);
+    if (cap >= 0) {
+      const int* ia = f.indptr_a + e * f.s_ia;
+      a0 = ia[i];
+      a1 = ia[i + 1];
     }
   }
-  __syncthreads();
-  if (threadIdx.x < n_classes && s_n[threadIdx.x])
+  int tsz = 0;
+  bool bad = false;
+  if (kNumeric) {
+    if (cap >= 0) {
+      const int* ic = f.indptr_c + e * f.s_ic;
+      const int want = ic[i + 1] - ic[i];
+      tsz = row_table(cap, want);
+      if (tsz == 0) {
+        const int* ai = f.a_idx + e * f.s_ai;
+        const int* ib = f.indptr_b + e * f.s_ib;
+        bad = want < 0;
+        for (int j = a0; j < a1 && !bad; ++j) {
+          const int k = ai[j];
+          bad = ib[k + 1] > ib[k];
+        }
+      }
+    }
+  } else {
+    tsz = row_table(cap, symbolic_need(f, e, a0, a1, cap));
+  }
+  int c = kClasses, rank = 0;
+  if (p < total) row_tsz[p] = tsz;
+  if (tsz > 0) {
+    c = class_of(tsz);
+    if (c < n_classes) {
+      rank = atomicAdd(&s_n[c], 1);
+    } else {
+      bad = true;
+      c = kClasses;
+    }
+  }
+  if (bad) atomicAdd(errors, 1);
+  block_sync();
+  if (threadIdx.x < kClasses && s_n[threadIdx.x])
     s_base[threadIdx.x] = atomicAdd(counts + threadIdx.x, s_n[threadIdx.x]);
-  __syncthreads();
-  if (cls >= 0) list[static_cast<size_t>(cls) * m + s_base[cls] + pos] = i;
+  block_sync();
+  if (c < kClasses) row_rank[p] = s_base[c] + rank;
 }
 
-// The numeric rows of table class kClass: a persistent grid whose blocks
-// (classes 0-2, 6) or clusters (3-5) pop rows from this class's list
-// (count *n, pop counter *pop) until it runs dry.  Class 6 keeps each
-// block's table in the device-memory workspace (ws_tsz slots a block).
-template <bool kVector, int kClass>
+// Lay every listed pair out in list, class after class (one thread a
+// pair), at its class's start plus its rank.
+__global__ void __launch_bounds__(kClassifyThreads) place_kernel(
+    long long total, int n_classes, const int* __restrict__ counts,
+    const int* __restrict__ row_tsz, const int* __restrict__ row_rank,
+    int* __restrict__ list) {
+  __shared__ int s_start[kClasses];
+  if (threadIdx.x == 0) {
+    int run = 0;
+    for (int c = 0; c < kClasses; ++c) {
+      s_start[c] = run;
+      run += counts[c];
+    }
+  }
+  block_sync();
+  const long long p =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (p >= total) return;
+  const int tsz = row_tsz[p];
+  if (tsz == 0) return;
+  const int c = class_of(tsz);
+  if (c < n_classes) list[s_start[c] + row_rank[p]] = static_cast<int>(p);
+}
+
+// The rows of table class kClass, either phase, of every member: a
+// persistent grid whose blocks (classes 0-2, 6) or clusters (3-5) pop
+// entries p = e * m + i from the class's part of list until it runs dry
+// (pop counter *pop).  Class 6 keeps each block's table in the
+// device-memory workspace (ws_tsz slots a block).
+template <bool kNumeric, bool kVector, int kClass>
 __global__ void __launch_bounds__(1024) hash_class_kernel(
-    int cap_c, int ws_tsz, const int* __restrict__ n, int* pop,
+    Fleet f, int ws_tsz, const int* __restrict__ counts, int* pop,
     const int* __restrict__ list, const int* __restrict__ row_tsz,
-    const int* __restrict__ indptr_a, const int* __restrict__ a_idx,
-    const float* __restrict__ a_val, const int* __restrict__ indptr_b,
-    const int* __restrict__ b_idx, const float* __restrict__ b_val,
-    const int* __restrict__ indptr_c, int* __restrict__ out_cols,
-    float* __restrict__ out_vals, int* __restrict__ errors, int* ws_keys,
-    float* ws_vals) {
+    int* __restrict__ errors, int* ws_keys, float* ws_vals) {
   constexpr int kBlocks = class_blocks(kClass);
+  constexpr int kSlots = class_smem_slots(kClass);
   using Tab = typename std::conditional<kBlocks == 1, BlockTable,
                                         ClusterTable<kBlocks>>::type;
   extern __shared__ __align__(16) int smem[];
   __shared__ Scratch sh;
   Tab tab;
-  if constexpr (kBlocks == 1) {
-    if (kClass == kGlobalClass) {
-      const size_t off = static_cast<size_t>(blockIdx.x) * ws_tsz;
-      tab.keys = ws_keys + off;
-      tab.vals = ws_vals + off;
-    } else {
-      tab.keys = smem;
-      tab.vals = reinterpret_cast<float*>(smem + class_smem_slots(kClass));
-    }
+  if (kClass == kGlobalClass) {
+    const size_t off = static_cast<size_t>(blockIdx.x) * ws_tsz;
+    tab.keys = ws_keys + off;
+    tab.vals = kNumeric ? ws_vals + off : nullptr;
   } else {
     tab.keys = smem;
-    tab.vals = reinterpret_cast<float*>(smem + kSliceSlots);
+    tab.vals = kNumeric ? reinterpret_cast<float*>(smem + kSlots) : nullptr;
+  }
+  if constexpr (kBlocks > 1) {
     tab.my_rank = static_cast<int>(cg::this_cluster().block_rank());
     tab.shift = 0;
   }
-  const Stage st = stage_at(smem + 2 * class_smem_slots(kClass));
+  const Stage st = stage_at(smem + (kNumeric ? 2 : 1) * kSlots);
   const bool leader = tab.rank() == 0;
-  const int rows = *n;
+  int start = 0;
+  for (int c = 0; c < kClass; ++c) start += counts[c];
+  const int rows = counts[kClass];
+  const int* mine = list + start;
   if (threadIdx.x == 0) {
     scratch_reset(&sh, 0);
     scratch_reset(&sh, 1);
     if (leader) {
       const int idx = atomicAdd(pop, 1);
-      sh.row[0] = idx < rows ? list[idx] : -1;
+      sh.item[0] = idx < rows ? mine[idx] : -1;
     }
   }
   tab.sync();
   for (int p = 0;; p ^= 1) {
-    const int row = tab.scratch_of(&sh, 0)->row[p];
-    if (row < 0) break;
+    const int item = tab.scratch_of(&sh, 0)->item[p];
+    if (item < 0) break;
     const auto publish = [&] {
       if (leader) {
         const int idx = atomicAdd(pop, 1);
-        sh.row[p ^ 1] = idx < rows ? list[idx] : -1;
+        sh.item[p ^ 1] = idx < rows ? mine[idx] : -1;
       }
     };
-    hash_row<true, kVector>(tab, row, row_tsz[row], p, cap_c, indptr_a,
-                            a_idx, a_val, indptr_b, b_idx, b_val, indptr_c,
-                            out_cols, out_vals, nullptr, errors, &sh, st,
-                            publish);
+    const int cap_c = static_cast<int>(f.cap_c);
+    if (f.n == 1) {
+      // the arrays as they are: no member arithmetic held in registers
+      hash_row<kNumeric, kVector, true>(
+          tab, item, row_tsz[item], p, cap_c, f.indptr_a, f.a_idx, f.a_val,
+          f.indptr_b, f.b_idx, f.b_val, f.indptr_c, f.out_cols, f.out_vals,
+          f.row_nnz, errors, &sh, st, publish);
+      continue;
+    }
+    const long long e = item / f.m;
+    hash_row<kNumeric, kVector, true>(
+        tab, item - static_cast<int>(e * f.m), row_tsz[item], p, cap_c,
+        f.indptr_a + e * f.s_ia, f.a_idx + e * f.s_ai, f.a_val + e * f.s_av,
+        f.indptr_b + e * f.s_ib, f.b_idx + e * f.s_bi, f.b_val + e * f.s_bv,
+        kNumeric ? f.indptr_c + e * f.s_ic : nullptr,
+        kNumeric ? f.out_cols + e * f.cap_c : nullptr,
+        kNumeric ? f.out_vals + e * f.cap_c : nullptr,
+        kNumeric ? nullptr : f.row_nnz + e * f.m, errors, &sh, st, publish);
   }
   // no block leaves while another may still read its shared memory
   if (kBlocks > 1) tab.sync();
@@ -723,96 +900,41 @@ __global__ void hash_symbolic_kernel(
   int p = 0;
   for (int row = row_begin + blockIdx.x; row < row_end;
        row += gridDim.x, p ^= 1)
-    hash_row<false, kVector>(tab, row, tsz, p, 0, indptr_a, a_idx, nullptr,
-                             indptr_b, b_idx, nullptr, nullptr, nullptr,
-                             nullptr, row_nnz, errors, &sh, st,
-                             NoPublish{});
+    hash_row<false, kVector, false>(tab, row, tsz, p, 0, indptr_a, a_idx,
+                                    nullptr, indptr_b, b_idx, nullptr,
+                                    nullptr, nullptr, nullptr, row_nnz,
+                                    errors, &sh, st, NoPublish{});
 }
 
-// The batched grid of one phase (kNumeric: numeric, else symbolic) for
-// one bin index `bin`: blockIdx.y is the fleet member e, and the x blocks
-// stride over e's rows [offsets[e][bin], offsets[e][bin + 1]).  Member e's
-// arrays start at base + e * stride; stride 0 shares one array among all
-// members (a plan's schedule is shared by every member of a value fleet).
-// The member's cap is min(bin_tsize[e][bin], table_size) slots: in dynamic
-// shared memory when that fits smem_slots, else in the block's slice of
-// the global workspace (ws_tsz slots per member and x block); each row
-// uses its own table of at most the cap.  The symbolic phase writes
-// row_nnz[e * n_rows + row], the numeric phase out_cols/out_vals[e * cap_c
-// + ...].  A schedule the launch cannot hold (rows past n_rows, a table
-// that is not a power of two or fits neither place) adds one to errors and
-// runs nothing.
+using ClassKernel = void (*)(Fleet, int, const int*, int*, const int*,
+                             const int*, int*, int*, float*);
+
 template <bool kNumeric, bool kVector>
-__global__ void hash_rows_batched_kernel(
-    int bin, int n_rows, int table_size, int smem_slots, int ws_tsz,
-    int cap_c, const int* __restrict__ offsets, long long s_off,
-    const int* __restrict__ bin_tsize, long long s_bt, const int* indptr_a,
-    long long s_ia, const int* a_idx, long long s_ai, const float* a_val,
-    long long s_av, const int* indptr_b, long long s_ib, const int* b_idx,
-    long long s_bi, const float* b_val, long long s_bv, const int* indptr_c,
-    long long s_ic, int* out_cols, float* out_vals, int* row_nnz,
-    int* errors, int* ws_keys, float* ws_vals) {
-  extern __shared__ __align__(16) int smem[];
-  __shared__ Scratch sh;
-  const long long e = blockIdx.y;
-  const int r0 = offsets[e * s_off + bin];
-  const int r1 = offsets[e * s_off + bin + 1];
-  if (r0 >= r1) return;
-  const int tsz = min(bin_tsize[e * s_bt + bin], table_size);
-  const bool in_smem = tsz <= smem_slots;
-  if (r0 < 0 || r1 > n_rows || tsz < 1 || (tsz & (tsz - 1)) ||
-      (kVector && tsz < kChunk) || (!in_smem && tsz > ws_tsz)) {
-    if (threadIdx.x == 0 && blockIdx.x == 0) atomicAdd(errors, 1);
-    return;
-  }
-  BlockTable tab;
-  if (in_smem) {
-    tab.keys = smem;
-    tab.vals = kNumeric ? reinterpret_cast<float*>(smem + tsz) : nullptr;
-  } else {
-    const size_t slot =
-        (static_cast<size_t>(e) * gridDim.x + blockIdx.x) * ws_tsz;
-    tab.keys = ws_keys + slot;
-    tab.vals = kNumeric ? ws_vals + slot : nullptr;
-  }
-  if (threadIdx.x == 0) {
-    scratch_reset(&sh, 0);
-    scratch_reset(&sh, 1);
-  }
-  __syncthreads();
-  const int* ic = kNumeric ? indptr_c + e * s_ic : nullptr;
-  int* oc = kNumeric ? out_cols + e * cap_c : nullptr;
-  float* ov = kNumeric ? out_vals + e * cap_c : nullptr;
-  int* rn = kNumeric ? nullptr : row_nnz + e * n_rows;
-  const Stage st = stage_at(smem + smem_slots * (kNumeric ? 2 : 1));
-  int p = 0;
-  for (int row = r0 + blockIdx.x; row < r1; row += gridDim.x, p ^= 1)
-    hash_row<kNumeric, kVector>(
-        tab, row, tsz, p, cap_c, indptr_a + e * s_ia, a_idx + e * s_ai,
-        a_val + e * s_av, indptr_b + e * s_ib, b_idx + e * s_bi,
-        b_val + e * s_bv, ic, oc, ov, rn, errors, &sh, st, NoPublish{});
-}
-
-using ClassKernel = void (*)(int, int, const int*, int*, const int*,
-                             const int*, const int*, const int*, const float*,
-                             const int*, const int*, const float*, const int*,
-                             int*, float*, int*, int*, float*);
-
-template <bool kVector>
 ClassKernel class_kernel_of(int c) {
   switch (c) {
-    case 0: return hash_class_kernel<kVector, 0>;
-    case 1: return hash_class_kernel<kVector, 1>;
-    case 2: return hash_class_kernel<kVector, 2>;
-    case 3: return hash_class_kernel<kVector, 3>;
-    case 4: return hash_class_kernel<kVector, 4>;
-    case 5: return hash_class_kernel<kVector, 5>;
-    default: return hash_class_kernel<kVector, 6>;
+    case 0: return hash_class_kernel<kNumeric, kVector, 0>;
+    case 1: return hash_class_kernel<kNumeric, kVector, 1>;
+    case 2: return hash_class_kernel<kNumeric, kVector, 2>;
+    case 3: return hash_class_kernel<kNumeric, kVector, 3>;
+    case 4: return hash_class_kernel<kNumeric, kVector, 4>;
+    case 5: return hash_class_kernel<kNumeric, kVector, 5>;
+    default: return hash_class_kernel<kNumeric, kVector, 6>;
   }
 }
 
-ClassKernel class_kernel(int vector, int c) {
-  return vector ? class_kernel_of<true>(c) : class_kernel_of<false>(c);
+ClassKernel class_kernel(int numeric, int vector, int c) {
+  if (numeric)
+    return vector ? class_kernel_of<true, true>(c)
+                  : class_kernel_of<true, false>(c);
+  return vector ? class_kernel_of<false, true>(c)
+                : class_kernel_of<false, false>(c);
+}
+
+// Dynamic shared memory of class c's block: its table or slice (key +
+// value numeric, keys symbolic) and the stage.
+int class_smem(int numeric, int c) {
+  return class_smem_slots(c) * (numeric ? 8 : 4) +
+         kStageBytes * class_threads(numeric, c);
 }
 
 int set_smem(const void* kernel, int smem_bytes) {
@@ -843,34 +965,47 @@ extern "C" int spgemm_hash_symbolic_launch(
   return static_cast<int>(cudaGetLastError());
 }
 
-// The table classes of the numeric rows (classify_kernel): counts holds
-// n_classes zeroed counts, list n_classes * m row ids, row_tsz m sizes.
-extern "C" int spgemm_hash_classify(
-    int m, int n_bins, int table_size, int n_classes, const int* offsets,
-    const int* bin_tsize, const int* indptr_a, const int* a_idx,
-    const int* indptr_b, const int* indptr_c, int* counts, int* list,
-    int* row_tsz, int* errors, void* stream) {
-  if (m <= 0) return 0;
-  if (n_bins < 1 || n_classes < 1 || n_classes > kClasses)
+// The table classes of a fleet's (member, row) pairs (numeric = 0: the
+// symbolic phase): classify_kernel, then place_kernel.  counts holds
+// kCountInts zeroed ints (kernel.py's COUNT_INTS), list, row_tsz and
+// row_rank n * m ints each, n * m < 2^31.
+extern "C" int spgemm_hash_classify(int numeric, int n_classes,
+                                    const Fleet* f, int* counts, int* list,
+                                    int* row_tsz, int* row_rank, int* errors,
+                                    void* stream) {
+  const long long total = static_cast<long long>(f->n) * f->m;
+  if (total <= 0) return 0;
+  if (total >= (1ll << 31) || f->n_bins < 1 || n_classes < 1 ||
+      n_classes > kClasses)
     return static_cast<int>(cudaErrorInvalidValue);
-  constexpr int kThreads = 256;
-  classify_kernel<<<(m + kThreads - 1) / kThreads, kThreads, 0,
-                    static_cast<cudaStream_t>(stream)>>>(
-      m, n_bins, table_size, n_classes, offsets, bin_tsize, indptr_a, a_idx,
-      indptr_b, indptr_c, counts, list, row_tsz, errors);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const unsigned grid =
+      static_cast<unsigned>((total + kClassifyThreads - 1) / kClassifyThreads);
+  if (numeric)
+    classify_kernel<true><<<grid, kClassifyThreads, 0, s>>>(
+        *f, n_classes, counts, row_tsz, row_rank, errors);
+  else
+    classify_kernel<false><<<grid, kClassifyThreads, 0, s>>>(
+        *f, n_classes, counts, row_tsz, row_rank, errors);
+  const int err = static_cast<int>(cudaGetLastError());
+  if (err) return err;
+  place_kernel<<<grid, kClassifyThreads, 0, s>>>(total, n_classes, counts,
+                                                 row_tsz, row_rank, list);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The launch shape of class c's kernel (vector: the chunked probe) on the
-// current device: out = {blocks a cluster, threads a block, dynamic shared
-// memory bytes a block, resident blocks (the persistent grid), resident
-// clusters (cudaOccupancyMaxActiveClusters; 0 below two blocks)}.
-extern "C" int spgemm_hash_class_shape(int vector, int c, int* out) {
+// The launch shape of class c's kernel (numeric = 0: the symbolic phase;
+// vector: the chunked probe) on the current device: out = {blocks a
+// cluster, threads a block, dynamic shared memory bytes a block, resident
+// blocks (the persistent grid), resident clusters
+// (cudaOccupancyMaxActiveClusters; 0 below two blocks)}.
+extern "C" int spgemm_hash_class_shape(int numeric, int vector, int c,
+                                       int* out) {
   if (c < 0 || c >= kClasses) return static_cast<int>(cudaErrorInvalidValue);
-  const ClassKernel kernel = class_kernel(vector, c);
+  const ClassKernel kernel = class_kernel(numeric, vector, c);
   const void* fn = reinterpret_cast<const void*>(kernel);
-  const int blocks = class_blocks(c), threads = class_threads(c);
-  const int smem = class_smem_slots(c) * 8 + kStageBytes * threads;
+  const int blocks = class_blocks(c), threads = class_threads(numeric, c);
+  const int smem = class_smem(numeric, c);
   int err = set_smem(fn, smem);
   if (err) return err;
   int dev = 0, sms = 0;
@@ -909,24 +1044,23 @@ extern "C" int spgemm_hash_class_shape(int vector, int c, int* out) {
   return 0;
 }
 
-// One class's numeric launch: grid blocks (a multiple of the class's
-// cluster), the rows list[c * m ...] counted by counts[c] and popped
-// through counts[n_classes_total + c] (counts holds 2 * 7 ints); ws_keys
-// and ws_vals hold grid * ws_tsz slots for class 6, null otherwise.
+// One class's launch, either phase, over every member: grid blocks (a
+// multiple of the class's cluster) pop the pairs that spgemm_hash_classify
+// listed (counts, list and row_tsz as it left them, class c's pop counter
+// zero); ws_keys (and, numeric, ws_vals) hold grid * ws_tsz slots for
+// class 6, null otherwise.
 extern "C" int spgemm_hash_class_launch(
-    int vector, int c, int m, int cap_c, int grid, int ws_tsz, int* counts,
-    const int* list, const int* row_tsz, const int* indptr_a,
-    const int* a_idx, const float* a_val, const int* indptr_b,
-    const int* b_idx, const float* b_val, const int* indptr_c,
-    int* out_cols, float* out_vals, int* errors, int* ws_keys,
-    float* ws_vals, void* stream) {
+    int numeric, int vector, int c, int grid, int ws_tsz, const Fleet* f,
+    int* counts, const int* list, const int* row_tsz, int* errors,
+    int* ws_keys, float* ws_vals, void* stream) {
   if (c < 0 || c >= kClasses) return static_cast<int>(cudaErrorInvalidValue);
   const int blocks = class_blocks(c);
   if (grid < blocks || grid % blocks ||
-      (c == kGlobalClass && (ws_keys == nullptr || ws_vals == nullptr)))
+      (c == kGlobalClass &&
+       (ws_keys == nullptr || (numeric && ws_vals == nullptr))))
     return static_cast<int>(cudaErrorInvalidValue);
-  const ClassKernel kernel = class_kernel(vector, c);
-  const int smem = class_smem_slots(c) * 8 + kStageBytes * class_threads(c);
+  const ClassKernel kernel = class_kernel(numeric, vector, c);
+  const int smem = class_smem(numeric, c);
   const int err = set_smem(reinterpret_cast<const void*>(kernel), smem);
   if (err) return err;
   cudaLaunchConfig_t cfg = {};
@@ -936,53 +1070,12 @@ extern "C" int spgemm_hash_class_launch(
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.gridDim = dim3(grid);
-  cfg.blockDim = dim3(class_threads(c));
+  cfg.blockDim = dim3(class_threads(numeric, c));
   cfg.dynamicSmemBytes = smem;
   cfg.stream = static_cast<cudaStream_t>(stream);
   cfg.attrs = attr;
   cfg.numAttrs = blocks > 1 ? 1 : 0;
-  const int* n = counts + c;
-  int* pop = counts + kClasses + c;
-  const int* rows = list + static_cast<size_t>(c) * m;
-  cudaLaunchKernelEx(&cfg, kernel, cap_c, ws_tsz, n, pop, rows, row_tsz,
-                     indptr_a, a_idx, a_val, indptr_b, b_idx, b_val,
-                     indptr_c, out_cols, out_vals, errors, ws_keys, ws_vals);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// One phase (numeric = 0: symbolic, 1: numeric) for bin index `bin` of
-// every fleet member: a grid of (grid_x, n_members) blocks.  offsets rows
-// hold n_bins + 1 entries and bin_tsize rows n_bins; every array argument
-// is followed by its member stride in elements (0: shared by all members;
-// an operand's column ids and values each have their own).  Symbolic
-// writes row_nnz (n_members, n_rows) (indptr_c/out_* unused); numeric
-// writes out_cols/out_vals (n_members, cap_c), zeroed by the caller
-// (row_nnz unused).  smem_bytes = smem_slots * 4 (symbolic) or 8
-// (numeric), to which the launch adds the stage's kStageBytes a thread;
-// ws_keys (and, numeric, ws_vals) hold grid_x * n_members * ws_tsz slots
-// (null when ws_tsz is 0).
-extern "C" int spgemm_hash_batched_launch(
-    int numeric, int vector, int bin, int n_rows, int table_size,
-    int smem_slots, int ws_tsz, int cap_c, int grid_x, int n_members,
-    int block, int smem_bytes, const int* offsets, long long s_off,
-    const int* bin_tsize, long long s_bt, const int* indptr_a, long long s_ia,
-    const int* a_idx, long long s_ai, const float* a_val, long long s_av,
-    const int* indptr_b, long long s_ib, const int* b_idx, long long s_bi,
-    const float* b_val, long long s_bv, const int* indptr_c, long long s_ic,
-    int* out_cols, float* out_vals, int* row_nnz, int* errors, int* ws_keys,
-    float* ws_vals, void* stream) {
-  auto kernel = numeric ? (vector ? &hash_rows_batched_kernel<true, true>
-                                  : &hash_rows_batched_kernel<true, false>)
-                        : (vector ? &hash_rows_batched_kernel<false, true>
-                                  : &hash_rows_batched_kernel<false, false>);
-  smem_bytes += kStageBytes * block;
-  const int err = set_smem(reinterpret_cast<const void*>(kernel), smem_bytes);
-  if (err) return err;
-  kernel<<<dim3(grid_x, n_members), block, smem_bytes,
-           static_cast<cudaStream_t>(stream)>>>(
-      bin, n_rows, table_size, smem_slots, ws_tsz, cap_c, offsets, s_off,
-      bin_tsize, s_bt, indptr_a, s_ia, a_idx, s_ai, a_val, s_av, indptr_b,
-      s_ib, b_idx, s_bi, b_val, s_bv, indptr_c, s_ic, out_cols, out_vals,
-      row_nnz, errors, ws_keys, ws_vals);
+  cudaLaunchKernelEx(&cfg, kernel, *f, ws_tsz, counts, counts + kPops + c,
+                     list, row_tsz, errors, ws_keys, ws_vals);
   return static_cast<int>(cudaGetLastError());
 }

@@ -7,14 +7,16 @@ wrappers.
 ``batched_symbolic_call`` and ``batched_numeric_call``, the two phases over
 a fleet); its header says how the design maps the TPU's sequential bin
 grid onto the card.  Every row probes a table sized from its own output
-count (numeric) or product count (symbolic), at most its bin's.  The
-single-product numeric kernel runs rows by table class
-(:data:`CLASS_NAMES`): a classifying kernel, which replaces no TPU kernel,
-lists each class's rows in device memory, and one persistent launch per
-class that can hold rows runs them -- tables of up to :data:`SMEM_SLOTS`
-in one block's shared memory, up to :data:`CLUSTER_SLOTS` across a
-thread-block cluster's distributed shared memory, larger ones in a
-device-memory workspace.  It is
+count (numeric) or product count (symbolic), at most its bin's.  Both
+phases of a fleet, and the single-product numeric phase (a fleet of one),
+run rows by table class (:data:`CLASS_NAMES`): a classifying kernel,
+which replaces no TPU kernel, lists every member's rows by class in
+device memory, and one persistent launch per class that can hold rows
+runs every member's rows of that class -- tables of up to
+:data:`SMEM_SLOTS` in one block's shared memory, up to
+:data:`CLUSTER_SLOTS` across a thread-block cluster's distributed shared
+memory, larger ones in a device-memory workspace.  The single-product
+symbolic kernel keeps one launch per bin.  It is
 compiled with ``nvcc`` for ``sm_90a`` at first use, into a shared library
 with a plain C interface under ``build/torch_ext/`` at the root of the
 checkout, and loaded with ``ctypes``.  Nothing is compiled at import, so
@@ -23,7 +25,8 @@ the module imports on a machine without CUDA.
 :func:`symbolic_call` and :func:`numeric_call` take the reference
 builders' arguments; :func:`batched_symbolic_call` and
 :func:`batched_numeric_call` take them with a member axis on any of them;
-:func:`row_classes` is the classifying kernel alone.
+:func:`row_classes` and :func:`batched_row_classes` are the classifying
+kernel alone.
 On CPU tensors they run the plain versions of
 ``ref.py``; on CUDA tensors they launch the kernel or raise -- a build or
 launch failure is never answered with the plain version.
@@ -42,11 +45,12 @@ from . import ref
 CHUNK = 8
 
 #: Launch counters.  A wrapper adds one where it launches its kernel (one
-#: call covers every bin; the batched counters add one per CUDA launch,
-#: which is one per bin index that holds rows in any member).  ``plain``
-#: counts the single-product wrappers' runs of the plain versions and
-#: ``batched_plain`` the batched wrappers' -- zero on a card proves the
-#: main path never took them.
+#: call covers every bin; the batched counters add one per CUDA launch of
+#: a class kernel, one per class that the fleet's largest table allows;
+#: the classifying launch before them counts in :data:`CLASS_CALLS`).
+#: ``plain`` counts the single-product wrappers' runs of the plain
+#: versions and ``batched_plain`` the batched wrappers' -- zero on a card
+#: proves the main path never took them.
 KERNEL_CALLS = {"symbolic": 0, "numeric": 0, "symbolic_vector": 0,
                 "numeric_vector": 0, "batched_symbolic": 0,
                 "batched_symbolic_vector": 0, "batched_numeric": 0,
@@ -57,34 +61,52 @@ KERNEL_CALLS = {"symbolic": 0, "numeric": 0, "symbolic_vector": 0,
 SMEM_SLOTS = 16384
 #: Largest table in a cluster's distributed shared memory: 8 slices.
 CLUSTER_SLOTS = 8 * SMEM_SLOTS
-#: The numeric kernel's table classes, by the largest table of each
-#: (``ref.CLASS_SLOTS``; the last, past ``CLUSTER_SLOTS``, in device
-#: memory) and the blocks that hold one (a cluster past one).
+#: The class kernels' table classes (either phase), by the largest table
+#: of each (``ref.CLASS_SLOTS``; the last, past ``CLUSTER_SLOTS``, in
+#: device memory) and the blocks that hold one (a cluster past one).
 CLASS_NAMES = ("smem_1024", "smem_4096", "smem_16384", "cluster_2",
                "cluster_4", "cluster_8", "global")
 CLASS_BLOCKS = (1, 1, 1, 2, 4, 8, 1)
 #: Blocks that share the device-memory tables: of the symbolic kernel's
-#: bins past ``SMEM_SLOTS``, and of the numeric kernel's global class.
+#: bins past ``SMEM_SLOTS``, and of the class kernels' global class.
 GLOBAL_BLOCKS = 264
 
-#: Launches of the numeric kernel's parts, extra to :data:`KERNEL_CALLS`
-#: (one ``numeric``/``numeric_vector`` per call stays the proof of path):
-#: ``classify`` per run of the classifying kernel, one per class launch
-#: under its :data:`CLASS_NAMES` name, ``plain`` per run of
-#: :func:`row_classes`' plain version.
+#: Launches of the class-ordered runs' parts, extra to
+#: :data:`KERNEL_CALLS` (one ``numeric``/``numeric_vector`` per
+#: single-product call stays the proof of path): ``classify`` per run of
+#: the classifying kernel (single product or fleet, either phase), one per
+#: class launch under its :data:`CLASS_NAMES` name, ``plain`` per run of
+#: :func:`row_classes`' or :func:`batched_row_classes`' plain version.
 CLASS_CALLS = dict.fromkeys(("classify",) + CLASS_NAMES + ("plain",), 0)
+
+#: Ints of the classifying kernels' ``counts``: each class's listed pairs,
+#: then the class kernels' pop counters.
+COUNT_INTS = 2 * len(CLASS_NAMES)
+#: A fleet's (member, row) pairs must number fewer: the lists hold int32.
+MAX_PAIRS = 2 ** 31
 
 SOURCE = Path(__file__).parent / "csrc" / "spgemm_hash.cu"
 _P, _L = ctypes.c_void_p, ctypes.c_longlong
+
+
+class _Fleet(ctypes.Structure):
+    """The source's ``Fleet``: each array's address and member stride, the
+    outputs, the output capacity (the numeric outputs' member stride) and
+    the sizes."""
+    _fields_ = ([(f"{name}{sfx}", t) for name in (
+        "offsets", "bin_tsize", "indptr_a", "a_idx", "a_val", "indptr_b",
+        "b_idx", "b_val", "indptr_c") for sfx, t in (("", _P), ("_s", _L))]
+        + [("out_cols", _P), ("out_vals", _P), ("row_nnz", _P),
+           ("cap_c", _L), ("n", ctypes.c_int), ("m", ctypes.c_int),
+           ("n_bins", ctypes.c_int), ("table_size", ctypes.c_int)])
+
+
+_FLEET = ctypes.POINTER(_Fleet)
 _FUNCTIONS = {
     "spgemm_hash_symbolic_launch": [ctypes.c_int] * 7 + [_P] * 8,
-    "spgemm_hash_classify": [ctypes.c_int] * 4 + [_P] * 11,
-    "spgemm_hash_class_shape": [ctypes.c_int] * 2 + [_P],
-    "spgemm_hash_class_launch": [ctypes.c_int] * 6 + [_P] * 16,
-    # ints; each array's pointer before its member stride; outputs, errors,
-    # workspace and the stream
-    "spgemm_hash_batched_launch":
-        [ctypes.c_int] * 12 + [_P, _L] * 9 + [_P] * 7,
+    "spgemm_hash_classify": [ctypes.c_int] * 2 + [_FLEET] + [_P] * 6,
+    "spgemm_hash_class_shape": [ctypes.c_int] * 3 + [_P],
+    "spgemm_hash_class_launch": [ctypes.c_int] * 5 + [_FLEET] + [_P] * 7,
 }
 
 #: The array arguments of :func:`numeric_call`, in order.  An argument of
@@ -93,9 +115,6 @@ _FUNCTIONS = {
 #: arrays but ``indptr_c``.
 ARG_NAMES = ("offsets", "bin_tsize", "indptr_a", "indptr_b", "indptr_c",
              "a_idx", "a_val", "b_idx", "b_val")
-#: the C interface's order of the arrays
-_C_ORDER = ("offsets", "bin_tsize", "indptr_a", "a_idx", "a_val",
-            "indptr_b", "b_idx", "b_val", "indptr_c")
 _lib = None
 _shapes: dict = {}
 
@@ -113,17 +132,19 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def class_shape(cls: int, vector: bool) -> dict:
-    """The launch shape of class ``cls``'s numeric kernel on the current
-    card: ``{"blocks"`` (a cluster), ``"threads"``, ``"smem_bytes"``,
+def class_shape(cls: int, vector: bool, numeric: bool = True) -> dict:
+    """The launch shape of class ``cls``'s kernel (``numeric``: the
+    numeric phase's, else the symbolic one's) on the current card:
+    ``{"blocks"`` (a cluster), ``"threads"``, ``"smem_bytes"``,
     ``"resident_blocks"`` (its persistent grid), ``"resident_clusters"``
     (``cudaOccupancyMaxActiveClusters``, 0 below two blocks)``}``.
-    Cached per class, probe mode and device."""
+    Cached per class, phase, probe mode and device."""
     build()
-    key = (cls, bool(vector), torch.cuda.current_device())
+    key = (cls, bool(numeric), bool(vector), torch.cuda.current_device())
     if key not in _shapes:
         out = (ctypes.c_int * 5)()
-        err = _lib.spgemm_hash_class_shape(int(vector), cls, out)
+        err = _lib.spgemm_hash_class_shape(int(numeric), int(vector), cls,
+                                           out)
         if err != 0:
             raise RuntimeError(f"spgemm_hash class {CLASS_NAMES[cls]}: "
                                f"occupancy query failed: CUDA error {err}")
@@ -149,17 +170,15 @@ def _check_operands(indptr_a, indptr_b, a_idx, a_val, b_idx, b_val,
     _build.check_tensor("errors", errors, torch.int32, dev)
 
 
-def _bin_tables(offsets, bin_tsize, table_size, m, vector) -> list:
-    """``(r0, r1, tsz)`` of every bin that holds rows, from the schedule
-    read back to the host (the execute's only synchronisation); raises
-    ``ValueError`` for bins that do not partition ``m`` rows or tables
-    that are not powers of two (at least :data:`CHUNK` in vector mode)."""
-    bounds = offsets.tolist()
-    sizes = bin_tsize.tolist()
+def _bins_holding_rows(bounds, sizes, table_size, m, vector, who="") -> list:
+    """``(b, r0, r1, tsz)`` of every bin of one schedule (host lists) that
+    holds rows; raises ``ValueError`` for bins that do not partition ``m``
+    rows or tables that are not powers of two (at least :data:`CHUNK` in
+    vector mode).  ``who`` names the member in the messages."""
     if len(bounds) != len(sizes) + 1 or \
             any(not 0 <= r0 <= r1 <= m for r0, r1 in zip(bounds, bounds[1:])):
-        raise ValueError(f"bin offsets {bounds} do not partition {m} rows "
-                         f"into {len(sizes)} bins")
+        raise ValueError(f"{who}bin offsets {bounds} do not partition {m} "
+                         f"rows into {len(sizes)} bins")
     bins = []
     for b, tsz in enumerate(sizes):
         r0, r1 = bounds[b], bounds[b + 1]
@@ -167,15 +186,47 @@ def _bin_tables(offsets, bin_tsize, table_size, m, vector) -> list:
             continue
         tsz = min(int(tsz), table_size)
         if tsz < 1 or tsz & (tsz - 1) or (vector and tsz < CHUNK):
-            raise ValueError(f"bin {b}: table size {tsz} is not a power of "
-                             f"two{' >= CHUNK' if vector else ''}")
-        bins.append((r0, r1, tsz))
+            raise ValueError(f"{who}bin {b}: table size {tsz} is not a power "
+                             f"of two{' >= CHUNK' if vector else ''}")
+        bins.append((b, r0, r1, tsz))
     return bins
 
 
-def _n_classes(largest: int) -> int:
-    """Classes that can hold a row when no table exceeds ``largest``."""
-    return 1 + sum(s < largest for s in ref.CLASS_SLOTS)
+def _bin_tables(offsets, bin_tsize, table_size, m, vector) -> list:
+    """``(r0, r1, tsz)`` of every bin that holds rows, from the schedule
+    read back to the host (the execute's only synchronisation), checked
+    as :func:`_bins_holding_rows` does."""
+    return [x[1:] for x in _bins_holding_rows(
+        offsets.tolist(), bin_tsize.tolist(), table_size, m, vector)]
+
+
+def launch_classes(largest: int) -> tuple:
+    """The table classes launched when no row's plan table exceeds
+    ``largest`` slots: every class up to the one that holds ``largest``
+    (none for 0)."""
+    if largest <= 0:
+        return ()
+    return tuple(range(1 + sum(s < largest for s in ref.CLASS_SLOTS)))
+
+
+def fleet_table(bounds, sizes, table_size: int, n_rows: int,
+                vector: bool) -> int:
+    """The largest plan table, ``min(sizes[e][b], table_size)``, of any
+    bin that holds rows in any member of a fleet (0 when none does), from
+    the schedules as host lists: ``bounds[e]`` member e's bin offsets,
+    ``sizes[e]`` its per-bin table sizes.  It decides
+    :func:`launch_classes` and the global class's workspace; a plan
+    computes it once.  Raises ``ValueError`` as
+    :func:`_bins_holding_rows` does."""
+    if not bounds or len(sizes) != len(bounds):
+        raise ValueError(f"a fleet of {len(bounds)} members with "
+                         f"{len(sizes)} bin size lists")
+    largest = 0
+    for e, (bd, sz) in enumerate(zip(bounds, sizes)):
+        for _, _, _, tsz in _bins_holding_rows(bd, sz, table_size, n_rows,
+                                               vector, f"member {e}: "):
+            largest = max(largest, tsz)
+    return largest
 
 
 def _launch_symbolic(vector, offsets, bin_tsize, table_size, indptr_a,
@@ -205,69 +256,133 @@ def _launch_symbolic(vector, offsets, bin_tsize, table_size, indptr_a,
                                f"[{r0}, {r1}): CUDA error {err}")
 
 
-def _classify(bins, offsets, bin_tsize, table_size, indptr_a, indptr_b,
-              indptr_c, a_idx, errors):
-    """The classifying kernel: ``(counts (2 * 7,), lists (n, m), row_tsz
-    (m,), n)`` for the ``n`` classes that ``bins``' largest table allows;
-    ``counts[:7]`` holds each class's rows, ``counts[7:]`` the class
-    kernels' pop counters (zero)."""
-    dev = a_idx.device
-    m = indptr_a.shape[0] - 1
-    n = _n_classes(max(t for _, _, t in bins))
-    counts = torch.zeros(2 * len(CLASS_NAMES), dtype=torch.int32, device=dev)
-    lists = torch.empty(n, m, dtype=torch.int32, device=dev)
-    row_tsz = torch.zeros(m, dtype=torch.int32, device=dev)
-    _build.check_tensor("offsets", offsets, torch.int32, dev)
-    _build.check_tensor("bin_tsize", bin_tsize, torch.int32, dev)
-    err = _lib.spgemm_hash_classify(
-        m, bin_tsize.shape[0], table_size, n, _ptr(offsets),
-        _ptr(bin_tsize), _ptr(indptr_a), _ptr(a_idx), _ptr(indptr_b),
-        _ptr(indptr_c), _ptr(counts), _ptr(lists), _ptr(row_tsz),
-        _ptr(errors), torch.cuda.current_stream(dev).cuda_stream)
+#: Set to a list to have every classifying and class launch bracketed by
+#: CUDA events: each launch appends ``(phase, "classify" or the class
+#: name, start, end)``.  Measurement only (``chip_smoke.py``); ``None``
+#: on the main path.
+CLASS_EVENTS = None
+
+
+def _marked(phase: str, name: str, launch):
+    """``launch()``, bracketed by CUDA events into :data:`CLASS_EVENTS`
+    when that is a list."""
+    if CLASS_EVENTS is None:
+        return launch()
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    marks[0].record()
+    out = launch()
+    marks[1].record()
+    CLASS_EVENTS.append((phase, name, *marks))
+    return out
+
+
+def _fleet(args: dict, strides: dict, *, n: int, m: int, table_size: int,
+           cap_c: int = 0, out_cols=None, out_vals=None,
+           row_nnz=None) -> _Fleet:
+    """The C interface's ``Fleet`` of ``n`` members of ``m`` rows:
+    :data:`ARG_NAMES` -> tensor (each stacked or shared) with their member
+    strides (absent: 0)."""
+    f = _Fleet()
+    for name in ARG_NAMES:
+        setattr(f, name, _ptr(args.get(name)))
+        setattr(f, f"{name}_s", strides.get(name, 0))
+    f.out_cols, f.out_vals = _ptr(out_cols), _ptr(out_vals)
+    f.row_nnz = _ptr(row_nnz)
+    f.cap_c, f.n, f.m = cap_c, n, m
+    f.n_bins, f.table_size = args["bin_tsize"].shape[-1], table_size
+    return f
+
+
+def _classify(numeric: bool, fleet: _Fleet, n_classes: int, errors, dev):
+    """The classifying kernels over the fleet's ``n * m`` (member, row)
+    pairs: ``(counts (COUNT_INTS,), list (n * m,), row_tsz (n * m,))``,
+    ``counts[:7]`` each class's pairs, ``list`` the entries ``e * m + i``
+    class after class, ``row_tsz`` each pair's table (0: none), the pop
+    counters zero."""
+    pairs = fleet.n * fleet.m
+    if pairs >= MAX_PAIRS:
+        raise ValueError(f"{fleet.n} members of {fleet.m} rows: the row "
+                         f"lists hold fewer than 2^31 entries")
+    counts = torch.zeros(COUNT_INTS, dtype=torch.int32, device=dev)
+    work = torch.empty(3, max(pairs, 1), dtype=torch.int32, device=dev)
+    lst, row_tsz, row_rank = work
+    err = _marked("numeric" if numeric else "symbolic", "classify",
+                  lambda: _lib.spgemm_hash_classify(
+                      int(numeric), n_classes, ctypes.byref(fleet),
+                      _ptr(counts), _ptr(lst), _ptr(row_tsz), _ptr(row_rank),
+                      _ptr(errors),
+                      torch.cuda.current_stream(dev).cuda_stream))
     if err != 0:
         raise RuntimeError(f"spgemm_hash classify launch failed: CUDA "
                            f"error {err}")
     CLASS_CALLS["classify"] += 1
-    return counts, lists, row_tsz, n
+    return counts, lst, row_tsz
+
+
+def _run_classes(numeric: bool, vector: bool, fleet: _Fleet, largest: int,
+                 errors, dev) -> int:
+    """Classify the fleet's rows, then one persistent launch per class
+    that ``largest`` allows (:func:`launch_classes`), smallest first, each
+    over every member's rows of its class.  Returns the class launches."""
+    classes = launch_classes(largest)
+    if not classes or fleet.n * fleet.m == 0:
+        return 0
+    counts, lst, row_tsz = _classify(numeric, fleet, len(classes), errors,
+                                     dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    phase = "numeric" if numeric else "symbolic"
+    for cls in classes:
+        ws_keys = ws_vals = None
+        ws_tsz = 0
+        if cls == len(CLASS_NAMES) - 1:
+            grid, ws_tsz = GLOBAL_BLOCKS, largest
+            ws_keys = torch.empty(grid * ws_tsz, dtype=torch.int32,
+                                  device=dev)
+            if numeric:
+                ws_vals = torch.empty(grid * ws_tsz, dtype=torch.float32,
+                                      device=dev)
+        else:
+            grid = class_shape(cls, vector, numeric)["resident_blocks"]
+        err = _marked(phase, CLASS_NAMES[cls],
+                      lambda: _lib.spgemm_hash_class_launch(
+                          int(numeric), int(vector), cls, grid, ws_tsz,
+                          ctypes.byref(fleet), _ptr(counts), _ptr(lst),
+                          _ptr(row_tsz), _ptr(errors), _ptr(ws_keys),
+                          _ptr(ws_vals), stream))
+        if err != 0:
+            raise RuntimeError(f"spgemm_hash {phase} launch failed for "
+                               f"class {CLASS_NAMES[cls]}: CUDA error {err}")
+        CLASS_CALLS[CLASS_NAMES[cls]] += 1
+    return len(classes)
 
 
 def _launch_numeric(vector, offsets, bin_tsize, table_size, indptr_a,
                     indptr_b, a_idx, a_val, b_idx, b_val, indptr_c, out_cols,
                     out_vals, errors):
-    """Classify the rows, then one persistent launch per class that can
-    hold rows."""
+    """The single product as the fleet of one member: classify the rows,
+    then one persistent launch per class that can hold rows."""
     dev = a_idx.device
     build()
     m = indptr_a.shape[0] - 1
     bins = _bin_tables(offsets, bin_tsize, table_size, m, vector)
     if not bins:
         return
-    counts, lists, row_tsz, n = _classify(
-        bins, offsets, bin_tsize, table_size, indptr_a, indptr_b, indptr_c,
-        a_idx, errors)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    for cls in range(n):
-        ws_keys = ws_vals = None
-        ws_tsz = 0
-        if cls == len(CLASS_NAMES) - 1:
-            grid = GLOBAL_BLOCKS
-            ws_tsz = max(t for _, _, t in bins)
-            ws_keys = torch.empty(grid * ws_tsz, dtype=torch.int32,
-                                  device=dev)
-            ws_vals = torch.empty(grid * ws_tsz, dtype=torch.float32,
-                                  device=dev)
-        else:
-            grid = class_shape(cls, vector)["resident_blocks"]
-        err = _lib.spgemm_hash_class_launch(
-            int(vector), cls, m, out_cols.shape[0], grid, ws_tsz,
-            _ptr(counts), _ptr(lists), _ptr(row_tsz), _ptr(indptr_a),
-            _ptr(a_idx), _ptr(a_val), _ptr(indptr_b), _ptr(b_idx),
-            _ptr(b_val), _ptr(indptr_c), _ptr(out_cols), _ptr(out_vals),
-            _ptr(errors), _ptr(ws_keys), _ptr(ws_vals), stream)
-        if err != 0:
-            raise RuntimeError(f"spgemm_hash numeric launch failed for class "
-                               f"{CLASS_NAMES[cls]}: CUDA error {err}")
-        CLASS_CALLS[CLASS_NAMES[cls]] += 1
+    _build.check_tensor("offsets", offsets, torch.int32, dev)
+    _build.check_tensor("bin_tsize", bin_tsize, torch.int32, dev)
+    args = dict(zip(ARG_NAMES, (offsets, bin_tsize, indptr_a, indptr_b,
+                                indptr_c, a_idx, a_val, b_idx, b_val)))
+    fleet = _fleet(args, {}, n=1, m=m, table_size=table_size,
+                   cap_c=out_cols.shape[0], out_cols=out_cols,
+                   out_vals=out_vals)
+    _run_classes(True, vector, fleet, max(t for _, _, t in bins), errors,
+                 dev)
+
+
+def _class_lists(counts, lst) -> list:
+    """Each class's entries of the classifying kernel's list."""
+    sizes = counts[:len(CLASS_NAMES)].tolist()
+    starts = [sum(sizes[:c]) for c in range(len(sizes))]
+    return [lst[s0:s0 + k] for s0, k in zip(starts, sizes)]
 
 
 def row_classes(offsets, bin_tsize, indptr_a, indptr_b, indptr_c, a_idx, *,
@@ -286,33 +401,68 @@ def row_classes(offsets, bin_tsize, indptr_a, indptr_b, indptr_c, a_idx, *,
         CLASS_CALLS["plain"] += 1
         return ref.row_classes_plain(offsets, bin_tsize, indptr_c,
                                      table_size=table_size)
+    counts, pairs, row_tsz = batched_row_classes(
+        offsets, bin_tsize, indptr_a, indptr_b, indptr_c, a_idx,
+        n_members=1, table_size=table_size, errors=errors)
+    return counts, [x[:, 1].to(torch.int32) for x in pairs], row_tsz[0]
+
+
+def batched_row_classes(offsets, bin_tsize, indptr_a, indptr_b, indptr_c,
+                        a_idx, *, n_members: int, table_size: int,
+                        numeric: bool = True,
+                        errors: torch.Tensor | None = None):
+    """The classifying kernel alone, for either phase of a fleet:
+    ``(counts (7,) int32, pairs, row_tsz (n, m) int32)``, ``pairs[c]``
+    class c's ``(member, row)`` pairs as an ``(k, 2)`` int64 tensor (in no
+    order on a card, ascending in the plain version), ``row_tsz`` each
+    pair's table (0: no table).  Arguments are stacked or shared as for
+    :func:`batched_numeric_call`; ``numeric=False`` sizes tables from each
+    row's product count and ignores ``indptr_c`` (pass ``None``).
+
+    On a card it runs the classifying kernel as the class-ordered
+    wrappers do (``errors`` as for them); on the CPU
+    ``ref.batched_row_classes_plain``.
+    """
+    n = n_members
+    if a_idx.device.type == "cpu":
+        CLASS_CALLS["plain"] += 1
+        return ref.batched_row_classes_plain(
+            offsets, bin_tsize, indptr_a, indptr_b, indptr_c, a_idx,
+            n_members=n, table_size=table_size, numeric=numeric)
     dev = a_idx.device
-    for name, t in (("indptr_a", indptr_a), ("indptr_b", indptr_b),
-                    ("indptr_c", indptr_c), ("a_idx", a_idx)):
+    args = {"offsets": offsets, "bin_tsize": bin_tsize,
+            "indptr_a": indptr_a, "indptr_b": indptr_b, "a_idx": a_idx}
+    if numeric:
+        args["indptr_c"] = indptr_c
+    for name, t in args.items():
         _build.check_tensor(name, t, torch.int32, dev)
-    if errors is not None:
-        _build.check_tensor("errors", errors, torch.int32, dev)
-    build()
-    m = indptr_a.shape[0] - 1
+    strides = _strides(args, n)
     own = errors is None
     if own:
-        errors = torch.zeros(1, dtype=torch.int32, device=a_idx.device)
-    bins = _bin_tables(offsets, bin_tsize, table_size, m, False)
+        errors = torch.zeros(1, dtype=torch.int32, device=dev)
+    _build.check_tensor("errors", errors, torch.int32, dev)
+    build()
+    m = indptr_a.shape[-1] - 1
+    if numeric:
+        m = min(m, indptr_c.shape[-1] - 1)
+    largest = fleet_table(_host_rows(offsets, n), _host_rows(bin_tsize, n),
+                          table_size, m, False)
     n_all = len(CLASS_NAMES)
-    if not bins:
-        empty = torch.zeros(0, dtype=torch.int32, device=a_idx.device)
-        return (torch.zeros(n_all, dtype=torch.int32, device=a_idx.device),
-                [empty] * n_all, torch.zeros(m, dtype=torch.int32,
-                                             device=a_idx.device))
-    counts, lists, row_tsz, n = _classify(
-        bins, offsets, bin_tsize, table_size, indptr_a, indptr_b, indptr_c,
-        a_idx, errors)
+    classes = launch_classes(largest)
+    if not classes or n * m == 0:
+        empty = torch.zeros(0, 2, dtype=torch.int64, device=dev)
+        return (torch.zeros(n_all, dtype=torch.int32, device=dev),
+                [empty] * n_all,
+                torch.zeros(n, m, dtype=torch.int32, device=dev))
+    fleet = _fleet(args, strides, n=n, m=m, table_size=table_size)
+    counts, lst, row_tsz = _classify(numeric, fleet, len(classes), errors,
+                                     dev)
     if own:
         _build.raise_on_errors(errors, "spgemm_hash classify")
-    sizes = counts[:n_all].tolist()
-    rows = [lists[c, :sizes[c]] if c < n else lists.new_zeros(0)
-            for c in range(n_all)]
-    return counts[:n_all].clone(), rows, row_tsz
+    pairs = [torch.stack((x // m, x % m), 1).long()
+             for x in _class_lists(counts, lst)]
+    return (counts[:n_all].clone(), pairs,
+            row_tsz[:n * m].view(n, m).clone())
 
 
 def symbolic_call(offsets, bin_tsize, indptr_a, indptr_b, a_idx, a_val,
@@ -383,20 +533,20 @@ def numeric_call(offsets, bin_tsize, indptr_a, indptr_b, indptr_c, a_idx,
 
 def batched_launches(bounds, sizes, table_size: int, n_rows: int,
                      vector: bool, *, smem_slots: int = SMEM_SLOTS) -> list:
-    """The launches of a batched kernel, either phase, from the fleet's
-    bins as host lists: ``bounds[e]`` is member e's bin offsets,
-    ``sizes[e]`` its per-bin table sizes.  (A symbolic table holds keys
-    only, 4 bytes a slot against the numeric 8, but the kernel keeps the
-    same geometry for both, as the single-product kernels do.)
+    """The launches of a grid over a fleet's bins, one launch per bin
+    index (the BCSR batched kernel's geometry, ``spgemm_bcsr.kernel.
+    launch_list``; this module's batched calls run by table class), from
+    the fleet's bins as host lists: ``bounds[e]`` is member e's bin
+    offsets, ``sizes[e]`` its per-bin table sizes.
 
     Returns one ``{"bin", "grid_x", "block", "smem_slots", "ws_tsz"}`` per
     bin index that holds rows in any member.  Member e of bin b probes
     ``min(sizes[e][b], table_size)`` slots: shared memory holds the largest
-    such table up to ``smem_slots`` (:data:`SMEM_SLOTS` for this module's
-    kernel; the BCSR kernel passes what its tiles leave room for), and the
-    members with larger tables use a global workspace of ``ws_tsz`` slots
-    per member and x block.  ``block`` is this module's kernel's thread
-    count.  Without a workspace there is one x block per row
+    such table up to ``smem_slots`` (the BCSR kernel passes what its tiles
+    leave room for), and the members with larger tables use a global
+    workspace of ``ws_tsz`` slots per member and x block.  ``block`` is a
+    thread count by the table (64 / 128 / 256; 512 with a workspace).
+    Without a workspace there is one x block per row
     of the member with the most rows in the bin; with one, the x blocks
     are capped so that ``grid_x * n_members <= GLOBAL_BLOCKS`` (at least
     one per member), which bounds the workspace as the single-product
@@ -409,37 +559,30 @@ def batched_launches(bounds, sizes, table_size: int, n_rows: int,
         raise ValueError(f"a fleet of {n} members with {len(sizes)} bin "
                          f"size lists (1 to 65,535 members)")
     n_bins = len(sizes[0])
+    rows, smem, ws = [0] * n_bins, [0] * n_bins, [0] * n_bins
     for e, (bd, sz) in enumerate(zip(bounds, sizes)):
-        if len(bd) != n_bins + 1 or len(sz) != n_bins or any(
-                not 0 <= r0 <= r1 <= n_rows for r0, r1 in zip(bd, bd[1:])):
+        if len(sz) != n_bins:
             raise ValueError(f"member {e}: bin offsets {bd} do not "
                              f"partition {n_rows} rows into {n_bins} bins")
+        for b, r0, r1, tsz in _bins_holding_rows(bd, sz, table_size, n_rows,
+                                                 vector, f"member {e}: "):
+            rows[b] = max(rows[b], r1 - r0)
+            if tsz <= smem_slots:
+                smem[b] = max(smem[b], tsz)
+            else:
+                ws[b] = max(ws[b], tsz)
     launches = []
     for b in range(n_bins):
-        rows = smem = ws = 0
-        for e in range(n):
-            r0, r1 = bounds[e][b], bounds[e][b + 1]
-            if r1 <= r0:
-                continue
-            tsz = min(int(sizes[e][b]), table_size)
-            if tsz < 1 or tsz & (tsz - 1) or (vector and tsz < CHUNK):
-                raise ValueError(
-                    f"member {e}, bin {b}: table size {tsz} is not a power "
-                    f"of two{' >= CHUNK' if vector else ''}")
-            rows = max(rows, r1 - r0)
-            if tsz <= smem_slots:
-                smem = max(smem, tsz)
-            else:
-                ws = max(ws, tsz)
-        if not rows:
+        if not rows[b]:
             continue
-        if ws:
-            grid_x, block = min(rows, max(1, GLOBAL_BLOCKS // n)), 512
+        if ws[b]:
+            grid_x, block = min(rows[b], max(1, GLOBAL_BLOCKS // n)), 512
         else:
-            grid_x = rows
-            block = 64 if smem <= 256 else (128 if smem <= 4096 else 256)
+            grid_x = rows[b]
+            block = 64 if smem[b] <= 256 else (128 if smem[b] <= 4096
+                                               else 256)
         launches.append({"bin": b, "grid_x": grid_x, "block": block,
-                         "smem_slots": smem, "ws_tsz": ws})
+                         "smem_slots": smem[b], "ws_tsz": ws[b]})
     return launches
 
 
@@ -463,13 +606,16 @@ def _strides(args: dict, n: int) -> dict:
 
 
 def _batched(numeric: bool, args: dict, strides: dict, *, n_members: int,
-             cap_c: int, table_size: int, vector: bool, errors, launches):
-    """Launch the batched kernel of one phase over every member.
+             cap_c: int, table_size: int, vector: bool, errors, largest):
+    """Run one phase over every member by table class: one classifying
+    launch, then one launch per class that the fleet's largest table
+    allows, each over every member's rows of its class.
 
     ``args``: :data:`ARG_NAMES` (without ``indptr_c`` for the symbolic
     phase) -> tensor, each stacked or shared, with :func:`_strides`'
-    ``strides``.  Returns ``row_nnz (n, m)`` (symbolic) or ``(cols,
-    vals)``, each ``(n, cap_c)`` (numeric).
+    ``strides``; ``largest``: :func:`fleet_table` of the schedule, or
+    ``None`` to read it back here.  Returns ``row_nnz (n, m)`` (symbolic)
+    or ``(cols, vals)``, each ``(n, cap_c)`` (numeric).
     """
     dev = args["a_idx"].device
     for name, t in args.items():
@@ -486,10 +632,10 @@ def _batched(numeric: bool, args: dict, strides: dict, *, n_members: int,
     n_rows = args["indptr_a"].shape[-1] - 1
     if numeric:
         n_rows = min(n_rows, args["indptr_c"].shape[-1] - 1)
-    if launches is None:
-        launches = batched_launches(_host_rows(args["offsets"], n),
-                                    _host_rows(args["bin_tsize"], n),
-                                    table_size, n_rows, vector)
+    if largest is None:
+        largest = fleet_table(_host_rows(args["offsets"], n),
+                              _host_rows(args["bin_tsize"], n),
+                              table_size, n_rows, vector)
     if numeric:
         out_cols = torch.zeros(n, cap_c, dtype=torch.int32, device=dev)
         out_vals = torch.zeros(n, cap_c, dtype=torch.float32, device=dev)
@@ -500,29 +646,13 @@ def _batched(numeric: bool, args: dict, strides: dict, *, n_members: int,
     own = errors is None
     if own:
         errors = torch.zeros(1, dtype=torch.int32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
     phase = "numeric" if numeric else "symbolic"
     key = f"batched_{phase}_vector" if vector else f"batched_{phase}"
-    pairs = [v for name in _C_ORDER
-             for v in (_ptr(args.get(name)), strides.get(name, 0))]
-    for launch in launches:
-        ws_keys = ws_vals = None
-        if launch["ws_tsz"]:
-            slots = launch["grid_x"] * n * launch["ws_tsz"]
-            ws_keys = torch.empty(slots, dtype=torch.int32, device=dev)
-            if numeric:
-                ws_vals = torch.empty(slots, dtype=torch.float32,
-                                      device=dev)
-        err = _lib.spgemm_hash_batched_launch(
-            int(numeric), int(vector), launch["bin"], n_rows, table_size,
-            launch["smem_slots"], launch["ws_tsz"], cap_c, launch["grid_x"],
-            n, launch["block"], launch["smem_slots"] * (8 if numeric else 4),
-            *pairs, _ptr(out_cols), _ptr(out_vals), _ptr(row_nnz),
-            _ptr(errors), _ptr(ws_keys), _ptr(ws_vals), stream)
-        if err != 0:
-            raise RuntimeError(f"spgemm_hash batched {phase} launch failed "
-                               f"for bin {launch['bin']}: CUDA error {err}")
-        KERNEL_CALLS[key] += 1
+    fleet = _fleet(args, strides, n=n, m=n_rows, table_size=table_size,
+                   cap_c=cap_c, out_cols=out_cols, out_vals=out_vals,
+                   row_nnz=row_nnz)
+    KERNEL_CALLS[key] += _run_classes(numeric, vector, fleet, largest,
+                                      errors, dev)
     if own:
         _build.raise_on_errors(errors, f"spgemm_hash batched {phase}")
     return (out_cols, out_vals) if numeric else row_nnz
@@ -532,7 +662,7 @@ def batched_symbolic_call(offsets, bin_tsize, indptr_a, indptr_b, a_idx,
                           a_val, b_idx, b_val, *, n_members: int,
                           table_size: int, vector: bool,
                           errors: torch.Tensor | None = None,
-                          launches: list | None = None) -> torch.Tensor:
+                          largest: int | None = None) -> torch.Tensor:
     """:func:`symbolic_call` for every member of a fleet: ``(n, m)
     int32``, member e's distinct columns per row of ``A_e @ B_e``.
 
@@ -540,10 +670,12 @@ def batched_symbolic_call(offsets, bin_tsize, indptr_a, indptr_b, a_idx,
     or has :func:`symbolic_call`'s shape and is shared by every member: it
     goes to the kernel as it is, read in place with member stride 0, and
     is never copied per member (a value fleet on one plan shares its
-    schedule and index arrays).  ``launches``: :func:`batched_launches` of
-    this schedule; without it the wrapper reads the bins back and computes
-    it.  ``errors`` as for :func:`symbolic_call`, one counter for all
-    members.
+    schedule and index arrays).  Every member's rows run by table class,
+    each row's table sized from its product count: one classifying launch,
+    then one launch per class that ``largest`` allows
+    (:func:`launch_classes`).  ``largest``: :func:`fleet_table` of this
+    schedule; without it the wrapper reads the bins back and computes it.
+    ``errors`` as for :func:`symbolic_call`, one counter for all members.
     """
     args = dict(zip(ARG_NAMES[:4] + ARG_NAMES[5:],
                     (offsets, bin_tsize, indptr_a, indptr_b, a_idx, a_val,
@@ -557,23 +689,23 @@ def batched_symbolic_call(offsets, bin_tsize, indptr_a, indptr_b, a_idx,
                                           vector=vector)
     return _batched(False, args, strides, n_members=n_members, cap_c=0,
                     table_size=table_size, vector=vector, errors=errors,
-                    launches=launches)
+                    largest=largest)
 
 
 def batched_numeric_call(offsets, bin_tsize, indptr_a, indptr_b, indptr_c,
                          a_idx, a_val, b_idx, b_val, *, n_members: int,
                          cap_c: int, table_size: int, vector: bool,
                          errors: torch.Tensor | None = None,
-                         launches: list | None = None):
+                         largest: int | None = None):
     """:func:`numeric_call` for every member of a fleet:
     ``(cols (n, cap_c) int32, vals (n, cap_c) float32)``.
 
     Each array argument is stacked or shared as for
     :func:`batched_symbolic_call`: ``core.batch`` stacks a class's
     schedules and ``indptr_c`` per member, a value fleet on one plan
-    shares them.  ``launches`` and ``errors`` as there (a plan computes
-    ``launches`` once from its host lists).  (The kernel itself checks
-    each member's bins against the rows it is given.)
+    shares them.  Rows run by table class as there, each row's table
+    sized from its output count.  ``largest`` and ``errors`` as there (a
+    plan computes ``largest`` once from its host lists).
     """
     args = dict(zip(ARG_NAMES, (offsets, bin_tsize, indptr_a, indptr_b,
                                 indptr_c, a_idx, a_val, b_idx, b_val)))
@@ -585,4 +717,4 @@ def batched_numeric_call(offsets, bin_tsize, indptr_a, indptr_b, indptr_c,
             table_size=table_size, vector=vector)
     return _batched(True, args, strides, n_members=n_members, cap_c=cap_c,
                     table_size=table_size, vector=vector, errors=errors,
-                    launches=launches)
+                    largest=largest)

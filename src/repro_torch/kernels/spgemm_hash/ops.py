@@ -23,10 +23,12 @@ values on one frozen structure: A's, B's or both) fires the numeric rule
 once; over the planless :func:`spgemm_hash` with values batched, or with
 stacked per-member structures and a stacked ``schedule=``, it fires the
 symbolic rule and then the numeric rule once each.  A rule runs the
-batched kernel of ``kernel.py`` over every member: a batched argument
-with its member stride, an unbatched one (the plan's schedule and index
-arrays, a shared operand) read in place.  A call outside vmap runs the
-single-product kernel once per phase.
+batched kernels of ``kernel.py`` over every member -- one classifying
+launch, then one launch per table class, each over every member's rows
+of its class: a batched argument with its member stride, an unbatched
+one (the plan's schedule and index arrays, a shared operand) read in
+place.  A call outside vmap runs the single-product kernels once per
+phase.
 
 Rounding contract: the kernels round each product and add it atomically,
 in an order that changes from run to run; the reference kernel fuses the
@@ -117,9 +119,9 @@ def symbolic_op(offsets: torch.Tensor, bin_tsize: torch.Tensor,
 @symbolic_op.register_vmap
 def _symbolic_vmap(info, in_dims, offsets, bin_tsize, indptr_a, indptr_b,
                    a_idx, a_val, b_idx, b_val, table_size, vector):
-    """The batched symbolic kernel over ``info.batch_size`` members, once
+    """The batched symbolic kernels over ``info.batch_size`` members, once
     per vmapped call (arguments as :func:`_build.members_first` lays them
-    out)."""
+    out; the schedule is read back for its largest table)."""
     args = _build.members_first((offsets, bin_tsize, indptr_a, indptr_b,
                                  a_idx, a_val, b_idx, b_val), in_dims)
     return K.batched_symbolic_call(*args, n_members=info.batch_size,
@@ -145,7 +147,7 @@ def numeric_op(offsets: torch.Tensor, bin_tsize: torch.Tensor,
 def _numeric_vmap(info, in_dims, offsets, bin_tsize, indptr_a, indptr_b,
                   indptr_c, a_idx, a_val, b_idx, b_val, cap_c, table_size,
                   vector):
-    """The batched numeric kernel over ``info.batch_size`` members, once
+    """The batched numeric kernels over ``info.batch_size`` members, once
     per vmapped call."""
     args = _build.members_first((offsets, bin_tsize, indptr_a, indptr_b,
                                  indptr_c, a_idx, a_val, b_idx, b_val),
@@ -204,7 +206,7 @@ def spgemm_hash_symbolic(a: CSR, b: CSR, *, n_bins: int = 8,
 
 def spgemm_hash_batched(a: CSR, b: CSR, cap_c: int, *, vector: bool,
                         table_size: int, schedule, indptr_c: torch.Tensor,
-                        launches: list | None = None):
+                        largest: int | None = None):
     """``A_e @ B_e`` for every member e of a fleet through the batched
     numeric kernel: ``(cols, vals)``, each ``(n, cap_c)``, vals float32.
 
@@ -218,12 +220,12 @@ def spgemm_hash_batched(a: CSR, b: CSR, cap_c: int, *, vector: bool,
     where the reference broadcasts it.  ``schedule=(offsets, bin_tsize)``
     and ``indptr_c`` are stacked ``(n, ...)`` plan arrays, ``table_size``
     the class table (``BatchClass.table_size``, used as it is), and
-    ``launches`` the kernel's launch list for them
-    (``K.batched_launches``), which a plan computes once.
+    ``largest`` their largest bin table (``K.fleet_table``), which a plan
+    computes once.
     """
     offsets, bin_tsize = schedule
     return K.batched_numeric_call(
         offsets, bin_tsize, a.indptr, b.indptr, indptr_c, a.indices,
         a.data.to(torch.float32), b.indices, b.data.to(torch.float32),
         n_members=offsets.shape[0], cap_c=cap_c, table_size=table_size,
-        vector=vector, launches=launches)
+        vector=vector, largest=largest)

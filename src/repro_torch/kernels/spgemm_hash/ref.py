@@ -9,8 +9,9 @@ internal layout, so the plain versions accept and ignore them.
 
 The kernels size each row's table from its own need, at most its bin's
 (:func:`row_table_sizes_plain`), and the single-product numeric kernel
-runs rows by table class (:func:`row_classes_plain`, the classifying
-kernel's function); neither changes what the kernels compute.
+and both batched phases run rows by table class (:func:`row_classes_plain`
+and :func:`batched_row_classes_plain`, the classifying kernel's
+function); neither changes what the kernels compute.
 
 The semantic contract of the kernels (per phase):
   * symbolic: exact nnz per output row;
@@ -208,3 +209,58 @@ def row_classes_plain(offsets, bin_tsize, indptr_c, *, table_size):
     counts = torch.tensor([r.shape[0] for r in rows], dtype=torch.int32,
                           device=row_tsz.device)
     return counts, rows, row_tsz
+
+
+def row_flop_plain(indptr_a, indptr_b, a_idx):
+    """Each row's product count (the sum of the lengths of the B rows its
+    A row selects), ``(m,) int64``: the symbolic phase's need."""
+    m = indptr_a.shape[0] - 1
+    nnz_a = int(indptr_a[-1])
+    lens = (indptr_b[1:] - indptr_b[:-1]).long()
+    per_entry = lens[a_idx[:nnz_a].long()]
+    rows = torch.repeat_interleave(
+        torch.arange(m, device=a_idx.device),
+        (indptr_a[1:] - indptr_a[:-1]).long(), output_size=nnz_a)
+    return torch.zeros(m, dtype=torch.int64,
+                       device=a_idx.device).index_add_(0, rows, per_entry)
+
+
+def batched_row_classes_plain(offsets, bin_tsize, indptr_a, indptr_b,
+                              indptr_c, a_idx, *, n_members, table_size,
+                              numeric=True):
+    """The classifying kernel's function over a fleet, either phase:
+    ``(counts (7,) int32, pairs, row_tsz (n, m) int32)``.  Member e's row
+    i gets :func:`row_table_sizes_plain` of its need -- its output count
+    (numeric, from ``indptr_c``) or its product count (symbolic,
+    :func:`row_flop_plain`; ``indptr_c`` ignored) -- and ``pairs[c]`` holds
+    the ``(member, row)`` pairs whose table falls in class c, ascending,
+    as an ``(k, 2)`` int64 tensor; pairs without a table join none.  Every
+    argument has a leading member axis or is 1-D and shared by all
+    members; ``m`` is the rows of ``indptr_a`` (numeric: and of
+    ``indptr_c``, the fewer)."""
+    m = indptr_a.shape[-1] - 1
+    if numeric:
+        m = min(m, indptr_c.shape[-1] - 1)
+    dev = a_idx.device
+    tables = []
+    for e in range(n_members):
+        off, bts = member_view(offsets, 1, e), member_view(bin_tsize, 1, e)
+        if numeric:
+            ic = member_view(indptr_c, 1, e)[:m + 1].long()
+            need = ic[1:] - ic[:-1]
+        else:
+            need = row_flop_plain(member_view(indptr_a, 1, e)[:m + 1],
+                                  member_view(indptr_b, 1, e),
+                                  member_view(a_idx, 1, e))
+        tables.append(row_table_sizes_plain(off, bts, need,
+                                            table_size=table_size))
+    row_tsz = torch.stack(tables) if tables else \
+        torch.zeros(0, m, dtype=torch.int32, device=dev)
+    bounds = torch.tensor(CLASS_SLOTS, dtype=torch.int32, device=dev)
+    cls = torch.searchsorted(bounds, row_tsz)
+    listed = row_tsz > 0
+    pairs = [torch.nonzero(listed & (cls == c))
+             for c in range(len(CLASS_SLOTS) + 1)]
+    counts = torch.tensor([x.shape[0] for x in pairs], dtype=torch.int32,
+                          device=dev)
+    return counts, pairs, row_tsz

@@ -9,12 +9,22 @@ the entries sum two products.  Under one bin whose table holds
 ``LADDER_TABLE`` slots the rows' own tables are 0 (none), 16 and 1,024
 (one block, 1,024 slots), 4,096, 8,192, then 32,768, 65,536 and 131,072
 (clusters of 2, 4 and 8 blocks) and 262,144 (device memory).
+
+``FLEET_LADDER``'s rows reach every class in both phases: a row of d
+columns has 1.5 d products (the symbolic phase's need), so its symbolic
+table may be a class above its numeric one.
 """
 import numpy as np
 
 LADDER = (0, 5, 300, 1500, 3000, 12000, 20000, 40000, 70000)
 #: the class each rung lands in under the one-bin schedule (-1: none)
 LADDER_CLASSES = (-1, 0, 0, 1, 2, 3, 4, 5, 6)
+#: rungs that reach every class by output count (numeric) and by product
+#: count (symbolic), and the class of each under the one-bin schedule
+FLEET_LADDER = (0, 5, 300, 1000, 1500, 3000, 8000, 12000, 16000, 20000,
+                40000, 70000)
+FLEET_LADDER_CLASSES = (-1, 0, 0, 1, 1, 2, 2, 3, 3, 4, 5, 6)
+FLEET_LADDER_SYMBOLIC_CLASSES = (-1, 0, 0, 1, 2, 2, 3, 4, 4, 4, 5, 6)
 LADDER_TABLE = 1 << 18
 N_COLS = 1 << 17
 DYADIC = np.array([0.5, 1.0, 1.5, 2.0], np.float32)
@@ -31,14 +41,15 @@ def saturated_row(d, seed=0):
     return a, b
 
 
-def ladder(dyadic, seed=0):
-    """COO parts ``(rows, cols, vals, shape)`` of A and of B."""
+def ladder(dyadic, seed=0, rungs=LADDER):
+    """COO parts ``(rows, cols, vals, shape)`` of A and of B, C's row r of
+    ``rungs[r]`` distinct columns."""
     rng = np.random.default_rng(seed)
-    n = len(LADDER)
+    n = len(rungs)
     a_rows = np.repeat(np.arange(n), 2)
     a_cols = np.arange(2 * n)
     b_rows, b_cols = [], []
-    for r, d in enumerate(LADDER):
+    for r, d in enumerate(rungs):
         cols = rng.permutation(N_COLS)[:d]
         b_rows += [np.full(d, 2 * r), np.full(len(cols[::2]), 2 * r + 1)]
         b_cols += [cols, cols[::2]]

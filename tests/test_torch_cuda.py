@@ -51,7 +51,9 @@ from repro_torch.serve import Engine, Request
 sys.path.insert(0, os.path.dirname(__file__))
 
 from _hash_ladder import (LADDER, LADDER_CLASSES,  # noqa: E402
-                          LADDER_TABLE, ladder, saturated_row)
+                          LADDER_TABLE, FLEET_LADDER, FLEET_LADDER_CLASSES,
+                          FLEET_LADDER_SYMBOLIC_CLASSES, ladder,
+                          saturated_row)
 import _spmm_ladder  # noqa: E402
 import _bcsr_ladder  # noqa: E402
 
@@ -1309,6 +1311,17 @@ def fleet_args(pairs, shared_b):
     return args, cap_c, max(tables)
 
 
+def fleet_classes(offsets, bin_tsize, n, table, n_rows, vector):
+    """The table classes a batched call launches on this schedule (stacked
+    or shared): every class up to its largest bin table's."""
+    rows = [offsets.tolist()] * n if offsets.dim() == 1 \
+        else offsets.tolist()
+    sizes = [bin_tsize.tolist()] * n if bin_tsize.dim() == 1 \
+        else bin_tsize.tolist()
+    return K.launch_classes(K.fleet_table(rows, sizes, table, n_rows,
+                                          vector))
+
+
 def check_batched(pairs, args, cols, vals, pc, pv):
     """Per member: row pointers, sorted column sets and (dyadic) values
     bitwise equal to the plain version; the tail past nnz zero."""
@@ -1349,14 +1362,16 @@ def test_batched_kernel_matches_plain_version(cuda, vector, shared_b):
     kw = dict(n_members=len(pairs), cap_c=cap_c, table_size=table,
               vector=vector)
     ops.reset_kernel_calls()
+    reset_class_calls()
     cols, vals = K.batched_numeric_call(*args, **kw)
     torch.cuda.synchronize()
     key = "batched_numeric_vector" if vector else "batched_numeric"
-    want = len(K.batched_launches(args[0].tolist(), args[1].tolist(), table,
-                                  args[4].shape[1] - 1, vector))
+    want = len(fleet_classes(args[0], args[1], len(pairs), table,
+                             args[4].shape[1] - 1, vector))
     counts = ops.kernel_call_counts()
     assert counts.pop(key) == want and 0 < want <= 8
     assert set(counts.values()) == {0}
+    assert K.CLASS_CALLS["classify"] == 1
     pc, pv = ref.batched_numeric_plain(*args, **kw)
     check_batched(pairs, args, cols, vals, pc, pv)
 
@@ -1364,8 +1379,9 @@ def test_batched_kernel_matches_plain_version(cuda, vector, shared_b):
 @pytest.mark.gpu
 @pytest.mark.parametrize("vector", (False, True))
 def test_batched_kernel_member_past_smem(cuda, vector):
-    """One member's table past SMEM_SLOTS (global workspace) in the same
-    launches as members whose tables stay in shared memory."""
+    """One member's table past SMEM_SLOTS (a cluster table) in the same
+    launches as members whose tables stay in one block's shared
+    memory."""
     a_w, b_w = wide_operands(cuda, 40000)
     small = []
     for i in range(3):
@@ -1381,9 +1397,9 @@ def test_batched_kernel_member_past_smem(cuda, vector):
     assert args[1][1].max() > K.SMEM_SLOTS >= args[1][[0, 2, 3]].max()
     kw = dict(n_members=len(pairs), cap_c=cap_c, table_size=table,
               vector=vector)
-    launches = K.batched_launches(args[0].tolist(), args[1].tolist(), table,
-                                  args[4].shape[1] - 1, vector)
-    assert any(x["ws_tsz"] and x["smem_slots"] for x in launches)
+    launches = fleet_classes(args[0], args[1], len(pairs), table,
+                             args[4].shape[1] - 1, vector)
+    check_member_classes(args, len(pairs), table, True)
     ops.reset_kernel_calls()
     cols, vals = K.batched_numeric_call(*args, **kw)
     torch.cuda.synchronize()
@@ -1391,6 +1407,39 @@ def test_batched_kernel_member_past_smem(cuda, vector):
     assert ops.kernel_call_counts()[key] == len(launches)
     pc, pv = ref.batched_numeric_plain(*args, **kw)
     check_batched(pairs, args, cols, vals, pc, pv)
+
+
+def check_classify(args, n, table, numeric):
+    """The batched classifying kernel on a fleet's arguments (as
+    :func:`fleet_args` lays them out) equals its plain version: counts,
+    each pair's table, each class's pairs (in no order on the card).
+    Returns the plain version's ``(counts, pairs, row_tsz)``."""
+    ic = args[4] if numeric else None
+    errors = torch.zeros(1, dtype=torch.int32, device=args[5].device)
+    got = K.batched_row_classes(*args[:4], ic, args[5], n_members=n,
+                                table_size=table, numeric=numeric,
+                                errors=errors)
+    want = ref.batched_row_classes_plain(
+        *(x.cpu() for x in args[:4]), None if ic is None else ic.cpu(),
+        args[5].cpu(), n_members=n, table_size=table, numeric=numeric)
+    assert int(errors) == 0
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[2].cpu(), want[2])
+    for g, w in zip(got[1], want[1]):
+        assert sorted(g.tolist()) == w.tolist()
+    return want
+
+
+def check_member_classes(args, n, table, numeric):
+    """The fleet of :func:`test_batched_kernel_member_past_smem`: the
+    classifying kernel equals its plain version, member 1's first row on
+    a cluster (past SMEM_SLOTS), every other member's rows in one block's
+    shared memory."""
+    want = check_classify(args, n, table, numeric)
+    big = [c for c, p in enumerate(want[1]) if [1, 0] in p.tolist()]
+    assert big and 3 <= big[0] < len(K.CLASS_NAMES) - 1
+    assert all(e == 1 or c <= 2 for c, p in enumerate(want[1])
+               for e, _ in p.tolist())
 
 
 @pytest.mark.gpu
@@ -1410,9 +1459,10 @@ def test_batched_kernel_table_too_small_raises(cuda):
 @pytest.mark.gpu
 @pytest.mark.parametrize("algorithm", ("auto", "hash_vector"))
 def test_planned_batch_launches_only_the_batched_kernel(cuda, algorithm):
-    """``plan_batch(...).execute`` on the card: one batched launch per bin
-    index holding rows, per class, nothing else; each member equal to the
-    per-product planned loop (dyadic values: bitwise after a row sort)."""
+    """``plan_batch(...).execute`` on the card: per hash class one
+    classifying launch and one launch per table class its largest table
+    allows, nothing else; each member equal to the per-product planned
+    loop (dyadic values: bitwise after a row sort)."""
     from repro_torch.core import plan_batch, plan_spgemm
     pairs = []
     for i in range(12):
@@ -1422,16 +1472,19 @@ def test_planned_batch_launches_only_the_batched_kernel(cuda, algorithm):
     plan = plan_batch(pairs, algorithm=algorithm, cache=False)
     vector = algorithm == "hash_vector"
     key = "batched_numeric_vector" if vector else "batched_numeric"
-    want = sum(len(K.batched_launches(*c.hash_host, c.table_size,
-                                      c.shape_a[0], vector))
-               for c in plan.classes)
+    want = sum(len(K.launch_classes(c.hash_largest)) for c in plan.classes)
     assert all(c.hash_sched is not None for c in plan.classes)
+    assert all(c.hash_largest == K.fleet_table(
+        *c.hash_host, c.table_size, c.shape_a[0], vector)
+        for c in plan.classes)
     ops.reset_kernel_calls()
+    reset_class_calls()
     outs = plan.execute(pairs)
     torch.cuda.synchronize()
     counts = ops.kernel_call_counts()
     assert counts.pop(key) == want <= 8 * plan.n_classes
     assert set(counts.values()) == {0}
+    assert K.CLASS_CALLS["classify"] == plan.n_classes
     for i, ((a, b), c) in enumerate(zip(pairs, outs)):
         r = plan_spgemm(a, b, algorithm=plan.algorithms[i],
                         cache=False).execute(a, b)
@@ -1449,24 +1502,23 @@ def symbolic_args(args):
 
 
 def check_batched_symbolic(args, n, table, vector, launches=None):
-    """The batched symbolic kernel on ``args`` (each stacked or shared)
-    launches once per bin index holding rows and gives bitwise the batched
-    plain version's counts; returns them."""
+    """The batched symbolic kernels on ``args`` (each stacked or shared)
+    launch once to classify and once per table class the schedule's
+    largest table allows, and give bitwise the batched plain version's
+    counts; returns them."""
     kw = dict(n_members=n, table_size=table, vector=vector)
     if launches is None:
-        rows = [args[0].tolist()] * n if args[0].dim() == 1 \
-            else args[0].tolist()
-        sizes = [args[1].tolist()] * n if args[1].dim() == 1 \
-            else args[1].tolist()
-        launches = K.batched_launches(rows, sizes, table,
-                                      args[2].shape[-1] - 1, vector)
+        launches = fleet_classes(args[0], args[1], n, table,
+                                 args[2].shape[-1] - 1, vector)
     ops.reset_kernel_calls()
+    reset_class_calls()
     got = K.batched_symbolic_call(*args, **kw)
     torch.cuda.synchronize()
     counts = ops.kernel_call_counts()
     key = "batched_symbolic_vector" if vector else "batched_symbolic"
     assert counts.pop(key) == len(launches) > 0
     assert set(counts.values()) == {0}
+    assert K.CLASS_CALLS["classify"] == 1
     assert torch.equal(got, ref.batched_symbolic_plain(*args, **kw))
     return got
 
@@ -1496,8 +1548,9 @@ def test_batched_symbolic_kernel_matches_plain_version(cuda, vector,
 @pytest.mark.gpu
 @pytest.mark.parametrize("vector", (False, True))
 def test_batched_symbolic_kernel_member_past_smem(cuda, vector):
-    """One member's table past SMEM_SLOTS (global workspace) in the same
-    launches as members whose tables stay in shared memory."""
+    """One member's table past SMEM_SLOTS (a cluster table) in the same
+    launches as members whose tables stay in one block's shared
+    memory."""
     a_w, b_w = wide_operands(cuda, 40000)
     small = []
     for i in range(3):
@@ -1509,9 +1562,9 @@ def test_batched_symbolic_kernel_member_past_smem(cuda, vector):
         small.append((a, b))
     pairs = [small[0], (a_w, b_w), small[1], small[2]]
     args, _, table = fleet_args(pairs, False)
-    launches = K.batched_launches(args[0].tolist(), args[1].tolist(), table,
-                                  args[4].shape[1] - 1, vector)
-    assert any(x["ws_tsz"] and x["smem_slots"] for x in launches)
+    launches = fleet_classes(args[0], args[1], len(pairs), table,
+                             args[4].shape[1] - 1, vector)
+    check_member_classes(args, len(pairs), table, False)
     rows = check_batched_symbolic(symbolic_args(args), len(pairs), table,
                                   vector, launches)
     assert torch.equal(rows, args[4][:, 1:] - args[4][:, :-1])
@@ -1592,19 +1645,19 @@ def test_batched_kernels_with_plan_schedule(cuda, vector, schedule):
 @pytest.mark.parametrize("algorithm", ("hash", "hash_vector"))
 def test_hash_vmap_launches_only_the_batched_kernels(cuda, algorithm):
     """``torch.func.vmap`` on CUDA: the plan's execute launches only the
-    batched numeric kernel, once per bin index holding rows; the planless
-    ``spgemm_hash`` with the plan's schedule pinned launches the batched
-    symbolic and numeric kernels as often each; no single-product kernel,
-    no plain version.  Each member bitwise equal to its own execute
-    (rows sorted, dyadic values)."""
+    batched numeric kernels, one classifying launch and one per table
+    class its largest table allows; the planless ``spgemm_hash`` with the
+    plan's schedule pinned launches the batched symbolic and numeric
+    kernels as often each; no single-product kernel, no plain version.
+    Each member bitwise equal to its own execute (rows sorted, dyadic
+    values)."""
     import dataclasses
     from repro_torch.core import plan_spgemm
     a, _, vals = value_fleet(cuda, 4, 31)
     plan = plan_spgemm(a, a, algorithm=algorithm, cache=False)
     vector = algorithm == "hash_vector"
-    n_launches = sum(1 for r0, r1 in zip(plan.offsets.tolist(),
-                                         plan.offsets.tolist()[1:])
-                     if r1 > r0)
+    n_launches = len(fleet_classes(plan.offsets, plan.bin_tsize, 1,
+                                   plan.table_size, a.n_rows, vector))
     sfx = "_vector" if vector else ""
 
     def planned(v):
@@ -1618,18 +1671,22 @@ def test_hash_vmap_launches_only_the_batched_kernels(cuda, algorithm):
         return c.indptr, c.indices, c.data
 
     ops.reset_kernel_calls()
+    reset_class_calls()
     cols, data = torch.func.vmap(planned)(vals)
     torch.cuda.synchronize()
     counts = ops.kernel_call_counts()
     assert counts.pop(f"batched_numeric{sfx}") == n_launches > 0
     assert set(counts.values()) == {0}
+    assert K.CLASS_CALLS["classify"] == 1
     ops.reset_kernel_calls()
+    reset_class_calls()
     ip2, cols2, data2 = torch.func.vmap(planless)(vals)
     torch.cuda.synchronize()
     counts = ops.kernel_call_counts()
     assert counts.pop(f"batched_numeric{sfx}") == n_launches
     assert counts.pop(f"batched_symbolic{sfx}") == n_launches
     assert set(counts.values()) == {0}
+    assert K.CLASS_CALLS["classify"] == 2
     assert torch.equal(ip2, plan.indptr_c.expand_as(ip2))
     for e in range(vals.shape[0]):
         one = plan.execute(dataclasses.replace(a, data=vals[e]),
@@ -1665,6 +1722,199 @@ def test_batched_symbolic_table_too_small_raises(cuda, vector):
             dataclasses.replace(a, data=v), b, d, vector=vector,
             table_size=K.CHUNK, schedule=(off, tsz)).data)(vals)
 
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("numeric", (True, False), ids=("numeric",
+                                                        "symbolic"))
+@pytest.mark.parametrize("layout", ("stacked", "shared"))
+def test_batched_classify_matches_plain_version(cuda, layout, numeric):
+    """The batched classifying kernel against its plain version: a fleet
+    of R-MAT products with their own stacked schedules, and a value fleet
+    whose schedule, ``indptr_c`` and index arrays every member shares
+    (stride 0), whose G500 s12 rows reach the 16,384-slot class."""
+    if layout == "stacked":
+        pairs = [(operand(p, s, ef, True, cuda), operand("ER", s, 8, True,
+                                                         cuda))
+                 for p, s, ef in (("ER", 9, 4), ("G500", 9, 16),
+                                  ("G500", 9, 2))]
+        args, _, table = fleet_args(pairs, False)
+        n = len(pairs)
+    else:
+        a = operand("G500", 12, 16, True, cuda)
+        off, tsz, table = ops.hash_schedule(a, a, n_bins=8)
+        rows = K.symbolic_call(off, tsz, a.indptr, a.indptr, a.indices,
+                               a.data, a.indices, a.data, table_size=table,
+                               vector=False)
+        ic = prefix_sum(rows).to(torch.int32)
+        args = (off, tsz, a.indptr, a.indptr, ic, a.indices)
+        n = 4
+    want = check_classify(args, n, table, numeric)
+    reached = [c for c, p in enumerate(want[1]) if p.shape[0]]
+    if layout == "shared":
+        assert max(reached) == 2
+        assert int(want[0].sum()) % n == 0
+
+
+def ladder_fleet(cuda, layout, dyadic):
+    """Two ``_hash_ladder`` members (``FLEET_LADDER``'s rungs, every class
+    in both phases) under one bin of LADDER_TABLE slots:
+    ``stacked``, two structures (seeds 0 and 1) with stacked schedules;
+    ``shared``, one structure and schedule shared (stride 0), A's values
+    stacked.  Returns the batched arguments (as :func:`fleet_args`), the
+    table and the members' ``(a, b)``."""
+    seeds = (0, 1) if layout == "stacked" else (0,)
+    mats = []
+    for seed in seeds:
+        (ar, ac, av, ash), (br, bc, bv, bsh) = ladder(dyadic, seed,
+                                                      FLEET_LADDER)
+        mats.append((CSR.from_numpy_coo(ar, ac, av, ash, device=cuda),
+                     CSR.from_numpy_coo(br, bc, bv, bsh, device=cuda)))
+    m = len(FLEET_LADDER)
+    ic = prefix_sum(torch.tensor(FLEET_LADDER, dtype=torch.int32,
+                                 device=cuda)).to(torch.int32)
+    off = torch.tensor([0, m], dtype=torch.int32, device=cuda)
+    tsz = torch.tensor([LADDER_TABLE], dtype=torch.int32, device=cuda)
+    if layout == "stacked":
+        (a0, b0), (a1, b1) = mats
+        st = [torch.stack(x) for x in (
+            (off, off), (tsz, tsz), (a0.indptr, a1.indptr),
+            (b0.indptr, b1.indptr), (ic, ic), (a0.indices, a1.indices),
+            (a0.data, a1.data), (b0.indices, b1.indices),
+            (b0.data, b1.data))]
+        return tuple(st), LADDER_TABLE, mats
+    a, b = mats[0]
+    vals = torch.stack([a.data, a.data.flip(0)])
+    members = [(a, b), (dataclasses.replace(a, data=vals[1]), b)]
+    return ((off, tsz, a.indptr, b.indptr, ic, a.indices, vals, b.indices,
+             b.data), LADDER_TABLE, members)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dyadic", (True, False), ids=("dyadic", "uniform"))
+@pytest.mark.parametrize("layout", ("stacked", "shared"))
+@pytest.mark.parametrize("vector", (False, True))
+def test_batched_ladder_reaches_every_class(cuda, vector, layout, dyadic):
+    """Two ladder members (rows of 0 to 70,000 distinct columns) under one
+    bin of 262,144 slots: in both phases the classifying kernel equals its
+    plain version, every class runs -- the three shared-memory classes,
+    clusters of 2, 4 and 8 blocks (the symbolic counts summed across the
+    cluster) and the device-memory table -- one classifying launch and
+    one launch per class a phase, and each member equals the batched plain
+    version (counts bitwise, columns bitwise, values bitwise on dyadic
+    values, else within 1 ulp per product), with no kernel error."""
+    args, table, members = ladder_fleet(cuda, layout, dyadic)
+    n = 2
+    kw = dict(n_members=n, table_size=table, vector=vector)
+    for numeric, classes in ((False, FLEET_LADDER_SYMBOLIC_CLASSES),
+                             (True, FLEET_LADDER_CLASSES)):
+        want = check_classify(args, n, table, numeric)
+        for e in range(n):
+            got = [-1] * len(FLEET_LADDER)
+            for c, pair in enumerate(want[1]):
+                for ee, i in pair.tolist():
+                    if ee == e:
+                        got[i] = c
+            assert got == list(classes)
+        assert all(p.shape[0] for p in want[1])
+    errors = torch.zeros(1, dtype=torch.int32, device=cuda)
+    sym = symbolic_args(args)
+    ops.reset_kernel_calls()
+    reset_class_calls()
+    rows = K.batched_symbolic_call(*sym, **kw, errors=errors)
+    torch.cuda.synchronize()
+    assert int(errors) == 0
+    assert torch.equal(rows, ref.batched_symbolic_plain(*sym, **kw))
+    assert rows.tolist() == [list(FLEET_LADDER)] * n
+    cap = int(args[4][..., -1].max()) + 5
+    cols, vals = K.batched_numeric_call(*args, **kw, cap_c=cap,
+                                        errors=errors)
+    torch.cuda.synchronize()
+    assert int(errors) == 0
+    sfx = "_vector" if vector else ""
+    assert ops.kernel_call_counts() == dict(
+        dict.fromkeys(ops.kernel_call_counts(), 0),
+        **{f"batched_symbolic{sfx}": 7, f"batched_numeric{sfx}": 7})
+    assert K.CLASS_CALLS == dict(dict.fromkeys(K.CLASS_NAMES, 2),
+                                 classify=2, plain=0)
+    pc, pv = ref.batched_numeric_plain(*args, **kw, cap_c=cap)
+    ic = args[4] if args[4].dim() == 1 else args[4][0]
+    for e, (a, b) in enumerate(members):
+        check_product(a, b, ic, cols[e], vals[e], pc[e], pv[e], dyadic)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("vector", (False, True))
+@pytest.mark.parametrize("case", CASES, ids=lambda c: f"{c[0]}{c[1]}")
+def test_batched_numeric_one_member_equals_single_kernel(cuda, case,
+                                                         vector):
+    """At one member with every argument shared (stride 0), the batched
+    numeric kernels give bitwise the single-product kernel's output after
+    a row sort (dyadic values; G500 s12: cluster tables), with the same
+    class launches."""
+    a = operand(*case, cuda)
+    if not case[3]:
+        a = operand(case[0], case[1], case[2], True, cuda)
+    off, tsz, table = ops.hash_schedule(a, a, n_bins=8)
+    rows = K.symbolic_call(off, tsz, a.indptr, a.indptr, a.indices, a.data,
+                           a.indices, a.data, table_size=table,
+                           vector=vector)
+    ic = prefix_sum(rows).to(torch.int32)
+    cap = int(ic[-1]) + 3
+    args = (off, tsz, a.indptr, a.indptr, ic, a.indices, a.data, a.indices,
+            a.data)
+    reset_class_calls()
+    c1, v1 = K.numeric_call(*args, cap_c=cap, table_size=table,
+                            vector=vector)
+    single = dict(K.CLASS_CALLS)
+    reset_class_calls()
+    cn, vn = K.batched_numeric_call(*args, n_members=1, cap_c=cap,
+                                    table_size=table, vector=vector)
+    torch.cuda.synchronize()
+    assert K.CLASS_CALLS == single
+    s1 = CSR(ic, c1, v1, ic[-1], a.shape, False).sort_rows()
+    sn = CSR(ic, cn[0], vn[0], ic[-1], a.shape, False).sort_rows()
+    assert torch.equal(s1.indices, sn.indices)
+    assert torch.equal(s1.data, sn.data)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("vector", (False, True))
+def test_batched_cluster_table_load_factor_one_and_one_past_fill(cuda,
+                                                                  vector):
+    """Two members, each a row of exactly 32,768 distinct columns under a
+    table of 32,768 slots (a cluster of two blocks), in both batched
+    phases: full and right; one more column raises "full-table" in
+    each."""
+    t = 2 * K.SMEM_SLOTS
+    for d in (t, t + 1):
+        (ar, ac, av, ash), (br, bc, bv, bsh) = saturated_row(d)
+        a = CSR.from_numpy_coo(ar, ac, av, ash, device=cuda)
+        b = CSR.from_numpy_coo(br, bc, bv, bsh, device=cuda)
+        off = torch.tensor([0, 1], dtype=torch.int32, device=cuda)
+        tsz = torch.tensor([t], dtype=torch.int32, device=cuda)
+        ic = torch.tensor([0, d], dtype=torch.int32, device=cuda)
+        vals = torch.stack([b.data, b.data.flip(0)])
+        args = (off, tsz, a.indptr, b.indptr, ic, a.indices, a.data,
+                b.indices, vals)
+        kw = dict(n_members=2, table_size=t, vector=vector)
+        want = check_classify(args, 2, t, True)
+        assert want[1][K.CLASS_NAMES.index("cluster_2")].tolist() == \
+            [[0, 0], [1, 0]]
+        if d > t:
+            with pytest.raises(RuntimeError, match="full-table"):
+                K.batched_symbolic_call(*symbolic_args(args), **kw)
+            with pytest.raises(RuntimeError, match="full-table"):
+                K.batched_numeric_call(*args, **kw, cap_c=d)
+            continue
+        rows = K.batched_symbolic_call(*symbolic_args(args), **kw)
+        assert rows.tolist() == [[d], [d]]
+        reset_class_calls()
+        cols, out = K.batched_numeric_call(*args, **kw, cap_c=d)
+        assert K.CLASS_CALLS["cluster_2"] == 1
+        pc, pv = ref.batched_numeric_plain(*args, **kw, cap_c=d)
+        for e in range(2):
+            check_product(a, b, ic, cols[e], out[e], pc[e], pv[e], True)
 
 
 # ---- flash attention --------------------------------------------------------
