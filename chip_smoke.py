@@ -18,7 +18,8 @@ Phases; any failure exits non-zero:
      past fill) through the scalar and vector kernels, bitwise against
      the plain versions after a per-row sort; the hash numeric kernel's
      launch shape per table class (``cudaOccupancyMaxActiveClusters`` for
-     clusters of 2, 4 and 8 blocks);
+     clusters of 2, 4 and 8 blocks) and the symbolic bitmap class's at
+     65,536 columns;
   4. per input: ``plan_spgemm(a, a)`` under ``algorithm="auto"`` and
      ``plan.execute``; an explicit ``hash_vector`` plan; the planless
      ``spgemm(..., algorithm="hash")``; ``execute(sorted_output=True)``.
@@ -32,10 +33,18 @@ Phases; any failure exits non-zero:
      the classifying kernel equal to its plain version, rows, flop, nnz(C)
      and table slots per class, each class that holds rows launched once
      by ``plan.execute`` (G500: rows on clusters of 2, 4 and 8 blocks,
-     none in device memory; ER: none on a cluster);
+     none in device memory; ER: none on a cluster).  The symbolic
+     kernel's, the single product as the fleet of one member with B's
+     width: the classifying kernel against its plain version, rows, flop
+     and table slots per class, one ``symbolic_call`` launching one
+     classification and one launch per class its largest table allows
+     (G500: rows past 4,096 slots on the bitmap class, none on a cluster
+     or in device memory);
   5. median CUDA-event times of each kernel, its plain version and
      ``torch.sparse.mm`` (cuSPARSE; a yardstick only, never on the path),
-     each beside its least possible time on the card; each probe mode's
+     each beside its least possible time on the card (the symbolic kernel,
+     each probe mode, also 20 back to back; the planless front door
+     ``spgemm(algorithm="hash")`` beside ``torch.sparse.mm``); each probe mode's
      execute, and its numeric kernel through the wrapper that reads its
      own ``errors`` back and through the custom op the execute calls
      (``numeric_op``: the op's own cost);
@@ -163,12 +172,14 @@ Phases; any failure exits non-zero:
      members of ER s18's values against a shared dyadic B, over 4 members
      with A's and B's values, of the other probe mode's plan over 8
      members, and of the planless ``spgemm_hash`` with the plan's schedule
-     pinned over 8 members (the batched symbolic kernel too); G500 s16
-     over 2 members (global-memory tables), planned and planless; a
+     pinned over 8 members (the batched symbolic kernel too, with B's
+     width: G500's bitmap class); G500 s16 over 2 members, planned and
+     planless; a
      dyadic and a uniform fleet each.  Each vmapped call must run the ops'
      vmap rules -- per phase one classifying launch and one batched launch
-     per table class the plan's largest table allows -- and nothing else;
-     row pointers the plan's; the batched
+     per table class the plan's largest table allows (the symbolic one
+     with the bitmap class) -- and nothing else; row pointers the plan's;
+     the batched
      symbolic counts bitwise the plan's ESC counts and the batched plain
      version's; the batched numeric kernel and every member against the
      batched plain version (columns bitwise, values bitwise on dyadic
@@ -240,11 +251,12 @@ Phases; any failure exits non-zero:
      from empty caches, last logits and every layer's state and conv
      window within a relative L2 distance of 1e-3; then phase 18's
      float32 greedy-equals-re-prefill check.  Timing line as phase 18's;
- 21. the hash numeric kernel's device time per table class and the
-     classifying kernel's, from a ``torch.profiler`` trace of one call per
-     probe mode on each phase-4 input (last: traces over the cluster
-     launches left later traces' sums short; a trace without the
-     classifying kernel lost records and is taken again, at most three);
+ 21. the hash kernels' device time per table class and the classifying
+     launch's, numeric and symbolic, one call per probe mode on each
+     phase-4 input: the one-member fleet call (the single product's
+     launches, without its read-back of the bins) issued behind a
+     sleeping kernel, so that CUDA events around each launch hold the
+     card's work and none of the host's;
  15. one ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``.
 
 Usage: ``python3 chip_smoke.py`` (one card, no arguments).  A quick first
@@ -436,7 +448,7 @@ class Smoke:
         self.card = card
         self.dev = torch.device("cuda")
         self.rows = []          # the kernels line
-        self.class_profiles = []  # phase 21's numeric calls, per input
+        self.class_profiles = []  # phase 21's calls, per input
         self.library_ms = {}    # torch.sparse.mm time per input
 
     # ---- helpers ---------------------------------------------------------
@@ -636,7 +648,7 @@ class Smoke:
                 err = torch.zeros(1, dtype=torch.int32, device=self.dev)
                 row_k = K.symbolic_call(offsets, bin_tsize, *args,
                                         table_size=table_size, vector=vector,
-                                        errors=err)
+                                        errors=err, n_cols=b.n_cols)
                 kc, kv = K.numeric_call(
                     offsets, bin_tsize, ip_a, ip_b, indptr_c, a.indices,
                     a.data, b.indices, b.data, cap_c=2 * d,
@@ -660,6 +672,11 @@ class Smoke:
             print(json.dumps({"hash_class_shapes": "vector" if vector
                               else "scalar", "card": self.card,
                               "shapes": shapes}), flush=True)
+        print(json.dumps({"hash_class_shapes": "symbolic bitmap, 65,536 "
+                          "columns", "card": self.card,
+                          "shape": K.class_shape(K.BITMAP_CLASS, False,
+                                                 False, 1 << 16)}),
+              flush=True)
         print("phase 3: cudaOccupancyMaxActiveClusters at 16,384-slot "
               "slices (1,024 threads): " + ", ".join(
                   f"{b} blocks {K.class_shape(c, False)['resident_clusters']}"
@@ -754,15 +771,15 @@ class Smoke:
                      c_p.shape, pc, pv, counts_pp)
         sym_err = torch.zeros(1, dtype=torch.int32, device=self.dev)
         ops_args = self.operands(a)
+        sym_kw = dict(table_size=plan.table_size, errors=sym_err,
+                      n_cols=a.n_cols)
         row_k = K.symbolic_call(plan.offsets, plan.bin_tsize, *ops_args,
-                                table_size=plan.table_size, vector=False,
-                                errors=sym_err)
+                                vector=False, **sym_kw)
         check(torch.equal(row_k, plan.row_nnz_c),
               f"{label}: symbolic kernel row_nnz != ESC row_nnz_c")
         errs["symbolic"] = float((row_k - plan.row_nnz_c).abs().max())
         row_kv = K.symbolic_call(plan.offsets, plan.bin_tsize, *ops_args,
-                                 table_size=plan.table_size, vector=True,
-                                 errors=sym_err)
+                                 vector=True, **sym_kw)
         check(torch.equal(row_kv, plan.row_nnz_c),
               f"{label}: vector symbolic kernel row_nnz != ESC row_nnz_c")
         check(int(sym_err) == 0, f"{label}: symbolic kernel errors")
@@ -786,6 +803,7 @@ class Smoke:
         print(f"{label}: outputs match the plain versions; launches per "
               f"path {paths}", flush=True)
         classes = self.hash_classes(label, plan, a, exec_classes)
+        sym_classes = self.hash_symbolic_classes(label, plan, a)
 
         # ---- timings (phase 5) ------------------------------------------
         m = a.n_rows
@@ -806,9 +824,24 @@ class Smoke:
             t[name] = self.time_ms(lambda: K.numeric_call(
                 *args, cap_c=plan.cap_c, table_size=plan.table_size,
                 vector=vector, errors=num_err))
-        t["symbolic"] = self.time_ms(lambda: K.symbolic_call(
-            plan.offsets, plan.bin_tsize, *ops_args,
-            table_size=plan.table_size, vector=False, errors=sym_err))
+        # (phase 21 calls it again, after the plan is gone)
+        sym_call = (plan.offsets, plan.bin_tsize, *ops_args)
+
+        def symbolic(vector=False):
+            return K.symbolic_call(*sym_call, vector=vector, **sym_kw)
+
+        t["symbolic"] = self.time_ms(symbolic)
+        t["symbolic_vector"] = self.time_ms(lambda: symbolic(True))
+        # the card's time a call (20 back to back; the wrapper reads the
+        # bins back each call, so the host's time to issue one is beside)
+        b2b, host = {}, {}
+        for name, fn in (("symbolic", symbolic),
+                         ("symbolic_vector", lambda: symbolic(True))):
+            b2b[name], host[name] = self.stream_ms(fn)
+        # the planless front door (symbolic, then numeric, kernels) beside
+        # one torch.sparse.mm of the same product
+        t["planless"] = self.time_ms(lambda: core.spgemm(
+            a, a, plan.cap_c, algorithm="hash"))
         # the op on the main path: each probe mode's numeric kernel
         # through the wrapper that reads its own errors back, and through
         # the custom op the execute calls (the op's own cost: the
@@ -837,10 +870,18 @@ class Smoke:
         print(json.dumps({"timing": label, "card": self.card,
                           "n": m, "nnz_a": nnz_a, "flop": flop,
                           "nnz_c": nnz_c, "algorithm": algo,
-                          "ms": t, "bound_ms": {"numeric": bound_num,
-                                                "symbolic": bound_sym},
+                          "ms": t, "back_to_back_ms": b2b,
+                          "host_ms_to_issue": host,
+                          "bound_ms": {"numeric": bound_num,
+                                       "symbolic": bound_sym},
                           "classes": classes["per_class"],
+                          "symbolic_classes": sym_classes,
                           "plan_s": plan_s}), flush=True)
+        print(f"{label}: planless spgemm(algorithm=hash) {t['planless']:.4f}"
+              f" ms (symbolic kernel {t['symbolic']:.4f}, back to back "
+              f"{b2b['symbolic']:.4f}; numeric kernel {t['numeric']:.4f}) "
+              f"against torch.sparse.mm {t['torch_sparse_mm']:.4f} ms",
+              flush=True)
         # `launches`: the count on the first path that runs the kernel --
         # plan.execute for the recipe's probe mode, the explicit plan's
         # execute for the other, the planless spgemm for symbolic
@@ -856,11 +897,12 @@ class Smoke:
                 "plain_ms": t["plain_numeric" if num else "plain_symbolic"],
                 "bound_ms": bound_num if num else bound_sym,
                 "bound_by": bound_num_by if num else "bytes",
-                "library_ms": t["torch_sparse_mm"] if num else None})
+                "library_ms": t["torch_sparse_mm"] if num else None,
+                **({} if num else {"back_to_back_ms": b2b["symbolic"]})})
         # the classifying kernel (replaces no TPU kernel): its device time
-        # in the numeric kernel's trace (phase 21), the bytes it must move
-        # (indptr_c read, each row's table size and each listed row id
-        # written)
+        # from phase 21 (CUDA events behind a sleeping kernel), the bytes it
+        # must move (indptr_c read, each row's table size and each listed
+        # row id written)
         n_listed = sum(v["rows"] for v in classes["per_class"].values())
         classify_row = {
             "name": f"spgemm_hash_classify[{label}]", "route": "cuda",
@@ -876,7 +918,8 @@ class Smoke:
             "bound_by": "bytes", "library_ms": None}
         self.rows.append(classify_row)
         self.class_profiles.append((label, args, plan.cap_c,
-                                    plan.table_size, num_err, classify_row))
+                                    plan.table_size, num_err, a.n_cols,
+                                    classify_row))
         self.library_ms[label] = t["torch_sparse_mm"]
         del plan, plan_o, c, c_d, c_o, c_p, c_s, pc, pv, pc_d, pv_d
         core.clear_plan_cache()
@@ -937,64 +980,138 @@ class Smoke:
               flush=True)
         return {"per_class": per, "max_abs_err": 0.0}
 
+    def hash_symbolic_classes(self, label, plan, a) -> dict:
+        """Phase 4's table classes of the symbolic rows, the single
+        product as the fleet of one member with B's width: the classifying
+        kernel against its plain version (counts, each class's rows as a
+        set, each row's table), rows, flop and table slots per class, and
+        one ``symbolic_call`` launching one count, one classification and
+        one launch per class the plan's largest table allows, among them
+        every class that holds rows.  G500 s16 must put no symbolic row in
+        device memory nor on a cluster, and its rows past one block's
+        table on the bitmap class."""
+        torch, K, ref = self.torch, self.K, self.ref
+        err = torch.zeros(1, dtype=torch.int32, device=self.dev)
+        cls_args = (plan.offsets, plan.bin_tsize, a.indptr, a.indptr, None,
+                    a.indices)
+        kw = dict(n_members=1, table_size=plan.table_size, numeric=False,
+                  n_cols=a.n_cols)
+        counts, pairs, row_tsz = K.batched_row_classes(*cls_args, **kw,
+                                                       errors=err)
+        p_counts, p_pairs, p_tsz = ref.batched_row_classes_plain(*cls_args,
+                                                                 **kw)
+        torch.cuda.synchronize()
+        check(int(err) == 0, f"{label}: symbolic classify errors {int(err)}")
+        check(torch.equal(counts, p_counts) and torch.equal(row_tsz, p_tsz),
+              f"{label}: symbolic classes {counts.tolist()} or tables differ "
+              f"from the plain version's {p_counts.tolist()}")
+        for c, (got, want) in enumerate(zip(pairs, p_pairs)):
+            check(torch.equal(torch.sort(got[:, 1]).values, want[:, 1]),
+                  f"{label}: symbolic class {K.SYMBOLIC_CLASS_NAMES[c]} rows "
+                  f"differ")
+        largest = K.fleet_table([plan.offsets.tolist()],
+                                [plan.bin_tsize.tolist()], plan.table_size,
+                                a.n_rows, False)
+        launched = K.launch_classes(largest, ref.bitmap_above(a.n_cols))
+        _, calls = self.counted(lambda: K.symbolic_call(
+            plan.offsets, plan.bin_tsize, *self.operands(a),
+            table_size=plan.table_size, vector=False, n_cols=a.n_cols))
+        self.expect(calls, {"symbolic": 1}, f"{label} symbolic_call")
+        want_calls = dict(dict.fromkeys(K.CLASS_CALLS, 0), classify=1,
+                          **{K.SYMBOLIC_CLASS_NAMES[c]: 1 for c in launched})
+        check(self.class_counts == want_calls, f"{label} symbolic_call: "
+              f"class launches {self.class_counts}, want {want_calls}")
+        per = {}
+        for c, want in enumerate(p_pairs):
+            r = want[:, 1]
+            name = K.SYMBOLIC_CLASS_NAMES[c]
+            per[name] = {"rows": int(r.shape[0]),
+                         "flop": int(plan.flop[r].long().sum()),
+                         "table_slots": int(p_tsz[0, r].long().sum()),
+                         "launched": self.class_counts[name]}
+            check(not per[name]["rows"] or c in launched,
+                  f"{label}: symbolic class {name} holds rows but is not "
+                  f"launched")
+        if label.startswith("G500"):
+            check(per["bitmap"]["rows"] > 0 and not any(
+                per[n]["rows"] for n in K.CLASS_NAMES[3:]),
+                f"{label}: want the symbolic rows past one block's table on "
+                f"the bitmap class, none on a cluster or in device memory, "
+                f"got {per}")
+        print(f"{label}: symbolic row classes (rows, flop, table slots; "
+              f"launches {[K.SYMBOLIC_CLASS_NAMES[c] for c in launched]}): "
+              + "; ".join(f"{n} {v['rows']}, {v['flop']}, "
+                          f"{v['table_slots']}" for n, v in per.items()),
+              flush=True)
+        return per
+
     # ---- phase 21 ----------------------------------------------------------
     def hash_class_times(self):
-        """The hash numeric kernel's device time per table class and the
-        classifying kernel's, from a ``torch.profiler`` trace of one call
-        per probe mode on each phase-4 input; the classifying kernel's
-        time goes into its row of the kernels line.  Last of all the
-        traces: in phase 5, traces over the cluster launches left later
-        ``key_averages`` sums short (phase 7's G500-pattern BCSR kernel
-        21.4 ms traced against 28.5 ms by CUDA events)."""
+        """The hash kernels' device time per table class and the
+        classifying launch's, both phases, each probe mode, on each
+        phase-4 input (:meth:`class_event_ms`), through the one-member
+        fleet call with the largest table given: the single product's own
+        launches, without its read-back of the bins, so that nothing in
+        the call waits for the card.  The numeric classification's time
+        goes into its row of the kernels line."""
         K = self.K
-        for label, args, cap_c, table_size, err, row in self.class_profiles:
+        for label, args, cap_c, table_size, err, n_cols, row in \
+                self.class_profiles:
+            m = args[2].shape[0] - 1
+            host = ([args[0].tolist()], [args[1].tolist()])
             class_ms = {}
-            for vector, name in ((False, "numeric"),
-                                 (True, "numeric_vector")):
-                class_ms[name] = self.class_device_ms(
-                    lambda: K.numeric_call(*args, cap_c=cap_c,
-                                           table_size=table_size,
-                                           vector=vector, errors=err))
+            for vector, sfx in ((False, ""), (True, "_vector")):
+                kw = dict(n_members=1, table_size=table_size, vector=vector,
+                          errors=err, largest=K.fleet_table(
+                              *host, table_size, m, vector))
+                class_ms["numeric" + sfx] = self.class_event_ms(
+                    lambda: K.batched_numeric_call(*args, cap_c=cap_c,
+                                                   **kw))
+                class_ms["symbolic" + sfx] = self.class_event_ms(
+                    lambda: K.batched_symbolic_call(*args[:4], *args[5:],
+                                                    **kw, n_cols=n_cols),
+                    numeric=False)
             self.torch.cuda.synchronize()
-            check(int(err) == 0, f"{label}: kernel errors while tracing")
+            check(int(err) == 0, f"{label}: kernel errors while timing")
             row["ms"] = class_ms["numeric"]["classify"]
             print(json.dumps({"hash_class_device_ms": label,
                               "card": self.card, **class_ms}), flush=True)
         self.class_profiles = []
 
-    def class_device_ms(self, fn, traces: int = 3) -> dict:
-        """Device ms of one call of ``fn`` per kernel of the numeric
-        path, from a ``torch.profiler`` trace: ``classify`` and each
-        table class by its :data:`CLASS_NAMES` name (0 where the class
-        ran no kernel).  A trace that holds no classifying kernel lost
-        records (the kernel runs on every call), so up to ``traces`` are
-        taken, each reported, and the first that holds it is used."""
-        import re
-        from torch.profiler import ProfilerActivity, profile
+    def class_event_ms(self, fn, numeric: bool = True) -> dict:
+        """Device ms of one call of ``fn`` (after one call to warm up) per
+        launch of the numeric path (``numeric=False``: the symbolic path):
+        ``classify`` (memset, classify and place) and each table class by
+        its :data:`SYMBOLIC_CLASS_NAMES` name (0 where the class was not
+        launched; the bitmap class symbolic only), from CUDA events around
+        each launch (``K.CLASS_EVENTS``).  ``fn`` must not synchronise: it
+        is issued behind a kernel that sleeps 50 M clocks (about 25 ms),
+        and the check that the host issued the whole call before the sleep
+        ended makes every event pair the card's work alone (without the
+        sleep, an event pair holds the host's issue of its launch too)."""
         torch, K = self.torch, self.K
+        names = K.CLASS_NAMES if numeric else K.SYMBOLIC_CLASS_NAMES
         fn()
         torch.cuda.synchronize()
-        for attempt in range(1, traces + 1):
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                fn()
-                torch.cuda.synchronize()
-            out = dict.fromkeys(("classify",) + K.CLASS_NAMES, 0.0)
-            for e in prof.key_averages():
-                us = getattr(e, "device_time_total", 0)
-                if not us:
-                    continue
-                m = re.search(r"hash_class_kernel(?:<true, (?:true|false), "
-                              r"|ILb1ELb[01]ELi)(\d)", e.key)
-                if m:
-                    out[K.CLASS_NAMES[int(m.group(1))]] += us / 1e3
-                elif "classify_kernel" in e.key or "place_kernel" in e.key:
-                    out["classify"] += us / 1e3
-            if out["classify"] > 0:
-                break
-            print(f"phase 21: trace {attempt} of {traces} holds no "
-                  f"classify kernel", flush=True)
-        check(out["classify"] > 0, "the profiler saw no classify kernel")
+        s0, s1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        K.CLASS_EVENTS = []
+        try:
+            s0.record()
+            torch.cuda._sleep(50_000_000)
+            s1.record()
+            h0 = time.perf_counter()
+            fn()
+            host_ms = (time.perf_counter() - h0) * 1e3
+            torch.cuda.synchronize()
+            out = dict.fromkeys(("classify",) + names, 0.0)
+            for _, name, t0, t1 in K.CLASS_EVENTS:
+                out[name] += t0.elapsed_time(t1)
+        finally:
+            K.CLASS_EVENTS = None
+        sleep_ms = s0.elapsed_time(s1)
+        check(host_ms < sleep_ms, f"the host took {host_ms:.3f} ms to issue "
+              f"the call, past the {sleep_ms:.3f} ms sleep before it")
+        check(out["classify"] > 0, "no classifying launch was timed")
         return out
 
     # ---- phase 6 -----------------------------------------------------------
@@ -1385,12 +1502,15 @@ class Smoke:
                                 [plan.bin_tsize.tolist()] * n, table, m,
                                 vector)
         n_launches = len(K.launch_classes(largest))
-        check(0 < n_launches <= len(K.CLASS_NAMES),
+        # the symbolic phase with B's width: its bitmap class where it fits
+        n_sym = len(K.launch_classes(largest, ref.bitmap_above(a.n_cols)))
+        check(0 < n_launches <= len(K.CLASS_NAMES) and 0 < n_sym,
               f"{label}: {n_launches} class launches a phase")
         want = {f"batched_numeric{sfx}": n_launches}
         if planless:
-            want[f"batched_symbolic{sfx}"] = n_launches
+            want[f"batched_symbolic{sfx}"] = n_sym
         kw = dict(n_members=n, table_size=table, vector=vector)
+        sym_kw = dict(kw, n_cols=a.n_cols)
         counts_pp = ref.products_per_entry(a.indptr, a.indptr, ic, a.indices,
                                            a.indices, cap_c)
         err = {"batched_numeric": 0.0, "batched_symbolic": 0.0}
@@ -1410,7 +1530,7 @@ class Smoke:
             check(torch.equal(ip, ic.expand_as(ip)),
                   f"{what}: row pointers differ from the plan's")
             del ip
-            rows = K.batched_symbolic_call(*sym_args(xa, xb), **kw)
+            rows = K.batched_symbolic_call(*sym_args(xa, xb), **sym_kw)
             check(torch.equal(rows, plan.row_nnz_c.expand_as(rows)),
                   f"{what}: batched symbolic counts != the plan's ESC counts")
             check(torch.equal(rows, ref.batched_symbolic_plain(
@@ -1440,7 +1560,8 @@ class Smoke:
                     del single, s
             del kc, kv, pc, pv, cols, data
         print(f"{label}: {n} members, {len(cases)} fleets; 1 classifying "
-              f"and {n_launches} class launches a phase; row counts the "
+              f"and {n_launches} class launches a phase (symbolic {n_sym}); "
+              f"row counts the "
               f"plan's, every member equal to the plain version and "
               f"(dyadic) the single-product execute; max abs diff numeric "
               f"{err['batched_numeric']}", flush=True)
@@ -1449,7 +1570,7 @@ class Smoke:
         _, xa, xb = next(c for c in cases if c[0] == "uniform")
         errors = torch.zeros(1, dtype=torch.int32, device=self.dev)
         classes = self.fleet_classes(label, num_args(xa, xb), n, table,
-                                     cap_c, vector, largest)
+                                     cap_c, vector, largest, a.n_cols)
         nnz = int(a.nnz)
         m_a = [dataclasses.replace(a, data=member(xa, e)) for e in range(n)]
         m_b = [dataclasses.replace(a, data=member(xb, e)) for e in range(n)]
@@ -1464,7 +1585,7 @@ class Smoke:
                     member(xa, e), a.indices, member(xb, e))
             return kernel(*args, table_size=table, vector=vector,
                           errors=errors, **({"cap_c": cap_c} if extra
-                                            else {}))
+                                            else {"n_cols": a.n_cols}))
 
         def batched_numeric():
             return K.batched_numeric_call(*num_args(xa, xb), cap_c=cap_c,
@@ -1472,7 +1593,7 @@ class Smoke:
                                           largest=largest)
 
         def batched_symbolic():
-            return K.batched_symbolic_call(*sym_args(xa, xb), **kw,
+            return K.batched_symbolic_call(*sym_args(xa, xb), **sym_kw,
                                            errors=errors, largest=largest)
 
         t = {"vmap_execute": self.time_ms(lambda: vmapped(xa, xb)),
@@ -1550,13 +1671,15 @@ class Smoke:
         torch.cuda.empty_cache()
 
     def fleet_classes(self, label, args, n, table, cap_c, vector,
-                      largest) -> dict:
+                      largest, n_cols) -> dict:
         """Each batched phase's table classes on a fleet's numeric
         arguments ``args`` (stacked or shared; the symbolic phase takes
-        them without ``indptr_c``): the classifying kernel against its
-        plain version (counts, each pair's table, each class's pairs as a
-        set), rows, products and (numeric) nnz(C) per class, every class
-        that holds pairs among the launched ones, and the device ms of the
+        them without ``indptr_c``, with B's width ``n_cols``): the
+        classifying kernel against its plain version (counts, each pair's
+        table, each class's pairs as a set), rows, products and (numeric)
+        nnz(C) per class, every class that holds pairs among the launched
+        ones (the symbolic phase's bitmap class too), and the device ms of
+        the
         classifying launch and of each class launch, CUDA events around it
         in one call of the batched kernel (``K.CLASS_EVENTS``).  Printed;
         returns ``{phase: {"classify_ms", class: {"rows", "products",
@@ -1571,19 +1694,21 @@ class Smoke:
         nnz = torch.stack([member_view(ic, 1, e)[1:m + 1].long()
                            - member_view(ic, 1, e)[:m].long()
                            for e in range(n)])
-        launched = K.launch_classes(largest)
         kw = dict(n_members=n, table_size=table, vector=vector)
         err = torch.zeros(1, dtype=torch.int32, device=self.dev)
         out = {}
         for numeric in (False, True):
             phase = "numeric" if numeric else "symbolic"
             c_ic = ic if numeric else None
+            width = None if numeric else n_cols
+            launched = K.launch_classes(
+                largest, 0 if numeric else ref.bitmap_above(n_cols))
             counts, pairs, row_tsz = K.batched_row_classes(
                 off, bts, ia, ib, c_ic, ai, n_members=n, table_size=table,
-                numeric=numeric, errors=err)
+                numeric=numeric, errors=err, n_cols=width)
             p_counts, p_pairs, p_tsz = ref.batched_row_classes_plain(
                 off, bts, ia, ib, c_ic, ai, n_members=n, table_size=table,
-                numeric=numeric)
+                numeric=numeric, n_cols=width)
             torch.cuda.synchronize()
             check(int(err) == 0, f"{label}: {phase} classify errors "
                   f"{int(err)}")
@@ -1595,16 +1720,16 @@ class Smoke:
                 key = got[:, 0] * m + got[:, 1]
                 check(torch.equal(torch.sort(key).values,
                                   p_pairs[c][:, 0] * m + p_pairs[c][:, 1]),
-                      f"{label}: {phase} class {K.CLASS_NAMES[c]} pairs "
-                      f"differ from the plain version's")
+                      f"{label}: {phase} class {K.SYMBOLIC_CLASS_NAMES[c]} "
+                      f"pairs differ from the plain version's")
                 check(not want.shape[0] or c in launched,
-                      f"{label}: {phase} class {K.CLASS_NAMES[c]} holds "
-                      f"pairs but is not launched")
+                      f"{label}: {phase} class {K.SYMBOLIC_CLASS_NAMES[c]} "
+                      f"holds pairs but is not launched")
             fn = (lambda: K.batched_numeric_call(
                 *args, cap_c=cap_c, **kw, errors=err, largest=largest)) \
                 if numeric else (lambda: K.batched_symbolic_call(
                     *args[:4], *args[5:], **kw, errors=err,
-                    largest=largest))
+                    largest=largest, n_cols=n_cols))
             fn()
             K.CLASS_EVENTS = []
             fn()
@@ -1616,11 +1741,12 @@ class Smoke:
             out[phase] = {"classify_ms": ms["classify"]}
             for c, want in enumerate(p_pairs):
                 e, r = want[:, 0], want[:, 1]
-                out[phase][K.CLASS_NAMES[c]] = {
+                name = K.SYMBOLIC_CLASS_NAMES[c]
+                out[phase][name] = {
                     "rows": int(want.shape[0]),
                     "products": int(flop[e, r].sum()),
                     "nnz_c": int(nnz[e, r].sum()),
-                    "ms": ms.get(K.CLASS_NAMES[c])}
+                    "ms": ms.get(name)}
             print(f"{label}: {phase} classes (rows, products, nnz(C), "
                   f"device ms; classify {ms['classify']:.4f} ms): "
                   + "; ".join(
@@ -1908,7 +2034,8 @@ class Smoke:
               f"the plain version's")
         sym_err = torch.zeros(1, dtype=torch.int32, device=self.dev)
         rows_k = self.K.symbolic_call(*pat, table_size=bp.table_size,
-                                      vector=False, errors=sym_err)
+                                      vector=False, errors=sym_err,
+                                      n_cols=ab.grid[1])
         torch.cuda.synchronize()
         check(int(sym_err) == 0 and torch.equal(rows_k, rows_plain),
               f"{label}: the hash symbolic kernel on the block patterns")
@@ -2011,7 +2138,7 @@ class Smoke:
              "execute_hash": self.time_ms(lambda: plan_h.execute(a, a)),
              "symbolic": self.time_ms(lambda: self.K.symbolic_call(
                  *pat, table_size=bp.table_size, vector=False,
-                 errors=sym_err)),
+                 errors=sym_err, n_cols=ab.grid[1])),
              "plain_symbolic": self.time_ms(lambda: href.symbolic_plain(
                  *pat, table_size=bp.table_size, vector=False)),
              "torch_sparse_mm": self.time_ms(lambda: torch.sparse.mm(sp, sp))}
@@ -2701,7 +2828,7 @@ class Smoke:
         # each class's table classes, as the class executors launch them
         classes = [self.fleet_classes(
             f"{label} class {i}", args, cls.n_members, cls.table_size,
-            cls.cap_c, False, cls.hash_largest)
+            cls.cap_c, False, cls.hash_largest, cls.shape_b[1])
             for i, (cls, args, _) in enumerate(class_args)]
 
         def kernels(vector):
@@ -2715,7 +2842,7 @@ class Smoke:
                 K.batched_symbolic_call(
                     *args[:4], *args[5:], n_members=cls.n_members,
                     table_size=cls.table_size, vector=False, errors=errors,
-                    largest=cls.hash_largest)
+                    largest=cls.hash_largest, n_cols=cls.shape_b[1])
 
         def plain_fleet():
             for cls, args, kw in class_args:

@@ -86,7 +86,8 @@ def bcsr_inspect(a: BCSR, b: BCSR, *, n_bins: int = 8, vector: bool = False,
     # symbolic kernel on the block patterns
     row_nnzb = HK.symbolic_call(offsets, bin_tsize, pa.indptr, pb.indptr,
                                 pa.indices, pa.data, pb.indices, pb.data,
-                                table_size=table_size, vector=vector)
+                                table_size=table_size, vector=vector,
+                                n_cols=pb.n_cols)
     indptr_cb = prefix_sum(row_nnzb).to(torch.int32)
     return flop, offsets, bin_tsize, table_size, row_nnzb, indptr_cb
 

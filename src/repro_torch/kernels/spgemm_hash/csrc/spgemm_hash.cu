@@ -7,7 +7,9 @@
 //   batched_symbolic_call (_batched_symbolic_kernel) and
 //     batched_numeric_call (_batched_numeric_kernel): symbolic_call and
 //     numeric_call over the grid (members, bins) of a fleet of products
-// and adds one kernel that replaces none, classify_kernel (below).
+// and adds two kernels that replace none: classify_kernel with its
+// place_kernel (below), and bitmap_class_kernel, the symbolic phase's
+// rows past one block's table.
 //
 // What each computes, per output row i:
 //   insert every column k of B's rows selected by A's row i into a table
@@ -37,8 +39,8 @@
 //   * A fleet is n members, each array at base + e * stride (stride 0: one
 //     array that every member shares, as a value fleet shares its plan's
 //     schedule); the single product is the fleet of one member.  Both
-//     phases of a fleet, and the single-product numeric phase, run rows by
-//     table class, not by plan bin.  classify_kernel (one thread a
+//     phases, of a fleet or of one product, run rows by table class, not
+//     by plan bin.  classify_kernel (one thread a
 //     (member, row) pair; replaces no TPU kernel: the TPU grid walks bins
 //     in order and needs no row lists) writes each pair's tsz_i and its
 //     rank among its class's pairs, counting each class; place_kernel, in
@@ -74,7 +76,21 @@
 //            another may still read its shared memory;
 //       6    larger tables: a per-block workspace in device memory (grid
 //            GLOBAL_BLOCKS, the fleet's largest table a block), each row
-//            using its own tsz_i slots of it.
+//            using its own tsz_i slots of it;
+//       7    symbolic only, when the host gives B's width (Fleet::n_cols)
+//            and its bitmap fits one block (kBitmapMaxWords): every row
+//            whose tsz_i passes Fleet::bitmap_above (4,096 slots, or the
+//            bitmap's words where those are more), in place of the larger
+//            table classes.  The symbolic phase stores no value, so a bit
+//            per column of B says all a key does: one block of 1,024
+//            threads a row clears n_cols / 8 bytes of shared memory (8 KB
+//            at 65,536 columns, where the row's keys would take 32 KB or
+//            more, across a cluster past 64 KB), sets one bit a product with
+//            atomicOr, read first so that a hub column is read and not
+//            contended, and writes the bitmap's popcount.  No probe, no
+//            remote atomic, no table of 2 * flop slots to clear.  A count
+//            past tsz_i (the table the row would have filled) adds one to
+//            errors, as that table's full probe would have.
 //   * Inside a team (a block, or a cluster's blocks) a row's products are
 //     spread evenly over every thread, one key a thread: A's row is staged
 //     blockDim entries at a time in shared memory (each entry's B row start
@@ -108,10 +124,6 @@
 //     so does a row that indptr_c leaves empty but that has products.
 //   * The output is zeroed by the caller before launch: blocks run in no
 //     order, so nothing like the TPU kernel's "zero at bin 0" is possible.
-//   * The single-product symbolic kernel keeps one launch per bin (one
-//     block per row while the bin's table fits in shared memory, else
-//     GLOBAL_BLOCKS blocks over a device-memory workspace) and the same
-//     row body, hash_row, so it sizes each row's table as above.
 //
 // Plain C interface, loaded with ctypes; every launch reports
 // cudaGetLastError().
@@ -127,8 +139,10 @@ namespace cg = cooperative_groups;
 // same fields): member e's array starts at base + e * stride (elements;
 // stride 0 shares one array among all members).  Numeric writes member
 // e's output at out_* + e * cap_c, symbolic its counts at row_nnz + e * m.
-// The single product is the fleet of one member.  Outside the anonymous
-// namespace: the C interface takes it.
+// The single product is the fleet of one member.  n_cols is B's width,
+// which every member shares; bitmap_above (symbolic only, else 0) the
+// table above which a row goes to the bitmap class, 0 for none.  Outside
+// the anonymous namespace: the C interface takes it.
 struct Fleet {
   const int* offsets;   long long s_off;  // n_bins + 1 a member
   const int* bin_tsize; long long s_bt;   // n_bins a member
@@ -143,7 +157,7 @@ struct Fleet {
   float* out_vals;                        // numeric only
   int* row_nnz;                           // symbolic only
   long long cap_c;
-  int n, m, n_bins, table_size;
+  int n, m, n_bins, table_size, n_cols, bitmap_above;
 };
 
 namespace {
@@ -153,8 +167,11 @@ constexpr unsigned kHashConst = 0x9E3779B9u;  // == -1640531527 mod 2^32
 constexpr int kChunk = 8;
 //: one block's largest table: 16,384 slots, 128 KB of key + value
 constexpr int kSliceSlots = 16384;
-constexpr int kClasses = 7;
-constexpr int kGlobalClass = kClasses - 1;
+constexpr int kClasses = 8;
+constexpr int kGlobalClass = 6;
+constexpr int kBitmapClass = 7;
+//: the widest B whose bitmap one block holds: 200 KB, 1,638,400 columns
+constexpr int kBitmapMaxWords = 51200;
 
 // Largest table of class c (slots), its blocks (a cluster past one) and
 // threads a block (by phase: numeric or symbolic).
@@ -171,10 +188,16 @@ __host__ __device__ constexpr int class_threads(int numeric, int c) {
 }
 // Table slots in a class's block's shared memory: its table, or its slice.
 __host__ __device__ constexpr int class_smem_slots(int c) {
-  return c == kGlobalClass ? 0 : c < 3 ? class_slots(c) : kSliceSlots;
+  return c >= kGlobalClass ? 0 : c < 3 ? class_slots(c) : kSliceSlots;
+}
+// Words of the bitmap class's bitmap (a multiple of four: 16 bytes).
+__host__ __device__ constexpr int bitmap_words(int n_cols) {
+  return ((n_cols + 31) / 32 + 3) & ~3;
 }
 
-__device__ __forceinline__ int class_of(int tsz) {
+// A row's class from its table (bitmap_above: Fleet's, 0 for none).
+__device__ __forceinline__ int row_class(int tsz, int bitmap_above) {
+  if (bitmap_above > 0 && tsz > bitmap_above) return kBitmapClass;
   int c = 0;
   while (c < kGlobalClass && tsz > class_slots(c)) ++c;
   return c;
@@ -215,9 +238,7 @@ struct Scratch {
   int count[2];     // keys this block inserted
   int cursor[2];    // flush positions this block took
   int occupied[2];  // occupied slots of this block's slice (cluster)
-  int item[2];      // the next list entry (class kernels; rank 0's is
-                    // read)
-  unsigned long long flop[2];  // the row's products past its first chunk
+  int item[2];      // the next list entry (rank 0's is read)
   int warp_sum[32];  // the chunk scan's per-warp totals
 };
 
@@ -241,7 +262,6 @@ __device__ __forceinline__ void scratch_reset(Scratch* sh, int p) {
   sh->count[p] = 0;
   sh->cursor[p] = 0;
   sh->occupied[p] = 0;
-  sh->flop[p] = 0ull;
 }
 
 // Block and cluster barriers that count every thread: after the
@@ -367,10 +387,6 @@ __device__ __forceinline__ int insert_vector(const Tab& tab, int tsz, int col,
   return -1;
 }
 
-struct NoPublish {
-  __device__ void operator()() const {}
-};
-
 __device__ __forceinline__ int warp_sum(int v) {
 #pragma unroll
   for (int o = 16; o; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -438,9 +454,8 @@ __device__ __forceinline__ int stage_chunk(
 }
 
 // One output row by a team (one block, or the blocks of a cluster), every
-// thread calling: size the row's table from cap (the plan's table for the
-// row) and its need (kSized: cap is the row's own table, classify_kernel's
-// tsz_i), clear this block's part, fill it, then write the count
+// thread calling: clear this block's part of the row's table of tsz slots
+// (classify_kernel's tsz_i, > 0), fill it, then write the count
 // (symbolic) or flush it to out[indptr_c[row] ...] (numeric).  The table
 // is left as it is: the next row clears what it uses.  A's row is taken
 // blockDim entries at a time and its products spread evenly over the
@@ -448,9 +463,9 @@ __device__ __forceinline__ int stage_chunk(
 // of the staged ends), so no warp walks a long B row alone.  p is the
 // row's parity (Scratch); thread 0 calls publish() once after the first
 // team sync (the class kernels pop their next row there).
-template <bool kNumeric, bool kVector, bool kSized, class Tab, class Publish>
+template <bool kNumeric, bool kVector, class Tab, class Publish>
 __device__ __forceinline__ void hash_row(
-    Tab& tab, int row, int cap, int p, int cap_c,
+    Tab& tab, int row, int tsz, int p, int cap_c,
     const int* __restrict__ indptr_a, const int* __restrict__ a_idx,
     const float* __restrict__ a_val, const int* __restrict__ indptr_b,
     const int* __restrict__ b_idx, const float* __restrict__ b_val,
@@ -464,41 +479,10 @@ __device__ __forceinline__ void hash_row(
   const int a1 = indptr_a[row + 1];
 
   int total = stage_chunk<kNumeric>(st, a0, a1, a_idx, a_val, indptr_b, sh);
-  long long need = 0;
   int base = 0, want = 0;
   if (kNumeric) {
     base = indptr_c[row];
     want = indptr_c[row + 1] - base;
-    need = want;
-  }
-  long long flop = total;
-  if (!kSized && (!kNumeric || want == 0) &&
-      a1 - a0 > static_cast<int>(blockDim.x)) {
-    // the products past the first chunk
-    unsigned long long f = 0;
-    for (int j = a0 + blockDim.x + tid; j < a1; j += blockDim.x) {
-      const int k = a_idx[j];
-      f += static_cast<unsigned long long>(indptr_b[k + 1] - indptr_b[k]);
-    }
-#pragma unroll
-    for (int o = 16; o; o >>= 1) f += __shfl_xor_sync(0xffffffffu, f, o);
-    if (lane == 0 && f) atomicAdd(&sh->flop[p], f);
-    block_sync();
-    flop += static_cast<long long>(sh->flop[p]);
-  }
-  if (!kNumeric) need = flop;
-  const int tsz = kSized ? cap : row_table(cap, need);
-
-  if (tsz == 0) {
-    // no table: a numeric row that indptr_c leaves empty has no product
-    if (tid == 0) {
-      if (kNumeric && (want < 0 || flop > 0)) atomicAdd(errors, 1);
-      if (!kNumeric) row_nnz[row] = 0;
-      scratch_reset(sh, p ^ 1);
-      publish();
-    }
-    block_sync();
-    return;
   }
 
   tab.size(tsz);
@@ -628,11 +612,11 @@ __device__ __forceinline__ void hash_row(
     atomicAdd(errors, 1);
 }
 
-// counts (kCountInts ints, zeroed by the caller): [0, 7) each class's
-// listed pairs, [7, 14) the class kernels' pop counters.
+// counts (kCountInts ints, zeroed by the caller): [0, 8) each class's
+// listed pairs, [8, 16) the class kernels' pop counters.
 constexpr int kPops = kClasses;
 constexpr int kCountInts = 2 * kClasses;
-static_assert(kCountInts == 14, "kernel.py's COUNT_INTS");
+static_assert(kCountInts == 16, "kernel.py's COUNT_INTS");
 constexpr int kClassifyThreads = 256;
 // a longer A row's product count is summed by its whole warp
 constexpr int kOwnEntries = 32;
@@ -711,11 +695,11 @@ __device__ long long symbolic_need(const Fleet& f, long long e, int a0,
 // its rank among its class's pairs to row_rank[p]; counts[c] gains one per
 // pair of class c.  A numeric pair that indptr_c leaves empty but that
 // has products adds one to errors, as does a pair whose class was not
-// launched (c >= n_classes), which joins no list.  Pairs outside every bin
-// get no table and no error.
+// launched (bit c of launched clear), which joins no list.  Pairs outside
+// every bin get no table and no error.
 template <bool kNumeric>
 __global__ void __launch_bounds__(kClassifyThreads) classify_kernel(
-    Fleet f, int n_classes, int* __restrict__ counts,
+    Fleet f, int launched, int* __restrict__ counts,
     int* __restrict__ row_tsz, int* __restrict__ row_rank,
     int* __restrict__ errors) {
   __shared__ int s_n[kClasses];
@@ -760,8 +744,8 @@ __global__ void __launch_bounds__(kClassifyThreads) classify_kernel(
   int c = kClasses, rank = 0;
   if (p < total) row_tsz[p] = tsz;
   if (tsz > 0) {
-    c = class_of(tsz);
-    if (c < n_classes) {
+    c = row_class(tsz, kNumeric ? 0 : f.bitmap_above);
+    if ((launched >> c) & 1) {
       rank = atomicAdd(&s_n[c], 1);
     } else {
       bad = true;
@@ -779,7 +763,8 @@ __global__ void __launch_bounds__(kClassifyThreads) classify_kernel(
 // Lay every listed pair out in list, class after class (one thread a
 // pair), at its class's start plus its rank.
 __global__ void __launch_bounds__(kClassifyThreads) place_kernel(
-    long long total, int n_classes, const int* __restrict__ counts,
+    long long total, int launched, int bitmap_above,
+    const int* __restrict__ counts,
     const int* __restrict__ row_tsz, const int* __restrict__ row_rank,
     int* __restrict__ list) {
   __shared__ int s_start[kClasses];
@@ -796,8 +781,8 @@ __global__ void __launch_bounds__(kClassifyThreads) place_kernel(
   if (p >= total) return;
   const int tsz = row_tsz[p];
   if (tsz == 0) return;
-  const int c = class_of(tsz);
-  if (c < n_classes) list[s_start[c] + row_rank[p]] = static_cast<int>(p);
+  const int c = row_class(tsz, bitmap_above);
+  if ((launched >> c) & 1) list[s_start[c] + row_rank[p]] = static_cast<int>(p);
 }
 
 // The rows of table class kClass, either phase, of every member: a
@@ -856,14 +841,14 @@ __global__ void __launch_bounds__(1024) hash_class_kernel(
     const int cap_c = static_cast<int>(f.cap_c);
     if (f.n == 1) {
       // the arrays as they are: no member arithmetic held in registers
-      hash_row<kNumeric, kVector, true>(
+      hash_row<kNumeric, kVector>(
           tab, item, row_tsz[item], p, cap_c, f.indptr_a, f.a_idx, f.a_val,
           f.indptr_b, f.b_idx, f.b_val, f.indptr_c, f.out_cols, f.out_vals,
           f.row_nnz, errors, &sh, st, publish);
       continue;
     }
     const long long e = item / f.m;
-    hash_row<kNumeric, kVector, true>(
+    hash_row<kNumeric, kVector>(
         tab, item - static_cast<int>(e * f.m), row_tsz[item], p, cap_c,
         f.indptr_a + e * f.s_ia, f.a_idx + e * f.s_ai, f.a_val + e * f.s_av,
         f.indptr_b + e * f.s_ib, f.b_idx + e * f.s_bi, f.b_val + e * f.s_bv,
@@ -876,34 +861,128 @@ __global__ void __launch_bounds__(1024) hash_class_kernel(
   if (kBlocks > 1) tab.sync();
 }
 
-// The symbolic rows [row_begin, row_end) of one bin whose table holds tsz
-// slots: in dynamic shared memory, or in this block's tsz slots of the
-// workspace ws_keys.
-template <bool kVector>
-__global__ void hash_symbolic_kernel(
-    int row_begin, int row_end, int tsz, const int* __restrict__ indptr_a,
-    const int* __restrict__ a_idx, const int* __restrict__ indptr_b,
-    const int* __restrict__ b_idx, int* __restrict__ row_nnz,
-    int* __restrict__ errors, int* ws_keys) {
+// One symbolic row of the bitmap class by one block, every thread
+// calling: the row's distinct columns are the bits set in a bitmap of B's
+// n_cols columns (words of them, in shared memory).  Products are spread
+// over the block and staged as in hash_row; each reads its word and sets
+// its bit with atomicOr only when it is clear.  The count is the
+// bitmap's popcount; past tsz (the table the classifier sized) it adds
+// one to errors and writes tsz, as that table's full probe would have.  A
+// column outside [0, n_cols) adds one and sets nothing.  p and publish as
+// for hash_row.
+template <class Publish>
+__device__ __forceinline__ void bitmap_row(
+    unsigned* bits, int words, int n_cols, int row, int tsz, int p,
+    const int* __restrict__ indptr_a, const int* __restrict__ a_idx,
+    const int* __restrict__ indptr_b, const int* __restrict__ b_idx,
+    int* __restrict__ row_nnz, int* __restrict__ errors, Scratch* sh,
+    const Stage& st, const Publish& publish) {
+  const int tid = threadIdx.x;
+  const int a0 = indptr_a[row];
+  const int a1 = indptr_a[row + 1];
+  int total = stage_chunk<false>(st, a0, a1, a_idx, nullptr, indptr_b, sh);
+  for (int w = tid; w < words; w += blockDim.x) bits[w] = 0u;
+  block_sync();  // A: the bitmap clear
+  if (tid == 0) {
+    scratch_reset(sh, p ^ 1);
+    publish();
+  }
+  bool outside = false;
+  for (int c0 = a0;;) {
+    const int n_ent = min(static_cast<int>(blockDim.x), a1 - c0);
+    int e = 0;
+    // software-pipelined: the next product's column loads while this
+    // one's bit is set
+    int q = tid;
+    int col = 0;
+    if (q < total) {
+      e = find_entry(st.end, e, n_ent, q);
+      col = b_idx[st.bofs[e] + q];
+    }
+    while (q < total) {
+      const int qn = q + blockDim.x;
+      int col_n = 0;
+      if (qn < total) {
+        e = find_entry(st.end, e, n_ent, qn);
+        col_n = b_idx[st.bofs[e] + qn];
+      }
+      if (static_cast<unsigned>(col) < static_cast<unsigned>(n_cols)) {
+        unsigned* w = bits + (col >> 5);
+        const unsigned bit = 1u << (col & 31);
+        if (!(*reinterpret_cast<volatile unsigned*>(w) & bit))
+          atomicOr(w, bit);
+      } else {
+        outside = true;
+      }
+      q = qn;
+      col = col_n;
+    }
+    c0 += blockDim.x;
+    if (c0 >= a1) break;
+    block_sync();  // the stage is read
+    total = stage_chunk<false>(st, c0, a1, a_idx, nullptr, indptr_b, sh);
+  }
+  if (outside) atomicAdd(errors, 1);
+  block_sync();  // B: every bit set
+  int n = 0;
+  for (int w = tid; w < words; w += blockDim.x) n += __popc(bits[w]);
+  n = warp_sum(n);
+  if ((tid & 31) == 0 && n) atomicAdd(&sh->count[p], n);
+  block_sync();  // C: every word counted
+  if (tid == 0) {
+    const int cnt = sh->count[p];
+    if (cnt > tsz) atomicAdd(errors, 1);
+    row_nnz[row] = min(cnt, tsz);
+  }
+}
+
+// The rows of the bitmap class (symbolic only) of every member: a
+// persistent grid of 1,024-thread blocks popping entries p = e * m + i as
+// hash_class_kernel does, each block's dynamic shared memory the bitmap
+// of bitmap_words(f.n_cols) words and the stage.  Either probe mode runs
+// it: nothing is probed.  The unnamed arguments keep ClassKernel's
+// signature.
+__global__ void __launch_bounds__(1024) bitmap_class_kernel(
+    Fleet f, int, const int* __restrict__ counts, int* pop,
+    const int* __restrict__ list, const int* __restrict__ row_tsz,
+    int* __restrict__ errors, int*, float*) {
   extern __shared__ __align__(16) int smem[];
   __shared__ Scratch sh;
-  BlockTable tab{ws_keys != nullptr
-                     ? ws_keys + static_cast<size_t>(blockIdx.x) * tsz
-                     : smem,
-                 nullptr};
-  const Stage st = stage_at(smem + (ws_keys != nullptr ? 0 : tsz));
+  const int words = bitmap_words(f.n_cols);
+  unsigned* bits = reinterpret_cast<unsigned*>(smem);
+  const Stage st = stage_at(smem + words);
+  int start = 0;
+  for (int c = 0; c < kBitmapClass; ++c) start += counts[c];
+  const int rows = counts[kBitmapClass];
+  const int* mine = list + start;
   if (threadIdx.x == 0) {
     scratch_reset(&sh, 0);
     scratch_reset(&sh, 1);
+    const int idx = atomicAdd(pop, 1);
+    sh.item[0] = idx < rows ? mine[idx] : -1;
   }
-  __syncthreads();
-  int p = 0;
-  for (int row = row_begin + blockIdx.x; row < row_end;
-       row += gridDim.x, p ^= 1)
-    hash_row<false, kVector, false>(tab, row, tsz, p, 0, indptr_a, a_idx,
-                                    nullptr, indptr_b, b_idx, nullptr,
-                                    nullptr, nullptr, nullptr, row_nnz,
-                                    errors, &sh, st, NoPublish{});
+  block_sync();
+  for (int p = 0;; p ^= 1) {
+    const int item = sh.item[p];
+    if (item < 0) break;
+    const auto publish = [&] {
+      const int idx = atomicAdd(pop, 1);
+      sh.item[p ^ 1] = idx < rows ? mine[idx] : -1;
+    };
+    if (f.n == 1) {
+      // the arrays as they are, as in hash_class_kernel
+      bitmap_row(bits, words, f.n_cols, item, row_tsz[item], p, f.indptr_a,
+                 f.a_idx, f.indptr_b, f.b_idx, f.row_nnz, errors, &sh, st,
+                 publish);
+      continue;
+    }
+    const long long e = item / f.m;
+    bitmap_row(bits, words, f.n_cols, item - static_cast<int>(e * f.m),
+               row_tsz[item], p, f.indptr_a + e * f.s_ia,
+               f.a_idx + e * f.s_ai, f.indptr_b + e * f.s_ib,
+               f.b_idx + e * f.s_bi, f.row_nnz + e * f.m, errors, &sh, st,
+               publish);
+  }
 }
 
 using ClassKernel = void (*)(Fleet, int, const int*, int*, const int*,
@@ -922,7 +1001,13 @@ ClassKernel class_kernel_of(int c) {
   }
 }
 
+// Class c's kernel; null for the numeric phase's bitmap class, which does
+// not exist.
 ClassKernel class_kernel(int numeric, int vector, int c) {
+  if (c == kBitmapClass) {
+    if (numeric) return nullptr;
+    return bitmap_class_kernel;
+  }
   if (numeric)
     return vector ? class_kernel_of<true, true>(c)
                   : class_kernel_of<true, false>(c);
@@ -931,10 +1016,19 @@ ClassKernel class_kernel(int numeric, int vector, int c) {
 }
 
 // Dynamic shared memory of class c's block: its table or slice (key +
-// value numeric, keys symbolic) and the stage.
-int class_smem(int numeric, int c) {
-  return class_smem_slots(c) * (numeric ? 8 : 4) +
-         kStageBytes * class_threads(numeric, c);
+// value numeric, keys symbolic) or its bitmap of n_cols bits, and the
+// stage.
+int class_smem(int numeric, int c, int n_cols) {
+  const int table = c == kBitmapClass ? 4 * bitmap_words(n_cols)
+                                      : class_smem_slots(c) * (numeric ? 8 : 4);
+  return table + kStageBytes * class_threads(numeric, c);
+}
+
+// Whether class c exists for this phase and width.
+bool class_valid(int numeric, int c, int n_cols) {
+  if (c < 0 || c >= kClasses) return false;
+  return c != kBitmapClass ||
+         (!numeric && n_cols >= 0 && bitmap_words(n_cols) <= kBitmapMaxWords);
 }
 
 int set_smem(const void* kernel, int smem_bytes) {
@@ -945,67 +1039,58 @@ int set_smem(const void* kernel, int smem_bytes) {
 
 }  // namespace
 
-// One launch of the symbolic phase over rows [row_begin, row_end) of one
-// bin: ws_keys null, the table in shared memory (smem_bytes = tsz * 4);
-// else a table of tsz slots per block in global memory.  The launch adds
-// the stage's kStageBytes a thread to smem_bytes.
-extern "C" int spgemm_hash_symbolic_launch(
-    int vector, int row_begin, int row_end, int tsz, int grid, int block,
-    int smem_bytes, const int* indptr_a, const int* a_idx,
-    const int* indptr_b, const int* b_idx, int* row_nnz, int* errors,
-    int* ws_keys, void* stream) {
-  auto kernel = vector ? hash_symbolic_kernel<true>
-                       : hash_symbolic_kernel<false>;
-  smem_bytes += kStageBytes * block;
-  const int err = set_smem(reinterpret_cast<const void*>(kernel), smem_bytes);
-  if (err) return err;
-  kernel<<<grid, block, smem_bytes, static_cast<cudaStream_t>(stream)>>>(
-      row_begin, row_end, tsz, indptr_a, a_idx, indptr_b, b_idx, row_nnz,
-      errors, ws_keys);
-  return static_cast<int>(cudaGetLastError());
-}
-
 // The table classes of a fleet's (member, row) pairs (numeric = 0: the
-// symbolic phase): classify_kernel, then place_kernel.  counts holds
-// kCountInts zeroed ints (kernel.py's COUNT_INTS), list, row_tsz and
-// row_rank n * m ints each, n * m < 2^31.
-extern "C" int spgemm_hash_classify(int numeric, int n_classes,
+// symbolic phase): classify_kernel, then place_kernel.  launched has bit c
+// set for each class that will be launched; counts holds kCountInts ints
+// (kernel.py's COUNT_INTS), zeroed here, list, row_tsz and row_rank n * m
+// ints each, n * m < 2^31.
+extern "C" int spgemm_hash_classify(int numeric, int launched,
                                     const Fleet* f, int* counts, int* list,
                                     int* row_tsz, int* row_rank, int* errors,
                                     void* stream) {
   const long long total = static_cast<long long>(f->n) * f->m;
   if (total <= 0) return 0;
-  if (total >= (1ll << 31) || f->n_bins < 1 || n_classes < 1 ||
-      n_classes > kClasses)
-    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int bitmap_above = numeric ? 0 : f->bitmap_above;
+  if (total >= (1ll << 31) || f->n_bins < 1 || launched <= 0 ||
+      launched >= (1 << kClasses) ||
+      (bitmap_above > 0 && !class_valid(numeric, kBitmapClass, f->n_cols)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  for (int c = 0; c < kClasses; ++c)
+    if (((launched >> c) & 1) && !class_valid(numeric, c, f->n_cols))
+      return static_cast<int>(cudaErrorInvalidValue);
+  int err = static_cast<int>(
+      cudaMemsetAsync(counts, 0, kCountInts * sizeof(int), s));
+  if (err) return err;
   const unsigned grid =
       static_cast<unsigned>((total + kClassifyThreads - 1) / kClassifyThreads);
   if (numeric)
     classify_kernel<true><<<grid, kClassifyThreads, 0, s>>>(
-        *f, n_classes, counts, row_tsz, row_rank, errors);
+        *f, launched, counts, row_tsz, row_rank, errors);
   else
     classify_kernel<false><<<grid, kClassifyThreads, 0, s>>>(
-        *f, n_classes, counts, row_tsz, row_rank, errors);
-  const int err = static_cast<int>(cudaGetLastError());
+        *f, launched, counts, row_tsz, row_rank, errors);
+  err = static_cast<int>(cudaGetLastError());
   if (err) return err;
-  place_kernel<<<grid, kClassifyThreads, 0, s>>>(total, n_classes, counts,
-                                                 row_tsz, row_rank, list);
+  place_kernel<<<grid, kClassifyThreads, 0, s>>>(
+      total, launched, bitmap_above, counts, row_tsz, row_rank, list);
   return static_cast<int>(cudaGetLastError());
 }
 
 // The launch shape of class c's kernel (numeric = 0: the symbolic phase;
-// vector: the chunked probe) on the current device: out = {blocks a
-// cluster, threads a block, dynamic shared memory bytes a block, resident
-// blocks (the persistent grid), resident clusters
-// (cudaOccupancyMaxActiveClusters; 0 below two blocks)}.
+// vector: the chunked probe; n_cols: B's width, which sizes the bitmap
+// class) on the current device: out = {blocks a cluster, threads a block,
+// dynamic shared memory bytes a block, resident blocks (the persistent
+// grid), resident clusters (cudaOccupancyMaxActiveClusters; 0 below two
+// blocks)}.
 extern "C" int spgemm_hash_class_shape(int numeric, int vector, int c,
-                                       int* out) {
-  if (c < 0 || c >= kClasses) return static_cast<int>(cudaErrorInvalidValue);
+                                       int n_cols, int* out) {
+  if (!class_valid(numeric, c, n_cols))
+    return static_cast<int>(cudaErrorInvalidValue);
   const ClassKernel kernel = class_kernel(numeric, vector, c);
   const void* fn = reinterpret_cast<const void*>(kernel);
   const int blocks = class_blocks(c), threads = class_threads(numeric, c);
-  const int smem = class_smem(numeric, c);
+  const int smem = class_smem(numeric, c, n_cols);
   int err = set_smem(fn, smem);
   if (err) return err;
   int dev = 0, sms = 0;
@@ -1048,19 +1133,20 @@ extern "C" int spgemm_hash_class_shape(int numeric, int vector, int c,
 // multiple of the class's cluster) pop the pairs that spgemm_hash_classify
 // listed (counts, list and row_tsz as it left them, class c's pop counter
 // zero); ws_keys (and, numeric, ws_vals) hold grid * ws_tsz slots for
-// class 6, null otherwise.
+// class 6, null otherwise.  The bitmap class (7) takes B's width from f.
 extern "C" int spgemm_hash_class_launch(
     int numeric, int vector, int c, int grid, int ws_tsz, const Fleet* f,
     int* counts, const int* list, const int* row_tsz, int* errors,
     int* ws_keys, float* ws_vals, void* stream) {
-  if (c < 0 || c >= kClasses) return static_cast<int>(cudaErrorInvalidValue);
+  if (!class_valid(numeric, c, f->n_cols))
+    return static_cast<int>(cudaErrorInvalidValue);
   const int blocks = class_blocks(c);
   if (grid < blocks || grid % blocks ||
       (c == kGlobalClass &&
        (ws_keys == nullptr || (numeric && ws_vals == nullptr))))
     return static_cast<int>(cudaErrorInvalidValue);
   const ClassKernel kernel = class_kernel(numeric, vector, c);
-  const int smem = class_smem(numeric, c);
+  const int smem = class_smem(numeric, c, f->n_cols);
   const int err = set_smem(reinterpret_cast<const void*>(kernel), smem);
   if (err) return err;
   cudaLaunchConfig_t cfg = {};

@@ -8,15 +8,19 @@ wrappers.
 a fleet); its header says how the design maps the TPU's sequential bin
 grid onto the card.  Every row probes a table sized from its own output
 count (numeric) or product count (symbolic), at most its bin's.  Both
-phases of a fleet, and the single-product numeric phase (a fleet of one),
-run rows by table class (:data:`CLASS_NAMES`): a classifying kernel,
-which replaces no TPU kernel, lists every member's rows by class in
-device memory, and one persistent launch per class that can hold rows
-runs every member's rows of that class -- tables of up to
-:data:`SMEM_SLOTS` in one block's shared memory, up to
-:data:`CLUSTER_SLOTS` across a thread-block cluster's distributed shared
-memory, larger ones in a device-memory workspace.  The single-product
-symbolic kernel keeps one launch per bin.  It is
+phases, of a fleet or of a single product (the fleet of one member), run
+rows by table class (:data:`CLASS_NAMES`): a classifying kernel, which
+replaces no TPU kernel, lists every member's rows by class in device
+memory, and one persistent launch per class that can hold rows runs
+every member's rows of that class -- tables of up to :data:`SMEM_SLOTS`
+in one block's shared memory, up to :data:`CLUSTER_SLOTS` across a
+thread-block cluster's distributed shared memory, larger ones in a
+device-memory workspace.  The symbolic phase takes B's width
+(``n_cols``) and, where B has at most ``ref.BITMAP_COLS`` columns, puts
+every row whose table would pass ``ref.bitmap_above(n_cols)`` slots on
+one more class, ``bitmap`` (:data:`SYMBOLIC_CLASS_NAMES`): one block a row
+counts its distinct columns in a shared-memory bitmap of B's columns.
+It is
 compiled with ``nvcc`` for ``sm_90a`` at first use, into a shared library
 with a plain C interface under ``build/torch_ext/`` at the root of the
 checkout, and loaded with ``ctypes``.  Nothing is compiled at import, so
@@ -44,10 +48,11 @@ from . import ref
 #: Vector probe width: slots compared per step in hash_vector mode.
 CHUNK = 8
 
-#: Launch counters.  A wrapper adds one where it launches its kernel (one
-#: call covers every bin; the batched counters add one per CUDA launch of
-#: a class kernel, one per class that the fleet's largest table allows;
-#: the classifying launch before them counts in :data:`CLASS_CALLS`).
+#: Launch counters.  A wrapper adds one where it launches its kernel (the
+#: single-product counters one a call; the batched counters one per CUDA
+#: launch of a class kernel, one per class that the fleet's largest table
+#: allows; the classifying launch, and the single product's class
+#: launches, count in :data:`CLASS_CALLS`).
 #: ``plain`` counts the single-product wrappers' runs of the plain
 #: versions and ``batched_plain`` the batched wrappers' -- zero on a card
 #: proves the main path never took them.
@@ -67,21 +72,27 @@ CLUSTER_SLOTS = 8 * SMEM_SLOTS
 CLASS_NAMES = ("smem_1024", "smem_4096", "smem_16384", "cluster_2",
                "cluster_4", "cluster_8", "global")
 CLASS_BLOCKS = (1, 1, 1, 2, 4, 8, 1)
-#: Blocks that share the device-memory tables: of the symbolic kernel's
-#: bins past ``SMEM_SLOTS``, and of the class kernels' global class.
+#: The symbolic phase's classes: the table classes and, when B's bitmap
+#: fits one block, ``bitmap`` (one block a row), which takes every row
+#: whose table passes ``ref.bitmap_above(n_cols)`` slots.
+BITMAP_CLASS = len(CLASS_NAMES)
+SYMBOLIC_CLASS_NAMES = CLASS_NAMES + ("bitmap",)
+#: Blocks that share the device-memory tables of the global class.
 GLOBAL_BLOCKS = 264
 
 #: Launches of the class-ordered runs' parts, extra to
-#: :data:`KERNEL_CALLS` (one ``numeric``/``numeric_vector`` per
-#: single-product call stays the proof of path): ``classify`` per run of
-#: the classifying kernel (single product or fleet, either phase), one per
-#: class launch under its :data:`CLASS_NAMES` name, ``plain`` per run of
+#: :data:`KERNEL_CALLS` (one ``numeric``/``symbolic`` and their
+#: ``_vector`` twins per single-product call stays the proof of path):
+#: ``classify`` per run of the classifying kernel (single product or
+#: fleet, either phase), one per class launch under its
+#: :data:`SYMBOLIC_CLASS_NAMES` name, ``plain`` per run of
 #: :func:`row_classes`' or :func:`batched_row_classes`' plain version.
-CLASS_CALLS = dict.fromkeys(("classify",) + CLASS_NAMES + ("plain",), 0)
+CLASS_CALLS = dict.fromkeys(("classify",) + SYMBOLIC_CLASS_NAMES
+                            + ("plain",), 0)
 
 #: Ints of the classifying kernels' ``counts``: each class's listed pairs,
 #: then the class kernels' pop counters.
-COUNT_INTS = 2 * len(CLASS_NAMES)
+COUNT_INTS = 2 * len(SYMBOLIC_CLASS_NAMES)
 #: A fleet's (member, row) pairs must number fewer: the lists hold int32.
 MAX_PAIRS = 2 ** 31
 
@@ -91,21 +102,22 @@ _P, _L = ctypes.c_void_p, ctypes.c_longlong
 
 class _Fleet(ctypes.Structure):
     """The source's ``Fleet``: each array's address and member stride, the
-    outputs, the output capacity (the numeric outputs' member stride) and
-    the sizes."""
+    outputs, the output capacity (the numeric outputs' member stride), the
+    sizes, B's width (-1 in the numeric phase) and the table above which a
+    symbolic row goes to the bitmap class (0: no bitmap class)."""
     _fields_ = ([(f"{name}{sfx}", t) for name in (
         "offsets", "bin_tsize", "indptr_a", "a_idx", "a_val", "indptr_b",
         "b_idx", "b_val", "indptr_c") for sfx, t in (("", _P), ("_s", _L))]
         + [("out_cols", _P), ("out_vals", _P), ("row_nnz", _P),
            ("cap_c", _L), ("n", ctypes.c_int), ("m", ctypes.c_int),
-           ("n_bins", ctypes.c_int), ("table_size", ctypes.c_int)])
+           ("n_bins", ctypes.c_int), ("table_size", ctypes.c_int),
+           ("n_cols", ctypes.c_int), ("bitmap_above", ctypes.c_int)])
 
 
 _FLEET = ctypes.POINTER(_Fleet)
 _FUNCTIONS = {
-    "spgemm_hash_symbolic_launch": [ctypes.c_int] * 7 + [_P] * 8,
     "spgemm_hash_classify": [ctypes.c_int] * 2 + [_FLEET] + [_P] * 6,
-    "spgemm_hash_class_shape": [ctypes.c_int] * 3 + [_P],
+    "spgemm_hash_class_shape": [ctypes.c_int] * 4 + [_P],
     "spgemm_hash_class_launch": [ctypes.c_int] * 5 + [_FLEET] + [_P] * 7,
 }
 
@@ -132,28 +144,35 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def class_shape(cls: int, vector: bool, numeric: bool = True) -> dict:
+def class_shape(cls: int, vector: bool, numeric: bool = True,
+                n_cols: int = 0) -> dict:
     """The launch shape of class ``cls``'s kernel (``numeric``: the
-    numeric phase's, else the symbolic one's) on the current card:
+    numeric phase's, else the symbolic one's; ``n_cols``: B's width, which
+    sizes the symbolic ``bitmap`` class) on the current card:
     ``{"blocks"`` (a cluster), ``"threads"``, ``"smem_bytes"``,
     ``"resident_blocks"`` (its persistent grid), ``"resident_clusters"``
     (``cudaOccupancyMaxActiveClusters``, 0 below two blocks)``}``.
-    Cached per class, phase, probe mode and device."""
+    Cached per class, phase, probe mode, bitmap width and device."""
     build()
-    key = (cls, bool(numeric), bool(vector), torch.cuda.current_device())
+    if cls != BITMAP_CLASS:
+        n_cols = 0
+    key = (cls, bool(numeric), bool(vector), n_cols,
+           torch.cuda.current_device())
     if key not in _shapes:
         out = (ctypes.c_int * 5)()
         err = _lib.spgemm_hash_class_shape(int(numeric), int(vector), cls,
-                                           out)
+                                           n_cols, out)
         if err != 0:
-            raise RuntimeError(f"spgemm_hash class {CLASS_NAMES[cls]}: "
-                               f"occupancy query failed: CUDA error {err}")
+            raise RuntimeError(f"spgemm_hash class "
+                               f"{SYMBOLIC_CLASS_NAMES[cls]}: occupancy "
+                               f"query failed: CUDA error {err}")
         _shapes[key] = dict(zip(("blocks", "threads", "smem_bytes",
                                  "resident_blocks", "resident_clusters"),
                                 list(out)))
         if _shapes[key]["resident_blocks"] < 1:
-            raise RuntimeError(f"spgemm_hash class {CLASS_NAMES[cls]}: no "
-                               f"block of {_shapes[key]} fits the card")
+            raise RuntimeError(f"spgemm_hash class "
+                               f"{SYMBOLIC_CLASS_NAMES[cls]}: no block of "
+                               f"{_shapes[key]} fits the card")
     return _shapes[key]
 
 
@@ -200,13 +219,21 @@ def _bin_tables(offsets, bin_tsize, table_size, m, vector) -> list:
         offsets.tolist(), bin_tsize.tolist(), table_size, m, vector)]
 
 
-def launch_classes(largest: int) -> tuple:
+def launch_classes(largest: int, bitmap_above: int = 0) -> tuple:
     """The table classes launched when no row's plan table exceeds
     ``largest`` slots: every class up to the one that holds ``largest``
-    (none for 0)."""
+    (none for 0).  With ``bitmap_above`` (``ref.bitmap_above``: the
+    symbolic phase on a B whose bitmap fits one block) the rows whose
+    table passes it go to :data:`BITMAP_CLASS` instead: the classes up to
+    the one that holds ``bitmap_above``, then the bitmap class when
+    ``largest`` passes it."""
     if largest <= 0:
         return ()
-    return tuple(range(1 + sum(s < largest for s in ref.CLASS_SLOTS)))
+    top = min(largest, bitmap_above) if bitmap_above > 0 else largest
+    classes = tuple(range(1 + sum(s < top for s in ref.CLASS_SLOTS)))
+    if 0 < bitmap_above < largest:
+        classes += (BITMAP_CLASS,)
+    return classes
 
 
 def fleet_table(bounds, sizes, table_size: int, n_rows: int,
@@ -227,33 +254,6 @@ def fleet_table(bounds, sizes, table_size: int, n_rows: int,
                                                vector, f"member {e}: "):
             largest = max(largest, tsz)
     return largest
-
-
-def _launch_symbolic(vector, offsets, bin_tsize, table_size, indptr_a,
-                     indptr_b, a_idx, b_idx, row_nnz, errors):
-    """One launch per bin that holds rows: one block per row while the
-    bin's table fits in shared memory, else :data:`GLOBAL_BLOCKS` blocks
-    over a device-memory workspace of the bin's table each."""
-    dev = a_idx.device
-    build()
-    m = indptr_a.shape[0] - 1
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    for r0, r1, tsz in _bin_tables(offsets, bin_tsize, table_size, m,
-                                   vector):
-        ws_keys = None
-        if tsz <= SMEM_SLOTS:
-            grid, smem = r1 - r0, tsz * 4
-            block = 64 if tsz <= 256 else (128 if tsz <= 4096 else 256)
-        else:
-            grid, smem, block = min(r1 - r0, GLOBAL_BLOCKS), 0, 512
-            ws_keys = torch.empty(grid * tsz, dtype=torch.int32, device=dev)
-        err = _lib.spgemm_hash_symbolic_launch(
-            int(vector), r0, r1, tsz, grid, block, smem, _ptr(indptr_a),
-            _ptr(a_idx), _ptr(indptr_b), _ptr(b_idx), _ptr(row_nnz),
-            _ptr(errors), _ptr(ws_keys), stream)
-        if err != 0:
-            raise RuntimeError(f"spgemm_hash symbolic launch failed for rows "
-                               f"[{r0}, {r1}): CUDA error {err}")
 
 
 #: Set to a list to have every classifying and class launch bracketed by
@@ -277,11 +277,13 @@ def _marked(phase: str, name: str, launch):
 
 
 def _fleet(args: dict, strides: dict, *, n: int, m: int, table_size: int,
-           cap_c: int = 0, out_cols=None, out_vals=None,
-           row_nnz=None) -> _Fleet:
+           cap_c: int = 0, out_cols=None, out_vals=None, row_nnz=None,
+           n_cols: int | None = None) -> _Fleet:
     """The C interface's ``Fleet`` of ``n`` members of ``m`` rows:
     :data:`ARG_NAMES` -> tensor (each stacked or shared) with their member
-    strides (absent: 0)."""
+    strides (absent: 0).  ``n_cols``: the symbolic phase's B width, shared
+    by every member, which sizes its bitmap class (``ref.bitmap_above``);
+    ``None`` in the numeric phase, which has none."""
     f = _Fleet()
     for name in ARG_NAMES:
         setattr(f, name, _ptr(args.get(name)))
@@ -290,25 +292,31 @@ def _fleet(args: dict, strides: dict, *, n: int, m: int, table_size: int,
     f.row_nnz = _ptr(row_nnz)
     f.cap_c, f.n, f.m = cap_c, n, m
     f.n_bins, f.table_size = args["bin_tsize"].shape[-1], table_size
+    f.n_cols = -1 if n_cols is None else n_cols
+    f.bitmap_above = 0 if n_cols is None else ref.bitmap_above(n_cols)
     return f
 
 
-def _classify(numeric: bool, fleet: _Fleet, n_classes: int, errors, dev):
+def _classify(numeric: bool, fleet: _Fleet, classes: tuple, errors, dev):
     """The classifying kernels over the fleet's ``n * m`` (member, row)
-    pairs: ``(counts (COUNT_INTS,), list (n * m,), row_tsz (n * m,))``,
-    ``counts[:7]`` each class's pairs, ``list`` the entries ``e * m + i``
+    pairs, for the class launches ``classes``: ``(counts (COUNT_INTS,),
+    list (n * m,), row_tsz (n * m,))``, ``counts[:8]`` each class's pairs
+    (:data:`SYMBOLIC_CLASS_NAMES`), ``list`` the entries ``e * m + i``
     class after class, ``row_tsz`` each pair's table (0: none), the pop
     counters zero."""
     pairs = fleet.n * fleet.m
     if pairs >= MAX_PAIRS:
         raise ValueError(f"{fleet.n} members of {fleet.m} rows: the row "
                          f"lists hold fewer than 2^31 entries")
-    counts = torch.zeros(COUNT_INTS, dtype=torch.int32, device=dev)
-    work = torch.empty(3, max(pairs, 1), dtype=torch.int32, device=dev)
-    lst, row_tsz, row_rank = work
+    # one allocation; the classifying call zeroes the counts
+    work = torch.empty(COUNT_INTS + 3 * max(pairs, 1), dtype=torch.int32,
+                       device=dev)
+    counts = work[:COUNT_INTS]
+    lst, row_tsz, row_rank = work[COUNT_INTS:].view(3, -1)
+    launched = sum(1 << c for c in classes)
     err = _marked("numeric" if numeric else "symbolic", "classify",
                   lambda: _lib.spgemm_hash_classify(
-                      int(numeric), n_classes, ctypes.byref(fleet),
+                      int(numeric), launched, ctypes.byref(fleet),
                       _ptr(counts), _ptr(lst), _ptr(row_tsz), _ptr(row_rank),
                       _ptr(errors),
                       torch.cuda.current_stream(dev).cuda_stream))
@@ -322,13 +330,13 @@ def _classify(numeric: bool, fleet: _Fleet, n_classes: int, errors, dev):
 def _run_classes(numeric: bool, vector: bool, fleet: _Fleet, largest: int,
                  errors, dev) -> int:
     """Classify the fleet's rows, then one persistent launch per class
-    that ``largest`` allows (:func:`launch_classes`), smallest first, each
-    over every member's rows of its class.  Returns the class launches."""
-    classes = launch_classes(largest)
+    that ``largest`` allows (:func:`launch_classes`; the symbolic phase's
+    bitmap class where the fleet turns it on), smallest first, each over
+    every member's rows of its class.  Returns the class launches."""
+    classes = launch_classes(largest, fleet.bitmap_above)
     if not classes or fleet.n * fleet.m == 0:
         return 0
-    counts, lst, row_tsz = _classify(numeric, fleet, len(classes), errors,
-                                     dev)
+    counts, lst, row_tsz = _classify(numeric, fleet, classes, errors, dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     phase = "numeric" if numeric else "symbolic"
     for cls in classes:
@@ -342,8 +350,13 @@ def _run_classes(numeric: bool, vector: bool, fleet: _Fleet, largest: int,
                 ws_vals = torch.empty(grid * ws_tsz, dtype=torch.float32,
                                       device=dev)
         else:
-            grid = class_shape(cls, vector, numeric)["resident_blocks"]
-        err = _marked(phase, CLASS_NAMES[cls],
+            # as many blocks as the card holds, but no more than pairs
+            shape = class_shape(cls, vector, numeric, fleet.n_cols)
+            grid = min(shape["resident_blocks"],
+                       -(-fleet.n * fleet.m // shape["blocks"])
+                       * shape["blocks"])
+        name = SYMBOLIC_CLASS_NAMES[cls]
+        err = _marked(phase, name,
                       lambda: _lib.spgemm_hash_class_launch(
                           int(numeric), int(vector), cls, grid, ws_tsz,
                           ctypes.byref(fleet), _ptr(counts), _ptr(lst),
@@ -351,36 +364,38 @@ def _run_classes(numeric: bool, vector: bool, fleet: _Fleet, largest: int,
                           _ptr(ws_vals), stream))
         if err != 0:
             raise RuntimeError(f"spgemm_hash {phase} launch failed for "
-                               f"class {CLASS_NAMES[cls]}: CUDA error {err}")
-        CLASS_CALLS[CLASS_NAMES[cls]] += 1
+                               f"class {name}: CUDA error {err}")
+        CLASS_CALLS[name] += 1
     return len(classes)
 
 
-def _launch_numeric(vector, offsets, bin_tsize, table_size, indptr_a,
-                    indptr_b, a_idx, a_val, b_idx, b_val, indptr_c, out_cols,
-                    out_vals, errors):
-    """The single product as the fleet of one member: classify the rows,
-    then one persistent launch per class that can hold rows."""
-    dev = a_idx.device
+def _launch_single(numeric: bool, vector: bool, args: dict, errors, *,
+                   table_size: int, cap_c: int = 0, out_cols=None,
+                   out_vals=None, row_nnz=None, n_cols=None) -> None:
+    """The single product as the fleet of one member, either phase
+    (``args``: :data:`ARG_NAMES` -> tensor, without ``indptr_c`` for the
+    symbolic one, with B's width ``n_cols``): its bins read back for the
+    largest table, one classifying launch, then one persistent launch per
+    class that can hold rows, over the arrays as they are."""
+    dev = args["a_idx"].device
     build()
-    m = indptr_a.shape[0] - 1
-    bins = _bin_tables(offsets, bin_tsize, table_size, m, vector)
+    m = args["indptr_a"].shape[0] - 1
+    bins = _bin_tables(args["offsets"], args["bin_tsize"], table_size, m,
+                       vector)
     if not bins:
         return
-    _build.check_tensor("offsets", offsets, torch.int32, dev)
-    _build.check_tensor("bin_tsize", bin_tsize, torch.int32, dev)
-    args = dict(zip(ARG_NAMES, (offsets, bin_tsize, indptr_a, indptr_b,
-                                indptr_c, a_idx, a_val, b_idx, b_val)))
-    fleet = _fleet(args, {}, n=1, m=m, table_size=table_size,
-                   cap_c=out_cols.shape[0], out_cols=out_cols,
-                   out_vals=out_vals)
-    _run_classes(True, vector, fleet, max(t for _, _, t in bins), errors,
+    _build.check_tensor("offsets", args["offsets"], torch.int32, dev)
+    _build.check_tensor("bin_tsize", args["bin_tsize"], torch.int32, dev)
+    fleet = _fleet(args, {}, n=1, m=m, table_size=table_size, cap_c=cap_c,
+                   out_cols=out_cols, out_vals=out_vals, row_nnz=row_nnz,
+                   n_cols=n_cols)
+    _run_classes(numeric, vector, fleet, max(t for _, _, t in bins), errors,
                  dev)
 
 
 def _class_lists(counts, lst) -> list:
     """Each class's entries of the classifying kernel's list."""
-    sizes = counts[:len(CLASS_NAMES)].tolist()
+    sizes = counts[:len(SYMBOLIC_CLASS_NAMES)].tolist()
     starts = [sum(sizes[:c]) for c in range(len(sizes))]
     return [lst[s0:s0 + k] for s0, k in zip(starts, sizes)]
 
@@ -410,25 +425,32 @@ def row_classes(offsets, bin_tsize, indptr_a, indptr_b, indptr_c, a_idx, *,
 def batched_row_classes(offsets, bin_tsize, indptr_a, indptr_b, indptr_c,
                         a_idx, *, n_members: int, table_size: int,
                         numeric: bool = True,
-                        errors: torch.Tensor | None = None):
+                        errors: torch.Tensor | None = None,
+                        n_cols: int | None = None):
     """The classifying kernel alone, for either phase of a fleet:
-    ``(counts (7,) int32, pairs, row_tsz (n, m) int32)``, ``pairs[c]``
+    ``(counts (k,) int32, pairs, row_tsz (n, m) int32)``, ``pairs[c]``
     class c's ``(member, row)`` pairs as an ``(k, 2)`` int64 tensor (in no
     order on a card, ascending in the plain version), ``row_tsz`` each
-    pair's table (0: no table).  Arguments are stacked or shared as for
+    pair's table (0: no table); k is 7 (:data:`CLASS_NAMES`), or 8
+    (:data:`SYMBOLIC_CLASS_NAMES`) for the symbolic phase with a bitmap
+    class.  Arguments are stacked or shared as for
     :func:`batched_numeric_call`; ``numeric=False`` sizes tables from each
-    row's product count and ignores ``indptr_c`` (pass ``None``).
+    row's product count, ignores ``indptr_c`` (pass ``None``) and needs
+    ``n_cols``, B's width, which decides its bitmap class
+    (``ref.bitmap_above``).
 
     On a card it runs the classifying kernel as the class-ordered
     wrappers do (``errors`` as for them); on the CPU
     ``ref.batched_row_classes_plain``.
     """
     n = n_members
+    n_cols = None if numeric else ref.need_width(n_cols)
     if a_idx.device.type == "cpu":
         CLASS_CALLS["plain"] += 1
         return ref.batched_row_classes_plain(
             offsets, bin_tsize, indptr_a, indptr_b, indptr_c, a_idx,
-            n_members=n, table_size=table_size, numeric=numeric)
+            n_members=n, table_size=table_size, numeric=numeric,
+            n_cols=n_cols)
     dev = a_idx.device
     args = {"offsets": offsets, "bin_tsize": bin_tsize,
             "indptr_a": indptr_a, "indptr_b": indptr_b, "a_idx": a_idx}
@@ -447,33 +469,42 @@ def batched_row_classes(offsets, bin_tsize, indptr_a, indptr_b, indptr_c,
         m = min(m, indptr_c.shape[-1] - 1)
     largest = fleet_table(_host_rows(offsets, n), _host_rows(bin_tsize, n),
                           table_size, m, False)
-    n_all = len(CLASS_NAMES)
-    classes = launch_classes(largest)
+    fleet = _fleet(args, strides, n=n, m=m, table_size=table_size,
+                   n_cols=n_cols)
+    n_all = len(SYMBOLIC_CLASS_NAMES if fleet.bitmap_above else CLASS_NAMES)
+    classes = launch_classes(largest, fleet.bitmap_above)
     if not classes or n * m == 0:
         empty = torch.zeros(0, 2, dtype=torch.int64, device=dev)
         return (torch.zeros(n_all, dtype=torch.int32, device=dev),
                 [empty] * n_all,
                 torch.zeros(n, m, dtype=torch.int32, device=dev))
-    fleet = _fleet(args, strides, n=n, m=m, table_size=table_size)
-    counts, lst, row_tsz = _classify(numeric, fleet, len(classes), errors,
-                                     dev)
+    counts, lst, row_tsz = _classify(numeric, fleet, classes, errors, dev)
     if own:
         _build.raise_on_errors(errors, "spgemm_hash classify")
     pairs = [torch.stack((x // m, x % m), 1).long()
-             for x in _class_lists(counts, lst)]
+             for x in _class_lists(counts, lst)[:n_all]]
     return (counts[:n_all].clone(), pairs,
             row_tsz[:n * m].view(n, m).clone())
 
 
 def symbolic_call(offsets, bin_tsize, indptr_a, indptr_b, a_idx, a_val,
                   b_idx, b_val, *, table_size: int, vector: bool,
-                  errors: torch.Tensor | None = None) -> torch.Tensor:
+                  errors: torch.Tensor | None = None,
+                  n_cols: int) -> torch.Tensor:
     """Distinct columns per output row, ``(m,) int32``.
 
+    On a card the rows run by class as :func:`numeric_call`'s do (one
+    classifying launch, then one launch per class the schedule's largest
+    table allows), each row's table sized from its product count.
+    ``n_cols``: B's width.  Where B has at most ``ref.BITMAP_COLS``
+    columns, the rows whose table would pass ``ref.bitmap_above(n_cols)``
+    slots count their columns in a bitmap; past it they take the larger
+    table classes: clusters and device memory.
+
     ``errors`` (CUDA only): a 1-element int32 tensor that gains one per
-    probe that found its table full -- zero on every valid plan.  Without
-    it the wrapper reads its own count after the launch and raises if it
-    is not zero.
+    probe that found its table full (a bitmap row: one when its count
+    passes its table) -- zero on every valid plan.  Without it the wrapper
+    reads its own count after the launch and raises if it is not zero.
     """
     if a_idx.device.type == "cpu":
         KERNEL_CALLS["plain"] += 1
@@ -488,8 +519,11 @@ def symbolic_call(offsets, bin_tsize, indptr_a, indptr_b, a_idx, a_val,
         errors = torch.zeros(1, dtype=torch.int32, device=dev)
     _check_operands(indptr_a, indptr_b, a_idx, a_val, b_idx, b_val, None,
                     errors)
-    _launch_symbolic(vector, offsets, bin_tsize, table_size, indptr_a,
-                     indptr_b, a_idx, b_idx, row_nnz, errors)
+    args = {"offsets": offsets, "bin_tsize": bin_tsize,
+            "indptr_a": indptr_a, "indptr_b": indptr_b, "a_idx": a_idx,
+            "a_val": a_val, "b_idx": b_idx, "b_val": b_val}
+    _launch_single(False, vector, args, errors, table_size=table_size,
+                   row_nnz=row_nnz, n_cols=n_cols)
     KERNEL_CALLS["symbolic_vector" if vector else "symbolic"] += 1
     if own:
         _build.raise_on_errors(errors, "spgemm_hash symbolic")
@@ -522,9 +556,10 @@ def numeric_call(offsets, bin_tsize, indptr_a, indptr_b, indptr_c, a_idx,
         errors = torch.zeros(1, dtype=torch.int32, device=dev)
     _check_operands(indptr_a, indptr_b, a_idx, a_val, b_idx, b_val,
                     indptr_c, errors)
-    _launch_numeric(vector, offsets, bin_tsize, table_size, indptr_a,
-                    indptr_b, a_idx, a_val, b_idx, b_val, indptr_c, out_cols,
-                    out_vals, errors)
+    args = dict(zip(ARG_NAMES, (offsets, bin_tsize, indptr_a, indptr_b,
+                                indptr_c, a_idx, a_val, b_idx, b_val)))
+    _launch_single(True, vector, args, errors, table_size=table_size,
+                   cap_c=cap_c, out_cols=out_cols, out_vals=out_vals)
     KERNEL_CALLS["numeric_vector" if vector else "numeric"] += 1
     if own:
         _build.raise_on_errors(errors, "spgemm_hash numeric")
@@ -549,8 +584,8 @@ def batched_launches(bounds, sizes, table_size: int, n_rows: int,
     Without a workspace there is one x block per row
     of the member with the most rows in the bin; with one, the x blocks
     are capped so that ``grid_x * n_members <= GLOBAL_BLOCKS`` (at least
-    one per member), which bounds the workspace as the single-product
-    kernel's.  Raises ``ValueError`` for bins that do not partition
+    one per member), which bounds the workspace as the global class's
+    grid does.  Raises ``ValueError`` for bins that do not partition
     ``n_rows`` rows or tables that are not powers of two (at least
     :data:`CHUNK` in vector mode).
     """
@@ -606,7 +641,8 @@ def _strides(args: dict, n: int) -> dict:
 
 
 def _batched(numeric: bool, args: dict, strides: dict, *, n_members: int,
-             cap_c: int, table_size: int, vector: bool, errors, largest):
+             cap_c: int, table_size: int, vector: bool, errors, largest,
+             n_cols=None):
     """Run one phase over every member by table class: one classifying
     launch, then one launch per class that the fleet's largest table
     allows, each over every member's rows of its class.
@@ -614,8 +650,9 @@ def _batched(numeric: bool, args: dict, strides: dict, *, n_members: int,
     ``args``: :data:`ARG_NAMES` (without ``indptr_c`` for the symbolic
     phase) -> tensor, each stacked or shared, with :func:`_strides`'
     ``strides``; ``largest``: :func:`fleet_table` of the schedule, or
-    ``None`` to read it back here.  Returns ``row_nnz (n, m)`` (symbolic)
-    or ``(cols, vals)``, each ``(n, cap_c)`` (numeric).
+    ``None`` to read it back here; ``n_cols``: B's width (symbolic, for
+    the bitmap class).  Returns ``row_nnz (n, m)`` (symbolic) or ``(cols,
+    vals)``, each ``(n, cap_c)`` (numeric).
     """
     dev = args["a_idx"].device
     for name, t in args.items():
@@ -650,7 +687,7 @@ def _batched(numeric: bool, args: dict, strides: dict, *, n_members: int,
     key = f"batched_{phase}_vector" if vector else f"batched_{phase}"
     fleet = _fleet(args, strides, n=n, m=n_rows, table_size=table_size,
                    cap_c=cap_c, out_cols=out_cols, out_vals=out_vals,
-                   row_nnz=row_nnz)
+                   row_nnz=row_nnz, n_cols=None if numeric else n_cols)
     KERNEL_CALLS[key] += _run_classes(numeric, vector, fleet, largest,
                                       errors, dev)
     if own:
@@ -662,7 +699,8 @@ def batched_symbolic_call(offsets, bin_tsize, indptr_a, indptr_b, a_idx,
                           a_val, b_idx, b_val, *, n_members: int,
                           table_size: int, vector: bool,
                           errors: torch.Tensor | None = None,
-                          largest: int | None = None) -> torch.Tensor:
+                          largest: int | None = None,
+                          n_cols: int) -> torch.Tensor:
     """:func:`symbolic_call` for every member of a fleet: ``(n, m)
     int32``, member e's distinct columns per row of ``A_e @ B_e``.
 
@@ -675,7 +713,8 @@ def batched_symbolic_call(offsets, bin_tsize, indptr_a, indptr_b, a_idx,
     then one launch per class that ``largest`` allows
     (:func:`launch_classes`).  ``largest``: :func:`fleet_table` of this
     schedule; without it the wrapper reads the bins back and computes it.
-    ``errors`` as for :func:`symbolic_call`, one counter for all members.
+    ``n_cols`` (B's width, every member's) and ``errors`` as for
+    :func:`symbolic_call`, one counter for all members.
     """
     args = dict(zip(ARG_NAMES[:4] + ARG_NAMES[5:],
                     (offsets, bin_tsize, indptr_a, indptr_b, a_idx, a_val,
@@ -689,7 +728,7 @@ def batched_symbolic_call(offsets, bin_tsize, indptr_a, indptr_b, a_idx,
                                           vector=vector)
     return _batched(False, args, strides, n_members=n_members, cap_c=0,
                     table_size=table_size, vector=vector, errors=errors,
-                    largest=largest)
+                    largest=largest, n_cols=n_cols)
 
 
 def batched_numeric_call(offsets, bin_tsize, indptr_a, indptr_b, indptr_c,

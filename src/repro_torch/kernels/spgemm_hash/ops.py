@@ -106,26 +106,27 @@ def _operands(a: CSR, b: CSR):
 def symbolic_op(offsets: torch.Tensor, bin_tsize: torch.Tensor,
                 indptr_a: torch.Tensor, indptr_b: torch.Tensor,
                 a_idx: torch.Tensor, a_val: torch.Tensor, b_idx: torch.Tensor,
-                b_val: torch.Tensor, table_size: int,
-                vector: bool) -> torch.Tensor:
+                b_val: torch.Tensor, table_size: int, vector: bool,
+                n_cols: int) -> torch.Tensor:
     """:func:`kernel.symbolic_call` as a custom op, so that
     ``torch.func.vmap`` reaches its rule (:func:`_symbolic_vmap`); the
-    ``errors`` read-back stays inside."""
+    ``errors`` read-back stays inside.  ``n_cols``: B's width."""
     return K.symbolic_call(offsets, bin_tsize, indptr_a, indptr_b, a_idx,
                            a_val, b_idx, b_val, table_size=table_size,
-                           vector=vector)
+                           vector=vector, n_cols=n_cols)
 
 
 @symbolic_op.register_vmap
 def _symbolic_vmap(info, in_dims, offsets, bin_tsize, indptr_a, indptr_b,
-                   a_idx, a_val, b_idx, b_val, table_size, vector):
+                   a_idx, a_val, b_idx, b_val, table_size, vector, n_cols):
     """The batched symbolic kernels over ``info.batch_size`` members, once
     per vmapped call (arguments as :func:`_build.members_first` lays them
     out; the schedule is read back for its largest table)."""
     args = _build.members_first((offsets, bin_tsize, indptr_a, indptr_b,
                                  a_idx, a_val, b_idx, b_val), in_dims)
-    return K.batched_symbolic_call(*args, n_members=info.batch_size,
-                                   table_size=table_size, vector=vector), 0
+    return K.batched_symbolic_call(
+        *args, n_members=info.batch_size, table_size=table_size,
+        vector=vector, n_cols=n_cols), 0
 
 
 @torch.library.custom_op("repro_torch::spgemm_hash_numeric",
@@ -184,7 +185,7 @@ def spgemm_hash(a: CSR, b: CSR, cap_c: int, *, n_bins: int = 8,
     ip_a, ip_b, a_idx, a_val, b_idx, b_val = _operands(a, b)
     if indptr_c is None:
         row_nnz = symbolic_op(offsets, bin_tsize, ip_a, ip_b, a_idx, a_val,
-                              b_idx, b_val, table_size, vector)
+                              b_idx, b_val, table_size, vector, n)
         indptr_c = prefix_sum(row_nnz).to(torch.int32)
     cols_c, vals_c = numeric_op(offsets, bin_tsize, ip_a, ip_b, indptr_c,
                                 a_idx, a_val, b_idx, b_val, cap_c,
@@ -201,7 +202,7 @@ def spgemm_hash_symbolic(a: CSR, b: CSR, *, n_bins: int = 8,
     offsets, bin_tsize, table_size = _resolve_schedule(a, b, n_bins,
                                                        table_size, schedule)
     return symbolic_op(offsets, bin_tsize, *_operands(a, b), table_size,
-                       vector)
+                       vector, b.n_cols)
 
 
 def spgemm_hash_batched(a: CSR, b: CSR, cap_c: int, *, vector: bool,

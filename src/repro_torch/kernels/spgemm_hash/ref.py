@@ -8,10 +8,11 @@ in sorted column order.  The per-bin table sizes only shape the kernels'
 internal layout, so the plain versions accept and ignore them.
 
 The kernels size each row's table from its own need, at most its bin's
-(:func:`row_table_sizes_plain`), and the single-product numeric kernel
-and both batched phases run rows by table class (:func:`row_classes_plain`
-and :func:`batched_row_classes_plain`, the classifying kernel's
-function); neither changes what the kernels compute.
+(:func:`row_table_sizes_plain`), and both phases, single product or
+fleet, run rows by table class (:func:`row_classes_plain` and
+:func:`batched_row_classes_plain`, the classifying kernel's function; the
+symbolic phase counts its largest rows in a bitmap of B's columns,
+:func:`bitmap_above`); none of it changes what the kernels compute.
 
 The semantic contract of the kernels (per phase):
   * symbolic: exact nnz per output row;
@@ -36,6 +37,36 @@ _COL_BITS = 31
 CLASS_SLOTS = (1024, 4096, 16384, 32768, 65536, 131072)
 #: the smallest table a row gets (the chunked probe's width)
 _MIN_TABLE = 8
+#: The symbolic phase's bitmap class (``kernel.BITMAP_CLASS``): the rows
+#: whose table passes BITMAP_ABOVE slots (and the bitmap's words, so that
+#: a row never clears more bitmap than it would table), when B has at most
+#: BITMAP_COLS columns (a 200 KB bitmap in one block's shared memory).
+BITMAP_ABOVE = 4096
+BITMAP_COLS = 51200 * 32
+
+
+def bitmap_above(n_cols: int) -> int:
+    """The table above which a symbolic row goes to the bitmap class, for
+    a B of ``n_cols`` columns: the larger of :data:`BITMAP_ABOVE` and the
+    largest power of two within the bitmap's 32-bit words (a row's table
+    is a power of two, so every bitmap row's table holds at least as many
+    slots as its bitmap words); 0 (no bitmap class) past
+    :data:`BITMAP_COLS`, where the bitmap does not fit one block."""
+    if n_cols < 0:
+        raise ValueError(f"B's width must be at least 0, got {n_cols}")
+    if n_cols > BITMAP_COLS:
+        return 0
+    words = -(-n_cols // 32)
+    return max(BITMAP_ABOVE, 1 << max(words.bit_length() - 1, 0))
+
+
+def need_width(n_cols) -> int:
+    """``n_cols`` of a symbolic classification, which cannot go without
+    it: B's width decides the bitmap class."""
+    if n_cols is None:
+        raise TypeError("the symbolic phase's classes need B's width "
+                        "(n_cols)")
+    return n_cols
 
 
 def _expand_keys(indptr_a, indptr_b, a_idx, b_idx):
@@ -227,17 +258,21 @@ def row_flop_plain(indptr_a, indptr_b, a_idx):
 
 def batched_row_classes_plain(offsets, bin_tsize, indptr_a, indptr_b,
                               indptr_c, a_idx, *, n_members, table_size,
-                              numeric=True):
+                              numeric=True, n_cols: int | None = None):
     """The classifying kernel's function over a fleet, either phase:
-    ``(counts (7,) int32, pairs, row_tsz (n, m) int32)``.  Member e's row
+    ``(counts (k,) int32, pairs, row_tsz (n, m) int32)``.  Member e's row
     i gets :func:`row_table_sizes_plain` of its need -- its output count
     (numeric, from ``indptr_c``) or its product count (symbolic,
     :func:`row_flop_plain`; ``indptr_c`` ignored) -- and ``pairs[c]`` holds
     the ``(member, row)`` pairs whose table falls in class c, ascending,
-    as an ``(k, 2)`` int64 tensor; pairs without a table join none.  Every
-    argument has a leading member axis or is 1-D and shared by all
-    members; ``m`` is the rows of ``indptr_a`` (numeric: and of
-    ``indptr_c``, the fewer)."""
+    as an ``(k, 2)`` int64 tensor; pairs without a table join none.  The
+    symbolic phase needs B's width ``n_cols``; where :func:`bitmap_above`
+    of it is not 0 it has k = 8 classes: the pairs whose table passes
+    ``bitmap_above`` go to the last, the bitmap class, and no other class
+    holds a larger table; else k = 7.  Every argument has a leading member axis or is 1-D and
+    shared by all members; ``m`` is the rows of ``indptr_a`` (numeric:
+    and of ``indptr_c``, the fewer)."""
+    above = 0 if numeric else bitmap_above(need_width(n_cols))
     m = indptr_a.shape[-1] - 1
     if numeric:
         m = min(m, indptr_c.shape[-1] - 1)
@@ -258,9 +293,12 @@ def batched_row_classes_plain(offsets, bin_tsize, indptr_a, indptr_b,
         torch.zeros(0, m, dtype=torch.int32, device=dev)
     bounds = torch.tensor(CLASS_SLOTS, dtype=torch.int32, device=dev)
     cls = torch.searchsorted(bounds, row_tsz)
+    n_cls = len(CLASS_SLOTS) + 1
+    if above:
+        cls = torch.where(row_tsz > above, n_cls, cls)
+        n_cls += 1
     listed = row_tsz > 0
-    pairs = [torch.nonzero(listed & (cls == c))
-             for c in range(len(CLASS_SLOTS) + 1)]
+    pairs = [torch.nonzero(listed & (cls == c)) for c in range(n_cls)]
     counts = torch.tensor([x.shape[0] for x in pairs], dtype=torch.int32,
                           device=dev)
     return counts, pairs, row_tsz

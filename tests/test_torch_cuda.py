@@ -58,6 +58,10 @@ import _spmm_ladder  # noqa: E402
 import _bcsr_ladder  # noqa: E402
 
 DYADIC = np.array([0.5, 1.0, 1.5, 2.0], np.float32)
+#: B's width given to the hash symbolic phase where a test holds its table
+#: classes: too wide for one block's bitmap, so that its largest rows keep
+#: the cluster and device-memory classes
+WIDE = ref.BITMAP_COLS + 1
 CASES = [("ER", 9, 8, True), ("G500", 10, 16, False), ("G500", 12, 16, True)]
 
 
@@ -104,7 +108,7 @@ def test_kernels_match_plain_versions(cuda, case, vector):
             a.data)
     errors = torch.zeros(1, dtype=torch.int32, device=cuda)
     rows = K.symbolic_call(*args, table_size=table, vector=vector,
-                           errors=errors)
+                           errors=errors, n_cols=a.n_cols)
     assert torch.equal(rows, ref.symbolic_plain(*args, table_size=table,
                                                 vector=vector))
     indptr_c = prefix_sum(rows).to(torch.int32)
@@ -142,14 +146,15 @@ def test_wrapper_rejects_bad_operands(cuda):
     with pytest.raises(ValueError):
         K.symbolic_call(off, tsz, a.indptr, a.indptr, a.indices,
                         a.data.double(), a.indices, a.data,
-                        table_size=table, vector=False)
+                        table_size=table, vector=False, n_cols=a.n_cols)
     with pytest.raises(ValueError):              # bins past the last row
         K.symbolic_call(off + 1, tsz, a.indptr, a.indptr, a.indices, a.data,
-                        a.indices, a.data, table_size=table, vector=False)
+                        a.indices, a.data, table_size=table, vector=False,
+                        n_cols=a.n_cols)
     with pytest.raises(ValueError):              # not a power of two
         K.symbolic_call(off, tsz * 3, a.indptr, a.indptr, a.indices, a.data,
                         a.indices, a.data, table_size=3 * table,
-                        vector=False)
+                        vector=False, n_cols=a.n_cols)
 
 
 @pytest.mark.gpu
@@ -168,7 +173,8 @@ def test_table_too_small_raises(cuda, vector):
     indptr_c = torch.tensor([0, d], dtype=torch.int32, device=cuda)
     with pytest.raises(RuntimeError, match="full-table"):
         K.symbolic_call(off, tsz, a.indptr, b.indptr, a.indices, a.data,
-                        b.indices, b.data, table_size=K.CHUNK, vector=vector)
+                        b.indices, b.data, table_size=K.CHUNK, vector=vector,
+                        n_cols=b.n_cols)
     with pytest.raises(RuntimeError, match="full-table"):
         K.numeric_call(off, tsz, a.indptr, b.indptr, indptr_c, a.indices,
                        a.data, b.indices, b.data, cap_c=d,
@@ -224,7 +230,7 @@ def test_ladder_reaches_every_table_class(cuda, vector, dyadic, forced):
             b.data)
     errors = torch.zeros(1, dtype=torch.int32, device=cuda)
     rows = K.symbolic_call(*args, table_size=table, vector=vector,
-                           errors=errors)
+                           errors=errors, n_cols=WIDE)
     assert torch.equal(rows, ref.symbolic_plain(*args, table_size=table,
                                                 vector=vector))
     assert rows.tolist() == list(LADDER)
@@ -281,12 +287,13 @@ def test_cluster_table_load_factor_one_and_one_past_fill(cuda, vector):
         assert lists[K.CLASS_NAMES.index("cluster_2")].tolist() == [0]
         if d > t:
             with pytest.raises(RuntimeError, match="full-table"):
-                K.symbolic_call(*args, table_size=t, vector=vector)
+                K.symbolic_call(*args, table_size=t, vector=vector,
+                                n_cols=WIDE)
             with pytest.raises(RuntimeError, match="full-table"):
                 K.numeric_call(*nargs, cap_c=d, table_size=t, vector=vector)
             continue
-        assert K.symbolic_call(*args, table_size=t,
-                               vector=vector).tolist() == [d]
+        assert K.symbolic_call(*args, table_size=t, vector=vector,
+                               n_cols=WIDE).tolist() == [d]
         reset_class_calls()
         cols, vals = K.numeric_call(*nargs, cap_c=d, table_size=t,
                                     vector=vector)
@@ -294,6 +301,176 @@ def test_cluster_table_load_factor_one_and_one_past_fill(cuda, vector):
         pc, pv = ref.numeric_plain(*nargs, cap_c=d, table_size=t,
                                    vector=vector)
         check_product(a, b, indptr_c, cols, vals, pc, pv, True)
+
+
+def check_symbolic_single(args, table, vector, n_cols, want=None):
+    """The single-product symbolic kernel with B's width ``n_cols``:
+    launches (one count, one classification, one launch per class the
+    schedule's largest table allows, the bitmap class's where B's width
+    turns it on), counts bitwise equal to the plain version's, to the
+    batched kernel's at one member and to ``want``.  Returns the counts
+    and the class launches."""
+    m = args[2].shape[0] - 1
+    largest = K.fleet_table([args[0].tolist()], [args[1].tolist()], table,
+                            m, vector)
+    launches = K.launch_classes(largest, ref.bitmap_above(n_cols))
+    errors = torch.zeros(1, dtype=torch.int32, device=args[2].device)
+    ops.reset_kernel_calls()
+    reset_class_calls()
+    rows = K.symbolic_call(*args, table_size=table, vector=vector,
+                           errors=errors, n_cols=n_cols)
+    torch.cuda.synchronize()
+    assert int(errors) == 0
+    counts = ops.kernel_call_counts()
+    assert counts.pop("symbolic_vector" if vector else "symbolic") == 1
+    assert set(counts.values()) == {0}
+    calls = dict(K.CLASS_CALLS)
+    assert calls == dict(dict.fromkeys(K.CLASS_CALLS, 0), classify=1,
+                         **{K.SYMBOLIC_CLASS_NAMES[c]: 1 for c in launches})
+    assert torch.equal(rows, ref.symbolic_plain(*args, table_size=table,
+                                                vector=vector))
+    batched = K.batched_symbolic_call(*args, n_members=1, table_size=table,
+                                      vector=vector, n_cols=n_cols)
+    assert torch.equal(batched[0], rows)
+    if want is not None:
+        assert torch.equal(rows, want)
+    return rows, calls
+
+
+def check_symbolic_classify(args, table, n_cols):
+    """The symbolic classifying kernel at one member with B's width
+    ``n_cols`` against its plain version: counts, tables, each class's
+    rows as a set.  Returns the plain version's lists."""
+    cls_args = args[:4] + (None, args[4])
+    kw = dict(n_members=1, table_size=table, numeric=False, n_cols=n_cols)
+    errors = torch.zeros(1, dtype=torch.int32, device=args[2].device)
+    got = K.batched_row_classes(*cls_args, **kw, errors=errors)
+    want = ref.batched_row_classes_plain(
+        *(None if x is None else x.cpu() for x in cls_args), **kw)
+    assert int(errors) == 0
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[2].cpu(), want[2])
+    assert len(got[1]) == len(want[1])
+    for g, w in zip(got[1], want[1]):
+        assert sorted(g.tolist()) == w.tolist()
+    return want[1]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dyadic", (True, False), ids=("dyadic", "uniform"))
+@pytest.mark.parametrize("vector", (False, True))
+@pytest.mark.parametrize("case", CASES + [("G500", 14, 16, True)],
+                         ids=lambda c: f"{c[0]}{c[1]}")
+def test_symbolic_kernel_by_class_matches_esc(cuda, case, vector, dyadic):
+    """The single-product symbolic kernel with B's width, on the plan's
+    schedule: its counts bitwise equal to ESC's ``row_nnz_c``, the plain
+    version's and the batched kernel's at one member; its classification
+    the plain version's; one count, one classification and one launch per
+    class (G500 s14: rows on the bitmap class, none on a cluster)."""
+    from repro_torch.core import plan_spgemm
+    a = operand(case[0], case[1], case[2], dyadic, cuda)
+    plan = plan_spgemm(a, a, algorithm="hash", cache=False)
+    args = (plan.offsets, plan.bin_tsize, a.indptr, a.indptr, a.indices,
+            a.data, a.indices, a.data)
+    _, calls = check_symbolic_single(args, plan.table_size, vector,
+                                     a.n_cols, plan.row_nnz_c)
+    lists = check_symbolic_classify(args, plan.table_size, a.n_cols)
+    assert all(calls[K.SYMBOLIC_CLASS_NAMES[c]] == 1
+               for c, r in enumerate(lists) if r.shape[0])
+    if case[1] == 14:
+        assert lists[K.BITMAP_CLASS].shape[0] > 0
+        assert all(lists[c].shape[0] == 0 for c in range(3, 7))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dyadic", (True, False), ids=("dyadic", "uniform"))
+@pytest.mark.parametrize("vector", (False, True))
+def test_symbolic_ladder_reaches_every_class(cuda, vector, dyadic):
+    """The fleet ladder's rungs under one bin of 262,144 slots: with B's
+    width the rows whose table passes 4,096 slots run on the bitmap class;
+    with a width too large for the bitmap on the 16,384-slot class,
+    clusters of 2, 4 and 8 blocks and the device-memory table.  The two
+    runs together launch every symbolic class; counts bitwise equal to the
+    plain version's and the rungs."""
+    (ar, ac, av, ash), (br, bc, bv, bsh) = ladder(dyadic, 0, FLEET_LADDER)
+    a = CSR.from_numpy_coo(ar, ac, av, ash, device=cuda)
+    b = CSR.from_numpy_coo(br, bc, bv, bsh, device=cuda)
+    off = torch.tensor([0, len(FLEET_LADDER)], dtype=torch.int32,
+                       device=cuda)
+    tsz = torch.tensor([LADDER_TABLE], dtype=torch.int32, device=cuda)
+    args = (off, tsz, a.indptr, b.indptr, a.indices, a.data, b.indices,
+            b.data)
+    want = torch.tensor(FLEET_LADDER, dtype=torch.int32, device=cuda)
+    launched = set()
+    for n_cols in (b.n_cols, WIDE):
+        _, calls = check_symbolic_single(args, LADDER_TABLE, vector, n_cols,
+                                         want)
+        lists = check_symbolic_classify(args, LADDER_TABLE, n_cols)
+        # every class launched holds rows: with the bitmap none is left
+        # on a cluster or in device memory
+        held = [c for c, r in enumerate(lists) if r.shape[0]]
+        assert held == list(K.launch_classes(LADDER_TABLE,
+                                             ref.bitmap_above(n_cols)))
+        assert (K.BITMAP_CLASS in held) == (n_cols == b.n_cols)
+        launched |= {k for k in K.SYMBOLIC_CLASS_NAMES if calls[k]}
+    assert launched == set(K.SYMBOLIC_CLASS_NAMES)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("vector", (False, True))
+@pytest.mark.parametrize("bitmap", (True, False), ids=("bitmap", "cluster"))
+def test_symbolic_load_factor_one_and_one_past_fill(cuda, bitmap, vector):
+    """A row of exactly 32,768 distinct columns under a table of 32,768
+    slots, on the bitmap class (B's width) or a cluster of two blocks (a
+    width too large for the bitmap): counted right; one more column adds
+    an error, so
+    the wrapper raises "full-table", single product and fleet."""
+    t = 2 * K.SMEM_SLOTS
+    off = torch.tensor([0, 1], dtype=torch.int32, device=cuda)
+    tsz = torch.tensor([t], dtype=torch.int32, device=cuda)
+    name = "bitmap" if bitmap else "cluster_2"
+    for d in (t, t + 1):
+        (ar, ac, av, ash), (br, bc, bv, bsh) = saturated_row(d)
+        a = CSR.from_numpy_coo(ar, ac, av, ash, device=cuda)
+        b = CSR.from_numpy_coo(br, bc, bv, bsh, device=cuda)
+        n_cols = b.n_cols if bitmap else WIDE
+        args = (off, tsz, a.indptr, b.indptr, a.indices, a.data, b.indices,
+                b.data)
+        lists = check_symbolic_classify(args, t, n_cols)
+        assert lists[K.SYMBOLIC_CLASS_NAMES.index(name)].tolist() == [[0, 0]]
+        kw = dict(table_size=t, vector=vector, n_cols=n_cols)
+        if d > t:
+            errors = torch.zeros(1, dtype=torch.int32, device=cuda)
+            rows = K.symbolic_call(*args, **kw, errors=errors)
+            assert int(errors) >= 1 and rows.tolist() == [t]
+            with pytest.raises(RuntimeError, match="full-table"):
+                K.symbolic_call(*args, **kw)
+            with pytest.raises(RuntimeError, match="full-table"):
+                K.batched_symbolic_call(*args, n_members=2, **kw)
+            continue
+        reset_class_calls()
+        assert K.symbolic_call(*args, **kw).tolist() == [d]
+        assert K.CLASS_CALLS[name] == 1
+        assert K.batched_symbolic_call(*args, n_members=2,
+                                       **kw).tolist() == [[d], [d]]
+
+
+@pytest.mark.gpu
+def test_bitmap_class_counts_columns_outside_b_as_errors(cuda):
+    """A width smaller than B's real one: the bitmap rows count each
+    column past it as an error instead of writing outside the bitmap."""
+    t = 2 * K.SMEM_SLOTS
+    (ar, ac, av, ash), (br, bc, bv, bsh) = saturated_row(t)
+    a = CSR.from_numpy_coo(ar, ac, av, ash, device=cuda)
+    b = CSR.from_numpy_coo(br, bc, bv, bsh, device=cuda)
+    off = torch.tensor([0, 1], dtype=torch.int32, device=cuda)
+    tsz = torch.tensor([t], dtype=torch.int32, device=cuda)
+    errors = torch.zeros(1, dtype=torch.int32, device=cuda)
+    K.symbolic_call(off, tsz, a.indptr, b.indptr, a.indices, a.data,
+                    b.indices, b.data, table_size=t, vector=False,
+                    errors=errors, n_cols=b.n_cols // 2)
+    torch.cuda.synchronize()
+    assert int(errors) >= 1
 
 
 PB_CASES = [("ER", 10, 8), ("G500", 8, 16)]
@@ -1311,15 +1488,16 @@ def fleet_args(pairs, shared_b):
     return args, cap_c, max(tables)
 
 
-def fleet_classes(offsets, bin_tsize, n, table, n_rows, vector):
+def fleet_classes(offsets, bin_tsize, n, table, n_rows, vector, above=0):
     """The table classes a batched call launches on this schedule (stacked
-    or shared): every class up to its largest bin table's."""
+    or shared): every class up to its largest bin table's (``above``: the
+    symbolic phase's ``ref.bitmap_above``)."""
     rows = [offsets.tolist()] * n if offsets.dim() == 1 \
         else offsets.tolist()
     sizes = [bin_tsize.tolist()] * n if bin_tsize.dim() == 1 \
         else bin_tsize.tolist()
     return K.launch_classes(K.fleet_table(rows, sizes, table, n_rows,
-                                          vector))
+                                          vector), above)
 
 
 def check_batched(pairs, args, cols, vals, pc, pv):
@@ -1409,19 +1587,21 @@ def test_batched_kernel_member_past_smem(cuda, vector):
     check_batched(pairs, args, cols, vals, pc, pv)
 
 
-def check_classify(args, n, table, numeric):
+def check_classify(args, n, table, numeric, n_cols=WIDE):
     """The batched classifying kernel on a fleet's arguments (as
     :func:`fleet_args` lays them out) equals its plain version: counts,
-    each pair's table, each class's pairs (in no order on the card).
-    Returns the plain version's ``(counts, pairs, row_tsz)``."""
+    each pair's table, each class's pairs (in no order on the card);
+    ``n_cols``: B's width for the symbolic phase.  Returns the plain
+    version's ``(counts, pairs, row_tsz)``."""
     ic = args[4] if numeric else None
     errors = torch.zeros(1, dtype=torch.int32, device=args[5].device)
     got = K.batched_row_classes(*args[:4], ic, args[5], n_members=n,
                                 table_size=table, numeric=numeric,
-                                errors=errors)
+                                errors=errors, n_cols=n_cols)
     want = ref.batched_row_classes_plain(
         *(x.cpu() for x in args[:4]), None if ic is None else ic.cpu(),
-        args[5].cpu(), n_members=n, table_size=table, numeric=numeric)
+        args[5].cpu(), n_members=n, table_size=table, numeric=numeric,
+        n_cols=n_cols)
     assert int(errors) == 0
     assert torch.equal(got[0].cpu(), want[0])
     assert torch.equal(got[2].cpu(), want[2])
@@ -1501,18 +1681,20 @@ def symbolic_args(args):
     return args[:4] + args[5:]
 
 
-def check_batched_symbolic(args, n, table, vector, launches=None):
+def check_batched_symbolic(args, n, table, vector, n_cols=WIDE,
+                           launches=None):
     """The batched symbolic kernels on ``args`` (each stacked or shared)
-    launch once to classify and once per table class the schedule's
-    largest table allows, and give bitwise the batched plain version's
-    counts; returns them."""
+    with B's width ``n_cols`` launch once to classify and once per class
+    the schedule's largest table allows, and give bitwise the batched
+    plain version's counts; returns them."""
     kw = dict(n_members=n, table_size=table, vector=vector)
     if launches is None:
         launches = fleet_classes(args[0], args[1], n, table,
-                                 args[2].shape[-1] - 1, vector)
+                                 args[2].shape[-1] - 1, vector,
+                                 ref.bitmap_above(n_cols))
     ops.reset_kernel_calls()
     reset_class_calls()
-    got = K.batched_symbolic_call(*args, **kw)
+    got = K.batched_symbolic_call(*args, **kw, n_cols=n_cols)
     torch.cuda.synchronize()
     counts = ops.kernel_call_counts()
     key = "batched_symbolic_vector" if vector else "batched_symbolic"
@@ -1566,7 +1748,7 @@ def test_batched_symbolic_kernel_member_past_smem(cuda, vector):
                              args[4].shape[1] - 1, vector)
     check_member_classes(args, len(pairs), table, False)
     rows = check_batched_symbolic(symbolic_args(args), len(pairs), table,
-                                  vector, launches)
+                                  vector, launches=launches)
     assert torch.equal(rows, args[4][:, 1:] - args[4][:, :-1])
 
 
@@ -1582,7 +1764,8 @@ def test_batched_symbolic_one_member_equals_single_kernel(cuda, case,
     off, tsz, table = ops.hash_schedule(a, a, n_bins=8)
     args = (off, tsz, a.indptr, a.indptr, a.indices, a.data, a.indices,
             a.data)
-    single = K.symbolic_call(*args, table_size=table, vector=vector)
+    single = K.symbolic_call(*args, table_size=table, vector=vector,
+                             n_cols=WIDE)
     rows = check_batched_symbolic(args, 1, table, vector)
     assert rows.shape == (1, a.n_rows)
     assert torch.equal(rows[0], single)
@@ -1617,7 +1800,7 @@ def test_batched_kernels_with_plan_schedule(cuda, vector, schedule):
     table = plan.table_size
     rows = check_batched_symbolic((off, tsz, a.indptr, a.indptr, a.indices,
                                    vals, a.indices, a.data), n, table,
-                                  vector)
+                                  vector, a.n_cols)
     assert torch.equal(rows, plan.row_nnz_c.expand(n, -1))
     kw = dict(n_members=n, cap_c=plan.cap_c, table_size=table,
               vector=vector)
@@ -1716,7 +1899,8 @@ def test_batched_symbolic_table_too_small_raises(cuda, vector):
     with pytest.raises(RuntimeError, match="full-table"):
         K.batched_symbolic_call(off, tsz, a.indptr, b.indptr, a.indices,
                                 vals, b.indices, b.data, n_members=2,
-                                table_size=K.CHUNK, vector=vector)
+                                table_size=K.CHUNK, vector=vector,
+                                n_cols=b.n_cols)
     with pytest.raises(RuntimeError, match="full-table"):
         torch.func.vmap(lambda v: ops.spgemm_hash(
             dataclasses.replace(a, data=v), b, d, vector=vector,
@@ -1745,7 +1929,7 @@ def test_batched_classify_matches_plain_version(cuda, layout, numeric):
         off, tsz, table = ops.hash_schedule(a, a, n_bins=8)
         rows = K.symbolic_call(off, tsz, a.indptr, a.indptr, a.indices,
                                a.data, a.indices, a.data, table_size=table,
-                               vector=False)
+                               vector=False, n_cols=a.n_cols)
         ic = prefix_sum(rows).to(torch.int32)
         args = (off, tsz, a.indptr, a.indptr, ic, a.indices)
         n = 4
@@ -1821,7 +2005,7 @@ def test_batched_ladder_reaches_every_class(cuda, vector, layout, dyadic):
     sym = symbolic_args(args)
     ops.reset_kernel_calls()
     reset_class_calls()
-    rows = K.batched_symbolic_call(*sym, **kw, errors=errors)
+    rows = K.batched_symbolic_call(*sym, **kw, errors=errors, n_cols=WIDE)
     torch.cuda.synchronize()
     assert int(errors) == 0
     assert torch.equal(rows, ref.batched_symbolic_plain(*sym, **kw))
@@ -1836,7 +2020,7 @@ def test_batched_ladder_reaches_every_class(cuda, vector, layout, dyadic):
         dict.fromkeys(ops.kernel_call_counts(), 0),
         **{f"batched_symbolic{sfx}": 7, f"batched_numeric{sfx}": 7})
     assert K.CLASS_CALLS == dict(dict.fromkeys(K.CLASS_NAMES, 2),
-                                 classify=2, plain=0)
+                                 bitmap=0, classify=2, plain=0)
     pc, pv = ref.batched_numeric_plain(*args, **kw, cap_c=cap)
     ic = args[4] if args[4].dim() == 1 else args[4][0]
     for e, (a, b) in enumerate(members):
@@ -1858,7 +2042,7 @@ def test_batched_numeric_one_member_equals_single_kernel(cuda, case,
     off, tsz, table = ops.hash_schedule(a, a, n_bins=8)
     rows = K.symbolic_call(off, tsz, a.indptr, a.indptr, a.indices, a.data,
                            a.indices, a.data, table_size=table,
-                           vector=vector)
+                           vector=vector, n_cols=a.n_cols)
     ic = prefix_sum(rows).to(torch.int32)
     cap = int(ic[-1]) + 3
     args = (off, tsz, a.indptr, a.indptr, ic, a.indices, a.data, a.indices,
@@ -1903,11 +2087,13 @@ def test_batched_cluster_table_load_factor_one_and_one_past_fill(cuda,
             [[0, 0], [1, 0]]
         if d > t:
             with pytest.raises(RuntimeError, match="full-table"):
-                K.batched_symbolic_call(*symbolic_args(args), **kw)
+                K.batched_symbolic_call(*symbolic_args(args), **kw,
+                                        n_cols=WIDE)
             with pytest.raises(RuntimeError, match="full-table"):
                 K.batched_numeric_call(*args, **kw, cap_c=d)
             continue
-        rows = K.batched_symbolic_call(*symbolic_args(args), **kw)
+        rows = K.batched_symbolic_call(*symbolic_args(args), **kw,
+                                       n_cols=WIDE)
         assert rows.tolist() == [[d], [d]]
         reset_class_calls()
         cols, out = K.batched_numeric_call(*args, **kw, cap_c=d)

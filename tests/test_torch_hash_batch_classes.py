@@ -36,6 +36,10 @@ from _hash_ladder import (FLEET_LADDER, FLEET_LADDER_CLASSES,  # noqa
                           ladder)
 
 SCALES = (8, 9, 10)
+#: B's width given to the symbolic classes: too wide for one block's
+#: bitmap, so that they are the table classes alone
+#: (``test_torch_hash_symbolic_classes.py`` holds the bitmap class)
+WIDE = ref.BITMAP_COLS + 1
 
 
 @pytest.fixture(autouse=True)
@@ -89,7 +93,7 @@ def check_fleet(offsets, bin_tsize, indptr_a, indptr_b, indptr_c, a_idx,
     counts, pairs, row_tsz = K.batched_row_classes(
         offsets, bin_tsize, indptr_a, indptr_b,
         indptr_c if numeric else None, a_idx, n_members=n,
-        table_size=table_size, numeric=numeric)
+        table_size=table_size, numeric=numeric, n_cols=WIDE)
     tsz = row_tsz.numpy().astype(np.int64)
     m = tsz.shape[1]
     assert tsz.shape == (n, m)
@@ -194,7 +198,7 @@ def test_shared_schedule_lists_every_member(preset, scale):
         assert int(counts.sum()) == n * int(np.count_nonzero(need))
         one_c, one_p, one_t = K.batched_row_classes(
             *args[:4], ic if numeric else None, ta.indices, n_members=1,
-            table_size=table, numeric=numeric)
+            table_size=table, numeric=numeric, n_cols=WIDE)
         assert torch.equal(one_t[0], row_tsz[0])
         assert torch.equal(counts, n * one_c)
     # the one-member numeric lists are the single product's

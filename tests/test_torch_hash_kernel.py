@@ -98,7 +98,8 @@ def test_plain_versions_match_reference_pallas_kernel(case):
     j_rows = jops.spgemm_hash_symbolic(a, b, n_bins=8)   # interpret mode
     args = (t_off, t_tsz, ta.indptr, tb.indptr, ta.indices, ta.data,
             tb.indices, tb.data)
-    t_rows = K.symbolic_call(*args, table_size=t_table, vector=False)
+    t_rows = K.symbolic_call(*args, table_size=t_table, vector=False,
+                             n_cols=tb.n_cols)
     assert np.array_equal(np.asarray(j_rows), t_rows.numpy())
     cap = int(np.asarray(j_rows).sum())
     jc = jops.spgemm_hash(a, b, cap, n_bins=8)

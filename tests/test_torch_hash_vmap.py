@@ -485,7 +485,8 @@ def test_ops_with_members_on_another_dim():
 
     def run(off, tsz, ip_a, a_idx, a_val):
         rows = tops.symbolic_op(off, tsz, ip_a, tb.indptr, a_idx, a_val,
-                                tb.indices, tb.data.to(f32), table, False)
+                                tb.indices, tb.data.to(f32), table, False,
+                                tb.n_cols)
         ic = prefix_sum(rows).to(torch.int32)
         return ic, tops.numeric_op(off, tsz, ip_a, tb.indptr, ic, a_idx,
                                    a_val, tb.indices, tb.data.to(f32), cap_c,
@@ -583,8 +584,8 @@ def test_batched_plain_equals_loop(shared):
             ta.indices, av[e], tb.indices, tb.data, cap_c=tp.cap_c, **kw)
         assert torch.equal(cols[e], c1) and torch.equal(vals[e], v1), e
     tops.reset_kernel_calls()
-    assert torch.equal(TK.batched_symbolic_call(*sym, n_members=n, **kw),
-                       rows)
+    assert torch.equal(TK.batched_symbolic_call(*sym, n_members=n, **kw,
+                                                n_cols=tb.n_cols), rows)
     kc, kv = TK.batched_numeric_call(*num, n_members=n, cap_c=tp.cap_c, **kw)
     assert torch.equal(kc, cols) and torch.equal(kv, vals)
     assert tops.kernel_call_counts() == {**QUIET, "batched_plain": 2}
@@ -602,7 +603,8 @@ def test_batched_wrappers_reject_bad_member_axis():
     with pytest.raises(ValueError, match="a_val"):
         TK.batched_symbolic_call(tp.offsets, tp.bin_tsize, ta.indptr,
                                  tb.indptr, ta.indices, vals, tb.indices,
-                                 tb.data, n_members=3, **kw)
+                                 tb.data, n_members=3, **kw,
+                                 n_cols=tb.n_cols)
     with pytest.raises(ValueError, match="indptr_c"):
         TK.batched_numeric_call(tp.offsets, tp.bin_tsize, ta.indptr,
                                 tb.indptr, torch.stack([tp.indptr_c] * 2),

@@ -13,7 +13,19 @@ Cases (``--cases``, comma-separated), on ``chip_smoke.py``'s inputs:
 * ``vmap_er``: the ER s18 hash plan's values, 8 members of A's;
 * ``single``: the single-product numeric kernel (rows 1 and 3: scalar and
   chunked probe) and symbolic kernel (row 2, scalar) on ER s18 and G500
-  s16.
+  s16;
+* ``symbolic``: the single-product symbolic kernel (row 2), scalar and
+  chunked probe, on ER s18 and G500 s16 (the plan's schedule) and on the
+  block patterns of ``chip_smoke.py``'s phase 7 (ER-pattern s13 ef8,
+  G500-pattern s10 ef8: the BCSR inspection's schedule), with B's width
+  where the tree takes it; on ER and G500 also the planless front door
+  ``core.spgemm(a, a, cap, algorithm="hash")`` beside one
+  ``torch.sparse.mm`` of the same product;
+* ``patterns``: the ``symbolic`` case's block patterns alone, scalar probe
+  (the BCSR inspection's symbolic call), with the spread of the single
+  calls (lowest, median, highest of ``--reps``) and the card's busy time
+  a call (every device operation of 5 calls in a ``torch.profiler``
+  trace, divided by 5), to tell the card's work from the host's.
 
 For each batched case: the batched numeric kernel over every hash class
 of the plan (``plan_batch``) or over the members (vmap fleets), the
@@ -29,11 +41,12 @@ kernels' device time a call is also taken from a ``torch.profiler``
 trace of 5 calls (the classifying and class kernels' sums).
 
 ``--stress N`` repeats each batched kernel (and, for ``single``, the
-numeric kernel) ``N`` times on dyadic values and counts the wrong calls:
-a call is wrong when its ``errors`` counter is not zero or when any row's
-order-free checksum (each entry's column and value bits mixed and summed
-per row; symbolic: the row counts themselves) differs from the plain
-version's.
+numeric kernel; for ``symbolic``, the symbolic kernel in both probe modes)
+``N`` times on dyadic values and counts the wrong calls: a call is wrong
+when its ``errors`` counter is not zero or when any row's order-free
+checksum (each entry's column and value bits mixed and summed per row;
+symbolic: the row counts themselves, against ESC's or the plain
+version's) differs from the plain version's.
 
 ``--src`` names the tree's ``src`` directory, so two trees (a parent and
 its change, unpacked with ``git archive`` into a directory that
@@ -58,7 +71,8 @@ import numpy as np
 import _timing
 
 ROOT = Path(__file__).resolve().parents[1]
-CASES = ("squares", "moe", "fleet", "vmap_g500", "vmap_er", "single")
+CASES = ("squares", "moe", "fleet", "vmap_g500", "vmap_er", "single",
+         "symbolic", "patterns")
 DYADIC = np.array([0.5, 1.0, 1.5, 2.0], np.float32)
 
 
@@ -78,7 +92,14 @@ class Tree:
         self.K, self.ref = K, ref
         self.by_classes = "largest" in inspect.signature(
             K.batched_numeric_call).parameters
+        #: whether the symbolic wrappers take B's width (the bitmap class)
+        self.has_width = "n_cols" in inspect.signature(
+            K.symbolic_call).parameters
         self.dev = torch.device("cuda")
+
+    def width(self, n_cols) -> dict:
+        """The symbolic wrappers' B-width argument, where the tree has it."""
+        return {"n_cols": n_cols} if self.has_width else {}
 
     def launch_kw(self, offsets, bin_tsize, n, table, n_rows, vector):
         """The batched calls' precomputed launch data for a schedule
@@ -169,6 +190,50 @@ def device_ms(torch, fn, reps: int = 5) -> float:
     us = sum(e.device_time_total for e in prof.key_averages()
              if "hash_class_kernel" in e.key or "classify_kernel" in e.key)
     return us / reps / 1e3
+
+
+def busy_ms(torch, fn, reps: int = 5) -> float:
+    """The card's busy ms a call of ``fn``: every device operation
+    (kernels, copies, fills) of ``reps`` calls in a ``torch.profiler``
+    trace, summed and divided by ``reps``."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    return us / reps / 1e3
+
+
+def pattern_case(t, label, a, sched, args) -> dict:
+    """The single-product symbolic kernel, scalar probe, on a block
+    pattern's inspection schedule: the single calls' lowest, median and
+    highest CUDA-event times, back to back, the host's time to issue one
+    and the card's busy time a call; counts against the plain version."""
+    torch, K, ref = t.torch, t.K, t.ref
+    off, bts, table = sched
+    ops_args = (a.indptr, a.indptr, a.indices, a.data.float(), a.indices,
+                a.data.float())
+    errors = torch.zeros(1, dtype=torch.int32, device=t.dev)
+
+    def call():
+        return K.symbolic_call(off, bts, *ops_args, table_size=table,
+                               vector=False, errors=errors,
+                               **t.width(a.n_cols))
+
+    times = _timing.event_times(torch, call, args.reps)
+    stream, host = _timing.stream_ms(torch, call)
+    want = ref.symbolic_plain(off, bts, *ops_args, table_size=table,
+                              vector=False)
+    return {"label": args.label, "case": label, "width": t.has_width,
+            "ms": {"low": times[0], "median": times[len(times) // 2],
+                   "high": times[-1]},
+            "stream_ms": stream, "host_ms": host,
+            "busy_ms": busy_ms(torch, call),
+            "right": torch.equal(call(), want) and int(errors) == 0}
 
 
 def time_all(t, fns: dict, reps: int) -> dict:
@@ -270,7 +335,8 @@ def vmap_case(t, label, a, n, args):
     def symbolic(vals, err=errors):
         return K.batched_symbolic_call(
             *sched, a.indptr, a.indptr, a.indices, vals, a.indices, b.data,
-            n_members=n, table_size=table, vector=False, errors=err, **lkw)
+            n_members=n, table_size=table, vector=False, errors=err, **lkw,
+            **t.width(a.n_cols))
 
     def vmapped(vals):
         return torch.func.vmap(lambda x: plan.execute(
@@ -336,7 +402,7 @@ def single_case(t, label, a, args):
                                a.indptr, a.indices, a.data.float(),
                                a.indices, a.data.float(),
                                table_size=plan.table_size, vector=False,
-                               errors=errors)
+                               errors=errors, **t.width(a.n_cols))
 
     line = {"label": args.label, "case": label,
             **time_all(t, {"numeric": lambda: call(False),
@@ -363,6 +429,71 @@ def single_case(t, label, a, args):
     del plan
     core.clear_plan_cache()
     return line
+
+
+def symbolic_case(t, label, a, args, plan=None, sched=None, want=None):
+    """The single-product symbolic kernel, scalar and chunked probe, on
+    ``a @ a`` with B's width: on the hash plan's schedule (``want``: its
+    ESC counts), or on ``sched = (offsets, bin_tsize, table_size)`` (a
+    block pattern; ``want``: the plain version's counts).  With a plan,
+    also the planless front door and ``torch.sparse.mm``.  Timings, then
+    (``--stress``) the wrong calls of each probe mode."""
+    torch, core, K, ref = t.torch, t.core, t.K, t.ref
+    if plan is not None:
+        sched = (plan.offsets, plan.bin_tsize, plan.table_size)
+        want = plan.row_nnz_c
+    off, bts, table = sched
+    ops_args = (a.indptr, a.indptr, a.indices, a.data.float(), a.indices,
+                a.data.float())
+    if want is None:
+        want = ref.symbolic_plain(off, bts, *ops_args, table_size=table,
+                                  vector=False)
+    errors = torch.zeros(1, dtype=torch.int32, device=t.dev)
+
+    def call(vector, err=errors):
+        return K.symbolic_call(off, bts, *ops_args, table_size=table,
+                               vector=vector, errors=err, **t.width(a.n_cols))
+
+    fns = {"symbolic": lambda: call(False),
+           "symbolic_vector": lambda: call(True)}
+    if plan is not None:
+        nnz = int(a.nnz)
+        sp = torch.sparse_csr_tensor(a.indptr.long(), a.indices[:nnz].long(),
+                                     a.data[:nnz], size=a.shape)
+        fns["planless"] = lambda: core.spgemm(a, a, plan.cap_c,
+                                              algorithm="hash")
+        fns["torch_sparse_mm"] = lambda: torch.sparse.mm(sp, sp)
+    line = {"label": args.label, "case": label, "width": t.has_width,
+            **time_all(t, fns, args.reps)}
+    torch.cuda.synchronize()
+    line["errors"] = int(errors)
+    line["right"] = all(torch.equal(call(v), want) for v in (False, True))
+    if args.stress:
+        line["stress"] = {"calls": args.stress}
+        err = torch.zeros(1, dtype=torch.int32, device=t.dev)
+        for vector in (False, True):
+            wrong = 0
+            for _ in range(args.stress):
+                err.zero_()
+                rows = call(vector, err)
+                wrong += int(err) != 0 or not torch.equal(rows, want)
+            line["stress"]["wrong_vector" if vector else "wrong"] = wrong
+    return line
+
+
+def block_pattern(t, preset, scale, ef):
+    """The block-occupancy pattern of ``chip_smoke.py``'s phase 7 input
+    (R-MAT block edges, seed 0, over a 2^scale grid) as a CSR of ones, and
+    the BCSR inspection's schedule on it (``bcsr_inspect``'s:
+    ``hash_schedule`` of the pattern, 8 bins)."""
+    from repro_torch.kernels.spgemm_hash import ops
+    br, bc = t.rmat.rmat_edges(scale, ef, preset, seed=0)
+    g = 1 << scale
+    key = np.unique(br.astype(np.int64) * g + bc)
+    p = t.core.CSR.from_numpy_coo(key // g, key % g,
+                                  np.ones(key.shape[0], np.float32), (g, g),
+                                  device=t.dev)
+    return p, ops.hash_schedule(p, p, n_bins=8)
 
 
 def main() -> int:
@@ -414,11 +545,36 @@ def main() -> int:
             line = vmap_case(t, "vmap ER s18 ef16 x8, A batched",
                              rmat.rmat_csr(18, 16, "ER", seed=0,
                                            device=t.dev), 8, args)
-        else:
+        elif case == "single":
             for preset, scale in (("ER", 18), ("G500", 16)):
                 line = single_case(t, f"single {preset} s{scale} ef16",
                                    rmat.rmat_csr(scale, 16, preset, seed=0,
                                                  device=t.dev), args)
+                print(json.dumps({**line, "card": card}), flush=True)
+            continue
+        elif case == "patterns":
+            for preset, scale in (("ER", 13), ("G500", 10)):
+                p, sched = block_pattern(t, preset, scale, 8)
+                line = pattern_case(t, f"{preset}-pattern s{scale} ef8", p,
+                                    sched, args)
+                print(json.dumps({**line, "card": card}), flush=True)
+            continue
+        else:
+            for preset, scale in (("ER", 18), ("G500", 16)):
+                a = rmat.rmat_csr(scale, 16, preset, seed=0, device=t.dev)
+                t.core.clear_plan_cache()
+                plan = t.core.plan_spgemm(a, a, algorithm="hash")
+                line = symbolic_case(t, f"symbolic {preset} s{scale} ef16",
+                                     a, args, plan=plan)
+                print(json.dumps({**line, "card": card}), flush=True)
+                del a, plan
+                t.core.clear_plan_cache()
+                torch.cuda.empty_cache()
+            for preset, scale in (("ER", 13), ("G500", 10)):
+                p, sched = block_pattern(t, preset, scale, 8)
+                line = symbolic_case(
+                    t, f"symbolic {preset}-pattern s{scale} ef8", p, args,
+                    sched=sched)
                 print(json.dumps({**line, "card": card}), flush=True)
             continue
         print(json.dumps({**line, "card": card}), flush=True)
