@@ -55,8 +55,9 @@ Phases; any failure exits non-zero:
      cache.  The output is row-sorted, its structure bitwise equal to the
      sorted hash route's, its values bitwise equal to the plain versions on
      dyadic values and within 1 ulp per accumulated product otherwise;
-     then the same timings as phase 5, and each kernel again through its
-     custom op (``scatter_op``, ``merge_op``: the op's own cost);
+     then the same timings as phase 5 (each kernel also back to back), and
+     each kernel again through its custom op (``scatter_op``,
+     ``merge_op``: the op's own cost);
   7. block-sparse products (BCSR, 8x8 tiles): an R-MAT pattern over the
      block grid with every occupied tile dense -- ER at scale 13 (n =
      65,536, 65,501 tiles) and G500 at scale 10 (2,048-slot tables, a hub
@@ -158,15 +159,19 @@ Phases; any failure exits non-zero:
      B's values batched, and of ``plan_spgemm(a, a, sorted_output=True)
      .execute`` (which must choose ``pb`` by itself) over 8 members of A's;
      a dyadic and a uniform fleet each.  Each vmapped call must run the
-     ops' vmap rules -- one batched scatter and one batched merge launch --
-     and nothing else; C's structure bitwise the plan's; every member
+     ops' vmap rules -- one batched scatter and one batched merge launch,
+     and one slot-major copy a batched operand -- and nothing else; C's structure bitwise the plan's; every member
      bitwise equal to the single-product execute; the batched kernels
      against the batched plain versions (scatter bitwise, merge bitwise on
-     dyadic values, else within 1 ulp per product).  Timings: the vmapped
-     execute, each batched kernel, the single-product kernels once per
-     member, the per-member execute loop, the batched plain versions and a
-     loop of ``torch.sparse.mm`` per member, beside the byte bound (shared
-     index arrays counted once);
+     dyadic values, else within 1 ulp per product), the merge's output in
+     the layout ``kernel.batched_merge_call`` states (slot-major, rows of
+     ``kernel.merge_width`` members) and its ``.contiguous()`` copy the values compared.
+     Timings: the vmapped execute, each batched kernel (single call and
+     back to back), the slot-major copy of each stacked operand apart
+     (bitwise its plain version, beside ``x.t().contiguous()``), the
+     single-product kernels once per member, the per-member execute loop,
+     the batched plain versions and a loop of ``torch.sparse.mm`` per
+     member, beside the byte bound (shared index arrays counted once);
  16. hash value fleets (ER right after phase 14, on phase 4's inputs):
      ``torch.func.vmap`` of the recipe's hash plan's ``execute`` over 8
      members of ER s18's values against a shared dyadic B, over 4 members
@@ -458,7 +463,8 @@ class Smoke:
         ``pb_``, ``bcsr_``, ``spmm_``, ``flash_`` and ``ssd_`` names; the
         hash numeric kernel's class launches, extra to its one count a
         call, in ``self.class_counts``, the BCSR kernel's in
-        ``self.bcsr_class_counts``)."""
+        ``self.bcsr_class_counts``, the PB scatter's slot-major copies in
+        ``self.pb_copy_counts``)."""
         others = {"pb": self.pb_ops, "bcsr": self.bcsr_ops,
                   "spmm": self.spmm_ops, "flash": self.fa_ops,
                   "ssd": self.ssd_ops}
@@ -469,10 +475,13 @@ class Smoke:
         classes.update(dict.fromkeys(classes, 0))
         bcsr_classes = self.BK.CLASS_CALLS
         bcsr_classes.update(dict.fromkeys(bcsr_classes, 0))
+        copies = self.PK.COPY_CALLS
+        copies.update(dict.fromkeys(copies, 0))
         out = fn()
         self.torch.cuda.synchronize()
         self.class_counts = dict(classes)
         self.bcsr_class_counts = dict(bcsr_classes)
+        self.pb_copy_counts = dict(copies)
         counts = self.ops.kernel_call_counts()
         for prefix, mod in others.items():
             counts.update({f"{prefix}_{k}": v for k, v in
@@ -1219,6 +1228,12 @@ class Smoke:
              "execute_hash_sorted": self.time_ms(
                  lambda: plan_h.execute(a, a, sorted_output=True)),
              "torch_sparse_mm": self.library_ms[label]}
+        # back to back: the card's time a call, beside the host's to issue
+        t["scatter_b2b"], t["scatter_host"] = self.stream_ms(
+            lambda: PK.scatter_call(p.bucket_nnz, p.src_a, p.src_b, a.data,
+                                    a.data))
+        t["merge_b2b"], t["merge_host"] = self.stream_ms(
+            lambda: PK.merge_call(p.bucket_nnz, p.seg, pp, p.cap_c))
         print(json.dumps({"timing": f"{label} sorted", "card": self.card,
                           "n": a.n_rows, "nnz_a": nnz_a, "flop": flop,
                           "nnz_c": nnz_c, "algorithm": "pb",
@@ -1294,7 +1309,12 @@ class Smoke:
             self.expect(counts, {"pb_batched_scatter": 1,
                                  "pb_batched_merge": 1},
                         f"{what} vmap(execute)")
+            stacked = (xa.dim() == 2) + (xb.dim() == 2)
+            check(self.pb_copy_counts["slot_major"] == stacked,
+                  f"{what} vmap(execute): {self.pb_copy_counts} slot-major "
+                  f"copies, want one per batched operand ({stacked})")
             launches = {k: counts[f"pb_{k}"] for k in err}
+            launches["slot_major"] = stacked
             check(data.shape == (n, p.cap_c),
                   f"{what}: output shape {tuple(data.shape)}")
             check(torch.equal(ip, p.indptr_c.expand_as(ip)) and
@@ -1314,6 +1334,12 @@ class Smoke:
             out_plain = pb_ref.batched_merge_plain(p.bucket_nnz, p.seg, pp,
                                                    p.cap_c, n)
             del pp
+            # the layout kernel.batched_merge_call states: slot-major
+            check(out.shape == (n, p.cap_c) and
+                  out.stride() == (1, PK.merge_width(n, True)),
+                  f"{what}: batched merge returned strides {out.stride()}, "
+                  f"not slot-major")
+            out = out.contiguous()
             diff = (out - out_plain).abs()
             if values == "dyadic":
                 check(torch.equal(out, out_plain), f"{what}: batched merge "
@@ -1374,6 +1400,30 @@ class Smoke:
              "torch_sparse_mm_loop": self.time_ms(
                  lambda: [torch.sparse.mm(x, y) for x, y in
                           zip(sp_a, sp_b)])}
+        # back to back; and the slot-major copy of each stacked operand
+        # (inside the batched scatter's time), apart
+        copy_err = 0.0
+        t["batched_scatter_b2b"], t["batched_scatter_host"] = \
+            self.stream_ms(lambda: PK.batched_scatter_call(
+                *arrays, xa, xb, n_members=n))
+        t["batched_merge_b2b"], t["batched_merge_host"] = self.stream_ms(
+            lambda: PK.batched_merge_call(p.bucket_nnz, p.seg, pp, p.cap_c,
+                                          n_members=n))
+        for side, x in (("a", xa), ("b", xb)):
+            if x.dim() == 2:
+                got, want = PK.slot_major(x), pb_ref.slot_major_plain(x)
+                check(torch.equal(got, want), f"{label}: slot-major copy of "
+                      f"{side} differs from its plain version")
+                copy_err = max(copy_err, float((got - want).abs().max()))
+                del got, want
+                t[f"slot_major_{side}"] = self.time_ms(
+                    lambda x=x: PK.slot_major(x))
+                t[f"slot_major_{side}_b2b"] = self.stream_ms(
+                    lambda x=x: PK.slot_major(x))[0]
+                t[f"plain_slot_major_{side}"] = self.time_ms(
+                    lambda x=x: pb_ref.slot_major_plain(x))
+                t[f"library_slot_major_{side}"] = self.time_ms(
+                    lambda x=x: x.t().contiguous())
         # least time: the shared index arrays once (8 B per product for
         # the scatter, seg's 4 B for the merge), each member's A and B
         # values (once when shared), pp written by the scatter and its live
@@ -1408,6 +1458,17 @@ class Smoke:
                 "bound_by": "bytes" if by[k] / HBM_BYTES_PER_S >=
                 ops_n / FP32_FLOP_PER_S else "operations",
                 "library_ms": t["torch_sparse_mm_loop"]})
+        # the slot-major copy of A's values (read and written once)
+        copy_by = 2 * 4 * n * a.cap
+        self.rows.append({
+            "name": f"spgemm_pb_slot_major[{label}]", "route": "cuda",
+            "source": PB_SOURCE, "replaces": "none: lays out the batched "
+            "operands of " + REPLACES["batched_scatter"] + "'s port "
+            "slot-major", "launches": launches["slot_major"],
+            "max_abs_err": copy_err, "ms": t["slot_major_a"],
+            "plain_ms": t["plain_slot_major_a"],
+            "bound_ms": copy_by / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "library_ms": t["library_slot_major_a"]})
         del pp, sp_a, sp_b, m_a, m_b
         torch.cuda.empty_cache()
 

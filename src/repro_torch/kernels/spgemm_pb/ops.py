@@ -15,8 +15,9 @@ Value fleets: the two phases go through the custom ops
 values on one frozen structure (A's, B's or both) -- fires each rule once,
 and the rule runs the batched kernel of ``kernel.py`` over every member:
 a batched argument with its member stride, an unbatched one (the plan's
-index arrays, a shared operand) read in place.  A call outside vmap runs
-the single-product kernel once per phase.
+index arrays, a shared operand) read in place; the merge rule's output
+is stored slot-major (``kernel.batched_merge_call``).  A call outside
+vmap runs the same kernels at one member, once per phase.
 
 Rounding contract: one rounding per product and one per add, in the
 frozen bucket-major lane order, on the card as in the reference; values

@@ -11,7 +11,8 @@ and :func:`batched_merge_plain` are the same functions over a fleet of
 members, each argument stacked along a leading member axis or shared
 (the batched kernels' arguments); member ``e`` of their output is
 bitwise what the single-product versions give on member ``e``'s
-arguments, on the CPU.
+arguments, on the CPU.  :func:`slot_major_plain` is the plain version of
+the wrappers' ``slot_major`` transpose.
 
 :func:`pb_numeric_ref` is the general-semiring executor (port of
 ``repro.kernels.spgemm_pb.ref``): the kernels are plus_times only, and
@@ -99,6 +100,12 @@ def batched_merge_plain(bucket_nnz, seg, pp, cap_c: int,
     out = torch.zeros(n * cap_c, dtype=torch.float32, device=dev)
     pp = member_expand(pp, 2, n)
     return out.index_add(0, slot[live], pp[live].float()).view(n, cap_c)
+
+
+def slot_major_plain(values: torch.Tensor) -> torch.Tensor:
+    """``values`` ``(n, cap)`` as ``(cap, n)``, members innermost: the
+    layout in which the batched scatter gathers a stacked operand."""
+    return values.t().contiguous()
 
 
 def pb_numeric_ref(a_data, b_data, src_a, src_b, seg, bucket_nnz,

@@ -652,6 +652,93 @@ def test_pb_batched_kernels_clip_indices_and_zero_pad_lanes(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("case", PB_CASES, ids=lambda c: f"{c[0]}{c[1]}")
+def test_pb_single_calls_equal_batched_at_one_member(cuda, case):
+    """``scatter_call``/``merge_call`` are the batched kernels at one
+    member, every argument shared: bitwise the batched calls on the same
+    arguments (uniform values), each wrapper counting under its own
+    name."""
+    a, p, stack = pb_fleet(cuda, case, 1, 43, False)
+    pb_ops.reset_kernel_calls()
+    pp = PK.scatter_call(p.bucket_nnz, p.src_a, p.src_b, stack[0], a.data)
+    out = PK.merge_call(p.bucket_nnz, p.seg, pp, p.cap_c)
+    torch.cuda.synchronize()
+    assert pb_ops.kernel_call_counts() == {
+        "inspect": 0, "scatter": 1, "merge": 1, "plain": 0,
+        "batched_scatter": 0, "batched_merge": 0, "batched_plain": 0}
+    assert pp.is_contiguous() and out.is_contiguous()
+    for av in (stack[0], stack):
+        bpp = PK.batched_scatter_call(p.bucket_nnz, p.src_a, p.src_b, av,
+                                      a.data, n_members=1)
+        assert torch.equal(bpp[0], pp)
+        bout = PK.batched_merge_call(p.bucket_nnz, p.seg, bpp, p.cap_c,
+                                     n_members=1)
+        assert torch.equal(bout[0], out)
+
+
+PB_FLEET_SIZES = (1, 2, 4, 8, 9, 16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batched", ("a", "b", "both"))
+@pytest.mark.parametrize("indices", ("shared", "stacked"))
+@pytest.mark.parametrize("n", PB_FLEET_SIZES)
+def test_pb_batched_kernels_match_plain_at_fleet_sizes(cuda, n, indices,
+                                                       batched):
+    """The batched pair against the batched plain versions at ``n``
+    members, the plan's index arrays shared (members inside a block,
+    slot-major values) or stacked (a block a member), A's, B's or both
+    values batched, dyadic: bitwise.  One slot-major copy a batched
+    operand where a block takes every member.  The merge returns ``(n,
+    cap_c)`` stored slot-major, rows of ``merge_width`` members."""
+    a, p, stack = pb_fleet(cuda, PB_CASES[0], n, 44 + n, True)
+    av = stack if batched != "b" else a.data
+    bv = stack.flip(0) if batched != "a" else a.data
+    idx = [p.bucket_nnz, p.src_a, p.src_b, p.seg]
+    if indices == "stacked":
+        idx = [torch.stack([t] * n) for t in idx]
+    bnz, sa, sb, seg = idx
+    PK.COPY_CALLS["slot_major"] = 0
+    pp = PK.batched_scatter_call(bnz, sa, sb, av, bv, n_members=n)
+    out = PK.batched_merge_call(bnz, seg, pp, p.cap_c, n_members=n)
+    copies = (batched == "both") + 1 if indices == "shared" and n > 1 else 0
+    assert PK.COPY_CALLS["slot_major"] == copies
+    assert out.shape == (n, p.cap_c)
+    assert out.stride() == (1, PK.merge_width(n, indices == "shared"))
+    assert torch.equal(pp, pb_ref.batched_scatter_plain(bnz, sa, sb, av, bv,
+                                                        n))
+    assert torch.equal(out.contiguous(), pb_ref.batched_merge_plain(
+        bnz, seg, pp, p.cap_c, n))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", (3, 8, 9))
+def test_pb_batched_merge_keeps_unnamed_slots_zero(cuda, n):
+    """Shared index arrays (members inside a block): a slot no live lane
+    names stays 0 for every member, pad lanes are never merged, and
+    out-of-range slots clip."""
+    i32 = dict(dtype=torch.int32, device=cuda)
+    bucket_nnz = torch.tensor([3, 0, 2], **i32)
+    seg = torch.tensor([[0, 1, 1, 9], [0, 0, 0, 0], [3, 7, 9, 9]], **i32)
+    pp = torch.arange(n * 12, dtype=torch.float32, device=cuda).view(
+        n, 3, 4) + 1
+    out = PK.batched_merge_call(bucket_nnz, seg, pp, 6, n_members=n)
+    want = pb_ref.batched_merge_plain(bucket_nnz, seg, pp, 6, n)
+    assert torch.equal(out.contiguous(), want)
+    assert not out[:, 2].any() and not out[:, 4].any()
+    assert torch.equal(out[:, 5], pp[:, 2, 1])
+
+
+@pytest.mark.gpu
+def test_pb_slot_major_matches_transpose(cuda):
+    """The slot-major copy of a stacked operand is its transpose, at
+    member counts around the 32-row tile and a ragged column count."""
+    for n in (1, 3, 8, 33):
+        x = torch.randn(n, 1000 + n, device=cuda)
+        assert torch.equal(PK.slot_major(x), x.t().contiguous()), n
+
+
+@pytest.mark.gpu
 def test_pb_vmap_execute_launches_only_the_batched_kernels(cuda):
     """``torch.func.vmap`` of ``PBPlan.execute`` over A's values on CUDA:
     one batched scatter and one batched merge, no single-product kernel,
