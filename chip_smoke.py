@@ -1968,15 +1968,11 @@ class Smoke:
         classifying kernels' single-call time and their plain version's.
         Returns ``{class: {...}, "classify": (ms, plain ms)}``."""
         torch, BK, bref = self.torch, self.BK, self.bcsr_ref
-        (offsets, bin_tsize, ia, ib, ic, a_bcol, a_blk, b_bcol,
-         b_blk) = args
+        offsets, bin_tsize, ia, _, ic = args[:5]
         table_size = kw["table_size"]
-        counts, work = BK.classify_rows(False, offsets, bin_tsize,
-                                        table_size, ia, ib, ic, a_bcol,
-                                        BLOCK3, errors)
+        call = BK.prepare(*args, n_members=1, **kw, errors=errors)
+        BK.classify(call)
         n_keys = len(BK.CLASS_NAMES) * bref.LEN_BUCKETS
-        out_c = torch.zeros(kw["bcap_c"], dtype=torch.int32, device=self.dev)
-        out_b = torch.zeros((kw["bcap_c"],) + BLOCK, device=self.dev)
         res = {}
         for c, name in enumerate(BK.CLASS_NAMES):
             info = classes["per_class"].get(name)
@@ -1984,26 +1980,23 @@ class Smoke:
                 continue
 
             def run(c=c):
-                counts[n_keys + c].zero_()
-                BK.launch_class(c, counts, work, pdl=False,
-                                table_size=table_size, vector=False,
-                                indptr_a=ia, indptr_b=ib, indptr_c=ic,
-                                a_bcol=a_bcol, a_blk=a_blk, b_bcol=b_bcol,
-                                b_blk=b_blk, out_bcol=out_c, out_blk=out_b,
-                                errors=errors)
+                call.counts[n_keys + c].zero_()
+                BK.launch_class(call, c)
             dev_ms, host_ms = self.stream_ms(run)
             shape = BK.class_shape(c, False) if c < len(BK.CLASS_NAMES) - 1 \
                 else {"blocks": BK.GLOBAL_BLOCKS}
             res[name] = {**info, "back_to_back_ms": dev_ms,
                          "host_ms": host_ms, "shape": shape}
+
+        def classify():
+            call.counts.zero_()
+            BK.classify(call)
         res["classify"] = (
-            self.time_ms(lambda: BK.classify_rows(
-                False, offsets, bin_tsize, table_size, ia, ib, ic, a_bcol,
-                BLOCK3, errors)),
+            self.time_ms(classify),
             self.time_ms(lambda: bref.row_classes_plain(
                 offsets, bin_tsize, ia, ic, table_size=table_size,
                 vector=False, block=BLOCK3), reps=3, warm=1))
-        del out_c, out_b, counts, work
+        del call
         return res
 
     def bcsr_input(self, preset, scale, ef):
@@ -3045,14 +3038,67 @@ class Smoke:
                 if dyadic else rng.uniform(0.5, 1.5, shape).astype(np.float32))
         return torch.from_numpy(vals).to(self.dev) * (blocks != 0)
 
+    def bcsr_fleet_classes(self, label, args, kw) -> dict:
+        """The block kernel's work items of one fleet call by class: one
+        call's classifying kernels and class launches issued one by one
+        behind a kernel that sleeps 50 M clocks (about 25 ms), each
+        bracketed by CUDA events, so that every event pair holds the
+        card's time alone (the check that the host issued the whole call
+        before the sleep ended); then each class's items, member rows,
+        distinct rows and groups (members an item: count of items) from
+        the classifier's lists.  The call's output must equal the batched
+        call's."""
+        torch, BK = self.torch, self.BK
+        errors = torch.zeros(1, dtype=torch.int32, device=self.dev)
+        call = BK.prepare(*args, **kw, errors=errors)
+        marks = [torch.cuda.Event(enable_timing=True)
+                 for _ in range(len(call.classes) + 4)]
+        marks[0].record()
+        torch.cuda._sleep(50_000_000)
+        marks[1].record()
+        h0 = time.perf_counter()
+        BK.classify(call)
+        marks[2].record()
+        for i, c in enumerate(call.classes):
+            BK.launch_class(call, c)
+            marks[3 + i].record()
+        host_ms = (time.perf_counter() - h0) * 1e3
+        torch.cuda.synchronize()
+        sleep_ms = marks[0].elapsed_time(marks[1])
+        check(host_ms < sleep_ms, f"{label}: the host took {host_ms:.3f} ms "
+              f"to issue the call, past the {sleep_ms:.3f} ms sleep before "
+              f"it")
+        check(int(errors) == 0, f"{label}: kernel errors in the classed call")
+        want = BK.batched_numeric_call(*args, **kw)
+        check(torch.equal(call.out_bcol, want[0]) and
+              torch.equal(call.out_blk, want[1]),
+              f"{label}: the class-by-class call differs from the batched "
+              f"call")
+        out = {"classify_ms": marks[1].elapsed_time(marks[2]),
+               "grouped": call.grouped, "classes": {}}
+        items = call.items()
+        for i, c in enumerate(call.classes):
+            it = items[c].cpu()
+            groups = torch.bincount(it[:, 1]) if it.numel() else []
+            out["classes"][BK.CLASS_NAMES[c]] = {
+                "items": it.shape[0], "member_rows": int(it[:, 1].sum()),
+                "rows": int(it[:, 2].unique().numel()),
+                "groups": {g: int(k) for g, k in enumerate(groups) if k},
+                "ms": marks[2 + i].elapsed_time(marks[3 + i])}
+        del call, want
+        return out
+
     def fleet_case(self, label, ab, bp, cases):
         """One value-fleet case of phase 13: ``torch.func.vmap`` of
         ``bp.execute`` over the members' tiles (``cases``: ``(values, xa,
-        xb)``, a 4-D stack or A's/B's own tiles), launching the batched
-        grid through the custom op's rule and nothing else; each member
-        against the batched plain version and the per-member execute; then
-        the timings of the uniform fleet.  ``ab`` is both operands' structure
-        (the products are A·A)."""
+        xb)``, a 4-D stack or A's/B's own tiles), launching the kernel
+        through the custom op's rule once -- one classification and one
+        launch per class that can hold the fleet's items -- and nothing
+        else; each member against the batched plain version and the
+        per-member execute; then the timings of the uniform fleet, single
+        calls and back to back, and the items and device time of each
+        class.  ``ab`` is both operands' structure (the products are
+        A·A)."""
         import dataclasses
         torch, core, BK, bref = self.torch, self.core, self.BK, \
             self.bcsr_ref
@@ -3082,12 +3128,17 @@ class Smoke:
         for values, xa, xb in cases:
             what = f"{label} ({values})"
             (bcol, blk), counts = self.counted(lambda: vmapped(xa, xb))
-            want = len(BK.launch_list(
-                bp.offsets, bp.bin_tsize, n_members=n,
-                n_rows=ab.indptr.shape[0] - 1, table_size=bp.table_size,
-                tile=bm * bn, vector=vector))
-            self.expect(counts, {f"bcsr_{key}": want},
+            self.expect(counts, {f"bcsr_{key}": 1},
                         f"{what} vmap(BCSRPlan.execute)")
+            launched = bref.launch_classes(
+                (bm, bk, bn), bp.table_size, bp.bcap_c, n,
+                (xa.dim() == 4, xb.dim() == 4))
+            want = dict(dict.fromkeys(BK.CLASS_CALLS, 0), classify=1,
+                        **{BK.CLASS_NAMES[c]: 1 for c in launched})
+            check(self.bcsr_class_counts == want, f"{what}: class launches "
+                  f"{self.bcsr_class_counts}, want {want} (one "
+                  f"classification, one launch per class that can hold "
+                  f"items)")
             launches = counts[f"bcsr_{key}"]
             check(bcol.shape == (n, bp.bcap_c) and
                   blk.shape == (n, bp.bcap_c, bm, bn),
@@ -3129,8 +3180,8 @@ class Smoke:
             del bcol, blk, pc, pb
         print(f"{label}: {n} members, {len(cases)} fleets; every member "
               f"equals the batched plain version and the per-member "
-              f"execute; {launches} batched launches a call; max abs diff "
-              f"{err}", flush=True)
+              f"execute; {launches} kernel call a call, class launches "
+              f"{self.bcsr_class_counts}; max abs diff {err}", flush=True)
 
         # ---- timings (the uniform fleet) ---------------------------------
         _, xa, xb = next(c for c in cases if c[0] == "uniform")
@@ -3164,9 +3215,15 @@ class Smoke:
              "torch_sparse_mm_loop": self.time_ms(
                  lambda: [torch.sparse.mm(x, y) for x, y in
                           zip(sp_a, sp_b)])}
+        # the card's time a call: 20 calls back to back in one event pair
+        b2b, host = {}, {}
+        for name, fn in (("kernel", lambda: BK.batched_numeric_call(
+                *args, **kw, errors=errors)),
+                         ("vmap_execute", lambda: vmapped(xa, xb))):
+            b2b[name], host[name] = self.stream_ms(fn)
         t["kernel_device"] = self.device_ms(lambda: BK.batched_numeric_call(
-            *args, **kw, errors=errors),
-            "bcsr_rows_batched_kernel")
+            *args, **kw, errors=errors), "bcsr_class_kernel")
+        classes = self.bcsr_fleet_classes(label, args, kw)
         torch.cuda.synchronize()
         check(int(errors) == 0, f"{label}: kernel errors while timing")
         # least time: each member's A tiles (A once when shared), B's
@@ -3189,14 +3246,19 @@ class Smoke:
                           "vector": vector, "nnzb_a": nnzb,
                           "nnzb_c": bp.nnzb_c, "block_flop": bp.total_flop,
                           "table_size": bp.table_size,
-                          "launches": launches, "ms": t, "bound_ms": bound,
-                          "bound_bytes": by, "bound_operations": ops_n}),
+                          "launches": launches,
+                          "class_launches": self.bcsr_class_counts,
+                          "ms": t, "back_to_back_ms": b2b,
+                          "host_ms_to_issue": host, "classes": classes,
+                          "bound_ms": bound, "bound_bytes": by,
+                          "bound_operations": ops_n}),
               flush=True)
         self.rows.append({
             "name": f"spgemm_bcsr_{key}[{label}]", "route": "cuda",
             "source": BCSR_SOURCE, "replaces": REPLACES["bcsr_batched"],
             "launches": launches, "max_abs_err": err, "ms": t["kernel"],
-            "plain_ms": t["plain"], "bound_ms": bound, "bound_by": bound_by,
+            "back_to_back_ms": b2b["kernel"], "plain_ms": t["plain"],
+            "bound_ms": bound, "bound_by": bound_by,
             "library_ms": t["torch_sparse_mm_loop"]})
         del sp_a, sp_b, m_a, m_b, members
         torch.cuda.empty_cache()
@@ -3242,9 +3304,6 @@ class Smoke:
                                 ab, vp, fleets(ab, n, 50))
                 del vp
             else:
-                check(bp.table_size * 4 * (1 + BLOCK[0] * BLOCK[1])
-                      > self.BK.SMEM_BUDGET,
-                      f"{label}: expected launches with a workspace")
                 m = FLEET_MEMBERS_G500
                 self.fleet_case(f"{label}, {m} members, A batched", ab, bp,
                                 fleets(ab, m, 60))

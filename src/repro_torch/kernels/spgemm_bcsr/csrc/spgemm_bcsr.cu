@@ -63,35 +63,46 @@
 //     stage): keys and map in a per-block workspace in device memory,
 //     tiles accumulated in place in out_blk[indptr_c[i] ...], A and B read
 //     from device memory (L2).
-//   * The single-product kernel runs rows by class, not by plan bin.
-//     classify_kernel (one thread a row) writes each row's table and its
-//     class -- by the row's bytes, a block's shared memory of 30 / 54 /
-//     111 / 225 KB (7 / 4 / 2 / 1 blocks an SM), or direct -- and, within
-//     the class, by its A-block count in powers of two (the row's critical
-//     path: one stage per A block); place_kernel lays every class's rows
-//     out longest first.  No host synchronisation.  Then one persistent
-//     launch per class that can hold rows, the largest class first, each
-//     block popping rows with an atomic: the longest rows start first.
-//     The class launches after the first are programmatic dependent
-//     launches: every block lets the next class start at once, and block
-//     0 of each class waits for the class before it to finish before it
-//     exits, so the last class's end is every class's end.
+//   * Every call runs by class, not by plan bin, over work items: a block
+//     row of one member, or -- where the fleet shares every index array
+//     (the schedule, indptr_a, a_bcol, indptr_b, b_bcol, indptr_c: a value
+//     fleet on one plan) -- a block row of a group of members, which
+//     stages the B block columns and probes once, and multiplies every
+//     member's tiles into that member's tiles.  The single product is the
+//     fleet of one member.  classify_kernel (one thread a unit: a row of
+//     every member when the index arrays are shared, else a (member, row)
+//     pair) writes each unit's table, its group and its items' key: the
+//     class by the item's bytes (its group's tiles counted) -- a block's
+//     shared memory of 30 / 54 / 111 / 225 KB (7 / 4 / 2 / 1 blocks an
+//     SM), or direct -- and, within the class, its A-block count in
+//     powers of two (the row's critical path: one stage per A block);
+//     place_kernel lays every class's items out longest first.  No host
+//     synchronisation.  Then one persistent launch per class that can hold
+//     items, the largest class first, each block popping items with an
+//     atomic: the longest rows start first.  The class launches after the
+//     first are programmatic dependent launches: every block lets the next
+//     class start at once, and block 0 of each class waits for the class
+//     before it to finish before it exits, so the last class's end is
+//     every class's end.
+//   * A group's size (group_of) is read from the fleet's members, whether
+//     A's and B's tiles are per member, and the row's bytes: the most
+//     members, up to kMaxGroup, whose item still fits kGroupBytes of
+//     shared memory, evened out over the groups the row needs; a row that
+//     runs direct takes one member an item.  An item of members e0 ... e0
+//     + gn - 1 keeps gn * need tiles in its table, member after member,
+//     and each stage buffer gn of A's tiles (one when A is shared) and gn
+//     runs of B's tiles (one when B is shared).
 //   * Errors: a row whose table cannot hold its output (need_i > cap_i, a
 //     table that is not a power of two, or below the chunk in vector
 //     mode), a probe that finds the table full, an insert past need_i
 //     (tested before the tile or out_bcol is written), a final count that
 //     differs from need_i, and a row that indptr_c leaves empty but that
-//     has pairs each add one to errors[0]; nothing is written outside the
-//     row's range of the output.
+//     has pairs each add one to errors[0] for each of its members; so does
+//     each member whose bins run past its rows (it runs no row), and a
+//     fleet of 2^31 or more (member, row) pairs adds one and runs nothing.
+//     Nothing is written outside the row's range of the output.
 //   * The output is zeroed by the caller before launch: blocks run in no
 //     order, so nothing like the TPU kernel's "zero at bin 0" is possible.
-//   * Batched (a fleet under torch.func.vmap): one launch per bin index,
-//     blockIdx.y the member, the x blocks striding over that member's
-//     block rows of the bin.  Every array, the schedule included, takes a
-//     member stride, 0 for an array all members share.  Each row runs the
-//     same row body: staged when its table and one tile of stage fit the
-//     launch's shared memory, else direct in its (member, x block) slice
-//     of the workspace.
 //   * Every block barrier of the row body is the non-aligned barrier.sync:
 //     lanes leave the probe loops at different times.
 //
@@ -129,9 +140,11 @@ constexpr int kWindow = 64;
 //: pairs of a direct row's stage
 constexpr int kDirectPairs = 1024;
 constexpr int kMaxThreads = 576;
-//: a batched block: a prober warp, a stager warp and 256 multiplier
-//: threads
-constexpr int kBatchedThreads = 320;
+//: members an item of a fleet with shared index arrays takes at most, and
+//: the shared memory its group may fill (group_of)
+constexpr int kMaxGroup = 4;
+constexpr long long kGroupBytes = 225 * 1024;
+static_assert(kGroupBytes <= 225 * 1024, "a group's item must stay staged");
 
 // Dynamic shared memory of class c's blocks, and their threads.
 __host__ __device__ constexpr int class_smem(int c) {
@@ -156,11 +169,13 @@ __host__ __device__ constexpr long long table_bytes(int tsz, int need,
                                                     int tile) {
   return r16(8LL * tsz + 4LL * tile * need);
 }
-// One stage buffer of n B tiles: A's tile, the block columns (with room
-// for their 16-byte aligned cover), the tiles.
+// One stage buffer of n B tiles: ga of A's tiles, the block columns (with
+// room for their 16-byte aligned cover), gb runs of the n tiles.
 __host__ __device__ constexpr long long half_bytes(long long n, int bm, int bk,
-                                                   int bn) {
-  return r16(4LL * bm * bk) + r16(4 * n) + 16 + r16(4LL * bk * bn * n);
+                                                   int bn, int ga = 1,
+                                                   int gb = 1) {
+  return r16(4LL * bm * bk * ga) + r16(4 * n) + 16 +
+         r16(4LL * bk * bn * n * gb);
 }
 __host__ __device__ constexpr int stage_buffers(int bm, int bk, int bn) {
   return bm * bk + bk * bn > kStageFloats ? 3 : kBuffers;
@@ -172,17 +187,37 @@ __host__ __device__ constexpr int stage_min(int need, int bk, int bn) {
   const int s = by_lanes < kStageMin ? by_lanes : kStageMin;
   return need < s ? need : s;
 }
-// Shared memory a staged row asks for: its table and its stage buffers.
+// Shared memory a staged item asks for: its table (the tiles of its g
+// members) and its stage buffers (ga of A's tiles, gb runs of B's).
 __host__ __device__ constexpr long long row_bytes(int tsz, int need, int bm,
-                                                  int bk, int bn) {
-  return table_bytes(tsz, need, bm * bn) +
+                                                  int bk, int bn, int g = 1,
+                                                  int ga = 1, int gb = 1) {
+  return table_bytes(tsz, need * g, bm * bn) +
          stage_buffers(bm, bk, bn) *
-             half_bytes(stage_min(need, bk, bn), bm, bk, bn);
+             half_bytes(stage_min(need, bk, bn), bm, bk, bn, ga, gb);
 }
 __host__ __device__ constexpr int class_of_bytes(long long bytes) {
   int c = 0;
   while (c < kDirectClass && bytes > class_smem(c)) ++c;
   return c;
+}
+// Members an item of a row takes, of a fleet of n members that shares its
+// index arrays (a_each / b_each: A's / B's tiles are per member): the most
+// g <= kMaxGroup whose item fits kGroupBytes, evened out over the
+// ceil(n / g) items the row then needs; 1 when even one member's row does
+// not fit (it runs direct).
+__host__ __device__ inline int group_of(int n, int tsz, int need, int bm,
+                                        int bk, int bn, bool a_each,
+                                        bool b_each) {
+  int cap = 1;
+  for (int g = n < kMaxGroup ? n : kMaxGroup; g > 1; --g)
+    if (row_bytes(tsz, need, bm, bk, bn, g, a_each ? g : 1,
+                  b_each ? g : 1) <= kGroupBytes) {
+      cap = g;
+      break;
+    }
+  const int items = (n + cap - 1) / cap;
+  return (n + items - 1) / items;
 }
 __device__ __forceinline__ int len_bucket(int na) {
   const int l = 31 - __clz(na);
@@ -204,14 +239,15 @@ __device__ __forceinline__ bool bad_cap(int cap, bool vector) {
 }
 
 // B tiles a stage buffer holds when `rest` bytes follow the table: the
-// most n with nbuf buffers of half_bytes(n) in rest (0 if none fits).
+// most n with nbuf buffers of half_bytes(n, ..., ga, gb) in rest (0 if
+// none fits).
 __device__ __forceinline__ int stage_tiles(long long rest, int nbuf, int bm,
-                                           int bk, int bn) {
-  const long long per = 4 + 4LL * bk * bn;
-  long long n = (rest / nbuf - r16(4LL * bm * bk) - 48) / per;
+                                           int bk, int bn, int ga, int gb) {
+  const long long per = 4 + 4LL * bk * bn * gb;
+  long long n = (rest / nbuf - r16(4LL * bm * bk * ga) - 48) / per;
   if (n < 0) n = 0;
-  while (n > 0 && nbuf * half_bytes(n, bm, bk, bn) > rest) --n;
-  while (nbuf * half_bytes(n + 1, bm, bk, bn) <= rest) ++n;
+  while (n > 0 && nbuf * half_bytes(n, bm, bk, bn, ga, gb) > rest) --n;
+  while (nbuf * half_bytes(n + 1, bm, bk, bn, ga, gb) <= rest) ++n;
   return static_cast<int>(n);
 }
 
@@ -363,7 +399,49 @@ __device__ __forceinline__ int insert_vector(int* keys, int tsz, int col,
   return -1;
 }
 
-// One product's arrays (a fleet member's, in the batched kernel).
+}  // namespace
+
+// The fleet: each array's base and member stride in elements (0: one
+// array every member shares), the outputs (n, bcap_c[, bm, bn]), the
+// sizes, and whether every index array is shared (an item is then a row
+// of a group of members).  The single product is the fleet of n = 1.  (Out
+// of the anonymous namespace: the C interface takes it.)
+struct Fleet {
+  const int* offsets;
+  long long s_off;
+  const int* bin_tsize;
+  long long s_bt;
+  const int* indptr_a;
+  long long s_ia;
+  const int* a_bcol;
+  long long s_ac;
+  const float* a_blk;
+  long long s_ab;
+  const int* indptr_b;
+  long long s_ib;
+  const int* b_bcol;
+  long long s_bc;
+  const float* b_blk;
+  long long s_bb;
+  const int* indptr_c;
+  long long s_ic;
+  int* out_bcol;
+  float* out_blk;
+  int n, m, n_bins, table_size, bcap_c;
+  int b_bcol_len;  // b_bcol's length (the bulk copies read no further)
+  int bm, bk, bn;
+  int a16, b16;    // every member's A / B tiles go 16 bytes at a time
+  int grouped;
+};
+
+namespace {
+
+// One item's arrays: its first member's, and its members' tiles and
+// outputs at the member strides s_ab, s_bb (A's, B's tiles; 0 when
+// shared) and bcap_c (out_bcol; out_blk bcap_c tiles).  A fleet's row
+// body reads them from shared memory (Scratch::ops), so that none is held
+// in a register across the row; the single product's are the launch's
+// parameters.
 struct Ops {
   const int* indptr_a;
   const int* a_bcol;
@@ -375,8 +453,20 @@ struct Ops {
   int* out_bcol;
   float* out_blk;
   int bcap_c;
-  int b_bcol_len;  // b_bcol's length (the bulk copies read no further)
+  int b_bcol_len;
+  long long s_ab, s_bb;
 };
+
+__device__ __forceinline__ Ops ops_of(const Fleet& f, int e0) {
+  const long long e = e0;
+  return Ops{f.indptr_a + e * f.s_ia, f.a_bcol + e * f.s_ac,
+             f.a_blk + e * f.s_ab,    f.indptr_b + e * f.s_ib,
+             f.b_bcol + e * f.s_bc,   f.b_blk + e * f.s_bb,
+             f.indptr_c + e * f.s_ic, f.out_bcol + e * f.bcap_c,
+             f.out_blk + e * f.bcap_c * f.bm * f.bn,
+             f.bcap_c,                f.b_bcol_len,
+             f.s_ab,                  f.s_bb};
+}
 
 // Tile shape, whether A's and B's tiles allow 16-byte copies, and the
 // output lanes of thread t of the nt that multiply.  With `fixed` (the
@@ -419,9 +509,10 @@ __device__ __forceinline__ Shape make_shape(int bm, int bk, int bn, int a16,
   return s;
 }
 
-// A row's id, table, output range and A blocks (row -1: none).
+// An item's id, row, table, output range, A blocks and members e0 ...
+// e0 + gn - 1 (row -1: none).
 struct RowMeta {
-  int row, tsz, base, need, a0, na;
+  int item, row, tsz, base, need, a0, na, e0, gn;
 };
 
 // Per-block scratch of the row body.
@@ -433,10 +524,11 @@ struct Scratch {
   int stage_off[kBuffers];        // the block columns' offset in a buffer
   int wtot[2][kMaxThreads / 32];  // the opening scan's per-warp counts
   // (start, end) of B rows of kWindow A blocks: the walker's window and
-  // the next row's first, staged ahead (for row win_row)
+  // the next item's first, staged ahead (for item win_item)
   int win[2][2 * kWindow];
-  int win_row;
-  RowMeta meta[2];                // the row and the next (class kernels)
+  int win_item;
+  RowMeta meta[2];                // the item and the next
+  Ops ops;                        // the item's arrays
   int stage_n[kBuffers];          // B tiles of the stage in each buffer
   int cursor;                     // tiles a staged row opened
   int flag;
@@ -565,16 +657,17 @@ __device__ __forceinline__ void probe_stage(
   }
 }
 
-// The prober warp of a staged row: probe the stage's n block columns
+// The prober warp of a staged item: probe the stage's n block columns
 // codes[q] and replace each with its code, as probe_stage does, 32 pairs
-// a round with a warp scan of the openings; lane 0 leaves the cursor in
-// *cursor_out.
+// a round with a warp scan of the openings, writing an opened tile's block
+// column for each of the item's members and counting an error once for
+// each; lane 0 leaves the cursor in *cursor_out.
 template <bool kVector>
 __device__ __forceinline__ void probe_warp(int n, int* codes, int* keys,
                                            int* map, int tsz, int need,
                                            int base, int& cursor,
                                            int* cursor_out, const Ops& o,
-                                           int* errors) {
+                                           int gn, int* errors) {
   const int lane = threadIdx.x & 31;
   for (int q0 = 0; q0 < n; q0 += 32) {
     const int q = q0 + lane;
@@ -588,16 +681,19 @@ __device__ __forceinline__ void probe_warp(int n, int* codes, int* keys,
     if (q < n) {
       int code = -1;
       if (slot < 0) {
-        atomicAdd(errors, 1);
+        atomicAdd(errors, gn);
       } else if (opened) {
         const int pos = cursor + __popc(ballot & ((1u << lane) - 1u));
         if (pos < need) {
           map[slot] = pos;
-          if (base + pos < o.bcap_c) o.out_bcol[base + pos] = col;
+          if (base + pos < o.bcap_c)
+            for (int g = 0; g < gn; ++g)
+              o.out_bcol[static_cast<size_t>(g) * o.bcap_c + base + pos] =
+                  col;
           code = 2 * pos + 1;
         } else {
           map[slot] = -1;
-          atomicAdd(errors, 1);
+          atomicAdd(errors, gn);
         }
       } else {
         const int p = load_int(map + slot);
@@ -709,13 +805,107 @@ __device__ __forceinline__ void multiply_stage(int n, const int* codes,
   }
 }
 
+// multiply_stage8 for an item of gn members: the stage's n pairs of each
+// member (A's tile at a + g * astride, B's run at b + g * bstride, 0 for
+// a tile every member shares), each into the member's tiles (tiles + g *
+// tstride), one (member, pair) per 16 threads at a time.
+__device__ __forceinline__ void multiply_members8(int n, int gn,
+                                                  const int* codes,
+                                                  const float* a,
+                                                  int astride, const float* b,
+                                                  int bstride, float* tiles,
+                                                  int tstride,
+                                                  const Shape& s) {
+  const int total = n * gn;
+  for (int v = s.q8; v < total; v += s.q8step) {
+    const int g = v / n;
+    const int q = v - g * n;
+    const int code = codes[q];
+    if (code < 0) continue;
+    const float* ag = a + g * astride + s.r8 * 8;
+    const float4 a0 = *reinterpret_cast<const float4*>(ag);
+    const float4 a1 = *reinterpret_cast<const float4*>(ag + 4);
+    const float ar[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+    const float* bq = b + g * bstride + q * 64 + s.c8;
+    float4 bv = *reinterpret_cast<const float4*>(bq);
+    float4 sum = make_float4(__fmul_rn(ar[0], bv.x), __fmul_rn(ar[0], bv.y),
+                             __fmul_rn(ar[0], bv.z), __fmul_rn(ar[0], bv.w));
+#pragma unroll
+    for (int kk = 1; kk < 8; ++kk) {
+      bv = *reinterpret_cast<const float4*>(bq + kk * 8);
+      sum.x = __fadd_rn(sum.x, __fmul_rn(ar[kk], bv.x));
+      sum.y = __fadd_rn(sum.y, __fmul_rn(ar[kk], bv.y));
+      sum.z = __fadd_rn(sum.z, __fmul_rn(ar[kk], bv.z));
+      sum.w = __fadd_rn(sum.w, __fmul_rn(ar[kk], bv.w));
+    }
+    float4* dst = reinterpret_cast<float4*>(
+        tiles + g * tstride + (code >> 1) * 64 + s.r8 * 8 + s.c8);
+    if (code & 1) {
+      *dst = make_float4(__fadd_rn(0.0f, sum.x), __fadd_rn(0.0f, sum.y),
+                         __fadd_rn(0.0f, sum.z), __fadd_rn(0.0f, sum.w));
+    } else {
+      const float4 old = *dst;
+      *dst = make_float4(__fadd_rn(old.x, sum.x), __fadd_rn(old.y, sum.y),
+                         __fadd_rn(old.z, sum.z), __fadd_rn(old.w, sum.w));
+    }
+  }
+}
+
+// multiply_stage<false> for an item of gn members (strides as for
+// multiply_members8): (member, pair) items for fixed lanes, else
+// (member, pair, lane) items nt apart.
+__device__ __forceinline__ void multiply_members(int n, int gn,
+                                                 const int* codes,
+                                                 const float* a, int astride,
+                                                 const float* b, int bstride,
+                                                 float* tiles, int tstride,
+                                                 const Shape& s) {
+  const int bkbn = s.bk * s.bn;
+  if (s.fixed) {
+    const int total = n * gn;
+    for (int v = s.q0; v < total; v += s.qstep) {
+      const int g = v / n;
+      const int q = v - g * n;
+      const int code = codes[q];
+      if (code < 0) continue;
+      add_lane<false>(
+          tiles + g * tstride, code, s,
+          lane_product(a + g * astride + s.r * s.bk,
+                       b + g * bstride + static_cast<size_t>(q) * bkbn + s.c,
+                       s.bk, s.bn));
+    }
+    return;
+  }
+  const int per = n * s.tile;
+  const int items = per * gn;
+  for (int it = s.t; it < items; it += s.nt) {
+    const int g = it / per;
+    const int rest = it - g * per;
+    const int q = rest / s.tile;
+    const int code = codes[q];
+    if (code < 0) continue;
+    const int l = rest - q * s.tile;
+    const int r = l / s.bn;
+    const int c = l - r * s.bn;
+    const float sum = lane_product(
+        a + g * astride + r * s.bk,
+        b + g * bstride + static_cast<size_t>(q) * bkbn + c, s.bk, s.bn);
+    float* dst = tiles + g * tstride +
+                 static_cast<size_t>(code >> 1) * s.tile + l;
+    const float old = (code & 1) ? 0.0f : *dst;
+    *dst = __fadd_rn(old, sum);
+  }
+}
+
 // Copy stage (j, t0, n) into buffer `buf`, by the stager warp: A's tile
-// j at sa, the block columns in the cols region (from sh->stage_off[buf]
-// ints on) and the B tiles at sb.  16-byte aligned tiles and the block
-// columns' 16-byte aligned cover (when b_bcol holds it) go by bulk copies
-// from lane 0, the rest by the lanes' 4-byte cp.async; the buffer's full
-// barrier completes when all have landed.
+// j at sa (ga of them, a tile apart: one per member, or one for all), the
+// block columns in the cols region (from sh->stage_off[buf] ints on) and
+// the B tiles at sb (gb runs, bstride floats apart).  16-byte aligned
+// tiles and the block columns' 16-byte aligned cover (when b_bcol holds
+// it) go by bulk copies from lane 0, the rest by the lanes' 4-byte
+// cp.async; the buffer's full barrier completes when all have landed.
 __device__ __forceinline__ void issue_stage(float* sa, int* scols, float* sb,
+                                            int bstride, int ga, int gb,
                                             int buf, int j, int t0, int n,
                                             const Ops& o, const Shape& s,
                                             Scratch* sh) {
@@ -723,17 +913,21 @@ __device__ __forceinline__ void issue_stage(float* sa, int* scols, float* sb,
   unsigned long long* bar = sh->full + buf;
   const int na = s.bm * s.bk;
   const int nb = n * s.bk * s.bn;
-  const float* ga = o.a_blk + static_cast<size_t>(j) * na;
-  const float* gb = o.b_blk + static_cast<size_t>(t0) * s.bk * s.bn;
+  const float* src_a = o.a_blk + static_cast<size_t>(j) * na;
+  const float* src_b = o.b_blk + static_cast<size_t>(t0) * s.bk * s.bn;
   const int c0 = t0 & ~3;
   const int cn = ((t0 & 3) + n + 3) & ~3;
   const bool c16 = (reinterpret_cast<size_t>(o.b_bcol) & 15) == 0 &&
                    c0 + cn <= o.b_bcol_len;
   if (!(s.a16 && s.b16 && c16)) {
     if (!s.a16)
-      for (int i = lane; i < na; i += 32) async_copy4(sa + i, ga + i);
+      for (int g = 0; g < ga; ++g)
+        for (int i = lane; i < na; i += 32)
+          async_copy4(sa + g * na + i, src_a + g * o.s_ab + i);
     if (!s.b16)
-      for (int i = lane; i < nb; i += 32) async_copy4(sb + i, gb + i);
+      for (int g = 0; g < gb; ++g)
+        for (int i = lane; i < nb; i += 32)
+          async_copy4(sb + g * bstride + i, src_b + g * o.s_bb + i);
     if (!c16)
       for (int i = lane; i < n; i += 32)
         async_copy4(scols + i, o.b_bcol + t0 + i);
@@ -743,77 +937,115 @@ __device__ __forceinline__ void issue_stage(float* sa, int* scols, float* sb,
   if (lane == 0) {
     sh->stage_off[buf] = c16 ? t0 & 3 : 0;
     sh->stage_n[buf] = n;
-    const unsigned tx = (s.a16 ? 4u * na : 0u) + (s.b16 ? 4u * nb : 0u) +
-                        (c16 ? 4u * cn : 0u);
+    const unsigned tx = (s.a16 ? 4u * na * ga : 0u) +
+                        (s.b16 ? 4u * nb * gb : 0u) + (c16 ? 4u * cn : 0u);
     fence_proxy_async();
     mbar_arrive_tx(bar, tx);
-    if (s.a16) bulk_copy(sa, ga, 4u * na, bar);
-    if (s.b16) bulk_copy(sb, gb, 4u * nb, bar);
+    if (s.a16)
+      for (int g = 0; g < ga; ++g)
+        bulk_copy(sa + g * na, src_a + g * o.s_ab, 4u * na, bar);
+    if (s.b16)
+      for (int g = 0; g < gb; ++g)
+        bulk_copy(sb + g * bstride, src_b + g * o.s_bb, 4u * nb, bar);
     if (c16) bulk_copy(scols, o.b_bcol + c0, 4u * cn, bar);
   }
 }
 
-// Row `row` with its table in shared memory (smem, smem_bytes of it):
-// keys and map (tsz each), then need tiles, then nbuf stage buffers.  Three
-// roles run a pipeline over the row's stages through each buffer's
-// barriers: warp 1 (the stager) walks the row and copies stage k into
-// buffer k % nbuf once the multipliers have freed it (empty); warp 0 (the
-// prober) probes each stage once its copies land (full); the other warps
-// (the multipliers, s: their lanes) multiply each stage once it is probed
-// (probed), with a barrier of their own after each stage (a tile's sums
-// in stage order), then free the buffer.  A stage of no tiles ends the
-// row.  Every thread of the block calls it.
-// Where the class kernels' rows come from: the class's list (its rows
-// list[start ...], n of them, popped through *pop) and their tables.
+// Where the class kernels' items come from: the class's list (its items
+// list[start ...], n of them, popped through *pop), the units' tables and
+// groups.
 struct RowSource {
   int* pop;
   const int* list;
   int start, n;
-  const int* row_tsz;
+  const int* unit_tsz;
+  const int* unit_group;
 };
 
-// Pop the next row of src and read its RowMeta (lane 0 of a warp).
-__device__ __forceinline__ RowMeta pop_row(const RowSource& src,
-                                           const Ops& o) {
-  RowMeta m{-1, 0, 0, 0, 0, 0};
+// Pop the next item of src and read its RowMeta (lane 0 of a warp).  Item
+// p = x * m + i is row i of member x, or of the group x of the row's
+// members when the fleet shares its index arrays (unit i, else unit p);
+// without kFleet (the single product) row p of member 0.
+template <bool kFleet>
+__device__ __forceinline__ RowMeta pop_item(const RowSource& src,
+                                            const Fleet& f) {
+  RowMeta m{-1, -1, 0, 0, 0, 0, 0, 0, 0};
   const int idx = atomicAdd(src.pop, 1);
   if (idx < src.n) {
-    m.row = src.list[src.start + idx];
-    m.tsz = src.row_tsz[m.row];
-    m.base = o.indptr_c[m.row];
-    m.need = o.indptr_c[m.row + 1] - m.base;
-    m.a0 = o.indptr_a[m.row];
-    m.na = o.indptr_a[m.row + 1] - m.a0;
+    const int p = src.list[src.start + idx];
+    const int x = kFleet ? p / f.m : 0;
+    m.item = p;
+    m.row = p - x * f.m;
+    const int unit = kFleet && f.grouped ? m.row : p;
+    m.tsz = src.unit_tsz[unit];
+    m.e0 = x;
+    m.gn = 1;
+    if (kFleet && f.grouped) {
+      const int g = src.unit_group[unit];
+      m.e0 = x * g;
+      m.gn = min(g, f.n - m.e0);
+    }
+    const long long e = m.e0;
+    const int* ic = f.indptr_c + e * f.s_ic;
+    const int* ia = f.indptr_a + e * f.s_ia;
+    m.base = ic[m.row];
+    m.need = ic[m.row + 1] - m.base;
+    m.a0 = ia[m.row];
+    m.na = ia[m.row + 1] - m.a0;
   }
   return m;
 }
 
-template <bool kVector>
-__device__ void row_staged(const RowMeta& m, int smem_bytes, char* smem,
-                           const Ops& o, const Shape& s, Scratch* sh,
-                           int* errors, const RowSource* src,
-                           RowMeta* next, int& win_cur) {
+// Item m with its table in shared memory (smem, smem_bytes of it): keys
+// and map (tsz each), then the tiles of its gn members (need each, member
+// after member), then nbuf stage buffers; o: its arrays (kFleet: sh->ops,
+// which thread 0 fills here; else the single product's).  Three roles run a pipeline over
+// the row's stages through each buffer's barriers: warp 1 (the stager)
+// walks the row and copies stage k into buffer k % nbuf once the
+// multipliers have freed it (empty); warp 0 (the prober) probes each stage
+// once its copies land (full); the other warps (the multipliers, s: their
+// lanes) multiply each stage for every member once it is probed (probed),
+// with a barrier of their own after each stage (a tile's sums in stage
+// order), then free the buffer.  A stage of no tiles ends the row.  The
+// stager then pops the next item (into *next) and stages its first
+// window.  Every thread of the block calls it.
+template <bool kVector, bool kFleet>
+__device__ __forceinline__ void row_staged(const RowMeta& m, int smem_bytes,
+                                           char* smem, const Ops& o,
+                                           const Fleet& f, const Shape& s,
+                                           Scratch* sh, int* errors,
+                                           const RowSource& src,
+                                           RowMeta* next, int& win_cur) {
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
   const int tsz = m.tsz;
   const int base = m.base;
   const int need = m.need;
+  const int gn = kFleet ? m.gn : 1;
   int* keys = reinterpret_cast<int*>(smem);
   int* map = keys + tsz;
   float* tiles = reinterpret_cast<float*>(map + tsz);
   const int nbuf = stage_buffers(s.bm, s.bk, s.bn);
-  const long long tb = table_bytes(tsz, need, s.tile);
-  const int cap_n = stage_tiles(smem_bytes - tb, nbuf, s.bm, s.bk, s.bn);
+  // A's and B's tiles in a stage buffer: one per member, or one for all
+  const int ga = kFleet && f.s_ab ? gn : 1;
+  const int gb = kFleet && f.s_bb ? gn : 1;
+  // shared-memory offsets fit an int: 32-bit values hold fewer registers
+  const int tb = static_cast<int>(table_bytes(tsz, need * gn, s.tile));
+  const int cap_n =
+      stage_tiles(smem_bytes - tb, nbuf, s.bm, s.bk, s.bn, ga, gb);
   char* stage = smem + tb;
-  const long long hb = half_bytes(cap_n, s.bm, s.bk, s.bn);
-  const long long cols_at = r16(4LL * s.bm * s.bk);
-  const long long tiles_at = cols_at + r16(4LL * cap_n) + 16;
+  const int hb = static_cast<int>(half_bytes(cap_n, s.bm, s.bk, s.bn, ga,
+                                             gb));
+  const int cols_at = static_cast<int>(r16(4LL * s.bm * s.bk * ga));
+  const int tiles_at = cols_at + static_cast<int>(r16(4LL * cap_n)) + 16;
+  const int bstride = gb > 1 ? cap_n * s.bk * s.bn : 0;
   // 8x8x8 tiles four lanes a thread, where the tiles are 16-byte aligned
   const bool tile8 = s.tile8 && (tsz & 1) == 0;
 
   for (int k = tid; k < tsz; k += blockDim.x) keys[k] = kEmpty;
   if (tid == 0) {
+    if (kFleet) sh->ops = ops_of(f, m.e0);
     sh->cursor = 0;
     // every phase of the last row's barriers completed: start them again
     for (int b = 0; b < nbuf; ++b) {
@@ -826,8 +1058,8 @@ __device__ void row_staged(const RowMeta& m, int smem_bytes, char* smem,
   block_sync();  // the table is clear, the barriers ready
   unsigned phase = 0;  // this role's next parity on each buffer's barrier
   if (warp == 1) {
-    // the first window may have been staged by the last row's stager
-    const bool ready = sh->win_row == m.row;
+    // the first window may have been staged by the last item's stager
+    const bool ready = sh->win_item == m.item;
     if (ready) win_cur ^= 1;
     Walker w;
     walker_init<true>(w, m.a0, m.na, sh->win[win_cur], ready, o);
@@ -847,25 +1079,25 @@ __device__ void row_staged(const RowMeta& m, int smem_bytes, char* smem,
       char* p = stage + b * hb;
       issue_stage(reinterpret_cast<float*>(p),
                   reinterpret_cast<int*>(p + cols_at),
-                  reinterpret_cast<float*>(p + tiles_at), b, j, t0, n, o, s,
-                  sh);
+                  reinterpret_cast<float*>(p + tiles_at), bstride, ga, gb, b,
+                  j, t0, n, o, s, sh);
       b = b + 1 == nbuf ? 0 : b + 1;
     }
-    if (src != nullptr) {
-      // the stager is done early: pop the next row, read its meta and
-      // stage its first window while this row is probed and multiplied
-      RowMeta nm;
-      if (lane == 0) {
-        nm = pop_row(*src, o);
-        *next = nm;
-        sh->win_row = nm.row;
-      }
-      nm.row = __shfl_sync(0xffffffffu, nm.row, 0);
-      nm.a0 = __shfl_sync(0xffffffffu, nm.a0, 0);
-      nm.na = __shfl_sync(0xffffffffu, nm.na, 0);
-      if (nm.row >= 0)
-        fill_window(sh->win[win_cur ^ 1], nm.a0, nm.na, 0, lane, 32, o);
+    // the stager is done early: pop the next item, read its meta and
+    // stage its first window while this row is probed and multiplied
+    RowMeta nm;
+    if (lane == 0) {
+      nm = pop_item<kFleet>(src, f);
+      *next = nm;
+      sh->win_item = nm.item;
     }
+    nm.row = __shfl_sync(0xffffffffu, nm.row, 0);
+    nm.a0 = __shfl_sync(0xffffffffu, nm.a0, 0);
+    nm.na = __shfl_sync(0xffffffffu, nm.na, 0);
+    if (kFleet) nm.e0 = __shfl_sync(0xffffffffu, nm.e0, 0);
+    if (nm.row >= 0)
+      fill_window(sh->win[win_cur ^ 1], nm.a0, nm.na, 0, lane, 32,
+                  ops_of(f, kFleet ? nm.e0 : 0));
   } else if (warp == 0) {
     int cursor = 0;
     for (int b = 0;; b = b + 1 == nbuf ? 0 : b + 1) {
@@ -877,7 +1109,7 @@ __device__ void row_staged(const RowMeta& m, int smem_bytes, char* smem,
             n,
             reinterpret_cast<int*>(stage + b * hb + cols_at) +
                 sh->stage_off[b],
-            keys, map, tsz, need, base, cursor, &sh->cursor, o, errors);
+            keys, map, tsz, need, base, cursor, &sh->cursor, o, gn, errors);
       __syncwarp();  // every lane's codes written
       if (lane == 0) mbar_arrive(sh->probed + b);
       if (n == 0) break;
@@ -891,14 +1123,21 @@ __device__ void row_staged(const RowMeta& m, int smem_bytes, char* smem,
       const char* cur = stage + b * hb;
       const int* codes =
           reinterpret_cast<const int*>(cur + cols_at) + sh->stage_off[b];
-      if (tile8)
-        multiply_stage8(n, codes, reinterpret_cast<const float*>(cur),
-                        reinterpret_cast<const float*>(cur + tiles_at),
-                        tiles, s);
-      else
-        multiply_stage<false>(
-            n, codes, reinterpret_cast<const float*>(cur),
-            reinterpret_cast<const float*>(cur + tiles_at), tiles, s);
+      const float* a = reinterpret_cast<const float*>(cur);
+      const float* bt = reinterpret_cast<const float*>(cur + tiles_at);
+      if (kFleet && gn > 1) {
+        const int astride = ga > 1 ? s.bm * s.bk : 0;
+        if (tile8)
+          multiply_members8(n, gn, codes, a, astride, bt, bstride, tiles,
+                            need * s.tile, s);
+        else
+          multiply_members(n, gn, codes, a, astride, bt, bstride, tiles,
+                           need * s.tile, s);
+      } else if (tile8) {
+        multiply_stage8(n, codes, a, bt, tiles, s);
+      } else {
+        multiply_stage<false>(n, codes, a, bt, tiles, s);
+      }
       multipliers_sync(blockDim.x - 64);
       if (tid == 64) mbar_arrive(sh->empty + b);
     }
@@ -906,30 +1145,40 @@ __device__ void row_staged(const RowMeta& m, int smem_bytes, char* smem,
   block_sync();  // every tile summed
   const int opened = sh->cursor;
 
-  // flush the tiles, in insertion order, to the row's range
+  // flush each member's tiles, in insertion order, to the row's range
   int cnt = min(opened, need);
   if (base + cnt > o.bcap_c) cnt = max(0, o.bcap_c - base);
-  float* dst = o.out_blk + static_cast<size_t>(base) * s.tile;
   const int nf = cnt * s.tile;
-  if ((s.tile & 3) == 0 && (tsz & 1) == 0) {
-    const float4* src4 = reinterpret_cast<const float4*>(tiles);
-    float4* dst4 = reinterpret_cast<float4*>(dst);
-    for (int i = tid; i < nf / 4; i += blockDim.x) dst4[i] = src4[i];
-  } else {
-    for (int i = tid; i < nf; i += blockDim.x) dst[i] = tiles[i];
+  for (int g = 0; g < gn; ++g) {
+    float* dst = o.out_blk +
+                 (static_cast<size_t>(g) * o.bcap_c + base) * s.tile;
+    const float* from = tiles + static_cast<size_t>(g) * need * s.tile;
+    if ((s.tile & 3) == 0 && (tsz & 1) == 0) {
+      const float4* src4 = reinterpret_cast<const float4*>(from);
+      float4* dst4 = reinterpret_cast<float4*>(dst);
+      for (int i = tid; i < nf / 4; i += blockDim.x) dst4[i] = src4[i];
+    } else {
+      for (int i = tid; i < nf; i += blockDim.x) dst[i] = from[i];
+    }
   }
-  if (tid == 0 && opened != need) atomicAdd(errors, 1);
+  if (tid == 0 && opened != need) atomicAdd(errors, gn);
   block_sync();  // the next row may reuse the table and sh->cursor
 }
 
-// Row `row` with keys and map in device memory (ws, 2 * tsz ints) and its
-// tiles accumulated in place in out_blk; codes holds kDirectPairs ints of
-// shared memory.
-template <bool kVector>
-__device__ void row_direct(int row, int tsz, int* ws, int* codes,
-                           const Ops& o, const Shape& s, Scratch* sh,
-                           int* errors) {
+// Item m (one member) with keys and map in device memory (ws, 2 * tsz
+// ints) and its tiles accumulated in place in out_blk; codes holds
+// kDirectPairs ints of shared memory; o as for row_staged.
+template <bool kVector, bool kFleet>
+__device__ void row_direct(const RowMeta& m, int* ws, int* codes,
+                           const Ops& o, const Fleet& f, const Shape& s,
+                           Scratch* sh, int* errors) {
   const int tid = threadIdx.x;
+  const int row = m.row;
+  const int tsz = m.tsz;
+  if (kFleet) {
+    if (tid == 0) sh->ops = ops_of(f, m.e0);
+    block_sync();
+  }
   const int base = o.indptr_c[row];
   const int need = o.indptr_c[row + 1] - base;
   int* keys = ws;
@@ -961,71 +1210,97 @@ __device__ void row_direct(int row, int tsz, int* ws, int* codes,
   block_sync();
 }
 
-// Row classes (see the header), one thread a row.  Row i of the bin b that
-// holds it gets tsz_i (row_tsz[i]) and the key (class, A-block bucket) in
-// row_key[i] with its rank among that key's rows in row_rank[i]; counts
-// gains one per row.  Rows without output get key -1; errors gains one
-// per row whose table cannot hold its output and per row that indptr_c
-// leaves empty but that has pairs.
+// The work items (see the header), one thread a unit u: row u of every
+// member when the fleet shares its index arrays, else row i of member e,
+// u = e * m + i.  Unit u gets its table tsz_i (unit_tsz[u]), its group
+// (unit_group[u]), the key (class, A-block bucket) of its items in
+// unit_key[u] (-1: none) and the rank of its first item among that key's
+// items in unit_rank[u]; counts gains one per item.  errors gains one per
+// member of a unit whose table cannot hold its output or that indptr_c
+// leaves empty but that has pairs, and one per member whose bins run past
+// its rows (none of its units has items).
 __global__ void classify_kernel(
-    int m, int n_bins, int table_size, int vector, int bm, int bk, int bn,
-    const int* __restrict__ offsets, const int* __restrict__ bin_tsize,
-    const int* __restrict__ indptr_a, const int* __restrict__ a_bcol,
-    const int* __restrict__ indptr_b, const int* __restrict__ indptr_c,
-    int* __restrict__ counts, int* __restrict__ row_tsz,
-    int* __restrict__ row_key, int* __restrict__ row_rank,
-    int* __restrict__ errors) {
+    Fleet f, int vector, int* __restrict__ counts, int* __restrict__ unit_tsz,
+    int* __restrict__ unit_key, int* __restrict__ unit_rank,
+    int* __restrict__ unit_group, int* __restrict__ errors) {
   __shared__ int s_n[kKeys];
   __shared__ int s_base[kKeys];
   for (int k = threadIdx.x; k < kKeys; k += blockDim.x) s_n[k] = 0;
   block_sync();
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const long long units =
+      f.grouped ? f.m : static_cast<long long>(f.n) * f.m;
+  const long long u =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   int key = -1, rank = 0;
-  if (i < m) {
-    // the bin of row i: the last b with offsets[b] <= i
-    int lo = 0, hi = n_bins - 1;
-    while (lo < hi) {
-      const int mid = (lo + hi + 1) >> 1;
-      if (offsets[mid] <= i) lo = mid; else hi = mid - 1;
-    }
-    const bool in_bin = offsets[lo] <= i && i < offsets[lo + 1];
-    const int cap = in_bin ? min(bin_tsize[lo], table_size) : 0;
-    const int need = indptr_c[i + 1] - indptr_c[i];
-    const int a0 = indptr_a[i], na = indptr_a[i + 1] - a0;
-    bool bad = need < 0;
-    int tsz = 0;
-    if (need > 0) {
-      bad = !in_bin || bad_cap(cap, vector) || need > cap || na <= 0;
-      if (!bad) {
-        tsz = row_table(cap, need);
-        const int c = class_of_bytes(row_bytes(tsz, need, bm, bk, bn));
-        key = c * kLenBuckets + len_bucket(na);
-        rank = atomicAdd(&s_n[key], 1);
+  if (u < units) {
+    const long long e = f.grouped ? 0 : u / f.m;
+    const int i = static_cast<int>(u - e * f.m);
+    // the members this unit's errors stand for
+    const int members = f.grouped ? f.n : 1;
+    const int* offsets = f.offsets + e * f.s_off;
+    const int* bin_tsize = f.bin_tsize + e * f.s_bt;
+    const int* indptr_a = f.indptr_a + e * f.s_ia;
+    const int* a_bcol = f.a_bcol + e * f.s_ac;
+    const int* indptr_b = f.indptr_b + e * f.s_ib;
+    const int* indptr_c = f.indptr_c + e * f.s_ic;
+    int tsz = 0, group = 1;
+    bool bad = false;
+    if (offsets[0] < 0 || offsets[f.n_bins] > f.m) {
+      bad = i == 0;  // the member's bins run past its rows: counted once
+    } else {
+      // the bin of row i: the last b with offsets[b] <= i
+      int lo = 0, hi = f.n_bins - 1;
+      while (lo < hi) {
+        const int mid = (lo + hi + 1) >> 1;
+        if (offsets[mid] <= i) lo = mid; else hi = mid - 1;
       }
-    } else if (need == 0) {
-      for (int j = a0; j < a0 + na && !bad; ++j) {
-        const int k = a_bcol[j];
-        bad = indptr_b[k + 1] > indptr_b[k];
+      const bool in_bin = offsets[lo] <= i && i < offsets[lo + 1];
+      const int cap = in_bin ? min(bin_tsize[lo], f.table_size) : 0;
+      const int need = indptr_c[i + 1] - indptr_c[i];
+      const int a0 = indptr_a[i], na = indptr_a[i + 1] - a0;
+      bad = need < 0;
+      if (need > 0) {
+        bad = !in_bin || bad_cap(cap, vector) || need > cap || na <= 0;
+        if (!bad) {
+          tsz = row_table(cap, need);
+          if (f.grouped)
+            group = group_of(f.n, tsz, need, f.bm, f.bk, f.bn, f.s_ab != 0,
+                             f.s_bb != 0);
+          const int g = min(group, f.n);
+          const int c = class_of_bytes(row_bytes(
+              tsz, need, f.bm, f.bk, f.bn, g, f.s_ab ? g : 1,
+              f.s_bb ? g : 1));
+          key = c * kLenBuckets + len_bucket(na);
+          rank = atomicAdd(&s_n[key], f.grouped ? (f.n + g - 1) / g : 1);
+        }
+      } else if (need == 0) {
+        for (int j = a0; j < a0 + na && !bad; ++j) {
+          const int k = a_bcol[j];
+          bad = indptr_b[k + 1] > indptr_b[k];
+        }
       }
     }
-    row_tsz[i] = tsz;
-    if (bad) atomicAdd(errors, 1);
+    unit_tsz[u] = tsz;
+    unit_group[u] = group;
+    if (bad) atomicAdd(errors, members);
   }
   block_sync();
   for (int k = threadIdx.x; k < kKeys; k += blockDim.x)
     if (s_n[k]) s_base[k] = atomicAdd(counts + k, s_n[k]);
   block_sync();
-  if (i < m) {
-    row_key[i] = key;
-    if (key >= 0) row_rank[i] = s_base[key] + rank;
+  if (u < units) {
+    unit_key[u] = key;
+    if (key >= 0) unit_rank[u] = s_base[key] + rank;
   }
 }
 
-// Lay every class's rows out in list, classes in order, within a class the
-// longest A-block bucket first (one thread a row).
-__global__ void place_kernel(int m, const int* __restrict__ counts,
-                             const int* __restrict__ row_key,
-                             const int* __restrict__ row_rank,
+// Lay every class's items out in list, classes in order, within a class
+// the longest A-block bucket first (one thread a unit; a shared row's
+// groups side by side).
+__global__ void place_kernel(Fleet f, const int* __restrict__ counts,
+                             const int* __restrict__ unit_key,
+                             const int* __restrict__ unit_rank,
+                             const int* __restrict__ unit_group,
                              int* __restrict__ list) {
   __shared__ int s_off[kKeys];
   if (threadIdx.x == 0) {
@@ -1037,25 +1312,38 @@ __global__ void place_kernel(int m, const int* __restrict__ counts,
       }
   }
   block_sync();
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < m) {
-    const int key = row_key[i];
-    if (key >= 0) list[s_off[key] + row_rank[i]] = i;
+  const long long units =
+      f.grouped ? f.m : static_cast<long long>(f.n) * f.m;
+  const long long u =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (u >= units) return;
+  const int key = unit_key[u];
+  if (key < 0) return;
+  int* at = list + s_off[key] + unit_rank[u];
+  if (!f.grouped) {
+    *at = static_cast<int>(u);
+    return;
   }
+  const int g = unit_group[u];
+  for (int x = 0; x * g < f.n; ++x) at[x] = x * f.m + static_cast<int>(u);
 }
 
-// The rows of class kClass: a persistent grid whose blocks pop rows from
+// A fleet too large for the item lists: one error, no item.
+__global__ void too_many_items_kernel(int* errors) { atomicAdd(errors, 1); }
+
+// The items of class kClass: a persistent grid whose blocks pop items from
 // the class's part of list (counted in counts) through pops[kClass] until
-// it runs dry.  Staged classes keep each row's table in shared memory;
+// it runs dry.  Staged classes keep each item's table in shared memory;
 // the direct class keeps keys and map in the block's ws_tsz * 2 ints of
-// ws_keys.
-template <bool kVector, int kClass>
+// ws_keys (its items are of one member each).
+template <bool kVector, int kClass, bool kFleet>
 __global__ void __launch_bounds__(class_threads(kClass),
                                   class_blocks_per_sm(kClass))
-    bcsr_class_kernel(
-    int ws_tsz, const int* __restrict__ counts, int* pops,
-    const int* __restrict__ list, const int* __restrict__ row_tsz, Ops o,
-    int bm, int bk, int bn, int a16, int b16, int* errors, int* ws_keys) {
+    bcsr_class_kernel(Fleet f, int ws_tsz, const int* __restrict__ counts,
+                      int* pops, const int* __restrict__ list,
+                      const int* __restrict__ unit_tsz,
+                      const int* __restrict__ unit_group, int* errors,
+                      int* ws_keys) {
   extern __shared__ __align__(16) char smem[];
   __shared__ Scratch sh;
   // the next class may start on whatever this one leaves free
@@ -1068,15 +1356,19 @@ __global__ void __launch_bounds__(class_threads(kClass),
   }
   // staged rows: warps 2 on multiply; direct rows: every thread does
   const Shape s = kClass == kDirectClass
-                      ? make_shape(bm, bk, bn, a16, b16, threadIdx.x,
-                                   blockDim.x)
-                      : make_shape(bm, bk, bn, a16, b16,
+                      ? make_shape(f.bm, f.bk, f.bn, f.a16, f.b16,
+                                   threadIdx.x, blockDim.x)
+                      : make_shape(f.bm, f.bk, f.bn, f.a16, f.b16,
                                    static_cast<int>(threadIdx.x) - 64,
                                    blockDim.x - 64);
-  const RowSource src{pops + kClass, list, start, n, row_tsz};
+  const RowSource src{pops + kClass, list, start, n, unit_tsz, unit_group};
+  // the item's arrays: a fleet's in shared memory, the single product's
+  // the launch's
+  const Ops single = ops_of(f, 0);
+  const Ops& o = kFleet ? sh.ops : single;
   if (threadIdx.x == 0) {
-    sh.meta[0] = pop_row(src, o);
-    sh.win_row = -1;
+    sh.meta[0] = pop_item<kFleet>(src, f);
+    sh.win_item = -1;
   }
   block_sync();
   int win_cur = 0;  // the stager's window (warp 1)
@@ -1085,124 +1377,43 @@ __global__ void __launch_bounds__(class_threads(kClass),
     if (m.row < 0) break;
     if (kClass == kDirectClass) {
       if (threadIdx.x == 0)  // read after this row's barriers
-        sh.meta[p ^ 1] = pop_row(src, o);
-      row_direct<kVector>(
-          m.row, m.tsz,
-          ws_keys + static_cast<size_t>(blockIdx.x) * 2 * ws_tsz,
-          reinterpret_cast<int*>(smem), o, s, &sh, errors);
+        sh.meta[p ^ 1] = pop_item<kFleet>(src, f);
+      row_direct<kVector, kFleet>(
+          m, ws_keys + static_cast<size_t>(blockIdx.x) * 2 * ws_tsz,
+          reinterpret_cast<int*>(smem), o, f, s, &sh, errors);
     } else {
-      // the stager pops the next row, after this row's barriers
-      row_staged<kVector>(m, class_smem(kClass), smem, o, s, &sh, errors,
-                          &src, &sh.meta[p ^ 1], win_cur);
+      // the stager pops the next item, after this row's barriers
+      row_staged<kVector, kFleet>(m, class_smem(kClass), smem, o, f, s, &sh,
+                                  errors, src, &sh.meta[p ^ 1], win_cur);
     }
   }
   // this class ends after the one before it (a no-op after a plain launch)
   if (blockIdx.x == 0) asm volatile("griddepcontrol.wait;" ::: "memory");
 }
 
-// The batched grid, for one bin index `bin`: blockIdx.y is the fleet
-// member e, and the x blocks stride over e's block rows
-// [offsets[e][bin], offsets[e][bin + 1]).  Member e's arrays start at
-// base + e * stride; stride 0 shares one array among all members.  Each
-// row's table is sized from the member's cap min(bin_tsize[e][bin],
-// table_size) and its own output; it is staged in shared memory
-// (smem_bytes) when its table and one tile of stage fit, else direct in
-// the block's slice of the workspace (2 * ws_tsz ints per member and x
-// block; a row whose table passes ws_tsz there is an error).  A schedule
-// the launch cannot hold (rows past n_rows, a cap that is not a power of
-// two) adds one to errors and runs nothing.
-template <bool kVector>
-__global__ void __launch_bounds__(kBatchedThreads) bcsr_rows_batched_kernel(
-    int bin, int n_rows, int table_size, int smem_bytes, int ws_tsz,
-    int bcap_c, int bm, int bk, int bn, int a16, int b16, int b_bcol_len,
-    const int* __restrict__ offsets, long long s_off,
-    const int* __restrict__ bin_tsize, long long s_bt, const int* indptr_a,
-    long long s_ia, const int* a_bcol, long long s_ac, const float* a_blk,
-    long long s_ab, const int* indptr_b, long long s_ib, const int* b_bcol,
-    long long s_bc, const float* b_blk, long long s_bb, const int* indptr_c,
-    long long s_ic, int* out_bcol, float* out_blk, int* errors,
-    int* ws_keys) {
-  extern __shared__ __align__(16) char smem[];
-  __shared__ Scratch sh;
-  const long long e = blockIdx.y;
-  const int r0 = offsets[e * s_off + bin];
-  const int r1 = offsets[e * s_off + bin + 1];
-  if (r0 >= r1) return;
-  const int cap = min(bin_tsize[e * s_bt + bin], table_size);
-  if (r0 < 0 || r1 > n_rows || bad_cap(cap, kVector)) {
-    if (threadIdx.x == 0 && blockIdx.x == 0) atomicAdd(errors, 1);
-    return;
-  }
-  const long long tile = static_cast<long long>(bm) * bn;
-  Ops o{indptr_a + e * s_ia, a_bcol + e * s_ac, a_blk + e * s_ab,
-        indptr_b + e * s_ib, b_bcol + e * s_bc, b_blk + e * s_bb,
-        indptr_c + e * s_ic, out_bcol + e * bcap_c,
-        out_blk + e * bcap_c * tile, bcap_c, b_bcol_len};
-  const Shape s = make_shape(bm, bk, bn, a16, b16,
-                             static_cast<int>(threadIdx.x) - 64,
-                             blockDim.x - 64);
-  const Shape sd = make_shape(bm, bk, bn, a16, b16, threadIdx.x, blockDim.x);
-  if (threadIdx.x == 0) sh.win_row = -1;
-  int win_cur = 0;  // the stager's window (warp 1)
-  int* ws = ws_keys == nullptr
-                ? nullptr
-                : ws_keys + (static_cast<size_t>(e) * gridDim.x + blockIdx.x) *
-                                2 * ws_tsz;
-  for (int row = r0 + blockIdx.x; row < r1; row += gridDim.x) {
-    const int need = o.indptr_c[row + 1] - o.indptr_c[row];
-    if (need <= 0) {
-      // a row without output must have no pairs
-      if (threadIdx.x == 0) sh.flag = need < 0;
-      block_sync();
-      const int a0 = o.indptr_a[row], a1 = o.indptr_a[row + 1];
-      for (int j = a0 + threadIdx.x; j < a1; j += blockDim.x) {
-        const int k = o.a_bcol[j];
-        if (o.indptr_b[k + 1] > o.indptr_b[k]) sh.flag = 1;
-      }
-      block_sync();
-      if (threadIdx.x == 0 && sh.flag) atomicAdd(errors, 1);
-      block_sync();
-      continue;
-    }
-    if (need > cap) {
-      if (threadIdx.x == 0) atomicAdd(errors, 1);
-      continue;
-    }
-    const int tsz = row_table(cap, need);
-    if (table_bytes(tsz, need, static_cast<int>(tile)) +
-            stage_buffers(bm, bk, bn) * half_bytes(1, bm, bk, bn) <=
-        smem_bytes) {
-      const int a0 = o.indptr_a[row];
-      const RowMeta m{row, tsz, o.indptr_c[row], need, a0,
-                      o.indptr_a[row + 1] - a0};
-      row_staged<kVector>(m, smem_bytes, smem, o, s, &sh, errors, nullptr,
-                          nullptr, win_cur);
-    } else if (ws != nullptr && tsz <= ws_tsz &&
-               smem_bytes >= 4 * kDirectPairs) {
-      row_direct<kVector>(row, tsz, ws, reinterpret_cast<int*>(smem), o, sd,
-                          &sh, errors);
-    } else if (threadIdx.x == 0) {
-      atomicAdd(errors, 1);
-    }
-  }
-}
+using ClassKernel = void (*)(Fleet, int, const int*, int*, const int*,
+                             const int*, const int*, int*, int*);
 
-using ClassKernel = void (*)(int, const int*, int*, const int*, const int*,
-                             Ops, int, int, int, int, int, int*, int*);
-
-template <bool kVector>
+template <bool kVector, bool kFleet>
 ClassKernel class_kernel_of(int c) {
   switch (c) {
-    case 0: return bcsr_class_kernel<kVector, 0>;
-    case 1: return bcsr_class_kernel<kVector, 1>;
-    case 2: return bcsr_class_kernel<kVector, 2>;
-    case 3: return bcsr_class_kernel<kVector, 3>;
-    default: return bcsr_class_kernel<kVector, 4>;
+    case 0: return bcsr_class_kernel<kVector, 0, kFleet>;
+    case 1: return bcsr_class_kernel<kVector, 1, kFleet>;
+    case 2: return bcsr_class_kernel<kVector, 2, kFleet>;
+    case 3: return bcsr_class_kernel<kVector, 3, kFleet>;
+    default: return bcsr_class_kernel<kVector, 4, kFleet>;
   }
 }
 
-ClassKernel class_kernel(int vector, int c) {
-  return vector ? class_kernel_of<true>(c) : class_kernel_of<false>(c);
+// Class c's kernel, built for the fleet of one member (the single
+// product: member 0's arrays are the launch's, one member an item) and
+// for fleets (each item's arrays in shared memory, groups of members).
+ClassKernel class_kernel(int vector, int c, bool fleet = false) {
+  if (fleet)
+    return vector ? class_kernel_of<true, true>(c)
+                  : class_kernel_of<false, true>(c);
+  return vector ? class_kernel_of<true, false>(c)
+                : class_kernel_of<false, false>(c);
 }
 
 int set_smem(const void* kernel, int smem_bytes) {
@@ -1211,30 +1422,43 @@ int set_smem(const void* kernel, int smem_bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes));
 }
 
+// The units the classifying kernel takes and the (member, row) pairs the
+// item lists hold at most.
+long long fleet_units(const Fleet& f) {
+  return f.grouped ? f.m : static_cast<long long>(f.n) * f.m;
+}
+
 }  // namespace
 
-// The row classes of one product: classify_kernel, then place_kernel.
-// counts holds kClasses * kLenBuckets zeroed counts (then the class
-// kernels' kClasses pop counters, untouched here); row_tsz, row_key,
-// row_rank and list hold m ints each.
-extern "C" int spgemm_bcsr_classify(
-    int m, int n_bins, int table_size, int vector, int bm, int bk, int bn,
-    const int* offsets, const int* bin_tsize, const int* indptr_a,
-    const int* a_bcol, const int* indptr_b, const int* indptr_c, int* counts,
-    int* row_tsz, int* row_key, int* row_rank, int* list, int* errors,
-    void* stream) {
-  if (m <= 0) return 0;
-  if (n_bins < 1) return static_cast<int>(cudaErrorInvalidValue);
+// The work items of a fleet: classify_kernel, then place_kernel.  counts
+// holds kClasses * kLenBuckets zeroed counts (then the class kernels'
+// kClasses pop counters, untouched here); work holds, for the U units
+// (m when f->grouped, else n * m), unit_tsz, unit_key, unit_rank and
+// unit_group, U ints each, then the item list, n * m ints.  A fleet of
+// 2^31 or more (member, row) pairs adds one to errors and lists nothing.
+extern "C" int spgemm_bcsr_classify(int vector, const Fleet* f, int* counts,
+                                    int* work, int* errors, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (static_cast<long long>(f->n) * f->m > 0x7fffffffLL) {
+    too_many_items_kernel<<<1, 1, 0, s>>>(errors);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const long long units = fleet_units(*f);
+  if (units <= 0) return 0;
+  if (f->n_bins < 1) return static_cast<int>(cudaErrorInvalidValue);
   constexpr int kThreads = 256;
-  const int grid = (m + kThreads - 1) / kThreads;
-  classify_kernel<<<grid, kThreads, 0, s>>>(
-      m, n_bins, table_size, vector, bm, bk, bn, offsets, bin_tsize,
-      indptr_a, a_bcol, indptr_b, indptr_c, counts, row_tsz, row_key,
-      row_rank, errors);
+  const int grid = static_cast<int>((units + kThreads - 1) / kThreads);
+  int* unit_tsz = work;
+  int* unit_key = work + units;
+  int* unit_rank = work + 2 * units;
+  int* unit_group = work + 3 * units;
+  classify_kernel<<<grid, kThreads, 0, s>>>(*f, vector, counts, unit_tsz,
+                                           unit_key, unit_rank, unit_group,
+                                           errors);
   const int err = static_cast<int>(cudaGetLastError());
   if (err) return err;
-  place_kernel<<<grid, kThreads, 0, s>>>(m, counts, row_key, row_rank, list);
+  place_kernel<<<grid, kThreads, 0, s>>>(*f, counts, unit_key, unit_rank,
+                                        unit_group, work + 4 * units);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1267,40 +1491,6 @@ extern "C" int spgemm_bcsr_class_shape(int vector, int c, int* out) {
 
 namespace {
 
-int launch_one(int vector, int c, int pdl, int bcap_c, int b_bcol_len,
-               int bm, int bk, int bn, int a16, int b16, int grid,
-               int ws_tsz,
-               const int* counts, int* pops, const int* list,
-               const int* row_tsz, const int* indptr_a, const int* a_bcol,
-               const float* a_blk, const int* indptr_b, const int* b_bcol,
-               const float* b_blk, const int* indptr_c, int* out_bcol,
-               float* out_blk, int* errors, int* ws_keys,
-               cudaStream_t stream) {
-  if (c < 0 || c >= kClasses || grid < 1 ||
-      (c == kDirectClass && ws_keys == nullptr))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const ClassKernel kernel = class_kernel(vector, c);
-  const int smem = class_smem(c);
-  const int err = set_smem(reinterpret_cast<const void*>(kernel), smem);
-  if (err) return err;
-  cudaLaunchConfig_t cfg = {};
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr[0].val.programmaticStreamSerializationAllowed = 1;
-  cfg.gridDim = dim3(grid);
-  cfg.blockDim = dim3(class_threads(c));
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cfg.attrs = attr;
-  cfg.numAttrs = pdl ? 1 : 0;
-  const Ops o{indptr_a, a_bcol, a_blk, indptr_b,  b_bcol,
-              b_blk,    indptr_c, out_bcol, out_blk, bcap_c,
-              b_bcol_len};
-  cudaLaunchKernelEx(&cfg, kernel, ws_tsz, counts, pops, list, row_tsz, o,
-                     bm, bk, bn, a16, b16, errors, ws_keys);
-  return static_cast<int>(cudaGetLastError());
-}
-
 // Resident blocks of each staged class on each device and probe mode,
 // found once.
 constexpr int kDevices = 16;
@@ -1324,99 +1514,91 @@ int resident_blocks(int vector, int c, int* out) {
   return 0;
 }
 
-}  // namespace
-
-// One class's launch: grid blocks popping the rows that counts and list
-// give class c (pops: the kClasses pop counters, zeroed by the caller).
-// pdl: launch as a programmatic dependent of the kernel before it in the
-// stream (another class launch).  ws_keys holds grid * 2 * ws_tsz ints for
-// the direct class, null otherwise.  a16/b16: A's/B's tiles may be copied
-// 16 bytes at a time (16-byte aligned bases).
-extern "C" int spgemm_bcsr_class_launch(
-    int vector, int c, int pdl, int bcap_c, int b_bcol_len, int bm, int bk,
-    int bn, int a16, int b16, int grid, int ws_tsz, const int* counts,
-    int* pops,
-    const int* list, const int* row_tsz, const int* indptr_a,
-    const int* a_bcol, const float* a_blk, const int* indptr_b,
-    const int* b_bcol, const float* b_blk, const int* indptr_c,
-    int* out_bcol, float* out_blk, int* errors, int* ws_keys, void* stream) {
-  return launch_one(vector, c, pdl, bcap_c, b_bcol_len, bm, bk, bn, a16,
-                    b16, grid, ws_tsz, counts, pops, list, row_tsz, indptr_a,
-                    a_bcol,
-                    a_blk, indptr_b, b_bcol, b_blk, indptr_c, out_bcol,
-                    out_blk, errors, ws_keys,
-                    static_cast<cudaStream_t>(stream));
+int launch_one(int vector, int c, int pdl, int grid, int ws_tsz,
+               const Fleet& f, int* counts, int* work, int* errors,
+               int* ws_keys, cudaStream_t stream) {
+  if (c < 0 || c >= kClasses || grid < 1 ||
+      (c == kDirectClass && ws_keys == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long units = fleet_units(f);
+  if (units <= 0 || static_cast<long long>(f.n) * f.m > 0x7fffffffLL)
+    return 0;
+  const ClassKernel kernel = class_kernel(vector, c, f.n > 1);
+  const int smem = class_smem(c);
+  const int err = set_smem(reinterpret_cast<const void*>(kernel), smem);
+  if (err) return err;
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(class_threads(c));
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = pdl ? 1 : 0;
+  // the kernel's list, unit_tsz and unit_group (spgemm_bcsr_classify)
+  cudaLaunchKernelEx(&cfg, kernel, f, ws_tsz, counts, counts + kKeys,
+                     work + 4 * units, work, work + 3 * units, errors,
+                     ws_keys);
+  return static_cast<int>(cudaGetLastError());
 }
 
-// The whole single-product numeric phase: the classifying kernels, then
-// classes cls_hi down to cls_lo, each a persistent grid of its resident
-// blocks (the direct class: ws_blocks blocks over ws_keys, ws_blocks * 2 *
-// table_size ints), the classes after the first as programmatic dependent
-// launches.  counts: kClasses * (kLenBuckets + 1) zeroed ints;
-// work: 4 * m ints.
-extern "C" int spgemm_bcsr_numeric(
-    int vector, int m, int n_bins, int table_size, int bcap_c,
-    int b_bcol_len, int bm, int bk, int bn, int a16, int b16, int cls_hi,
-    int cls_lo,
-    int ws_blocks, const int* offsets, const int* bin_tsize,
-    const int* indptr_a, const int* a_bcol, const float* a_blk,
-    const int* indptr_b, const int* b_bcol, const float* b_blk,
-    const int* indptr_c, int* counts, int* work, int* out_bcol,
-    float* out_blk, int* errors, int* ws_keys, void* stream) {
-  if (m <= 0) return 0;
+// A class launch's grid: the direct class's ws_blocks, else the class's
+// resident blocks, but no more than the fleet's (member, row) pairs.
+int class_grid(int vector, int c, const Fleet& f, int ws_blocks, int* grid) {
+  if (c == kDirectClass) {
+    *grid = ws_blocks;
+    return 0;
+  }
+  const int err = resident_blocks(vector, c, grid);
+  const long long pairs = static_cast<long long>(f.n) * f.m;
+  if (pairs >= 1 && pairs < *grid) *grid = static_cast<int>(pairs);
+  return err;
+}
+
+}  // namespace
+
+// One class's launch: blocks popping the items that counts and work (as
+// spgemm_bcsr_classify left them) give class c; the class's pop counter
+// (counts[kKeys + c]) must be zero.  pdl: launch as a programmatic
+// dependent of the kernel before it in the stream (another class launch).
+// ws_keys holds ws_blocks * 2 * ws_tsz ints for the direct class (its
+// grid: ws_blocks), null otherwise.
+extern "C" int spgemm_bcsr_class_launch(int vector, int c, int pdl,
+                                        int ws_blocks, int ws_tsz,
+                                        const Fleet* f, int* counts,
+                                        int* work, int* errors, int* ws_keys,
+                                        void* stream) {
+  int grid = 0;
+  const int err = class_grid(vector, c, *f, ws_blocks, &grid);
+  if (err) return err;
+  return launch_one(vector, c, pdl, grid, ws_tsz, *f, counts, work, errors,
+                    ws_keys, static_cast<cudaStream_t>(stream));
+}
+
+// A whole numeric phase, every member: the classifying kernels, then
+// classes cls_hi down to cls_lo, each a persistent grid (the direct class:
+// ws_blocks blocks over ws_keys, ws_blocks * 2 * table_size ints), the
+// classes after the first as programmatic dependent launches.  counts:
+// kClasses * (kLenBuckets + 1) zeroed ints; work as for
+// spgemm_bcsr_classify.
+extern "C" int spgemm_bcsr_numeric(int vector, const Fleet* f, int cls_hi,
+                                   int cls_lo, int ws_blocks, int* counts,
+                                   int* work, int* errors, int* ws_keys,
+                                   void* stream) {
   if (cls_hi >= kClasses || cls_lo < 0 || cls_lo > cls_hi)
     return static_cast<int>(cudaErrorInvalidValue);
-  int err = spgemm_bcsr_classify(m, n_bins, table_size, vector, bm, bk, bn,
-                                 offsets, bin_tsize, indptr_a, a_bcol,
-                                 indptr_b, indptr_c, counts, work,
-                                 work + m, work + 2 * m, work + 3 * m,
-                                 errors, stream);
+  int err = spgemm_bcsr_classify(vector, f, counts, work, errors, stream);
   if (err) return err;
   for (int c = cls_hi; c >= cls_lo; --c) {
-    int grid = ws_blocks;
-    if (c != kDirectClass) {
-      err = resident_blocks(vector, c, &grid);
-      if (err) return err;
-    }
-    const int ws_tsz = c == kDirectClass ? table_size : 0;
-    err = launch_one(vector, c, c != cls_hi, bcap_c, b_bcol_len, bm,
-                     bk, bn, a16, b16, grid, ws_tsz, counts, counts + kKeys,
-                     work + 3 * m, work, indptr_a, a_bcol,
-                     a_blk, indptr_b, b_bcol, b_blk, indptr_c, out_bcol,
-                     out_blk, errors, ws_keys,
-                     static_cast<cudaStream_t>(stream));
+    int grid = 0;
+    err = class_grid(vector, c, *f, ws_blocks, &grid);
+    if (err) return err;
+    err = launch_one(vector, c, c != cls_hi, grid,
+                     c == kDirectClass ? f->table_size : 0, *f, counts, work,
+                     errors, ws_keys, static_cast<cudaStream_t>(stream));
     if (err) return err;
   }
   return 0;
-}
-
-// The batched numeric phase for bin index `bin` of every fleet member: a
-// grid of (grid_x, n_members) blocks of kBatchedThreads threads.
-// Each array takes a member stride in elements (0: shared by all
-// members): offsets rows of n_bins + 1, bin_tsize rows of n_bins, the
-// operands as for spgemm_bcsr_class_launch.  out_bcol/out_blk are
-// (n_members, bcap_c[, bm, bn]), zeroed by the caller.  smem_bytes: each
-// block's dynamic shared memory (staged rows); ws_keys holds grid_x *
-// n_members * 2 * ws_tsz ints (null when ws_tsz is 0) for direct rows.
-extern "C" int spgemm_bcsr_batched_launch(
-    int vector, int bin, int n_rows, int table_size, int smem_bytes,
-    int ws_tsz, int bcap_c, int bm, int bk, int bn, int a16, int b16,
-    int b_bcol_len, int grid_x, int n_members, const int* offsets,
-    long long s_off, const int* bin_tsize, long long s_bt,
-    const int* indptr_a, long long s_ia, const int* a_bcol, long long s_ac,
-    const float* a_blk, long long s_ab, const int* indptr_b, long long s_ib,
-    const int* b_bcol, long long s_bc, const float* b_blk, long long s_bb,
-    const int* indptr_c, long long s_ic, int* out_bcol, float* out_blk,
-    int* errors, int* ws_keys, void* stream) {
-  auto kernel = vector ? bcsr_rows_batched_kernel<true>
-                       : bcsr_rows_batched_kernel<false>;
-  const int err = set_smem(reinterpret_cast<const void*>(kernel), smem_bytes);
-  if (err) return err;
-  kernel<<<dim3(grid_x, n_members), kBatchedThreads, smem_bytes,
-           static_cast<cudaStream_t>(stream)>>>(
-      bin, n_rows, table_size, smem_bytes, ws_tsz, bcap_c, bm, bk, bn, a16,
-      b16, b_bcol_len, offsets, s_off, bin_tsize, s_bt, indptr_a, s_ia,
-      a_bcol, s_ac, a_blk, s_ab, indptr_b, s_ib, b_bcol, s_bc, b_blk, s_bb,
-      indptr_c, s_ic, out_bcol, out_blk, errors, ws_keys);
-  return static_cast<int>(cudaGetLastError());
 }

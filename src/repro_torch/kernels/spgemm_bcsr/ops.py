@@ -17,14 +17,17 @@ Value fleets: the numeric phase goes through the custom op
 ``register_vmap`` rule is the counterpart of the reference's
 ``custom_vmap`` rule.  ``torch.func.vmap`` over a planned execute -- new
 tile values on one frozen block structure, DBCSR's repeated products --
-fires the rule once, and the rule runs the batched grid of ``kernel.py``
+fires the rule once, and the rule runs ``kernel.batched_numeric_call``
 over every member: a batched argument with its member stride, an
-unbatched one (the plan's integer arrays, a shared B) read in place.
+unbatched one (the plan's integer arrays, a shared B) read in place --
+with every index array shared, a block row of a group of members is one
+work item of the kernel's classes.
 
 ``KERNEL_CALLS["symbolic"]`` counts inspections, ``numeric`` /
-``numeric_vector`` the numeric kernel's launches and ``plain`` its plain
+``numeric_vector`` the numeric kernel's calls and ``plain`` its plain
 version's runs, ``batched_numeric`` / ``batched_numeric_vector`` the
-batched grid's launches and ``batched_plain`` its plain version's runs;
+fleet calls (one classification and the class launches each, counted in
+``kernel.CLASS_CALLS``) and ``batched_plain`` its plain version's runs;
 the hash symbolic launches of an inspection show in
 ``repro_torch.kernels.spgemm_hash.ops.KERNEL_CALLS``.
 
@@ -112,9 +115,8 @@ def numeric_op(offsets: torch.Tensor, bin_tsize: torch.Tensor,
 def _numeric_vmap(info, in_dims, offsets, bin_tsize, indptr_a, indptr_b,
                   indptr_c, a_bcol, a_blk, b_bcol, b_blk, bcap_c,
                   table_size, vector):
-    """The batched grid over ``info.batch_size`` members, once per
-    vmapped call (arguments as :func:`_build.members_first` lays them
-    out)."""
+    """The kernel over ``info.batch_size`` members, once per vmapped
+    call (arguments as :func:`_build.members_first` lays them out)."""
     args = _build.members_first((offsets, bin_tsize, indptr_a, indptr_b,
                                  indptr_c, a_bcol, a_blk, b_bcol, b_blk),
                                 in_dims)
@@ -133,7 +135,7 @@ def spgemm_bcsr(a: BCSR, b: BCSR, bcap_c: int, *, n_bins: int = 8,
     :func:`bcsr_inspect`, with its static ``table_size``) skips the
     inspection: the planned execute runs the numeric kernel alone, and
     runs under ``torch.func.vmap`` over the tiles of A, of B or both (the
-    batched grid).
+    kernel over every member at once).
     """
     bm, bk = a.block
     bk2, bn = b.block

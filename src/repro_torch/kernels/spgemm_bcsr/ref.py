@@ -15,10 +15,13 @@ ignores them.
 for every member of a fleet, each argument stacked along a member axis or
 shared by all members.
 
-The single-product kernel sizes each block row's table from its own
-output count and runs rows by class (:func:`row_classes_plain`, the
-classifying kernels' function: the row's shared-memory bytes, then its
-A-block count); that changes what the kernel computes in no way.
+The kernel sizes each block row's table from its own output count and
+runs work items by class (:func:`row_classes_plain` for one product and
+:func:`batched_row_classes_plain` for a fleet, the classifying kernels'
+function: the item's shared-memory bytes, then its row's A-block count).
+Where a fleet shares every index array, an item is a block row of a group
+of members (:func:`group_size`), else one member's block row.  None of
+that changes what the kernel computes.
 
 The kernel's contract: each block row holds the right {bcol: tile} set in
 *some* order (C8; the kernel's is the order of first appearance in the
@@ -56,6 +59,10 @@ STAGE_FLOATS = 2048
 #: Stage buffers of a staged row: BUFFERS, or 3 when A's and B's tiles
 #: together pass STAGE_FLOATS lanes.
 BUFFERS = 4
+#: Members an item of a fleet with shared index arrays takes at most, and
+#: the shared memory its group may fill (:func:`group_size`).
+MAX_GROUP = 4
+GROUP_BYTES = 225 * 1024
 
 
 def _r16(x):
@@ -68,11 +75,12 @@ def table_bytes(tsz, need, tile):
     return _r16(8 * tsz + 4 * tile * need)
 
 
-def half_bytes(n, bm, bk, bn):
-    """One stage buffer of ``n`` B tiles: A's tile, the block columns (with
-    room for their 16-byte aligned cover) and the B tiles, each 16-byte
-    aligned."""
-    return _r16(4 * bm * bk) + _r16(4 * n) + 16 + _r16(4 * bk * bn * n)
+def half_bytes(n, bm, bk, bn, ga=1, gb=1):
+    """One stage buffer of ``n`` B tiles: ``ga`` of A's tiles, the block
+    columns (with room for their 16-byte aligned cover) and ``gb`` runs of
+    the B tiles, each 16-byte aligned."""
+    return _r16(4 * bm * bk * ga) + _r16(4 * n) + 16 + \
+        _r16(4 * bk * bn * n * gb)
 
 
 def stage_buffers(bm, bk, bn):
@@ -87,12 +95,33 @@ def stage_min(need, bk, bn):
     return need.clamp(max=s) if torch.is_tensor(need) else min(need, s)
 
 
-def row_bytes(tsz, need, bm, bk, bn):
-    """Shared memory a staged row asks for: its table and
-    :func:`stage_buffers` buffers of :func:`stage_min` tiles (ints or
-    int64 tensors)."""
-    return table_bytes(tsz, need, bm * bn) + stage_buffers(bm, bk, bn) * \
-        half_bytes(stage_min(need, bk, bn), bm, bk, bn)
+def row_bytes(tsz, need, bm, bk, bn, members=1, batched=(True, True)):
+    """Shared memory a staged item asks for: its table, with the tiles of
+    its ``members``, and :func:`stage_buffers` buffers of
+    :func:`stage_min` tiles, each with one of A's tiles per member where
+    ``batched[0]`` (else one for all) and B's likewise (ints or int64
+    tensors)."""
+    ga = members if batched[0] else 1
+    gb = members if batched[1] else 1
+    return table_bytes(tsz, need * members, bm * bn) + \
+        stage_buffers(bm, bk, bn) * \
+        half_bytes(stage_min(need, bk, bn), bm, bk, bn, ga, gb)
+
+
+def group_size(n, tsz, need, block, batched):
+    """Members an item takes, for rows of tables ``tsz`` and outputs
+    ``need`` (int64 tensors) of a fleet of ``n`` members that shares its
+    index arrays, ``batched`` saying whether A's and B's tiles are per
+    member: the most ``g <= MAX_GROUP`` whose item fits
+    :data:`GROUP_BYTES`, evened out over the ``ceil(n / g)`` items the
+    row then needs; 1 where even two members do not fit (and for the
+    rows that run direct)."""
+    cap = torch.ones_like(need)
+    for g in range(min(n, MAX_GROUP), 1, -1):
+        fits = row_bytes(tsz, need, *block, g, batched) <= GROUP_BYTES
+        cap = torch.where((cap == 1) & fits, torch.full_like(cap, g), cap)
+    items = (n + cap - 1) // cap
+    return (n + items - 1) // items
 
 
 def class_of_bytes(nbytes):
@@ -121,19 +150,20 @@ def row_classes_plain(offsets, bin_tsize, indptr_a, indptr_c, *,
     pops them: longest A-block bucket first, ascending ids within a bucket
     (the kernels' order within a bucket is free).  Rows whose table cannot
     hold their output (outside every bin, a table that is not a power of
-    two or, ``vector``, below 8 slots, output past the table, no A block)
-    join no class: the kernels count them as errors.  ``block`` is
-    ``(bm, bk, bn)``."""
+    two or, ``vector``, below 8 slots, output past the table, no A block),
+    and every row where the bins run past the rows, join no class: the
+    kernels count them as errors.  ``block`` is ``(bm, bk, bn)``."""
     bm, bk, bn = block
     dev = indptr_c.device
     need = (indptr_c[1:].long() - indptr_c[:-1].long()).cpu()
     na = (indptr_a[1:].long() - indptr_a[:-1].long()).cpu()
     m = need.shape[0]
-    cap = _bin_caps(offsets.cpu(), bin_tsize.cpu(), table_size, m)
-    tsz = row_table_sizes_plain(offsets.cpu(), bin_tsize.cpu(), need,
+    off = offsets.cpu()
+    cap = _bin_caps(off, bin_tsize.cpu(), table_size, m)
+    tsz = row_table_sizes_plain(off, bin_tsize.cpu(), need,
                                 table_size=table_size).long()
     ok = (need > 0) & (cap >= 1) & ((cap & (cap - 1)) == 0) & \
-        (need <= cap) & (na >= 1)
+        (need <= cap) & (na >= 1) & bool(off[0] >= 0 and off[-1] <= m)
     if vector:
         ok &= cap >= 8
     cls = class_of_bytes(row_bytes(tsz, need, bm, bk, bn))
@@ -151,20 +181,109 @@ def row_classes_plain(offsets, bin_tsize, indptr_a, indptr_c, *,
     return counts.to(dev), rows, row_tsz.to(torch.int32).to(dev)
 
 
+def batched_row_classes_plain(offsets, bin_tsize, indptr_a, indptr_b,
+                              indptr_c, a_bcol, a_blk, b_bcol, b_blk, *,
+                              n_members, table_size, vector):
+    """The classifying kernels' function over a fleet: ``(counts
+    (classes, LEN_BUCKETS) int32, items, unit_tsz (n, m) int32)``, the
+    arguments as for :func:`batched_numeric_plain`.
+
+    Where every index array is shared (1-D), an item is a block row of a
+    group of members: each row's table, A-block bucket and whether it is
+    listed as :func:`row_classes_plain` of the shared arrays says, its
+    group :func:`group_size`, its class by :func:`row_bytes` of an item of
+    that group (A's and B's tiles per member where they are stacked), and
+    its members split into ``ceil(n / group)`` items of ``group`` members,
+    the last the rest.  Else an item is one member's block row, as
+    :func:`row_classes_plain` of that member's arrays alone lists it.
+    ``items[c]`` holds class c's items as ``(k, 3)`` int64 rows ``(first
+    member, members, row)``: longest A-block bucket first, then by unit (a
+    shared row; else member, then row), a row's items by first member (the
+    kernels' order within a bucket is free).  ``unit_tsz`` is each
+    member's row tables; ``counts`` counts items."""
+    n = n_members
+    dev = a_bcol.device
+    block = (a_blk.shape[-2], a_blk.shape[-1], b_blk.shape[-1])
+    index = (offsets, bin_tsize, indptr_a, indptr_b, indptr_c, a_bcol,
+             b_bcol)
+    grouped = all(t.dim() == 1 for t in index)
+    batched = (a_blk.dim() == 4, b_blk.dim() == 4)
+    m = indptr_a.shape[-1] - 1
+    parts, tables = [], []
+    for e in range(1 if grouped else n):
+        v = [member_view(t, 1, e).cpu() for t in (offsets, bin_tsize,
+                                                   indptr_a, indptr_c)]
+        _, rows, tsz = row_classes_plain(*v, table_size=table_size,
+                                         vector=vector, block=block)
+        tables.append(tsz)
+        row = torch.cat(rows).long()
+        need = (v[3][row + 1] - v[3][row]).long()
+        na = (v[2][row + 1] - v[2][row]).long()
+        g = group_size(n, tsz.long()[row], need, block, batched) \
+            if grouped else torch.ones_like(row)
+        cls = class_of_bytes(row_bytes(tsz.long()[row], need, *block, g,
+                                       batched))
+        bucket = len_bucket(na)
+        for x in range(n if grouped else 1):
+            take = x * g < n
+            first = x * g[take] if grouped else torch.full_like(row, e)
+            parts.append(torch.stack((
+                cls[take], bucket[take], first,
+                torch.minimum(g[take], n - first), row[take],
+                row[take] if grouped else e * m + row)))
+    cls, bucket, first, members, row, unit = torch.cat(parts, 1)
+    n_cls = len(CLASS_NAMES)
+    counts = torch.zeros(n_cls, LEN_BUCKETS, dtype=torch.int32)
+    items = []
+    for c in range(n_cls):
+        mine = cls == c
+        counts[c] = torch.bincount(bucket[mine], minlength=LEN_BUCKETS)
+        key = (-bucket[mine] * (n * m + 1) + unit[mine]) * n + first[mine]
+        order = torch.argsort(key)
+        items.append(torch.stack((first[mine], members[mine], row[mine]),
+                                 1)[order].to(dev))
+    unit_tsz = torch.stack(tables * n if grouped else tables)
+    return counts.to(dev), items, unit_tsz.to(torch.int32).to(dev)
+
+
+def _lowest_p2(x):
+    """The lowest power of two at least ``x`` (an int64 tensor >= 1)."""
+    p = torch.ones_like(x) << torch.ceil(torch.log2(x.double())).long()
+    return torch.where(p < x, p * 2, p)
+
+
 @functools.lru_cache(maxsize=256)
-def launch_classes(block, table_size, bcap_c) -> list:
-    """The classes that can hold a row of a product with ``block`` ``(bm,
-    bk, bn)`` tiles, tables of at most ``table_size`` slots and ``bcap_c``
-    output blocks, known on the host: from the smallest row's class (one
-    output, an 8-slot table) to the largest's (``min(table_size,
-    bcap_c)`` outputs in a ``table_size``-slot table).  Largest first: the
-    order of the single-product kernel's launches."""
+def launch_classes(block, table_size, bcap_c, members=1,
+                   batched=(True, True)) -> tuple:
+    """The classes that can hold an item of a product with ``block``
+    ``(bm, bk, bn)`` tiles, tables of at most ``table_size`` slots and
+    ``bcap_c`` output blocks, known on the host, largest first: the order
+    of the kernel's launches.  One member an item: from the smallest
+    row's class (one output, an 8-slot table) to the largest's
+    (``min(table_size, bcap_c)`` outputs in a ``table_size``-slot table).
+    Items of groups (a fleet of ``members`` that shares its index arrays,
+    ``batched`` as for :func:`row_bytes`): from the smallest to the
+    largest class of an item over every output count and table a row can
+    have."""
     bm, bk, bn = block
     t = max(int(table_size), 1)
-    lo = int(class_of_bytes(row_bytes(min(t, 8), 1, bm, bk, bn)))
-    need = max(1, min(t, int(bcap_c)))
-    hi = int(class_of_bytes(row_bytes(t, need, bm, bk, bn)))
-    return tuple(range(hi, lo - 1, -1))
+    top_need = max(1, min(t, int(bcap_c)))
+    if members <= 1:
+        lo = int(class_of_bytes(row_bytes(min(t, 8), 1, bm, bk, bn)))
+        hi = int(class_of_bytes(row_bytes(t, top_need, bm, bk, bn)))
+        return tuple(range(hi, lo - 1, -1))
+    need = torch.arange(1, top_need + 1)
+    # a row's table: a power of two from its output count up to row_table's
+    top = torch.clamp(_lowest_p2(torch.clamp(2 * need, min=8)), max=t)
+    tsz, found = _lowest_p2(need), []
+    while bool((tsz <= top).any()):
+        ok = tsz <= top
+        g = group_size(members, tsz[ok], need[ok], block, batched)
+        found.append(class_of_bytes(row_bytes(tsz[ok], need[ok], *block, g,
+                                              batched)))
+        tsz = tsz * 2
+    found = torch.cat(found)
+    return tuple(range(int(found.max()), int(found.min()) - 1, -1))
 
 def _expand_pairs(indptr_a, indptr_b, a_bcol, b_bcol):
     """``(key, j, t)`` of every block pair of ``A @ B`` in A-slot order."""

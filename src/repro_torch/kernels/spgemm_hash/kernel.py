@@ -566,61 +566,6 @@ def numeric_call(offsets, bin_tsize, indptr_a, indptr_b, indptr_c, a_idx,
     return out_cols, out_vals
 
 
-def batched_launches(bounds, sizes, table_size: int, n_rows: int,
-                     vector: bool, *, smem_slots: int = SMEM_SLOTS) -> list:
-    """The launches of a grid over a fleet's bins, one launch per bin
-    index (the BCSR batched kernel's geometry, ``spgemm_bcsr.kernel.
-    launch_list``; this module's batched calls run by table class), from
-    the fleet's bins as host lists: ``bounds[e]`` is member e's bin
-    offsets, ``sizes[e]`` its per-bin table sizes.
-
-    Returns one ``{"bin", "grid_x", "block", "smem_slots", "ws_tsz"}`` per
-    bin index that holds rows in any member.  Member e of bin b probes
-    ``min(sizes[e][b], table_size)`` slots: shared memory holds the largest
-    such table up to ``smem_slots`` (the BCSR kernel passes what its tiles
-    leave room for), and the members with larger tables use a global
-    workspace of ``ws_tsz`` slots per member and x block.  ``block`` is a
-    thread count by the table (64 / 128 / 256; 512 with a workspace).
-    Without a workspace there is one x block per row
-    of the member with the most rows in the bin; with one, the x blocks
-    are capped so that ``grid_x * n_members <= GLOBAL_BLOCKS`` (at least
-    one per member), which bounds the workspace as the global class's
-    grid does.  Raises ``ValueError`` for bins that do not partition
-    ``n_rows`` rows or tables that are not powers of two (at least
-    :data:`CHUNK` in vector mode).
-    """
-    n = len(bounds)
-    if not 0 < n <= 65535 or len(sizes) != n:
-        raise ValueError(f"a fleet of {n} members with {len(sizes)} bin "
-                         f"size lists (1 to 65,535 members)")
-    n_bins = len(sizes[0])
-    rows, smem, ws = [0] * n_bins, [0] * n_bins, [0] * n_bins
-    for e, (bd, sz) in enumerate(zip(bounds, sizes)):
-        if len(sz) != n_bins:
-            raise ValueError(f"member {e}: bin offsets {bd} do not "
-                             f"partition {n_rows} rows into {n_bins} bins")
-        for b, r0, r1, tsz in _bins_holding_rows(bd, sz, table_size, n_rows,
-                                                 vector, f"member {e}: "):
-            rows[b] = max(rows[b], r1 - r0)
-            if tsz <= smem_slots:
-                smem[b] = max(smem[b], tsz)
-            else:
-                ws[b] = max(ws[b], tsz)
-    launches = []
-    for b in range(n_bins):
-        if not rows[b]:
-            continue
-        if ws[b]:
-            grid_x, block = min(rows[b], max(1, GLOBAL_BLOCKS // n)), 512
-        else:
-            grid_x = rows[b]
-            block = 64 if smem[b] <= 256 else (128 if smem[b] <= 4096
-                                               else 256)
-        launches.append({"bin": b, "grid_x": grid_x, "block": block,
-                         "smem_slots": smem[b], "ws_tsz": ws[b]})
-    return launches
-
-
 def _host_rows(t, n: int) -> list:
     """A schedule array as host lists, one per member (a shared 1-D array
     repeated)."""

@@ -566,35 +566,6 @@ def check_class_plain(cls, tpairs):
         assert_contract(jc, tc, *tpairs[i], exact=True)
 
 
-def test_batched_launches_geometry():
-    S, G = K.SMEM_SLOTS, K.GLOBAL_BLOCKS
-    bounds = [[0, 3, 3, 10], [0, 0, 5, 6]]
-    sizes = [[64, 8, 512], [8, 2 * S, 16]]
-    got = K.batched_launches(bounds, sizes, 4 * S, 10, vector=False)
-    assert got == [
-        {"bin": 0, "grid_x": 3, "block": 64, "smem_slots": 64, "ws_tsz": 0},
-        {"bin": 1, "grid_x": 5, "block": 512, "smem_slots": 0,
-         "ws_tsz": 2 * S},
-        {"bin": 2, "grid_x": 7, "block": 128, "smem_slots": 512,
-         "ws_tsz": 0}]
-    # the table allocation clamps each member's size, as the TPU kernel
-    got = K.batched_launches(bounds, sizes, 256, 10, vector=False)
-    assert [x["smem_slots"] for x in got] == [64, 256, 256]
-    # many members with global tables: grid_x * n <= GLOBAL_BLOCKS
-    n = 100
-    got = K.batched_launches([[0, 1000]] * n, [[2 * S]] * n, 2 * S, 1000,
-                             vector=False)
-    assert got[0]["grid_x"] * n <= G and got[0]["grid_x"] >= 1
-    with pytest.raises(ValueError, match="partition"):
-        K.batched_launches([[0, 5, 4]], [[8, 8]], 8, 5, vector=False)
-    with pytest.raises(ValueError, match="partition"):
-        K.batched_launches([[0, 11]], [[8]], 8, 10, vector=False)
-    with pytest.raises(ValueError, match="power of two"):
-        K.batched_launches([[0, 2]], [[24]], 32, 2, vector=False)
-    with pytest.raises(ValueError, match="CHUNK"):
-        K.batched_launches([[0, 2]], [[4]], 32, 2, vector=True)
-
-
 def test_batched_wrapper_runs_plain_on_cpu():
     tpairs = port_pairs(rmat_fleet(3, 3, seed0=5))
     tp = T.plan_batch(tpairs, algorithm="hash", cache=False)

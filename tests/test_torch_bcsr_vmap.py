@@ -299,28 +299,6 @@ def test_batched_plain_equals_loop(shared):
                                 *args[6:], n_members=n, **kw)
 
 
-def test_launch_list_counts_tile_slots():
-    """The batched launch geometry is the hash kernel's
-    (``batched_launches``) with shared memory counted in tile slots: a
-    table that fits ``SMEM_BUDGET`` stays in shared memory, a larger one
-    takes the workspace, and shared bins stand for every member."""
-    off = torch.tensor([0, 2, 2, 5], dtype=torch.int32)
-    tile = 8 * 8
-    fit = TK.SMEM_BUDGET // (4 * (1 + tile))
-    small, big = 1 << (fit.bit_length() - 1), 1 << fit.bit_length()
-    bts = torch.tensor([small, small, big], dtype=torch.int32)
-    got = TK.launch_list(off, bts, n_members=4, n_rows=5, table_size=big,
-                         tile=tile, vector=False)
-    assert [x["bin"] for x in got] == [0, 2]
-    assert got[0]["smem_slots"] == small and got[0]["ws_tsz"] == 0
-    assert got[0]["grid_x"] == 2
-    assert got[1]["ws_tsz"] == big and got[1]["grid_x"] == 3
-    stacked = TK.launch_list(torch.stack([off] * 4), torch.stack([bts] * 4),
-                             n_members=4, n_rows=5, table_size=big,
-                             tile=tile, vector=False)
-    assert stacked == got
-
-
 # ---------------------------------------------------------------------------
 # structure memos follow writes in place
 # ---------------------------------------------------------------------------

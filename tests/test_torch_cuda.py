@@ -1026,6 +1026,18 @@ def check_bcsr_fleet(a, b, plan, bcol, blk, pc, pb, dyadic):
         assert bool(((sb - pb[e]).abs() <= bound).all()), e
 
 
+def fleet_class_launches(plan, block, n, batched):
+    """``kernel.CLASS_CALLS`` of one fleet call on a plan's shared index
+    arrays: one classification, one launch per class that can hold its
+    items (``ref.launch_classes`` of its groups)."""
+    from repro_torch.kernels.spgemm_bcsr import kernel as BK
+    from repro_torch.kernels.spgemm_bcsr import ref as bref
+    launched = bref.launch_classes(block, plan.table_size, plan.bcap_c, n,
+                                   batched)
+    return dict(dict.fromkeys(BK.CLASS_CALLS, 0), classify=1,
+                **{BK.CLASS_NAMES[c]: 1 for c in launched})
+
+
 BCSR_FLEET_CASES = [(8, 8, 8, 48, 0.2, True), (8, 8, 8, 48, 0.2, False),
                     (2, 3, 4, 40, 0.2, True), (64, 64, 64, 4, 0.6, False)]
 
@@ -1035,10 +1047,10 @@ BCSR_FLEET_CASES = [(8, 8, 8, 48, 0.2, True), (8, 8, 8, 48, 0.2, False),
 @pytest.mark.parametrize("case", BCSR_FLEET_CASES,
                          ids=lambda c: f"{c[0]}x{c[1]}x{c[2]}-{c[5]}")
 def test_bcsr_batched_kernel_matches_plain_version(cuda, case, vector):
-    """The batched block kernel (A's tiles stacked, everything else shared)
-    against ``batched_numeric_plain``, rows staged in shared memory (64x64
-    tiles: in a launch with a workspace), one launch per bin index holding
-    rows."""
+    """The block kernel over a fleet (A's tiles stacked, everything else
+    shared: rows of member groups) against ``batched_numeric_plain``; one
+    call, one classification and one launch per class that can hold the
+    fleet's items."""
     from repro_torch.core import plan_bcsr
     from repro_torch.kernels.spgemm_bcsr import kernel as BK
     from repro_torch.kernels.spgemm_bcsr import ops as bops
@@ -1051,18 +1063,18 @@ def test_bcsr_batched_kernel_matches_plain_version(cuda, case, vector):
             plan.indptr_cb, a.indices, stack, b.indices, b.blocks)
     kw = dict(n_members=3, bcap_c=plan.bcap_c, table_size=plan.table_size,
               vector=vector)
-    launches = BK.launch_list(plan.offsets, plan.bin_tsize, n_members=3,
-                              n_rows=a.grid[0], table_size=plan.table_size,
-                              tile=bm * bn, vector=vector)
     bops.reset_kernel_calls()
+    BK.CLASS_CALLS.update(dict.fromkeys(BK.CLASS_CALLS, 0))
     errors = torch.zeros(1, dtype=torch.int32, device=cuda)
     bcol, blk = BK.batched_numeric_call(*args, **kw, errors=errors)
     torch.cuda.synchronize()
     assert int(errors) == 0
     key = "batched_numeric_vector" if vector else "batched_numeric"
     counts = bops.kernel_call_counts()
-    assert counts.pop(key) == len(launches) > 0
+    assert counts.pop(key) == 1
     assert set(counts.values()) == {0}
+    assert BK.CLASS_CALLS == fleet_class_launches(plan, (bm, bk, bn), 3,
+                                                  (True, False))
     pc, pb = bref.batched_numeric_plain(*args, **kw)
     check_bcsr_fleet(a, b, plan, bcol, blk, pc, pb, dyadic)
 
@@ -1072,8 +1084,9 @@ def test_bcsr_batched_kernel_matches_plain_version(cuda, case, vector):
 def test_bcsr_batched_kernel_global_memory_table(cuda, vector):
     """Members whose block rows need 900 output blocks in a 1,024-slot
     table of 8x8 tiles (past the largest block's shared memory): direct
-    rows with keys in the workspace per member and x block and tiles in
-    each member's output, members not trampling each other."""
+    items of one member each, keys in the workspace of the block that
+    runs them and tiles in each member's output, members not trampling
+    each other."""
     from repro_torch.core import BCSR, plan_bcsr
     from repro_torch.kernels.spgemm_bcsr import kernel as BK
     from repro_torch.kernels.spgemm_bcsr import ref as bref
@@ -1084,18 +1097,21 @@ def test_bcsr_batched_kernel_global_memory_table(cuda, vector):
                                          .astype(np.float32)).to(cuda),
                         (8, 8))
     plan = plan_bcsr(a, b, vector=vector, cache=False)
-    assert bref.row_bytes(1024, 900, 8, 8, 8) > BK.MAX_SMEM
+    assert bref.row_bytes(1024, 900, 8, 8, 8) > bref.CLASS_SMEM[-1]
     stack = torch.from_numpy(rng.choice(DYADIC, (4,) + tuple(
         a.blocks.shape)).astype(np.float32)).to(cuda)
     args = (plan.offsets, plan.bin_tsize, a.indptr, b.indptr,
             plan.indptr_cb, a.indices, stack, b.indices, b.blocks)
     kw = dict(n_members=4, bcap_c=plan.bcap_c, table_size=plan.table_size,
               vector=vector)
-    launches = BK.launch_list(plan.offsets, plan.bin_tsize, n_members=4,
-                              n_rows=a.grid[0], table_size=plan.table_size,
-                              tile=64, vector=vector)
-    assert all(x["ws_tsz"] for x in launches)
+    counts, items, _ = BK.batched_row_classes(
+        *args, n_members=4, table_size=plan.table_size, vector=vector)
+    direct = items[len(BK.CLASS_NAMES) - 1].cpu()
+    assert int(counts.sum()) == 8 and direct.shape[0] == 8
+    assert bool((direct[:, 1] == 1).all())
+    BK.CLASS_CALLS.update(dict.fromkeys(BK.CLASS_CALLS, 0))
     bcol, blk = BK.batched_numeric_call(*args, **kw)
+    assert BK.CLASS_CALLS["direct"] == 1
     pc, pb = bref.batched_numeric_plain(*args, **kw)
     check_bcsr_fleet(a, b, plan, bcol, blk, pc, pb, True)
 
@@ -1128,8 +1144,9 @@ def test_bcsr_batched_shared_operand_equals_stacked_copy(cuda):
 @pytest.mark.gpu
 def test_bcsr_vmap_execute_launches_only_the_batched_kernel(cuda):
     """``torch.func.vmap`` of ``BCSRPlan.execute`` over A's tiles on CUDA:
-    the rule's batched launches and nothing else, each member bitwise
-    equal to its own execute (the row code is the same)."""
+    the rule's one kernel call (one classification, the class launches)
+    and nothing else, each member bitwise equal to its own execute (the
+    row code is the same)."""
     import dataclasses
     from repro_torch.core import plan_bcsr
     from repro_torch.kernels.spgemm_bcsr import kernel as BK
@@ -1142,14 +1159,14 @@ def test_bcsr_vmap_execute_launches_only_the_batched_kernel(cuda):
         return c.indices, c.blocks
 
     bops.reset_kernel_calls()
+    BK.CLASS_CALLS.update(dict.fromkeys(BK.CLASS_CALLS, 0))
     bcol, blk = torch.func.vmap(one)(stack)
     torch.cuda.synchronize()
     counts = bops.kernel_call_counts()
-    want = len(BK.launch_list(plan.offsets, plan.bin_tsize, n_members=4,
-                              n_rows=a.grid[0], table_size=plan.table_size,
-                              tile=64, vector=False))
-    assert counts.pop("batched_numeric") == want > 0
+    assert counts.pop("batched_numeric") == 1
     assert set(counts.values()) == {0}
+    assert BK.CLASS_CALLS == fleet_class_launches(plan, (8, 8, 8), 4,
+                                                  (True, False))
     for e in range(4):
         c = plan.execute(dataclasses.replace(a, blocks=stack[e]), b)
         assert torch.equal(bcol[e], c.indices)
@@ -1296,9 +1313,9 @@ def test_bcsr_two_calls_bitwise(cuda):
 @pytest.mark.gpu
 @pytest.mark.parametrize("vector", (False, True))
 def test_bcsr_batched_ladder(cuda, vector):
-    """The batched kernel's row body on the 8x8 ladder, 2 members of A's
-    tiles: rows staged in the launch's shared memory and the 900-block
-    row direct, against the batched plain version."""
+    """The kernel over 2 members of A's tiles on the 8x8 ladder: small
+    rows in groups of both members, the larger ones a member an item, the
+    900-block row direct, against the batched plain version."""
     from repro_torch.core import plan_bcsr
     from repro_torch.kernels.spgemm_bcsr import kernel as BK
     from repro_torch.kernels.spgemm_bcsr import ref as bref
@@ -1311,16 +1328,236 @@ def test_bcsr_batched_ladder(cuda, vector):
             plan.indptr_cb, a.indices, stack, b.indices, b.blocks)
     kw = dict(n_members=2, bcap_c=plan.bcap_c, table_size=plan.table_size,
               vector=vector)
-    launches = BK.launch_list(plan.offsets, plan.bin_tsize, n_members=2,
-                              n_rows=a.grid[0], table_size=plan.table_size,
-                              tile=64, vector=vector)
-    assert any(BK.batched_smem(x, (8, 8, 8))[1] for x in launches)
+    _, items, _ = BK.batched_row_classes(
+        *args, n_members=2, table_size=plan.table_size, vector=vector)
+    sizes = {int(x) for it in items for x in it[:, 1]}
+    assert sizes == {1, 2} and items[-1].shape[0] == 2
     errors = torch.zeros(1, dtype=torch.int32, device=cuda)
     bcol, blk = BK.batched_numeric_call(*args, **kw, errors=errors)
     torch.cuda.synchronize()
     assert int(errors) == 0
     pc, pb = bref.batched_numeric_plain(*args, **kw)
     check_bcsr_fleet(a, b, plan, bcol, blk, pc, pb, True)
+
+
+def bcsr_ladder_fleet(cuda, n, layout, name, dyadic, vector):
+    """``n`` members of ``_bcsr_ladder``'s rungs on the card, as the
+    kernel's fleet arguments: ``stacked``, member e's columns and tiles
+    from seed e, each with its own plan, every array stacked; ``shared``,
+    member 0's structure and plan with ``n`` members of A's tiles.
+    Returns ``(args, table_size, bcap_c)``."""
+    from repro_torch.core import plan_bcsr
+    rungs, block, _ = BCSR_LADDERS[name]
+    pairs, plans = [], []
+    for e in range(n if layout == "stacked" else 1):
+        a, b = ladder_operands(cuda, rungs, block, dyadic, seed=e)
+        pairs.append((a, b))
+        plans.append(plan_bcsr(a, b, vector=vector, cache=False))
+    table = max(p.table_size for p in plans)
+    bcap_c = max(p.bcap_c for p in plans)
+    if layout == "shared":
+        (a, b), p = pairs[0], plans[0]
+        rng = np.random.default_rng(50)
+        shape = (n,) + tuple(a.blocks.shape)
+        vals = rng.choice(DYADIC, shape) if dyadic else \
+            rng.uniform(0.5, 1.5, shape)
+        stack = torch.from_numpy(vals.astype(np.float32)).to(cuda)
+        args = (p.offsets, p.bin_tsize, a.indptr, b.indptr, p.indptr_cb,
+                a.indices, stack * (a.blocks != 0), b.indices, b.blocks)
+        return args, table, bcap_c
+
+    def stacked(f):
+        return torch.stack([f(a, b, p) for (a, b), p in zip(pairs, plans)])
+
+    args = tuple(stacked(f) for f in (
+        lambda a, b, p: p.offsets, lambda a, b, p: p.bin_tsize,
+        lambda a, b, p: a.indptr, lambda a, b, p: b.indptr,
+        lambda a, b, p: p.indptr_cb, lambda a, b, p: a.indices,
+        lambda a, b, p: a.blocks, lambda a, b, p: b.indices,
+        lambda a, b, p: b.blocks))
+    return args, table, bcap_c
+
+
+def check_fleet_members(args, n, table, bcap_c, bcol, blk, dyadic):
+    """Each member's kernel output against the batched plain version:
+    block columns per row bitwise after a per-row sort, tiles bitwise on
+    dyadic values, else within (block pairs x bk) ulp of the member's own
+    product."""
+    from repro_torch.kernels.spgemm_bcsr import ref as bref
+    pc, pb = bref.batched_numeric_plain(*args, n_members=n, bcap_c=bcap_c,
+                                        table_size=table, vector=False)
+
+    def member(t, e, dim=1):
+        return t[e] if t.dim() > dim else t
+
+    for e in range(n):
+        off, bts, ia, ib, ic, ac, ablk, bc, bblk = (
+            member(t, e, 3 if t.is_floating_point() else 1) for t in args)
+        sc, sb = bref.sort_block_rows(ic, bcol[e], blk[e])
+        assert torch.equal(sc, pc[e]), e
+        if dyadic:
+            assert torch.equal(sb, pb[e]), e
+            continue
+        k = bref.products_per_block(ia, ib, ic, ac, bc, bcap_c)
+        ulp = torch.nextafter(pb[e].abs(), torch.full_like(
+            pb[e], float("inf"))) - pb[e].abs()
+        bound = (k * ablk.shape[-1])[:, None, None] * ulp
+        assert bool(((sb - pb[e]).abs() <= bound).all()), e
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ("shared", "stacked"))
+@pytest.mark.parametrize("vector", (False, True))
+def test_bcsr_fleet_classify_kernel_matches_plain(cuda, vector, layout):
+    """The classifying kernels over 3 members of the 8x8 ladder's rungs
+    against ``ref.batched_row_classes_plain``: counts per (class,
+    A-block bucket), every member's row tables, each class's items
+    ``(first member, members, row)`` as a set and in bucket order."""
+    from repro_torch.kernels.spgemm_bcsr import kernel as BK
+    from repro_torch.kernels.spgemm_bcsr import ref as bref
+    args, table, _ = bcsr_ladder_fleet(cuda, 3, layout, "8x8", True,
+                                       vector)
+    errors = torch.zeros(1, dtype=torch.int32, device=cuda)
+    counts, items, tsz = BK.batched_row_classes(
+        *args, n_members=3, table_size=table, vector=vector, errors=errors)
+    pc, pitems, ptsz = bref.batched_row_classes_plain(
+        *(t.cpu() for t in args), n_members=3, table_size=table,
+        vector=vector)
+    assert int(errors) == 0
+    assert torch.equal(counts.cpu(), pc) and torch.equal(tsz.cpu(), ptsz)
+    ia = args[2].cpu()
+    for c, (it, pit) in enumerate(zip(items, pitems)):
+        it = it.cpu()
+        assert sorted(map(tuple, it.tolist())) == \
+            sorted(map(tuple, pit.tolist())), c
+        ipa = [ia[f] if ia.dim() > 1 else ia for f in it[:, 0].tolist()]
+        na = torch.tensor([int(x[i + 1] - x[i]) for x, i in
+                           zip(ipa, it[:, 2].tolist())], dtype=torch.long)
+        buckets = bref.len_bucket(na.clamp(min=1)).tolist()
+        assert buckets == sorted(buckets, reverse=True), c
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dyadic", (True, False))
+@pytest.mark.parametrize("vector", (False, True))
+@pytest.mark.parametrize("layout", ("shared", "stacked"))
+@pytest.mark.parametrize("name", sorted(BCSR_LADDERS))
+def test_bcsr_fleet_ladder_every_class(cuda, name, layout, vector, dyadic):
+    """3 members of ``_bcsr_ladder``'s rungs (8x8 tiles: every class,
+    the 900-block row direct; 64x64: 225 KB and direct) through the
+    kernel, shared or stacked: one call, one classification and one
+    launch per class that can hold the fleet's items, against the batched
+    plain version; stacked, the items reach every class the ladder
+    names."""
+    from repro_torch.kernels.spgemm_bcsr import kernel as BK
+    from repro_torch.kernels.spgemm_bcsr import ref as bref
+    n = 3
+    args, table, bcap_c = bcsr_ladder_fleet(cuda, n, layout, name, dyadic,
+                                            vector)
+    block = BCSR_LADDERS[name][1]
+    want = {c for c in BCSR_LADDERS[name][2] if c >= 0}
+    counts, _, _ = BK.batched_row_classes(*args, n_members=n,
+                                          table_size=table, vector=vector)
+    reached = {c for c in range(len(BK.CLASS_NAMES))
+               if int(counts[c].sum())}
+    if layout == "stacked":
+        assert reached == want
+    BK.CLASS_CALLS.update(dict.fromkeys(BK.CLASS_CALLS, 0))
+    errors = torch.zeros(1, dtype=torch.int32, device=cuda)
+    bcol, blk = BK.batched_numeric_call(
+        *args, n_members=n, bcap_c=bcap_c, table_size=table, vector=vector,
+        errors=errors)
+    torch.cuda.synchronize()
+    assert int(errors) == 0
+    launched = bref.launch_classes(block, table, bcap_c,
+                                   n if layout == "shared" else 1,
+                                   (True, layout == "stacked"))
+    assert reached <= set(launched)
+    assert BK.CLASS_CALLS == dict(
+        dict.fromkeys(BK.CLASS_CALLS, 0), classify=1,
+        **{BK.CLASS_NAMES[c]: 1 for c in launched})
+    check_fleet_members(args, n, table, bcap_c, bcol, blk, dyadic)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("vector", (False, True))
+def test_bcsr_one_member_fleet_equals_numeric_call(cuda, vector):
+    """A fleet of one member is the single product: bitwise equal to
+    ``numeric_call``, raw (unsorted) outputs, on the 8x8 ladder's uniform
+    values, with the same classification and class launches."""
+    from repro_torch.kernels.spgemm_bcsr import kernel as BK
+    args, table, bcap_c = bcsr_ladder_fleet(cuda, 1, "shared", "8x8",
+                                            False, vector)
+    kw = dict(bcap_c=bcap_c, table_size=table, vector=vector)
+    single_args = args[:6] + (args[6][0],) + args[7:]
+    BK.CLASS_CALLS.update(dict.fromkeys(BK.CLASS_CALLS, 0))
+    c1, b1 = BK.numeric_call(*single_args, **kw)
+    calls = dict(BK.CLASS_CALLS)
+    BK.CLASS_CALLS.update(dict.fromkeys(BK.CLASS_CALLS, 0))
+    c2, b2 = BK.batched_numeric_call(*args, n_members=1, **kw)
+    assert BK.CLASS_CALLS == calls
+    assert torch.equal(c2[0], c1) and torch.equal(b2[0], b1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ("shared", "stacked"))
+def test_bcsr_fleet_table_too_small_raises(cuda, layout):
+    """8-slot tables for block rows of more outputs: the fleet call
+    raises without an ``errors`` tensor, and with one counts each
+    (member, row) the table cannot hold: n times the single product's
+    count."""
+    from repro_torch.core import plan_bcsr
+    from repro_torch.kernels.spgemm_bcsr import kernel as BK
+    n = 3
+    a, b, stack = bcsr_value_fleet(cuda, 24, 8, 8, 8, 0.3, n, 35, True)
+    plan = plan_bcsr(a, b, cache=False)
+    small = torch.full_like(plan.bin_tsize, 8)
+    args = [plan.offsets, small, a.indptr, b.indptr, plan.indptr_cb,
+            a.indices, stack, b.indices, b.blocks]
+    if layout == "stacked":
+        args = [t if i == 6 else torch.stack([t] * n).contiguous()
+                for i, t in enumerate(args)]
+    kw = dict(bcap_c=plan.bcap_c, table_size=8, vector=False)
+    one = torch.zeros(1, dtype=torch.int32, device=cuda)
+    BK.numeric_call(plan.offsets, small, a.indptr, b.indptr, plan.indptr_cb,
+                    a.indices, a.blocks, b.indices, b.blocks, **kw,
+                    errors=one)
+    every = torch.zeros(1, dtype=torch.int32, device=cuda)
+    BK.batched_numeric_call(*args, n_members=n, **kw, errors=every)
+    torch.cuda.synchronize()
+    assert int(one) > 0 and int(every) == n * int(one)
+    with pytest.raises(RuntimeError, match="full-table"):
+        BK.batched_numeric_call(*args, n_members=n, **kw)
+
+
+@pytest.mark.gpu
+def test_bcsr_fleet_bins_past_the_rows(cuda):
+    """A stacked member whose bins run past its block rows adds one error
+    and runs none of its rows (its output stays zero); the other
+    member's output is right."""
+    from repro_torch.core import plan_bcsr
+    from repro_torch.kernels.spgemm_bcsr import kernel as BK
+    from repro_torch.kernels.spgemm_bcsr import ref as bref
+    a, b, stack = bcsr_value_fleet(cuda, 24, 8, 8, 8, 0.3, 2, 36, True)
+    plan = plan_bcsr(a, b, cache=False)
+    off = torch.stack([plan.offsets, plan.offsets])
+    off[1, -1] = a.grid[0] + 1
+    args = (off, plan.bin_tsize, a.indptr, b.indptr, plan.indptr_cb,
+            a.indices, stack, b.indices, b.blocks)
+    errors = torch.zeros(1, dtype=torch.int32, device=cuda)
+    bcol, blk = BK.batched_numeric_call(
+        *args, n_members=2, bcap_c=plan.bcap_c, table_size=plan.table_size,
+        vector=False, errors=errors)
+    torch.cuda.synchronize()
+    assert int(errors) == 1
+    assert not bcol[1].any() and not blk[1].any()
+    pc, pb = bref.numeric_plain(plan.offsets, plan.bin_tsize, a.indptr,
+                                b.indptr, plan.indptr_cb, a.indices,
+                                stack[0], b.indices, b.blocks,
+                                bcap_c=plan.bcap_c,
+                                table_size=plan.table_size, vector=False)
+    sc, sb = bref.sort_block_rows(plan.indptr_cb, bcol[0], blk[0])
+    assert torch.equal(sc, pc) and torch.equal(sb, pb)
 
 
 def spmm_operand(cuda, skewed=False, seed=21):

@@ -3,15 +3,17 @@
 come out wrong.
 
 Runs ``kernel.numeric_call`` (single product) or
-``kernel.batched_numeric_call`` (4 members of A's tiles, B shared)
-``--calls`` times per case and compares each call with the first call
-(bitwise, raw rows: the kernel's row order is fixed) and with the plain
-version (block columns and tiles bitwise after a per-row sort; dyadic
-values, so every summation order is exact).  Cases: each probe mode
-(scalar, vector) on each tile size -- 8x8 on ``chip_smoke.py``'s block
-inputs (phase 7: R-MAT ER s13 ef8 and G500 s10 ef8 patterns, seed 0), and
-64x64 on the same R-MAT presets at s6 ef4 -- for the single product and
-the batched grid.  A race that one ``chip_smoke.py`` call can miss (a late
+``kernel.batched_numeric_call`` (fleets of 1, 3 and 8 members of A's
+tiles, B's shared: ``shared``, every index array shared, so that a block
+row of a group of members is one work item; ``stacked``, every index
+array stacked per member, a member's row an item) ``--calls`` times per
+case and compares each call with the first call (bitwise, raw rows: the
+kernel's row order is fixed) and with the plain version (block columns
+and tiles bitwise after a per-row sort; dyadic values, so every summation
+order is exact).  Cases: each probe mode (scalar, vector) on each tile
+size -- 8x8 on ``chip_smoke.py``'s block inputs (phase 7: R-MAT ER s13
+ef8 and G500 s10 ef8 patterns, seed 0), and 64x64 on the same R-MAT
+presets at s6 ef4 -- for the single product and each fleet.  A race that one ``chip_smoke.py`` call can miss (a late
 lane a barrier behind, a stage buffer read before its copies landed)
 shows here as a share of wrong calls::
 
@@ -38,13 +40,17 @@ ROOT = Path(__file__).resolve().parents[1]
 #: tile -> (pattern scale, edge factor) per preset
 SIZES = {8: {"ER": (13, 8), "G500": (10, 8)}, 64: {"ER": (6, 4),
                                                   "G500": (6, 4)}}
-MEMBERS = 4
+#: fleet sizes and layouts
+MEMBERS = (1, 3, 8)
+LAYOUTS = ("shared", "stacked")
 DYADIC = np.array([0.5, 1.0, 1.5, 2.0], np.float32)
 
 
 def cases() -> list:
+    kinds = ["single"] + [f"fleet{n}-{layout}" for n in MEMBERS
+                          for layout in LAYOUTS]
     return [f"{mode}_{t}x{t}_{preset}_{kind}"
-            for kind in ("single", "batched") for t in (8, 64)
+            for kind in kinds for t in (8, 64)
             for preset in ("ER", "G500") for mode in ("scalar", "vector")]
 
 
@@ -100,18 +106,23 @@ def main() -> int:
             def call():
                 return [BK.numeric_call(*kargs, **kw, errors=errors)]
         else:
+            n, layout = kind[5:].split("-")
+            n = int(n)
             vals = torch.from_numpy(np.random.default_rng(2).choice(
-                DYADIC, (MEMBERS,) + tuple(a.blocks.shape)).astype(
+                DYADIC, (n,) + tuple(a.blocks.shape)).astype(
                     np.float32)).to(dev)
             kargs = head + (vals, a.indices, a.blocks)
-            pc, pb = bref.batched_numeric_plain(*kargs, n_members=MEMBERS,
-                                                **kw)
-            want = [(pc[e], pb[e]) for e in range(MEMBERS)]
+            if layout == "stacked":
+                kargs = tuple(t if i == 6 else
+                              torch.stack([t] * n).contiguous()
+                              for i, t in enumerate(kargs))
+            pc, pb = bref.batched_numeric_plain(*kargs, n_members=n, **kw)
+            want = [(pc[e], pb[e]) for e in range(n)]
 
-            def call():
-                c, b = BK.batched_numeric_call(*kargs, n_members=MEMBERS,
-                                               **kw, errors=errors)
-                return [(c[e], b[e]) for e in range(MEMBERS)]
+            def call(n=n, kargs=kargs):
+                c, b = BK.batched_numeric_call(*kargs, n_members=n, **kw,
+                                               errors=errors)
+                return [(c[e], b[e]) for e in range(n)]
         first = call()
         bad_calls = 0
         for it in range(args.calls):
