@@ -9,7 +9,8 @@ the paper's graph workloads, the batched fleet planner and BCSR, PB and
 hash value fleets under ``torch.func.vmap``, then the LM serving path
 (qwen3-0.6b at full width, prefill through the flash-attention kernel;
 mamba2-780m at full width, prefill through the SSD chunk-scan kernel),
-and holds every hand-written kernel against its plain PyTorch version.
+then product chains (R.A.P, A^3, A^T.A, batched powers, MCL), and holds
+every hand-written kernel against its plain PyTorch version.
 Phases; any failure exits non-zero:
 
   1. the card's name and power limit (``nvidia-smi``);
@@ -262,6 +263,29 @@ Phases; any failure exits non-zero:
      launches, without its read-back of the bins) issued behind a
      sleeping kernel, so that CUDA events around each launch hold the
      card's work and none of the host's;
+ 22. the chain planner (``core/chain.py``) at the paper's sizes:
+     ``plan_galerkin(r, a, p)`` with ``aggregation_csr(n, n // 8)`` on ER
+     s18 and G500 s16 ef16, unsorted and sorted output (ER sorted: a
+     ``pb`` last stage on a sorted hop, the slot-order rule; ten repeat
+     executes agree; the hash stage's raw slot order and the unprotected
+     composition into ``pb`` printed); ``plan_power(a, 3)`` on ER s16
+     under ``auto``, ``hash`` and ``hash_vector``; ``plan_gram`` on ER s18
+     and G500 s16 (a re-weighted A re-gathers values only: no miss, one
+     product launch); ``plan_batch_power`` over ``block_diagonal_demo``'s
+     12 blocks (k 2) and the A's of phase 12's ``rmat_fleet(64, 10)`` (k
+     3); the MCL twin on 3 x 12 and 16 x 256 planted partitions.  Every
+     execute launches each stage's kernel once (one classification per
+     hash stage) and no plain version, and a repeat plan hits the cache;
+     each stage within 1 ulp per product of the plain version on the
+     kernel's own intermediate, row pointers the plan's; dyadic chains
+     bitwise the plain composition; the Galerkin products and ER's Gram
+     within 1e-5 relative of scipy's float64 chain; batched members equal
+     their ``plan_power`` (dyadic: bitwise); both MCL runs recover their
+     clusters.  A timing line per chain: the execute (single call and 20
+     back to back), the same chain with ``sort_intermediates=True``, each
+     stage's kernels, plain version and ``torch.sparse.mm``, the chain of
+     ``torch.sparse.mm`` (a yardstick only), plan seconds and each stage's
+     bound;
  15. one ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``.
 
 Usage: ``python3 chip_smoke.py`` (one card, no arguments).  A quick first
@@ -375,6 +399,17 @@ SSD_REL = 1e-4
 #: chunk carry, transpose or mask moves them by order 1)
 SSD_LONG, SSD_GATE_LEN, SSD_GATE_REL = (1000, 2048), 300, 1e-3
 
+#: phase 22: the launch counters each chain-stage algorithm bumps once an
+#: execute; the Galerkin coarsening (aggregation_csr(n, n // 8)); A^3's
+#: input (ER, edge factor 16); the pb-ended chain's repeat executes; the
+#: relative distance allowed from scipy's float64 chain; the MCL graphs
+#: (clusters, vertices per cluster)
+CHAIN_KERNELS = {"hash": ("numeric",), "hash_vector": ("numeric_vector",),
+                 "pb": ("pb_scatter", "pb_merge")}
+CHAIN_COARSEN, CHAIN_POWER_SCALE, CHAIN_REPEATS = 8, 16, 10
+CHAIN_SCIPY_RTOL = 1e-5
+MCL_GRAPHS = ((3, 12), (16, 256))
+
 KERNEL_SOURCE = "src/repro_torch/kernels/spgemm_hash/csrc/spgemm_hash.cu"
 PB_SOURCE = "src/repro_torch/kernels/spgemm_pb/csrc/spgemm_pb.cu"
 BCSR_SOURCE = "src/repro_torch/kernels/spgemm_bcsr/csrc/spgemm_bcsr.cu"
@@ -409,6 +444,37 @@ def fail(msg: str) -> None:
 def check(cond: bool, msg: str) -> None:
     if not cond:
         fail(msg)
+
+
+def hash_numeric_bytes(a, b, nnz_c: int) -> int:
+    """Least bytes of one hash numeric call: A's row pointer, columns and
+    values, B's columns and values (and B's row pointer where it is another
+    tensor than A's), the plan's indptr_c read, C's columns and values
+    written."""
+    m = a.n_rows
+    ptr_b = 0 if b.indptr is a.indptr else 4 * (b.n_rows + 1)
+    return 4 * (m + 1) + 8 * int(a.nnz) + ptr_b + 8 * int(b.nnz) \
+        + 8 * nnz_c + 4 * (m + 1)
+
+
+def pb_bytes(p, nnz_a: int, nnz_b: int) -> dict:
+    """Least bytes of the PB pair on plan ``p``: the scatter reads src_a and
+    src_b (4 bytes a product each), A's and B's values and bucket_nnz and
+    writes one float32 a bucket slot; the merge reads seg and the partial
+    products (4 bytes a product each) and bucket_nnz and writes C's
+    values."""
+    flop, nb, cap = p.total_flop, p.n_buckets, p.bucket_cap
+    return {"scatter": 8 * flop + 4 * nnz_a + 4 * nnz_b + 4 * nb * cap
+            + 4 * nb,
+            "merge": 8 * flop + 4 * p.nnz_c + 4 * nb}
+
+
+def bound_ms(nbytes: int, ops: int):
+    """(least ms, what bounds it): the larger of ``nbytes`` at
+    HBM_BYTES_PER_S and ``ops`` at FP32_FLOP_PER_S."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOP_PER_S
+    return max(t_bytes, t_ops) * 1e3, \
+        "bytes" if t_bytes >= t_ops else "operations"
 
 
 def card_line() -> str:
@@ -619,6 +685,49 @@ class Smoke:
         return (a.indptr, a.indptr, a.indices, a.data.float(), a.indices,
                 a.data.float())
 
+    def kernel_times(self, calls: dict, plain_reps: int = REPS) -> dict:
+        """For each ``name: (kernel call, plain call)``: the kernel's
+        single-call ms, its ms a call over 20 back to back beside the
+        host's ms to issue one (``name_b2b``, ``name_host``), and the plain
+        version's ms (``plain_name``, median of ``plain_reps``)."""
+        t = {}
+        for name, (kernel, plain) in calls.items():
+            t[name] = self.time_ms(kernel)
+            t[f"{name}_b2b"], t[f"{name}_host"] = self.stream_ms(kernel)
+            t[f"plain_{name}"] = self.time_ms(plain, reps=plain_reps,
+                                              warm=1)
+        return t
+
+    def hash_numeric_pair(self, args, cap_c, table_size, vector, errors):
+        """(kernel call, plain call) of the hash numeric kernel on
+        ``args``; the kernel counts into the caller's ``errors``, so the
+        wrapper's read-back of its own count is not in its time."""
+        K, ref = self.K, self.ref
+        kw = dict(cap_c=cap_c, table_size=table_size)
+        return (lambda: K.numeric_call(*args, vector=vector, errors=errors,
+                                       **kw),
+                lambda: ref.numeric_plain(*args, vector=False, **kw))
+
+    def pb_pair(self, p, a_vals, b_vals):
+        """``({"scatter": (kernel, plain), "merge": (kernel, plain)}, pp)``
+        of the PB pair on plan ``p``; both merges read ``pp``, the
+        scatter's output on these values."""
+        PK, pb_ref = self.PK, self.pb_ref
+        scatter = (p.bucket_nnz, p.src_a, p.src_b, a_vals, b_vals)
+        pp = PK.scatter_call(*scatter)
+        merge = (p.bucket_nnz, p.seg, pp, p.cap_c)
+        return {"scatter": (lambda: PK.scatter_call(*scatter),
+                            lambda: pb_ref.scatter_plain(*scatter)),
+                "merge": (lambda: PK.merge_call(*merge),
+                          lambda: pb_ref.merge_plain(*merge))}, pp
+
+    def pb_products_per_slot(self, p):
+        """The partial products each output slot of PB plan ``p`` sums."""
+        torch = self.torch
+        live = torch.arange(p.bucket_cap, device=self.dev)[None, :] < \
+            p.bucket_nnz[:, None]
+        return torch.bincount(p.seg[live].long(), minlength=p.cap_c)
+
     # ---- phase 3 -----------------------------------------------------------
     def saturation(self):
         """Load factor 1.0 (forced table of d = CHUNK slots for d distinct
@@ -818,21 +927,16 @@ class Smoke:
         m = a.n_rows
         nnz_c = plan.nnz_c
         flop = plan.total_flop
-        bytes_num = (4 * (m + 1) + 8 * nnz_a) + 8 * nnz_a + 8 * nnz_c \
-            + 4 * (m + 1)
+        bound_num, bound_num_by = bound_ms(
+            hash_numeric_bytes(a, a, nnz_c), 2 * flop)
         bytes_sym = (4 * (m + 1) + 4 * nnz_a) + 4 * nnz_a + 4 * m
-        bound_num = max(bytes_num / HBM_BYTES_PER_S,
-                        2 * flop / FP32_FLOP_PER_S) * 1e3
-        bound_num_by = "bytes" if bytes_num / HBM_BYTES_PER_S >= \
-            2 * flop / FP32_FLOP_PER_S else "operations"
         bound_sym = bytes_sym / HBM_BYTES_PER_S * 1e3
-        # the kernels are timed with an errors tensor of the caller's, so
-        # the wrapper's read-back of its own count is not in their times
-        t = {}
-        for vector, name in ((False, "numeric"), (True, "numeric_vector")):
-            t[name] = self.time_ms(lambda: K.numeric_call(
-                *args, cap_c=plan.cap_c, table_size=plan.table_size,
-                vector=vector, errors=num_err))
+        pairs = {vector: self.hash_numeric_pair(args, plan.cap_c,
+                                                plan.table_size, vector,
+                                                num_err)
+                 for vector in (False, True)}
+        t = {name: self.time_ms(pairs[vector][0]) for vector, name in
+             ((False, "numeric"), (True, "numeric_vector"))}
         # (phase 21 calls it again, after the plan is gone)
         sym_call = (plan.offsets, plan.bin_tsize, *ops_args)
 
@@ -863,8 +967,7 @@ class Smoke:
                 *args[:6], a.data.float(), args[7], a.data.float(),
                 plan.cap_c, plan.table_size, vector))
         t[f"execute_{other}"] = self.time_ms(lambda: plan_o.execute(a, a))
-        t["plain_numeric"] = self.time_ms(lambda: ref.numeric_plain(*args,
-                                                                    **kw))
+        t["plain_numeric"] = self.time_ms(pairs[False][1])
         t["plain_symbolic"] = self.time_ms(lambda: ref.symbolic_plain(
             plan.offsets, plan.bin_tsize, *ops_args,
             table_size=plan.table_size, vector=False))
@@ -1170,9 +1273,7 @@ class Smoke:
               f"{label} sorted: structure differs from the hash route's")
 
         # each kernel against its plain version on the main path's shapes
-        live = torch.arange(cap, device=self.dev)[None, :] < \
-            p.bucket_nnz[:, None]
-        counts_pp = torch.bincount(p.seg[live].long(), minlength=p.cap_c)
+        counts_pp = self.pb_products_per_slot(p)
         errs = {}
         for vals, what in ((a_d.data, "dyadic"), (a.data, "rmat")):
             pp = PK.scatter_call(p.bucket_nnz, p.src_a, p.src_b, vals, vals)
@@ -1206,34 +1307,23 @@ class Smoke:
 
         # ---- timings ------------------------------------------------------
         nnz_a = int(a.nnz)
-        by = {"scatter": 8 * flop + 4 * nnz_a + 4 * nnz_a + 4 * nb * cap
-              + 4 * nb,
-              "merge": 8 * flop + 4 * nnz_c + 4 * nb}
-        bound = {k: max(v / HBM_BYTES_PER_S, flop / FP32_FLOP_PER_S) * 1e3
-                 for k, v in by.items()}
-        t = {"scatter": self.time_ms(lambda: PK.scatter_call(
-                 p.bucket_nnz, p.src_a, p.src_b, a.data, a.data)),
-             "merge": self.time_ms(lambda: PK.merge_call(
-                 p.bucket_nnz, p.seg, pp, p.cap_c)),
-             # the same launches through the custom ops (their own cost)
-             "scatter_op": self.time_ms(lambda: self.pb_ops.scatter_op(
-                 p.bucket_nnz, p.src_a, p.src_b, a.data, a.data)),
-             "merge_op": self.time_ms(lambda: self.pb_ops.merge_op(
-                 p.bucket_nnz, p.seg, pp, p.cap_c)),
-             "plain_scatter": self.time_ms(lambda: pb_ref.scatter_plain(
-                 p.bucket_nnz, p.src_a, p.src_b, a.data, a.data)),
-             "plain_merge": self.time_ms(lambda: pb_ref.merge_plain(
-                 p.bucket_nnz, p.seg, pp, p.cap_c)),
-             "execute_pb": self.time_ms(lambda: plan.execute(a, a)),
-             "execute_hash_sorted": self.time_ms(
-                 lambda: plan_h.execute(a, a, sorted_output=True)),
-             "torch_sparse_mm": self.library_ms[label]}
-        # back to back: the card's time a call, beside the host's to issue
-        t["scatter_b2b"], t["scatter_host"] = self.stream_ms(
-            lambda: PK.scatter_call(p.bucket_nnz, p.src_a, p.src_b, a.data,
-                                    a.data))
-        t["merge_b2b"], t["merge_host"] = self.stream_ms(
-            lambda: PK.merge_call(p.bucket_nnz, p.seg, pp, p.cap_c))
+        by = pb_bytes(p, nnz_a, nnz_a)
+        bounds = {k: bound_ms(v, flop) for k, v in by.items()}
+        bound = {k: v[0] for k, v in bounds.items()}
+        # each kernel single and back to back (the card's time a call,
+        # beside the host's to issue one), and its plain version
+        calls, pp = self.pb_pair(p, a.data, a.data)
+        t = self.kernel_times(calls)
+        t.update({
+            # the same launches through the custom ops (their own cost)
+            "scatter_op": self.time_ms(lambda: self.pb_ops.scatter_op(
+                p.bucket_nnz, p.src_a, p.src_b, a.data, a.data)),
+            "merge_op": self.time_ms(lambda: self.pb_ops.merge_op(
+                p.bucket_nnz, p.seg, pp, p.cap_c)),
+            "execute_pb": self.time_ms(lambda: plan.execute(a, a)),
+            "execute_hash_sorted": self.time_ms(
+                lambda: plan_h.execute(a, a, sorted_output=True)),
+            "torch_sparse_mm": self.library_ms[label]})
         print(json.dumps({"timing": f"{label} sorted", "card": self.card,
                           "n": a.n_rows, "nnz_a": nnz_a, "flop": flop,
                           "nnz_c": nnz_c, "algorithm": "pb",
@@ -1247,10 +1337,9 @@ class Smoke:
                 "launches": launches[f"pb_{name}"],
                 "max_abs_err": errs[name], "ms": t[name],
                 "plain_ms": t[f"plain_{name}"], "bound_ms": bound[name],
-                "bound_by": "bytes" if by[name] / HBM_BYTES_PER_S >=
-                flop / FP32_FLOP_PER_S else "operations",
+                "bound_by": bounds[name][1],
                 "library_ms": t["torch_sparse_mm"]})
-        del plan, plan_h, p, c, c_d, c_h, pp, out, again
+        del plan, plan_h, p, c, c_d, c_h, pp, out, again, calls
         core.clear_plan_cache()
         torch.cuda.empty_cache()
 
@@ -2730,6 +2819,29 @@ class Smoke:
         return (off, bts, a.indptr, b.indptr, ic, a.indices, a.data.float(),
                 b.indices, b.data.float()), a, b
 
+    def batch_plain(self, plan, pairs):
+        """The batched plain version of every hash class of ``plan`` on
+        ``pairs``: per member its (columns, values) and the products each
+        entry sums; per class ``(cls, kernel args, kernel kw)``."""
+        ref = self.ref
+        plain, pp, class_args = {}, {}, []
+        for cls in plan.classes:
+            if cls.hash_sched is None:
+                continue
+            args, _, _ = self.batch_args(cls, pairs)
+            kw = dict(n_members=cls.n_members, cap_c=cls.cap_c,
+                      table_size=cls.table_size, vector=False)
+            class_args.append((cls, args, kw))
+            pc, pv = ref.batched_numeric_plain(*args, **kw)
+            for e, i in enumerate(cls.members):
+                a, b = pairs[i]
+                plain[i] = (pc[e], pv[e])
+                pp[i] = ref.products_per_entry(a.indptr, b.indptr,
+                                               args[4][e], a.indices,
+                                               b.indices, cls.cap_c)
+            del pc, pv
+        return plain, pp, class_args
+
     def serve_times(self, label, pairs, launches):
         """A serving loop's call, ``plan_batch(pairs).execute(pairs)`` under
         ``torch.inference_mode()`` (a plan-cache hit, the structure check
@@ -2804,21 +2916,7 @@ class Smoke:
         self.expect(counts, {"batched_numeric": launches},
                     f"{label} repeat plan_batch.execute")
 
-        # the plain version per class, and each member's products per entry
-        plain, pp, class_args = {}, {}, []
-        for cls in hash_cls:
-            args, _, _ = self.batch_args(cls, pairs)
-            kw = dict(n_members=cls.n_members, cap_c=cls.cap_c,
-                      table_size=cls.table_size, vector=False)
-            class_args.append((cls, args, kw))
-            pc, pv = ref.batched_numeric_plain(*args, **kw)
-            for e, i in enumerate(cls.members):
-                a, b = pairs[i]
-                plain[i] = (pc[e], pv[e])
-                pp[i] = ref.products_per_entry(a.indptr, b.indptr,
-                                               args[4][e], a.indices,
-                                               b.indices, cls.cap_c)
-            del pc, pv
+        plain, pp, class_args = self.batch_plain(plan, pairs)
         err = 0.0
         for i, (c, c2) in enumerate(zip(outs, outs2)):
             check(c.shape == (pairs[i][0].n_rows, pairs[i][1].n_cols) and
@@ -4044,6 +4142,570 @@ class Smoke:
                 "launches_per_admission": cfg.n_layers,
                 "launches_per_decode_step": 0, **row})
 
+    # ---- phase 22 ----------------------------------------------------------
+    def chain_expect(self, counts, algorithms, what):
+        """One chain (or stage) execute: each stage's kernels once, one
+        classification per hash stage, no plain version, nothing else."""
+        want: dict = {}
+        for algo in algorithms:
+            for k in CHAIN_KERNELS[algo]:
+                want[k] = want.get(k, 0) + 1
+        self.expect(counts, want, what)
+        n_hash = sum(algo in ("hash", "hash_vector") for algo in algorithms)
+        check(self.class_counts["classify"] == n_hash and
+              self.class_counts["plain"] == 0,
+              f"{what}: {self.class_counts['classify']} classifying launches "
+              f"for {n_hash} hash stages")
+
+    def plain_stage(self, stage, a, b):
+        """The plain version of one chain stage on ``(a, b)``: its sorted
+        output CSR and the products each output slot sums."""
+        torch, ref, pb_ref = self.torch, self.ref, self.pb_ref
+        if stage.algorithm == "pb":
+            p = stage.pb_plan
+            pp = pb_ref.scatter_plain(p.bucket_nnz, p.src_a, p.src_b, a.data,
+                                      b.data)
+            vals = pb_ref.merge_plain(p.bucket_nnz, p.seg, pp, p.cap_c)
+            counts = self.pb_products_per_slot(p)
+            cols, indptr = p.cols_c, p.indptr_c
+        else:
+            args = (stage.offsets, stage.bin_tsize, a.indptr, b.indptr,
+                    stage.indptr_c, a.indices, a.data, b.indices, b.data)
+            cols, vals = ref.numeric_plain(*args, cap_c=stage.cap_c,
+                                           table_size=stage.table_size,
+                                           vector=False)
+            counts = ref.products_per_entry(a.indptr, b.indptr,
+                                            stage.indptr_c, a.indices,
+                                            b.indices, stage.cap_c)
+            indptr = stage.indptr_c
+        nnz = torch.tensor(stage.nnz_c, dtype=torch.int32, device=self.dev)
+        return self.CSR(indptr, cols, vals, nnz, (a.n_rows, b.n_cols),
+                        True), counts
+
+    def check_stage(self, what, out, plain, counts):
+        """A stage's (or chain's) output against the plain version: row
+        pointers bitwise the plan's, each row's columns bitwise, values
+        bitwise (``counts`` None) or within 1 ulp per product."""
+        check(self.torch.equal(out.indptr, plain.indptr) and
+              int(out.nnz) == int(plain.nnz),
+              f"{what}: row pointers or nnz differ from the plan's")
+        return self.compare(what, out.indices, out.data, out.indptr,
+                            out.shape, plain.indices, plain.data, counts)
+
+    def chain_run(self, label, chain, mats, mats_d, plain_d=None):
+        """``chain.execute`` on the card (launches counted), its stages one
+        by one, each against the plain version on the kernel's own
+        intermediate (within 1 ulp per product), and the dyadic chain
+        against the plain composition, bitwise.  Returns the output, one
+        record per stage and the dyadic plain composition (``plain_d``:
+        one computed before on the same plan arrays)."""
+        torch = self.torch
+        c, counts = self.counted(lambda: chain.execute(*mats))
+        self.chain_expect(counts, chain.algorithms, f"{label} execute")
+        check(torch.equal(c.indptr, chain.stages[-1].indptr_c) and
+              int(c.nnz) == chain.nnz_c, f"{label}: row pointers or nnz "
+              f"differ from the plan's")
+        check(c.sorted_cols or not chain.sorted_output,
+              f"{label}: sorted output not flagged sorted")
+        stages, cur, last = [], mats[0], chain.n_stages - 1
+        for k, stage in enumerate(chain.stages):
+            b = mats[k + 1]
+            so = chain.sorted_output if k == last else chain.sorted_hops[k]
+            out, counts = self.counted(
+                lambda: stage.execute(cur, b, sorted_output=so))
+            self.chain_expect(counts, (stage.algorithm,),
+                              f"{label} stage {k}")
+            plain, pp = self.plain_stage(stage, cur, b)
+            err = self.check_stage(f"{label} stage {k}", out, plain, pp)
+            del plain, pp
+            stages.append({"stage": stage, "a": cur, "b": b, "sorted": so,
+                           "err": err})
+            cur = out
+        del cur, out
+        c_d, counts = self.counted(lambda: chain.execute(*mats_d))
+        self.chain_expect(counts, chain.algorithms,
+                          f"{label} execute dyadic")
+        if plain_d is None:
+            plain_d = mats_d[0]
+            for k, stage in enumerate(chain.stages):
+                plain_d, _ = self.plain_stage(stage, plain_d, mats_d[k + 1])
+        self.check_stage(f"{label} dyadic", c_d, plain_d, None)
+        print(f"{label}: each stage's kernel within 1 ulp per product of "
+              f"the plain version on its own intermediate (max abs diff "
+              f"{[s['err'] for s in stages]}); dyadic bitwise the plain "
+              f"composition", flush=True)
+        return c, stages, plain_d
+
+    def scipy_of(self, a):
+        import scipy.sparse as sps
+        nnz = int(a.nnz)
+        return sps.csr_matrix((a.data[:nnz].double().cpu().numpy(),
+                               a.indices[:nnz].cpu().numpy(),
+                               a.indptr.cpu().numpy()), shape=a.shape)
+
+    def scipy_check(self, what, c, want) -> float:
+        """``c`` against scipy's float64 product ``want``: the same
+        structure, values within a relative CHAIN_SCIPY_RTOL."""
+        torch = self.torch
+        s = self.core.finalize(c, True)
+        want.sort_indices()
+        nnz = int(s.nnz)
+        check(nnz == want.nnz and np.array_equal(
+            s.indptr.cpu().numpy().astype(np.int64),
+            want.indptr.astype(np.int64)) and np.array_equal(
+            s.indices[:nnz].cpu().numpy(), want.indices.astype(np.int32)),
+            f"{what}: structure differs from scipy's")
+        w = torch.from_numpy(want.data).to(self.dev)
+        rel = float(((s.data[:nnz].double() - w).abs() / w.abs()).max()) \
+            if nnz else 0.0
+        check(rel <= CHAIN_SCIPY_RTOL, f"{what}: relative difference {rel} "
+              f"from scipy's float64 chain past {CHAIN_SCIPY_RTOL}")
+        return rel
+
+    def sparse_of(self, a):
+        nnz = int(a.nnz)
+        return self.torch.sparse_csr_tensor(
+            a.indptr.long(), a.indices[:nnz].long(), a.data[:nnz],
+            size=a.shape)
+
+    def stage_times(self, st):
+        """One stage's kernels (phase 5's and 6's calls, bytes and bounds
+        on the stage's own operands: single call and 20 back to back), its
+        plain version, its execute and ``torch.sparse.mm`` of the same
+        product."""
+        torch, core = self.torch, self.core
+        stage, a, b = st["stage"], st["a"], st["b"]
+        if stage.algorithm == "pb":
+            p = stage.pb_plan
+            calls, _ = self.pb_pair(p, a.data, b.data)
+            by = pb_bytes(p, int(a.nnz), int(b.nnz))
+            ops = p.total_flop
+        else:
+            args = (stage.offsets, stage.bin_tsize, a.indptr, b.indptr,
+                    stage.indptr_c, a.indices, a.data, b.indices, b.data)
+            err = torch.zeros(1, dtype=torch.int32, device=self.dev)
+            vector = stage.algorithm == "hash_vector"
+            name = "numeric_vector" if vector else "numeric"
+            calls = {name: self.hash_numeric_pair(
+                args, stage.cap_c, stage.table_size, vector, err)}
+            by = {name: hash_numeric_bytes(a, b, stage.nnz_c)}
+            ops = 2 * stage.total_flop
+        t = self.kernel_times(calls, plain_reps=3)
+        if stage.algorithm != "pb":
+            torch.cuda.synchronize()
+            check(int(err) == 0, f"stage {stage.algorithm}: {int(err)} "
+                  f"kernel errors")
+        t["execute"] = self.time_ms(
+            lambda: stage.execute(a, b, sorted_output=st["sorted"]))
+        if st["sorted"] and stage.algorithm != "pb":
+            # the sort epilogue of a sorted hop (or output) alone
+            raw = stage.execute(a, b, sorted_output=False)
+            t["sort"] = self.time_ms(lambda: core.finalize(raw, True))
+            del raw
+        sp_a, sp_b = self.sparse_of(a), self.sparse_of(b)
+        t["torch_sparse_mm"] = self.yardstick_ms(lambda: torch.sparse.mm(
+            sp_a, sp_b))
+        bounds = {k: bound_ms(v, ops) for k, v in by.items()}
+        return t, {k: v[0] for k, v in bounds.items()}, \
+            {k: v[1] for k, v in bounds.items()}, by
+
+    def yardstick_ms(self, fn):
+        """:meth:`time_ms` of a library call (a yardstick, off the path);
+        None where cuSPARSE runs out of device memory."""
+        try:
+            return self.time_ms(fn)
+        except self.torch.OutOfMemoryError:
+            self.torch.cuda.empty_cache()
+            return None
+
+    def chain_times(self, label, chain, mats, stages, launches,
+                    sort_plan=None, plan_s=None, library_mats=None,
+                    extra=None):
+        """Timing line of one plan (``chain.execute(*mats)``; a chain, or
+        a Gram plan as one stage): its execute, the execute with
+        ``sort_intermediates=True`` (the C8 comparison), each stage's
+        kernels, the chain of ``torch.sparse.mm`` over ``library_mats``
+        (default ``mats``; a yardstick only), plan seconds and each
+        stage's bound; one kernels-line row per stage kernel."""
+        torch = self.torch
+        t = {"execute": self.time_ms(lambda: chain.execute(*mats)),
+             **(extra or {})}
+        t["execute_b2b"], t["execute_host"] = self.stream_ms(
+            lambda: chain.execute(*mats))
+        if sort_plan is not None:
+            t["execute_sorted_intermediates"] = self.time_ms(
+                lambda: sort_plan.execute(*mats))
+            t["execute_sorted_intermediates_b2b"], _ = self.stream_ms(
+                lambda: sort_plan.execute(*mats))
+        sp = [self.sparse_of(m) for m in library_mats or mats]
+
+        def library_chain():
+            cur = sp[0]
+            for x in sp[1:]:
+                cur = torch.sparse.mm(cur, x)
+            return cur
+
+        t["torch_sparse_mm_chain"] = self.yardstick_ms(library_chain)
+        del sp
+        per_stage = []
+        for k, st in enumerate(stages):
+            ts, bound, bound_by, by = self.stage_times(st)
+            stage = st["stage"]
+            per_stage.append({
+                "stage": k, "algorithm": stage.algorithm,
+                "sorted_out": st["sorted"], "flop": stage.total_flop,
+                "nnz_a": int(st["a"].nnz), "nnz_c": stage.nnz_c,
+                "ms": ts, "bound_ms": bound, "bytes": by})
+            pb = stage.algorithm == "pb"
+            for name, b_ms in bound.items():
+                key = f"pb_{name}" if pb else name
+                self.rows.append({
+                    "name": f"spgemm_{'pb' if pb else 'hash'}_{name}"
+                            f"[chain {label} stage {k}]",
+                    "route": "cuda",
+                    "source": PB_SOURCE if pb else KERNEL_SOURCE,
+                    "replaces": REPLACES[name],
+                    "launches": launches.get(key, 0),
+                    "launches_in_stage": 1,
+                    "max_abs_err": st["err"], "ms": ts[name],
+                    "back_to_back_ms": ts[f"{name}_b2b"],
+                    "plain_ms": ts[f"plain_{name}"], "bound_ms": b_ms,
+                    "bound_by": bound_by[name],
+                    "library_ms": ts["torch_sparse_mm"]})
+        print(json.dumps({
+            "timing": f"chain {label}", "card": self.card,
+            "algorithms": [st["stage"].algorithm for st in stages],
+            "sorted_hops": [st["sorted"] for st in stages[:-1]],
+            "sort_intermediates_algorithms": None if sort_plan is None
+            else list(sort_plan.algorithms),
+            "total_flop": sum(st["stage"].total_flop for st in stages),
+            "nnz_c": stages[-1]["stage"].nnz_c,
+            "ms": t, "stages": per_stage, "plan_s": plan_s}), flush=True)
+        return t
+
+    def repeat_plan(self, label, plan, replan):
+        """A repeat plan must return the cached plan with no new miss."""
+        before = self.core.plan_cache_stats()["misses"]
+        again = replan()
+        check(again is plan and
+              self.core.plan_cache_stats()["misses"] == before,
+              f"{label}: a repeat plan missed the cache")
+
+    def chain_galerkin(self, preset, scale):
+        """R.A.P with ``aggregation_csr(n, n // 8)``, unsorted and sorted
+        output; on ER s18 the sorted chain's last stage is ``pb`` on a
+        sorted hop, and ten repeat executes agree."""
+        torch, core, rmat = self.torch, self.core, self.rmat
+        t0 = time.perf_counter()
+        a = rmat.rmat_csr(scale, EDGE_FACTOR, preset, seed=0,
+                          device=self.dev)
+        a_d = self.dyadic_copy(a, 22)
+        n = a.n_rows
+        r, p = rmat.aggregation_csr(n, n // CHAIN_COARSEN, seed=0,
+                                    device=self.dev)
+        want = self.scipy_of(r) @ self.scipy_of(a) @ self.scipy_of(p)
+        base = f"{preset} s{scale} ef{EDGE_FACTOR} R.A.P"
+        print(f"{base}: n={n} nnz(A)={int(a.nnz)} coarse {n // CHAIN_COARSEN}"
+              f" nnz(RAP) {want.nnz} (built, scipy's float64 chain in "
+              f"{time.perf_counter() - t0:.1f} s)", flush=True)
+        mats, mats_d = (r, a, p), (r, a_d, p)
+        for so in (False, True):
+            label = f"{base} {'sorted' if so else 'unsorted'}"
+            core.clear_plan_cache()
+            t0 = time.perf_counter()
+            plan = core.plan_galerkin(r, a, p, sorted_output=so)
+            torch.cuda.synchronize()
+            plan_s = time.perf_counter() - t0
+            self.repeat_plan(label, plan, lambda: core.plan_galerkin(
+                r, a, p, sorted_output=so))
+            print(f"{label}: stages {list(plan.algorithms)}, hops sorted "
+                  f"{list(plan.sorted_hops)}, flop "
+                  f"{[st.total_flop for st in plan.stages]}, nnz "
+                  f"{[st.nnz_c for st in plan.stages]} (planned in "
+                  f"{plan_s:.2f} s)", flush=True)
+            check(plan.sorted_hops == (plan.algorithms[1] in
+                                       self.chain_mod.A_SLOT_ALGORITHMS,),
+                  f"{label}: the hop's sortedness breaks the slot-order rule")
+            if so and preset == "ER":
+                check(plan.algorithms[-1] == "pb",
+                      f"{label}: the recipe sent the last stage to "
+                      f"{plan.algorithms[-1]}, not pb")
+            c, stages, _ = self.chain_run(label, plan, mats, mats_d)
+            rel = self.scipy_check(label, c, want)
+            print(f"{label}: within {rel:.3g} relative of scipy's float64 "
+                  f"chain", flush=True)
+            del c
+            _, launches = self.counted(lambda: plan.execute(*mats))
+            sort_plan = core.plan_galerkin(r, a, p, sorted_output=so,
+                                           sort_intermediates=True)
+            self.chain_times(label, plan, mats, stages, launches,
+                             sort_plan=sort_plan, plan_s=plan_s)
+            if so and preset == "ER":
+                self.chain_repeats(label, plan, mats, mats_d)
+            del stages, plan, sort_plan
+            core.clear_plan_cache()
+            torch.cuda.empty_cache()
+
+    def chain_repeats(self, label, plan, mats, mats_d):
+        """The pb-ended chain executed 10 times: the same structure every
+        call, values bitwise on dyadic operands and within CHAIN_SCIPY_RTOL
+        of the first call otherwise.  Evidence of the rule: two raw
+        outputs of the hash stage (no sort) in other slot orders, and the
+        unprotected composition feeding one into the pb stage."""
+        torch = self.torch
+        first_d = plan.execute(*mats_d)
+        first = plan.execute(*mats)
+        for _ in range(CHAIN_REPEATS):
+            c_d = plan.execute(*mats_d)
+            c = plan.execute(*mats)
+            for f in ("indptr", "indices", "nnz"):
+                check(torch.equal(getattr(c, f), getattr(first, f)) and
+                      torch.equal(getattr(c_d, f), getattr(first_d, f)),
+                      f"{label}: a repeat execute changed the structure")
+            check(torch.equal(c_d.data, first_d.data),
+                  f"{label}: a repeat dyadic execute changed the values")
+            rel = ((c.data - first.data).abs()
+                   / first.data.abs().clamp_min(1e-30)).max()
+            check(float(rel) <= CHAIN_SCIPY_RTOL,
+                  f"{label}: a repeat execute moved a value by {float(rel)}")
+        s0 = plan.stages[0]
+        raw1 = s0.execute(mats_d[0], mats_d[1], sorted_output=False)
+        raw2 = s0.execute(mats_d[0], mats_d[1], sorted_output=False)
+        srt = self.core.finalize(raw1, True)
+        moved = int((raw1.indices != raw2.indices).sum())
+        unsorted = int((raw1.indices != srt.indices).sum())
+        bad = plan.stages[1].execute(raw1, mats_d[2])
+        good = plan.execute(*mats_d)
+        wrong = int((bad.data != good.data).sum())
+        print(f"{label}: {CHAIN_REPEATS} repeat executes agree (structure "
+              f"bitwise, dyadic values bitwise); the hash stage's raw "
+              f"output: {unsorted} of {int(raw1.nnz)} slots off the sorted "
+              f"order, {moved} differ between two calls; the unprotected "
+              f"composition into pb: {wrong} wrong values", flush=True)
+
+    def chain_power(self):
+        """A^3 on ER s16 ef16 under ``auto``, pinned to ``hash`` and to
+        ``hash_vector``."""
+        torch, core = self.torch, self.core
+        a = self.rmat.rmat_csr(CHAIN_POWER_SCALE, EDGE_FACTOR, "ER", seed=0,
+                               device=self.dev)
+        a_d = self.dyadic_copy(a, 23)
+        plain_d = None
+        for algorithm in ("auto", "hash", "hash_vector"):
+            label = f"ER s{CHAIN_POWER_SCALE} ef{EDGE_FACTOR} A^3 {algorithm}"
+            core.clear_plan_cache()
+            t0 = time.perf_counter()
+            plan = core.plan_power(a, 3, algorithm=algorithm)
+            torch.cuda.synchronize()
+            plan_s = time.perf_counter() - t0
+            self.repeat_plan(label, plan, lambda: core.plan_power(
+                a, 3, algorithm=algorithm))
+            check(plan.sorted_hops == (False,),
+                  f"{label}: a hop into a hash stage was sorted")
+            print(f"{label}: stages {list(plan.algorithms)}, flop "
+                  f"{[s.total_flop for s in plan.stages]}, nnz "
+                  f"{[s.nnz_c for s in plan.stages]} (planned in "
+                  f"{plan_s:.2f} s)", flush=True)
+            c, stages, plain_d = self.chain_run(label, plan, (a, a, a),
+                                                (a_d, a_d, a_d), plain_d)
+            del c
+            _, launches = self.counted(lambda: plan.execute(a, a, a))
+            sort_plan = core.plan_power(a, 3, algorithm=algorithm,
+                                        sort_intermediates=True)
+            self.chain_times(label, plan, (a, a, a), stages, launches,
+                             sort_plan=sort_plan, plan_s=plan_s)
+            del stages, plan, sort_plan
+            core.clear_plan_cache()
+            torch.cuda.empty_cache()
+        del plain_d
+
+    def chain_gram(self, preset, scale):
+        """A^T A through ``plan_gram``: one product launch an execute; a
+        re-weighted A re-gathers values only (no miss, one launch); ER
+        against scipy's float64 product."""
+        torch, core = self.torch, self.core
+        a = self.rmat.rmat_csr(scale, EDGE_FACTOR, preset, seed=0,
+                               device=self.dev)
+        a_d = self.dyadic_copy(a, 24)
+        label = f"{preset} s{scale} ef{EDGE_FACTOR} A^T.A"
+        core.clear_plan_cache()
+        t0 = time.perf_counter()
+        plan = core.plan_gram(a)
+        torch.cuda.synchronize()
+        plan_s = time.perf_counter() - t0
+        self.repeat_plan(label, plan, lambda: core.plan_gram(a))
+        prod = plan.product
+        print(f"{label}: product {plan.algorithm}, flop {prod.total_flop}, "
+              f"nnz(C) {plan.nnz_c} (planned in {plan_s:.2f} s)", flush=True)
+        t = core.csr_transpose(a)
+        g, counts = self.counted(lambda: plan.execute(a))
+        self.chain_expect(counts, (plan.algorithm,), f"{label} execute")
+        plain, pp = self.plain_stage(prod, t, a)
+        err = self.check_stage(label, g, plain, pp)
+        del plain, pp
+        g_d, counts = self.counted(lambda: plan.execute(a_d))
+        self.chain_expect(counts, (plan.algorithm,), f"{label} dyadic")
+        plain_d, _ = self.plain_stage(prod, core.csr_transpose(a_d), a_d)
+        self.check_stage(f"{label} dyadic", g_d, plain_d, None)
+        del g_d, plain_d
+        # re-weighted: the cached plan, one gather and one product launch
+        a3 = self.CSR(a.indptr, a.indices, a.data * 3, a.nnz, a.shape,
+                      a.sorted_cols)
+        before = core.plan_cache_stats()["misses"]
+        (p3, g3), counts = self.counted(
+            lambda: (core.plan_gram(a3), core.plan_gram(a3).execute(a3)))
+        check(p3 is plan and core.plan_cache_stats()["misses"] == before,
+              f"{label}: the re-weighted A missed the cache")
+        self.chain_expect(counts, (plan.algorithm,), f"{label} re-weighted")
+        plain3, pp3 = self.plain_stage(prod, core.csr_transpose(a3), a3)
+        self.check_stage(f"{label} re-weighted", g3, plain3, pp3)
+        del g3, plain3, pp3
+        rel = None
+        if preset == "ER":
+            want = self.scipy_of(a).T.tocsr() @ self.scipy_of(a)
+            rel = self.scipy_check(label, g, want)
+            del want
+        print(f"{label}: within 1 ulp per product of the plain version "
+              f"(max abs diff {err}), dyadic bitwise, re-weighted A re-"
+              f"gathered with no miss and one launch"
+              + ("" if rel is None else f"; within {rel:.3g} relative of "
+                 f"scipy's float64 product"), flush=True)
+        del g
+        stages = [{"stage": prod, "a": t, "b": a, "sorted": False,
+                   "err": err}]
+        _, launches = self.counted(lambda: plan.execute(a))
+        self.chain_times(
+            label, plan, (a,), stages, launches, plan_s=plan_s,
+            library_mats=(t, a),
+            extra={"transpose": self.time_ms(lambda: core.csr_transpose(a))})
+        del plan, t, stages
+        core.clear_plan_cache()
+        torch.cuda.empty_cache()
+
+    def chain_batch_power(self, label, mats, k):
+        """``plan_batch_power(mats, k)``: each stage's hash classes launch
+        one classification and one launch per table class, nothing else;
+        each stage's members, run stage by stage, against phase 12's
+        batched plain version on that stage's own intermediates (within 1
+        ulp per product; dyadic values bitwise); the whole execute the
+        same column sets (dyadic: values bitwise) as the stages."""
+        torch, core, K = self.torch, self.core, self.K
+        mats_d = [self.dyadic_copy(m, 30 + i) for i, m in enumerate(mats)]
+        core.clear_plan_cache()
+        t0 = time.perf_counter()
+        plan = core.plan_batch_power(mats, k)
+        torch.cuda.synchronize()
+        plan_s = time.perf_counter() - t0
+        self.repeat_plan(label, plan,
+                         lambda: core.plan_batch_power(mats, k))
+        classes = [c for st in plan.stages for c in st.classes]
+        check(all(c.hash_sched is not None for c in classes),
+              f"{label}: a class off the hash kernel: "
+              f"{[c.algorithm for c in classes]}")
+
+        def launches(stage_classes):
+            want: dict = {}
+            for c in stage_classes:
+                key = "batched_numeric_vector" \
+                    if c.algorithm == "hash_vector" else "batched_numeric"
+                want[key] = want.get(key, 0) + len(K.launch_classes(
+                    c.hash_largest))
+            return want
+
+        want = launches(classes)
+        last, err = plan.n_stages - 1, 0.0
+        for what, ops in (("", mats), (" dyadic", mats_d)):
+            outs, counts = self.counted(lambda: plan.execute(ops))
+            self.expect(counts, want, f"{label} execute{what}")
+            check(self.class_counts["classify"] == len(classes),
+                  f"{label}: {self.class_counts['classify']} classifying "
+                  f"launches for {len(classes)} classes")
+            cur = ops
+            for j, stage in enumerate(plan.stages):
+                pairs = list(zip(cur, ops))
+                so = plan.sorted_output if j == last else False
+                step, counts = self.counted(
+                    lambda: stage.execute(pairs, sorted_output=so))
+                self.expect(counts, launches(stage.classes),
+                            f"{label} stage {j}{what}")
+                plain, pp, _ = self.batch_plain(stage, pairs)
+                for i, c in enumerate(step):
+                    err = max(err, self.compare(
+                        f"{label} stage {j}{what} member {i}", c.indices,
+                        c.data, c.indptr, c.shape, *plain[i],
+                        None if what else pp[i]))
+                del plain, pp
+                cur = step
+            for i, (c, s) in enumerate(zip(outs, cur)):
+                c, s = c.sort_rows(), s.sort_rows()
+                nnz = int(s.nnz)
+                check(torch.equal(c.indptr, s.indptr) and int(c.nnz) == nnz
+                      and torch.equal(c.indices[:nnz], s.indices[:nnz]),
+                      f"{label} member {i}{what}: the execute's structure "
+                      f"differs from the stages'")
+                check(not what or torch.equal(c.data[:nnz], s.data[:nnz]),
+                      f"{label} member {i}{what}: the execute's values "
+                      f"differ from the stages'")
+            del outs, cur, step
+        per_member = [core.plan_power(m, k) for m in mats]
+        t = {"execute": self.time_ms(lambda: plan.execute(mats))}
+        t["execute_b2b"], t["execute_host"] = self.stream_ms(
+            lambda: plan.execute(mats))
+        t["per_member_plan_power_loop"] = self.time_ms(
+            lambda: [pm.execute([m] * k) for pm, m in zip(per_member, mats)])
+        print(f"{label}: {plan.n_products} members x {plan.n_stages} "
+              f"stages in {plan.n_classes} classes; launches {want} + "
+              f"{len(classes)} classifications; every stage within 1 ulp "
+              f"per product of the batched plain version on its own "
+              f"intermediates (max abs diff {err}), dyadic bitwise",
+              flush=True)
+        print(json.dumps({"timing": f"chain {label}", "card": self.card,
+                          "n_products": plan.n_products,
+                          "n_stages": plan.n_stages,
+                          "n_classes": plan.n_classes, "launches": want,
+                          "max_abs_err": err, "ms": t, "plan_s": plan_s}),
+              flush=True)
+        del plan, per_member
+        core.clear_plan_cache()
+
+    def chains(self):
+        """Phase 22: the chain planner at the paper's sizes."""
+        from repro_torch.core import chain as chain_mod
+        from repro_torch.examples import mcl as mcl_twin
+        from repro_torch.examples.moe_dispatch_batch import diagonal_blocks
+        self.chain_mod = chain_mod
+        t_phase = time.perf_counter()
+        for preset, scale in (("ER", ER_SCALE), ("G500", G500_SCALE)):
+            self.chain_galerkin(preset, scale)
+        self.chain_power()
+        for preset, scale in (("ER", ER_SCALE), ("G500", G500_SCALE)):
+            self.chain_gram(preset, scale)
+        self.chain_batch_power("block_diagonal_demo (12 blocks, k 2)",
+                               diagonal_blocks(self.dev), 2)
+        fleet = [self.rmat.rmat_csr(FLEET_SCALE, 1 + (i % 3),
+                                    "G500" if i % 2 else "ER", seed=i,
+                                    device=self.dev)
+                 for i in range(FLEET_PRODUCTS)]
+        self.chain_batch_power(f"rmat_fleet({FLEET_PRODUCTS}, "
+                               f"{FLEET_SCALE}) A (k 3)", fleet, 3)
+        del fleet
+        for n_clusters, size in MCL_GRAPHS:
+            t0 = time.perf_counter()
+            res, counts = self.counted(
+                lambda: mcl_twin.run(n_clusters, size, device=self.dev))
+            self.expect(counts, {"numeric": res["n_iters"]},
+                        f"MCL {n_clusters} x {size}")
+            print(json.dumps({"timing": f"chain MCL {n_clusters} x {size}",
+                              "card": self.card,
+                              "n_iters": res["n_iters"],
+                              "distinct_caps": len(set(res["caps"])),
+                              "numeric_launches": counts["numeric"],
+                              "s": time.perf_counter() - t0}), flush=True)
+        self.core.clear_plan_cache()
+        self.torch.cuda.empty_cache()
+        print(f"phase 22: chains ok in {time.perf_counter() - t_phase:.1f} s",
+              flush=True)
+
 
 def main() -> int:
     import torch
@@ -4111,6 +4773,7 @@ def main() -> int:
     ssd_rows = smoke.ssd_kernel()                                # phase 19
     smoke.serve_ssd(ssd_rows)                                    # phase 20
     smoke.hash_class_times()                                     # phase 21
+    smoke.chains()                                               # phase 22
 
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": smoke.rows}), flush=True)       # phase 15

@@ -441,7 +441,7 @@ def plan_batch(pairs: Sequence[Tuple[CSR, CSR]], *,
                  for (a, b), m in zip(pairs, masks)),
            sr.name, complement_mask, sorted_output, algorithm)
     if cache:
-        hit = cache_lookup(key)
+        hit = cache_lookup(key, pairs[0][0].device)
         if hit is not None:
             return hit
 
@@ -565,7 +565,7 @@ def plan_batch(pairs: Sequence[Tuple[CSR, CSR]], *,
         nnz_cs=tuple(info["nnz_c"] for info in infos),
         total_flop=sum(info["total_flop"] for info in infos))
     if cache:
-        cache_store(key, plan)
+        cache_store(key, pairs[0][0].device, plan)
     return plan
 
 

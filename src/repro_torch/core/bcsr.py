@@ -125,7 +125,7 @@ def plan_bcsr(a: BCSR, b: BCSR, *, n_bins: int = 8, vector: bool = False,
     key = ("bcsr", bcsr_structure_key(a), bcsr_structure_key(b), n_bins,
            vector)
     if cache:
-        hit = cache_lookup(key)
+        hit = cache_lookup(key, a.device)
         if hit is not None:
             return hit
 
@@ -141,5 +141,5 @@ def plan_bcsr(a: BCSR, b: BCSR, *, n_bins: int = 8, vector: bool = False,
         bin_tsize=bin_tsize, table_size=table_size, row_nnzb_c=row_nnzb,
         indptr_cb=indptr_cb, nnzb_c=nnzb_c, bcap_c=max(nnzb_c, 1))
     if cache:
-        cache_store(key, plan)
+        cache_store(key, a.device, plan)
     return plan

@@ -235,6 +235,47 @@ class CSR:
         return dataclasses.replace(self, sorted_cols=False)
 
 
+def csr_transpose(a: CSR, cap: int | None = None, return_perm: bool = False):
+    """``A^T`` as a sorted row-major CSR of shape ``(n_cols, n_rows)``, on
+    the operand's device (the reference transposes on the host).
+
+    A stable sort on (col, row) -- within each row of ``A^T`` the original
+    row ids come out ascending, so the result is ``sorted_cols`` whatever
+    the order of ``a``'s rows -- then a ``bincount`` and ``cumsum`` of the
+    columns for the row pointer.  With ``return_perm=True`` also returns
+    the int32 gather ``perm`` of shape ``(cap,)`` with ``A^T.data ==
+    A.data[perm]`` over the live prefix; the padded tail gathers slot 0
+    and must be masked by the caller.  ``perm`` depends only on A's
+    pattern, which lets ``core.chain.plan_gram`` freeze it and re-gather
+    values alone on a repeat execute.  Arrays are bitwise the
+    reference's.
+    """
+    m, n = a.shape
+    nnz = int(a.nnz)
+    dev = a.device
+    rows = _live_rows(a.indptr, m, nnz)
+    cols = a.indices[:nnz].long()
+    vals = a.data[:nnz]
+    perm = lexsort((rows, cols))
+    if cap is None:
+        cap = max(a.cap, 1)
+    if nnz > cap:
+        raise ValueError(f"transpose nnz {nnz} exceeds capacity {cap}")
+    indices = torch.zeros(cap, dtype=torch.int32, device=dev)
+    data = torch.zeros(cap, dtype=vals.dtype if nnz else torch.float32,
+                       device=dev)
+    indices[:nnz] = rows[perm].to(torch.int32)
+    data[:nnz] = vals[perm]
+    indptr = prefix_sum(torch.bincount(cols, minlength=n)[:n])
+    t = CSR(indptr.to(torch.int32), indices, data, _scalar(nnz, dev), (n, m),
+            sorted_cols=True)
+    if not return_perm:
+        return t
+    perm_full = torch.zeros(cap, dtype=torch.int32, device=dev)
+    perm_full[:nnz] = perm.to(torch.int32)
+    return t, perm_full
+
+
 def _scalar(v: int, device) -> torch.Tensor:
     return torch.tensor(v, dtype=torch.int32, device=device)
 

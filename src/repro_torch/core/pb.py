@@ -182,7 +182,7 @@ def plan_pb(a: CSR, b: CSR, *, semiring: str = "plus_times",
            structure_key(mask) if mask is not None else None,
            sr.name, complement_mask, n_buckets, budget)
     if cache:
-        hit = cache_lookup(key)
+        hit = cache_lookup(key, a.device)
         if hit is not None:
             return hit
 
@@ -249,5 +249,5 @@ def plan_pb(a: CSR, b: CSR, *, semiring: str = "plus_times",
         indptr_c=indptr_c, row_nnz_c=row_nnz_c,
         nnz_c=nnz_c, cap_c=cap_c)
     if cache:
-        cache_store(key, plan)
+        cache_store(key, a.device, plan)
     return plan

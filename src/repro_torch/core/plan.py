@@ -13,7 +13,7 @@ Plans are cached under a structure key: a blake2b digest of each operand's
 semantic fields.  Values do not enter the key, so a re-weighted graph with
 the same adjacency hits the cached plan.  The cache is one LRU shared by
 every plan kind (:data:`PLAN_KINDS`), of :data:`PLAN_CACHE_CAPACITY`
-entries.
+entries, each filed under its key and the device its plan was made on.
 """
 from __future__ import annotations
 
@@ -75,23 +75,32 @@ def clear_plan_cache() -> None:
     _STATS["hits"] = _STATS["misses"] = 0
 
 
-def cache_lookup(key: tuple):
-    """Consult the shared LRU (counts a hit or a miss); a hit becomes the
-    most recent entry."""
-    hit = _CACHE.get(key)
+def _slot(key: tuple, device) -> tuple:
+    # a plan holds tensors on the device it was inspected on, so the LRU
+    # files it under that device too; ``plan.key`` stays the reference's
+    return key + (torch.device(device),)
+
+
+def cache_lookup(key: tuple, device):
+    """Consult the shared LRU for ``key`` planned on ``device`` (counts a
+    hit or a miss); a hit becomes the most recent entry."""
+    slot = _slot(key, device)
+    hit = _CACHE.get(slot)
     if hit is not None:
         _STATS["hits"] += 1
-        _CACHE[key] = _CACHE.pop(key)
+        _CACHE[slot] = _CACHE.pop(slot)
         return hit
     _STATS["misses"] += 1
     return None
 
 
-def cache_store(key: tuple, value) -> None:
-    """Insert, evicting the least recent past capacity.  Pop before insert,
-    so a re-stored key becomes the newest entry as a lookup hit does."""
-    _CACHE.pop(key, None)
-    _CACHE[key] = value
+def cache_store(key: tuple, device, value) -> None:
+    """Insert under ``key`` and ``device``, evicting the least recent past
+    capacity.  Pop before insert, so a re-stored key becomes the newest
+    entry as a lookup hit does."""
+    slot = _slot(key, device)
+    _CACHE.pop(slot, None)
+    _CACHE[slot] = value
     while len(_CACHE) > PLAN_CACHE_CAPACITY:
         _CACHE.pop(next(iter(_CACHE)))
 
@@ -216,55 +225,23 @@ class SpGEMMPlan:
     __call__ = execute
 
 
-def plan_spgemm(a: CSR, b: CSR, *, algorithm: str = "auto",
-                semiring: str | Semiring = "plus_times",
-                mask: Optional[CSR] = None, complement_mask: bool = False,
-                sorted_output: bool = False, use_case: Optional[str] = None,
-                n_bins: int = 8, cache: bool = True,
-                bucket_caps: bool = False, a_row_nnz=None,
-                autotune: bool = False,
-                block: Tuple[int, int] = (8, 8)) -> SpGEMMPlan:
-    """Run the whole inspection once and freeze it as a
-    :class:`SpGEMMPlan` on the operands' device.
+def inspect_spgemm(a: CSR, b: CSR, *, algorithm: str = "auto",
+                   semiring: str | Semiring = "plus_times",
+                   mask: Optional[CSR] = None, complement_mask: bool = False,
+                   sorted_output: bool = False,
+                   use_case: Optional[str] = None, n_bins: int = 8,
+                   bucket_caps: bool = False, a_row_nnz=None) -> dict:
+    """The structural half of :func:`plan_spgemm`: flop profile and bins,
+    table sizes, the exact symbolic phase and the recipe's choice, as a
+    dict of the plan's fields (``algorithm`` resolved).
 
-    With ``cache=True`` a structure-identical repeat request returns the
-    cached plan.  ``bucket_caps=True`` rounds ``cap_c``, ``flop_cap`` and
-    ``row_cap`` up to powers of two, so similar structures share shapes.
-    ``a_row_nnz`` marks A as a chain intermediate (the recipe's A-side
-    statistics come from it).  ``block`` is the tile shape the ``bcsr``
-    route re-blocks the operands into (A tiles ``block``, B tiles
-    ``(block[1], block[1])``); it matters only when the resolved algorithm
-    is ``bcsr``, and the plan then nests a frozen
-    :class:`repro_torch.core.bcsr.BCSRPlan`.  ``autotune=True`` is not
-    ported yet and raises.
-
-    Caveat of the ``bcsr`` route, as in the reference: its execute
-    flattens the block product with ``bcsr_to_csr``, which prunes every
-    cell that computes to exactly 0.  With signed values whose products
-    cancel, the output then holds fewer entries than ``nnz_c`` and
-    ``indptr_c`` (and the hash route) count, and its structure depends on
-    the values.  Rounding differs from the reference's kernel, so a cell
-    that cancels only up to rounding can be 0 in one package and not in
-    the other.
+    Every field is a function of the column *set* of each row, not of the
+    order of A's entries in it, so a chain asks a stage's route here
+    before it decides whether that stage's hop is sorted, and hands the
+    result to :func:`plan_spgemm` (``inspection=``) for either order.
     """
-    if autotune:
-        raise NotImplementedError("autotune= is not ported yet")
-    sr = resolve_semiring(semiring)
-    arn_digest = None
-    if a_row_nnz is not None:
-        arn_digest = hashlib.blake2b(
-            np.asarray(torch.as_tensor(a_row_nnz).cpu()).tobytes(),
-            digest_size=8).digest()
-    block = tuple(block)
-    key = _plan_key(a, b, mask, sr.name, complement_mask, sorted_output,
-                    algorithm, use_case, n_bins) + (bucket_caps, arn_digest,
-                                                    block)
-    if cache:
-        hit = cache_lookup(key)
-        if hit is not None:
-            return hit
-
     from repro_torch.kernels.spgemm_hash.kernel import CHUNK
+    sr = resolve_semiring(semiring)
     _check_mask(a, b, mask)
     mask = _canon_mask(mask)
     n = b.n_cols
@@ -309,6 +286,71 @@ def plan_spgemm(a: CSR, b: CSR, *, algorithm: str = "auto",
         if algorithm == "heap" and not (a.sorted_cols and b.sorted_cols):
             # the inputs cannot feed heap; hash keeps the unsorted contract
             algorithm = "hash"
+    return dict(algorithm=algorithm, provenance=provenance, mask=mask,
+                flop=flop, total_flop=total_flop, flop_cap=flop_cap,
+                offsets=offsets, bin_tsize=bin_tsize, table_size=table_size,
+                row_nnz_c=row_nnz_c, indptr_c=indptr_c, nnz_c=nnz_c,
+                cap_c=cap_c, row_cap=row_cap, k_width=k_width)
+
+
+def plan_spgemm(a: CSR, b: CSR, *, algorithm: str = "auto",
+                semiring: str | Semiring = "plus_times",
+                mask: Optional[CSR] = None, complement_mask: bool = False,
+                sorted_output: bool = False, use_case: Optional[str] = None,
+                n_bins: int = 8, cache: bool = True,
+                bucket_caps: bool = False, a_row_nnz=None,
+                autotune: bool = False,
+                block: Tuple[int, int] = (8, 8),
+                inspection: Optional[dict] = None) -> SpGEMMPlan:
+    """Run the whole inspection once and freeze it as a
+    :class:`SpGEMMPlan` on the operands' device.
+
+    With ``cache=True`` a structure-identical repeat request returns the
+    cached plan.  ``bucket_caps=True`` rounds ``cap_c``, ``flop_cap`` and
+    ``row_cap`` up to powers of two, so similar structures share shapes.
+    ``a_row_nnz`` marks A as a chain intermediate (the recipe's A-side
+    statistics come from it).  ``block`` is the tile shape the ``bcsr``
+    route re-blocks the operands into (A tiles ``block``, B tiles
+    ``(block[1], block[1])``); it matters only when the resolved algorithm
+    is ``bcsr``, and the plan then nests a frozen
+    :class:`repro_torch.core.bcsr.BCSRPlan`.  ``inspection`` is
+    :func:`inspect_spgemm`'s result for the same request on operands with
+    the same column sets (a chain's intermediate before its hop is
+    sorted); the plan then skips that half.  ``autotune=True`` is not
+    ported yet and raises.
+
+    Caveat of the ``bcsr`` route, as in the reference: its execute
+    flattens the block product with ``bcsr_to_csr``, which prunes every
+    cell that computes to exactly 0.  With signed values whose products
+    cancel, the output then holds fewer entries than ``nnz_c`` and
+    ``indptr_c`` (and the hash route) count, and its structure depends on
+    the values.  Rounding differs from the reference's kernel, so a cell
+    that cancels only up to rounding can be 0 in one package and not in
+    the other.
+    """
+    if autotune:
+        raise NotImplementedError("autotune= is not ported yet")
+    sr = resolve_semiring(semiring)
+    arn_digest = None
+    if a_row_nnz is not None:
+        arn_digest = hashlib.blake2b(
+            np.asarray(torch.as_tensor(a_row_nnz).cpu()).tobytes(),
+            digest_size=8).digest()
+    block = tuple(block)
+    key = _plan_key(a, b, mask, sr.name, complement_mask, sorted_output,
+                    algorithm, use_case, n_bins) + (bucket_caps, arn_digest,
+                                                    block)
+    if cache:
+        hit = cache_lookup(key, a.device)
+        if hit is not None:
+            return hit
+
+    ins = inspection if inspection is not None else inspect_spgemm(
+        a, b, algorithm=algorithm, semiring=sr, mask=mask,
+        complement_mask=complement_mask, sorted_output=sorted_output,
+        use_case=use_case, n_bins=n_bins, bucket_caps=bucket_caps,
+        a_row_nnz=a_row_nnz)
+    algorithm, mask = ins["algorithm"], ins["mask"]
     bcsr_plan = None
     if algorithm == "bcsr":
         if sr.name != "plus_times" or mask is not None:
@@ -332,16 +374,11 @@ def plan_spgemm(a: CSR, b: CSR, *, algorithm: str = "auto",
                           complement_mask=complement_mask, cache=cache)
 
     plan = SpGEMMPlan(
-        key=key, algorithm=algorithm, semiring=sr.name,
-        complement_mask=complement_mask, sorted_output=sorted_output,
-        mask=mask, shape_a=a.shape, shape_b=b.shape, cap_a=a.cap,
-        cap_b=b.cap, nnz_a=int(a.nnz), nnz_b=int(b.nnz), n_bins=n_bins,
-        flop=flop, total_flop=total_flop, flop_cap=flop_cap,
-        offsets=offsets, bin_tsize=bin_tsize, table_size=table_size,
-        row_nnz_c=row_nnz_c, indptr_c=indptr_c, nnz_c=nnz_c, cap_c=cap_c,
-        row_cap=row_cap, k_width=k_width, provenance=provenance,
-        block=block if algorithm == "bcsr" else None, bcsr_plan=bcsr_plan,
-        pb_plan=pb_plan)
+        key=key, semiring=sr.name, complement_mask=complement_mask,
+        sorted_output=sorted_output, shape_a=a.shape, shape_b=b.shape,
+        cap_a=a.cap, cap_b=b.cap, nnz_a=int(a.nnz), nnz_b=int(b.nnz),
+        n_bins=n_bins, block=block if algorithm == "bcsr" else None,
+        bcsr_plan=bcsr_plan, pb_plan=pb_plan, **ins)
     if cache:
-        cache_store(key, plan)
+        cache_store(key, a.device, plan)
     return plan

@@ -111,6 +111,25 @@ def make_schedule_eager(a: CSR, b: CSR, n_bins: int):
     return flop, offsets, tsize
 
 
+def chained_flop_bound(row_nnz_prev, b: CSR) -> torch.Tensor:
+    """A-priori per-row flop bound for the next product of a chain, int32.
+
+    Before the intermediate ``C_k`` of a chain exists, the previous
+    stage's symbolic counts ``row_nnz_prev = nnz(c_k,i*)`` are exact, and
+    row ``i`` of stage ``k+1`` touches at most one row of ``B`` per
+    intermediate entry:
+
+        flop_{k+1}[i] <= nnz(c_k,i*) * max_j nnz(b_j*)
+
+    Once ``core.chain.plan_chain`` materializes the intermediate, the
+    exact :func:`flops_per_row` replaces this bound.
+    """
+    row_nnz_prev = torch.as_tensor(row_nnz_prev, device=b.device)
+    bmax = b.row_nnz().max().to(torch.int32) if b.n_rows else \
+        torch.zeros((), dtype=torch.int32, device=b.device)
+    return row_nnz_prev.to(torch.int32) * bmax
+
+
 def lowest_p2(x: int) -> int:
     """Minimum ``2^n >= x`` (Fig. 7 line 12)."""
     p = 1

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from repro_torch.core.formats import CSR
+from repro_torch.core.formats import CSR, csr_transpose
 
 PRESETS = {
     "ER":   (0.25, 0.25, 0.25, 0.25),
@@ -80,6 +80,20 @@ def tall_skinny_from(a_rows: np.ndarray, a_cols: np.ndarray, n: int,
     return CSR.from_numpy_coo(rows, cols, vals, (n, k), cap=cap,
                               device=device)
 
+
+
+def aggregation_csr(n: int, coarse: int, seed: int = 0, device=None):
+    """AMG-style aggregation pair for Galerkin triple products R.A.P.
+
+    ``P`` is ``(n, coarse)`` with one unit entry per row (each fine vertex
+    assigned to a random aggregate, the reference's draw) and ``R = P^T``;
+    returns ``(r, p)`` on ``device``, bitwise the reference's.
+    """
+    rng = np.random.default_rng(seed)
+    cols = rng.integers(0, coarse, size=n)
+    p = CSR.from_numpy_coo(np.arange(n), cols, np.ones(n, np.float32),
+                           (n, coarse), device=device)
+    return csr_transpose(p), p
 
 # ----------------------------------------------------------------------------
 # Graph preprocessing (sections 5.5-5.6).  The reference builds both through

@@ -1,5 +1,6 @@
-"""Batched MoE dispatch as a fleet of SpGEMMs (twin of
-``examples/moe_dispatch_batch.py``'s ``moe_dispatch_demo``).
+"""Batched MoE dispatch as a fleet of SpGEMMs, and block-diagonal
+squaring (twin of ``examples/moe_dispatch_batch.py``'s
+``moe_dispatch_demo`` and ``block_diagonal_demo``).
 
 Expert ``e``'s dispatch is the product ``G_e @ F`` of its one-hot token
 gather matrix with a sparse feature matrix ``F`` that every expert shares:
@@ -9,9 +10,11 @@ one batched hash kernel launch per bin index and class instead of one
 planned product per expert, and reads ``F`` in place, never copied per
 expert.
 
-The reference example's other parts wait for later slices of the port:
-its ``shard_batch`` lines (``core/distributed.py``) and
-``block_diagonal_demo`` (``plan_batch_power``, ``core/chain.py``).
+The block-diagonal demo squares a DBCSR-style fleet of 12 small R-MAT
+blocks with ``plan_batch_power``: one batched plan per stage, one
+classifying launch and one launch per table class per plan class.  The
+reference example's ``shard_batch`` lines (``core/distributed.py``) wait
+for a later slice of the port.
 
 Run:  PYTHONPATH=src python -m repro_torch.examples.moe_dispatch_batch
       (``--device cpu`` runs the kernels' plain versions on the CPU)
@@ -24,8 +27,10 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.core import CSR, clear_plan_cache, plan_batch, plan_spgemm
+from repro_torch.core import (CSR, clear_plan_cache, plan_batch,
+                              plan_batch_power, plan_cache_stats, plan_spgemm)
 from repro_torch.core.formats import resolve_device
+from repro_torch.data.rmat import rmat_csr
 
 # the reference example's routing shapes (qwen3-moe-30b-a3b, reduced)
 N_EXPERTS = 32
@@ -116,12 +121,44 @@ def moe_dispatch_demo(device=None) -> dict:
             "assign": assign}
 
 
+def diagonal_blocks(device=None) -> list:
+    """The demo's fleet: 12 R-MAT blocks of 16 x 16, ER and G500 in turn,
+    edge factors 1-3, seeds 40-51 (the reference's)."""
+    dev = resolve_device(device)
+    return [rmat_csr(4, 1 + (i % 3), "G500" if i % 2 else "ER",
+                     seed=40 + i, device=dev) for i in range(12)]
+
+
+def block_diagonal_demo(device=None) -> dict:
+    """Square every block with one batched power plan; assert each square
+    equals its dense float64 one and that the plan needs fewer class
+    executors than products x stages."""
+    print("== block-diagonal squaring (DBCSR-style fleet) ==")
+    blocks = diagonal_blocks(device)
+    clear_plan_cache()
+    plan = plan_batch_power(blocks, 2)
+    outs = plan.execute(blocks)
+    for a, c in zip(blocks, outs):
+        d = a.to_dense().to(torch.float64)
+        assert torch.allclose(c.to_dense().to(torch.float64), d @ d,
+                              atol=1e-3)
+    print(f"{plan.n_products} blocks squared with {plan.n_classes} "
+          f"class executors (vs {plan.n_products * plan.n_stages} "
+          f"per-product)")
+    assert plan.n_classes < plan.n_products * plan.n_stages
+    kinds = plan_cache_stats()["kinds"]
+    print(f"plan cache kinds: batch={kinds['batch']}, "
+          f"batch_power={kinds['batch_power']}")
+    return {"plan": plan, "blocks": blocks, "outs": outs}
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
     moe_dispatch_demo(args.device)
+    block_diagonal_demo(args.device)
     print("moe_dispatch_batch: OK")
 
 

@@ -20,6 +20,9 @@ cum_i - cum_j carries the rounding of two cumsums taken in another order,
 a few ulps of |cum|); bfloat16 y within one bf16 ulp of the plain output
 plus that, on either kernel (the tensor-core one feeds its float32
 operands as bf16 hi + lo pairs, 2^-16 of each term).
+Chains (``core/chain.py``): each stage's kernel launched once an execute,
+outputs on dyadic values bitwise the plain composition on the CPU after
+a per-row sort, and a ``pb``-ended chain's repeat executes bitwise equal.
 """
 import dataclasses
 import os
@@ -2804,3 +2807,173 @@ def test_ssd_tc_two_calls_bitwise_equal(cuda):
     y2, h2 = ssd_ops.ssd_chunk(xd, la, Bm, Cm, 256)
     torch.cuda.synchronize()
     assert torch.equal(y1, y2) and torch.equal(h1, h2)
+
+
+# ---------------------------------------------------------------------------
+# Chains (core/chain.py): every stage on its kernel, the slot-order rule
+# ---------------------------------------------------------------------------
+
+#: the launch counters each chain-stage algorithm bumps once an execute
+STAGE_KERNELS = {"hash": ("numeric",), "hash_vector": ("numeric_vector",),
+                 "pb": ("pb_scatter", "pb_merge")}
+
+
+def chain_launches(fn):
+    """``fn()`` between a reset and a read of the hash and PB counters."""
+    ops.reset_kernel_calls()
+    pb_ops.reset_kernel_calls()
+    K.CLASS_CALLS.update(dict.fromkeys(K.CLASS_CALLS, 0))
+    out = fn()
+    torch.cuda.synchronize()
+    counts = ops.kernel_call_counts()
+    counts.update({f"pb_{k}": v for k, v in pb_ops.kernel_call_counts()
+                   .items()})
+    return out, counts
+
+
+def assert_stage_launches(counts, algorithms):
+    want: dict = {}
+    for algo in algorithms:
+        for k in STAGE_KERNELS[algo]:
+            want[k] = want.get(k, 0) + 1
+    assert counts == {k: want.get(k, 0) for k in counts}, (counts, want)
+
+
+def on_cpu(c):
+    return CSR(c.indptr.cpu(), c.indices.cpu(), c.data.cpu(), c.nnz.cpu(),
+               c.shape, c.sorted_cols)
+
+
+def assert_sorted_equal(c, plain):
+    """A card output against the plain composition on the CPU: both rows
+    sorted, structure and (dyadic) values bitwise."""
+    from repro_torch.core import finalize
+    c, plain = on_cpu(finalize(c, True)), finalize(plain, True)
+    nnz = int(plain.nnz)
+    assert int(c.nnz) == nnz and torch.equal(c.indptr, plain.indptr)
+    assert torch.equal(c.indices[:nnz], plain.indices[:nnz])
+    assert torch.equal(c.data[:nnz], plain.data[:nnz])
+
+
+def galerkin_operands(device, scale=12):
+    a = operand("ER", scale, 16, True, device)
+    r, p = rmat.aggregation_csr(a.n_rows, a.n_rows // 8, seed=0,
+                                device=device)
+    return r, a, p
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sorted_output", (False, True))
+def test_chain_galerkin_stages_launch_their_kernels(cuda, sorted_output):
+    from repro_torch.core import plan_galerkin
+    r, a, p = galerkin_operands(cuda)
+    chain = plan_galerkin(r, a, p, sorted_output=sorted_output, cache=False)
+    if sorted_output:
+        # a sorted, barely-compressing last stage goes to pb, on a sorted
+        # hop
+        assert chain.algorithms[-1] == "pb" and chain.sorted_hops == (True,)
+    else:
+        assert chain.sorted_hops == (False,)
+    c, counts = chain_launches(lambda: chain.execute(r, a, p))
+    assert_stage_launches(counts, chain.algorithms)
+    assert torch.equal(c.indptr, chain.stages[-1].indptr_c.to(c.indptr.dtype))
+    cpu = [on_cpu(x) for x in (r, a, p)]
+    plain = plan_galerkin(*cpu, sorted_output=sorted_output,
+                          cache=False).execute(*cpu)
+    assert_sorted_equal(c, plain)
+
+
+@pytest.mark.gpu
+def test_chain_pb_ended_repeat_executes_agree(cuda):
+    from repro_torch.core import plan_galerkin
+    r, a, p = galerkin_operands(cuda)
+    chain = plan_galerkin(r, a, p, sorted_output=True, cache=False)
+    assert chain.algorithms[-1] == "pb" and chain.sorted_hops == (True,)
+    first = chain.execute(r, a, p)
+    for _ in range(10):
+        c = chain.execute(r, a, p)
+        for f in ("indptr", "indices", "data", "nnz"):
+            assert torch.equal(getattr(c, f), getattr(first, f)), f
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("algorithm", ("auto", "hash", "hash_vector"))
+def test_chain_power3_per_algorithm(cuda, algorithm):
+    from repro_torch.core import plan_power
+    a = operand("ER", 10, 8, True, cuda)
+    chain = plan_power(a, 3, algorithm=algorithm, cache=False)
+    assert chain.sorted_hops == (False,)
+    c, counts = chain_launches(lambda: chain.execute(a, a, a))
+    assert_stage_launches(counts, chain.algorithms)
+    ac = on_cpu(a)
+    plain = plan_power(ac, 3, algorithm=algorithm, cache=False).execute(
+        ac, ac, ac)
+    assert_sorted_equal(c, plain)
+
+
+@pytest.mark.gpu
+def test_chain_gram_regathers_values_only(cuda):
+    from repro_torch.core import (CSR as TCSR, clear_plan_cache, plan_gram,
+                                  plan_cache_stats)
+    a = operand("G500", 10, 8, True, cuda)
+    clear_plan_cache()
+    plan = plan_gram(a)
+    g, counts = chain_launches(lambda: plan.execute(a))
+    assert_stage_launches(counts, (plan.algorithm,))
+    ac = on_cpu(a)
+    assert_sorted_equal(g, plan_gram(ac).execute(ac))
+    a3 = TCSR(a.indptr, a.indices, a.data * 3, a.nnz, a.shape, a.sorted_cols)
+    before = plan_cache_stats()["misses"]
+    g3, counts = chain_launches(lambda: plan_gram(a3).execute(a3))
+    assert plan_cache_stats()["misses"] == before
+    assert_stage_launches(counts, (plan.algorithm,))
+    assert torch.equal(on_cpu(g3).to_dense(), 9 * on_cpu(g).to_dense())
+
+
+@pytest.mark.gpu
+def test_chain_plans_are_cached_per_device(cuda):
+    from repro_torch.core import (clear_plan_cache, plan_batch_power,
+                                  plan_cache_stats, plan_galerkin, plan_gram,
+                                  plan_spgemm)
+    r, a, p = galerkin_operands(cuda, scale=8)
+    cpu = [on_cpu(x) for x in (r, a, p)]
+    clear_plan_cache()
+    plans = (lambda r, a, p: plan_spgemm(a, a),
+             lambda r, a, p: plan_galerkin(r, a, p, sorted_output=True),
+             lambda r, a, p: plan_gram(a),
+             lambda r, a, p: plan_batch_power([a, a], 2))
+    for make in plans:
+        on_card = make(r, a, p)
+        misses = plan_cache_stats()["misses"]
+        here = make(*cpu)
+        # the same structure on the CPU is another plan, with CPU tensors
+        assert here is not on_card
+        assert plan_cache_stats()["misses"] > misses
+        assert make(r, a, p) is on_card and make(*cpu) is here
+    # each CPU plan executes on CPU operands, each card plan on the card
+    assert_sorted_equal(plan_gram(a).execute(a),
+                        plan_gram(cpu[1]).execute(cpu[1]))
+    assert_sorted_equal(plan_galerkin(r, a, p, sorted_output=True)(r, a, p),
+                        plan_galerkin(*cpu, sorted_output=True)(*cpu))
+
+
+@pytest.mark.gpu
+def test_chain_batch_power_launches_batched_classes(cuda):
+    from repro_torch.core import plan_batch_power, plan_power
+    from repro_torch.examples.moe_dispatch_batch import diagonal_blocks
+    blocks = [CSR(b.indptr, b.indices, torch.ones_like(b.data), b.nnz,
+                  b.shape) for b in diagonal_blocks(cuda)]
+    plan = plan_batch_power(blocks, 3, cache=False)
+    outs, counts = chain_launches(lambda: plan.execute(blocks))
+    classes = [c for st in plan.stages for c in st.classes]
+    assert all(c.hash_sched is not None for c in classes)
+    want: dict = {}
+    for c in classes:
+        key = "batched_numeric_vector" if c.algorithm == "hash_vector" \
+            else "batched_numeric"
+        want[key] = want.get(key, 0) + len(K.launch_classes(c.hash_largest))
+    assert counts == {k: want.get(k, 0) for k in counts}, (counts, want)
+    assert K.CLASS_CALLS["classify"] == len(classes)
+    cpu = [on_cpu(b) for b in blocks]
+    for b, c in zip(cpu, outs):
+        assert_sorted_equal(c, plan_power(b, 3, cache=False).execute(b, b, b))

@@ -172,16 +172,19 @@ def test_cache_hits_reweighted_input_and_rejects_other_structure():
 def test_cache_lru_bound_and_restore_refreshes_recency():
     cap = tplan.PLAN_CACHE_CAPACITY
     assert cap == jplan.PLAN_CACHE_CAPACITY == 256
+    cpu = torch.device("cpu")
     for i in range(cap + 10):
-        tplan.cache_store(("spgemm", i), i)
+        tplan.cache_store(("spgemm", i), cpu, i)
     assert T.plan_cache_stats()["size"] == cap
-    assert tplan.cache_lookup(("spgemm", 0)) is None      # evicted first
+    assert tplan.cache_lookup(("spgemm", 0), cpu) is None      # evicted first
     oldest = ("spgemm", 10)
-    tplan.cache_store(oldest, "again")                  # refresh recency
-    tplan.cache_store(("spgemm", "new"), 0)              # evicts the next
-    assert tplan.cache_lookup(oldest) == "again"
-    assert tplan.cache_lookup(("spgemm", 11)) is None
-    assert tplan.cache_lookup(("spgemm", 12)) == 12     # a hit is newest
+    tplan.cache_store(oldest, cpu, "again")             # refresh recency
+    tplan.cache_store(("spgemm", "new"), cpu, 0)         # evicts the next
+    assert tplan.cache_lookup(oldest, cpu) == "again"
+    assert tplan.cache_lookup(("spgemm", 11), cpu) is None
+    assert tplan.cache_lookup(("spgemm", 12), cpu) == 12     # a hit is newest
+    # the same key on another device is another entry
+    assert tplan.cache_lookup(("spgemm", 12), "meta") is None
 
 
 def test_unported_plan_options_raise():
