@@ -9,7 +9,8 @@ the paper's graph workloads, the batched fleet planner and BCSR, PB and
 hash value fleets under ``torch.func.vmap``, then the LM serving path
 (qwen3-0.6b at full width, prefill through the flash-attention kernel;
 mamba2-780m at full width, prefill through the SSD chunk-scan kernel),
-then product chains (R.A.P, A^3, A^T.A, batched powers, MCL), and holds
+then product chains (R.A.P, A^3, A^T.A, batched powers, MCL), then the
+measured recipe (the autotuner's race of algorithms and its DB), and holds
 every hand-written kernel against its plain PyTorch version.
 Phases; any failure exits non-zero:
 
@@ -286,6 +287,25 @@ Phases; any failure exits non-zero:
      stage's kernels, plain version and ``torch.sparse.mm``, the chain of
      ``torch.sparse.mm`` (a yardstick only), plan seconds and each stage's
      bound;
+ 23. the measured recipe (``plan_spgemm(autotune=True)``, ``repro_torch.
+     autotune``) on a fresh DB in a temporary directory: A.A of ER s18
+     ef16 and of G500 at AUTOTUNE_G500_SCALE ef16 (every lane timed: esc,
+     heap, pb where the compression gate lets it, hash and hash_vector at
+     table scales 1 and 2, hash_jnp); each lane's median time, the
+     winner, the heuristic plan's choice and the winner's roofline.  The
+     measured plan's execute launches the winner's kernels and no plain
+     version, its output against the plain version (structure bitwise,
+     values within 1 ulp per product); a repeat request is a DB hit that
+     times nothing; the measured plan's execute no slower than 1.05 x the
+     heuristic plan's, best of 5 each, in turns.  Then an entry naming
+     ``hash`` at table scale 2 for G500 s16: a DB hit that times nothing,
+     tables the clipped doubles of the scale-1 plan's, the output against
+     the plain version, both plans' class launches and times.  Last the
+     Table 2 proxies (``data/matrices.suite``, divisor 256, the first
+     AUTOTUNE_SUITE_MATRICES in Table 2's order) raced as the R-MAT
+     inputs, without the speed gate; one row each (n, nnz, compression,
+     heap steps, Table 4's choice and its time, the winner and its) and
+     the count on which Table 4's choice is within 5 % of the winner;
  15. one ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``.
 
 Usage: ``python3 chip_smoke.py`` (one card, no arguments).  A quick first
@@ -294,6 +314,7 @@ check of a changed kernel at small sizes is
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -303,10 +324,13 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent
-
-#: published H100 SXM peaks (NVIDIA data sheet, 700 W)
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOP_PER_S = 67e12
+sys.path.insert(0, str(ROOT / "src"))
+try:
+    # the card's rates (H100 SXM5 80GB HBM3, 700 W, NVIDIA data sheet) are
+    # defined once, in the port
+    from repro_torch.analysis.roofline import BF16_FLOPS, FP32_FLOPS, HBM_BW
+except ImportError:     # a copy of this script alone: main() says so
+    BF16_FLOPS = FP32_FLOPS = HBM_BW = None
 
 #: the paper's inputs (section 5.1): R-MAT scale per preset, edge factor 16
 ER_SCALE, G500_SCALE, EDGE_FACTOR = 18, 16, 16
@@ -350,8 +374,6 @@ PB_FLEET_MEMBERS, PB_FLEET_MEMBERS_BOTH = 8, 4
 #: the planless spgemm_hash), with A and B batched; G500 s16 (global tables)
 HASH_FLEET_MEMBERS, HASH_FLEET_MEMBERS_BOTH, HASH_FLEET_MEMBERS_G500 = 8, 4, 2
 
-#: published H100 SXM bf16 tensor-core peak (dense), the flash kernel's bound
-BF16_FLOP_PER_S = 989e12
 #: the LM serving path at qwen3-0.6b's widths (src/repro_torch/configs/
 #: qwen3_0_6b.py: 16 query heads, 8 KV heads, head dim 128)
 LM_ARCH, LM_HEADS, LM_KV_HEADS, LM_HEAD_DIM = "qwen3-0.6b", 16, 8, 128
@@ -409,6 +431,20 @@ CHAIN_KERNELS = {"hash": ("numeric",), "hash_vector": ("numeric_vector",),
 CHAIN_COARSEN, CHAIN_POWER_SCALE, CHAIN_REPEATS = 8, 16, 10
 CHAIN_SCIPY_RTOL = 1e-5
 MCL_GRAPHS = ((3, 12), (16, 256))
+
+#: phase 23: the measured recipe.  The G500 input raced in full: the heap
+#: lane (the plain loop, a host sync a step) walks the largest row flop,
+#: 652,619 steps at s16, 41,432 at s12 (30.5 s an execute, 4 executes a
+#: lane: past a minute) and 20,286 at s11 (14.3 s; PERF.md section 6).  The
+#: Table 2 proxies' divisor, and how many of them, in Table 2's order, fit
+#: the phase's 150 s with the inputs before them (cage15, the third, races
+#: for 87 s).  The measured plan against the heuristic plan, by the
+#: race's own timer over AUTOTUNE_GATE_REPS rounds; the launch counters
+#: each raced algorithm bumps once an execute
+AUTOTUNE_G500_SCALE = 11
+AUTOTUNE_SUITE_DIVISOR, AUTOTUNE_SUITE_MATRICES = 256, 2
+AUTOTUNE_SLACK, AUTOTUNE_GATE_REPS = 1.05, 15
+AUTOTUNE_KERNELS = {**CHAIN_KERNELS, "bcsr": ("bcsr_numeric",)}
 
 KERNEL_SOURCE = "src/repro_torch/kernels/spgemm_hash/csrc/spgemm_hash.cu"
 PB_SOURCE = "src/repro_torch/kernels/spgemm_pb/csrc/spgemm_pb.cu"
@@ -471,8 +507,8 @@ def pb_bytes(p, nnz_a: int, nnz_b: int) -> dict:
 
 def bound_ms(nbytes: int, ops: int):
     """(least ms, what bounds it): the larger of ``nbytes`` at
-    HBM_BYTES_PER_S and ``ops`` at FP32_FLOP_PER_S."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOP_PER_S
+    HBM_BW and ``ops`` at FP32_FLOPS."""
+    t_bytes, t_ops = nbytes / HBM_BW, ops / FP32_FLOPS
     return max(t_bytes, t_ops) * 1e3, \
         "bytes" if t_bytes >= t_ops else "operations"
 
@@ -930,7 +966,7 @@ class Smoke:
         bound_num, bound_num_by = bound_ms(
             hash_numeric_bytes(a, a, nnz_c), 2 * flop)
         bytes_sym = (4 * (m + 1) + 4 * nnz_a) + 4 * nnz_a + 4 * m
-        bound_sym = bytes_sym / HBM_BYTES_PER_S * 1e3
+        bound_sym = bytes_sym / HBM_BW * 1e3
         pairs = {vector: self.hash_numeric_pair(args, plan.cap_c,
                                                 plan.table_size, vector,
                                                 num_err)
@@ -1026,7 +1062,7 @@ class Smoke:
             "ms": None,
             "plain_ms": t["plain_classify"],
             "bound_ms": (4 * (m + 1) + 4 * m + 4 * n_listed)
-            / HBM_BYTES_PER_S * 1e3,
+            / HBM_BW * 1e3,
             "bound_by": "bytes", "library_ms": None}
         self.rows.append(classify_row)
         self.class_profiles.append((label, args, plan.cap_c,
@@ -1525,7 +1561,7 @@ class Smoke:
               "batched_merge": 4 * flop + 4 * nb + 4 * n * flop
               + 4 * n * p.nnz_c}
         ops_n = n * flop
-        bound = {k: max(v / HBM_BYTES_PER_S, ops_n / FP32_FLOP_PER_S) * 1e3
+        bound = {k: max(v / HBM_BW, ops_n / FP32_FLOPS) * 1e3
                  for k, v in by.items()}
         print(json.dumps({"timing": f"PB value fleet {label}",
                           "card": self.card, "members": n,
@@ -1544,8 +1580,8 @@ class Smoke:
                 "launches": launches[k], "max_abs_err": err[k], "ms": t[k],
                 "plain_ms": t[f"plain_{k.split('_')[1]}"],
                 "bound_ms": bound[k],
-                "bound_by": "bytes" if by[k] / HBM_BYTES_PER_S >=
-                ops_n / FP32_FLOP_PER_S else "operations",
+                "bound_by": "bytes" if by[k] / HBM_BW >=
+                ops_n / FP32_FLOPS else "operations",
                 "library_ms": t["torch_sparse_mm_loop"]})
         # the slot-major copy of A's values (read and written once)
         copy_by = 2 * 4 * n * a.cap
@@ -1556,7 +1592,7 @@ class Smoke:
             "slot-major", "launches": launches["slot_major"],
             "max_abs_err": copy_err, "ms": t["slot_major_a"],
             "plain_ms": t["plain_slot_major_a"],
-            "bound_ms": copy_by / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "bound_ms": copy_by / HBM_BW * 1e3, "bound_by": "bytes",
             "library_ms": t["library_slot_major_a"]})
         del pp, sp_a, sp_b, m_a, m_b
         torch.cuda.empty_cache()
@@ -1785,12 +1821,12 @@ class Smoke:
               "batched_symbolic": index + 4 * n * m}
         ops_n = 2 * n * plan.total_flop
         bound = {"batched_numeric": max(by["batched_numeric"]
-                                        / HBM_BYTES_PER_S,
-                                        ops_n / FP32_FLOP_PER_S) * 1e3,
+                                        / HBM_BW,
+                                        ops_n / FP32_FLOPS) * 1e3,
                  "batched_symbolic": by["batched_symbolic"]
-                 / HBM_BYTES_PER_S * 1e3}
+                 / HBM_BW * 1e3}
         bound_by = {"batched_numeric": "bytes" if by["batched_numeric"]
-                    / HBM_BYTES_PER_S >= ops_n / FP32_FLOP_PER_S
+                    / HBM_BW >= ops_n / FP32_FLOPS
                     else "operations", "batched_symbolic": "bytes"}
         print(json.dumps({"timing": f"hash value fleet {label}",
                           "card": self.card, "members": n,
@@ -2251,11 +2287,11 @@ class Smoke:
         by = (4 * bm * bk * nnzb + 4 * bk * bn * nnzb + 4 * bm * bn * nnzb_c
               + 4 * ((gm + 1) * 3 + nnzb * 2 + nnzb_c))
         ops_n = 2 * bp.total_flop * bm * bk * bn
-        bound = max(by / HBM_BYTES_PER_S, ops_n / FP32_FLOP_PER_S) * 1e3
+        bound = max(by / HBM_BW, ops_n / FP32_FLOPS) * 1e3
         # the symbolic pass over the block pattern reads no values: one row
         # pointer, both index arrays and the row counts (as in phase 5)
         by_sym = 4 * (gm + 1) + 8 * nnzb + 4 * gm
-        bound_sym = by_sym / HBM_BYTES_PER_S * 1e3
+        bound_sym = by_sym / HBM_BW * 1e3
         num_err = torch.zeros(1, dtype=torch.int32, device=self.dev)
         nnz_a = int(a.nnz)
         sp = torch.sparse_csr_tensor(a.indptr.long(),
@@ -2316,8 +2352,8 @@ class Smoke:
                                        "symbolic": bound_sym},
                           "bound_bytes": by, "bound_operations": ops_n,
                           "plan_s": plan_s}), flush=True)
-        bound_by = "bytes" if by / HBM_BYTES_PER_S >= \
-            ops_n / FP32_FLOP_PER_S else "operations"
+        bound_by = "bytes" if by / HBM_BW >= \
+            ops_n / FP32_FLOPS else "operations"
         for mode, key, launches in (
                 ("numeric", "kernel", paths),
                 ("numeric_vector", "kernel_vector", vpaths)):
@@ -2343,7 +2379,7 @@ class Smoke:
             "launches": exec_classes["classify"],
             "max_abs_err": classes["max_abs_err"], "ms": t["classify"],
             "plain_ms": t["plain_classify"],
-            "bound_ms": 4 * (2 * (m + 1) + 4 * m) / HBM_BYTES_PER_S * 1e3,
+            "bound_ms": 4 * (2 * (m + 1) + 4 * m) / HBM_BW * 1e3,
             "bound_by": "bytes", "library_ms": None})
         self.rows.append({
             "name": f"spgemm_hash_symbolic[{label} block pattern]",
@@ -2516,7 +2552,7 @@ class Smoke:
         # ---- timings ------------------------------------------------------
         by = 4 * (m + 1) + 8 * nnz + 4 * n * SPMM_K + 4 * m * SPMM_K
         ops_n = 2 * nnz * SPMM_K
-        bound = max(by / HBM_BYTES_PER_S, ops_n / FP32_FLOP_PER_S) * 1e3
+        bound = max(by / HBM_BW, ops_n / FP32_FLOPS) * 1e3
         sp = torch.sparse_csr_tensor(a.indptr.long(), a.indices[:nnz].long(),
                                      data[:nnz], size=a.shape)
         max_row = int(row_nnz.max())
@@ -2548,8 +2584,8 @@ class Smoke:
             "launches": next(iter(paths.values())),
             "launches_by_path": paths, "max_abs_err": err,
             "ms": t["kernel"], "plain_ms": t["plain"], "bound_ms": bound,
-            "bound_by": "bytes" if by / HBM_BYTES_PER_S >=
-            ops_n / FP32_FLOP_PER_S else "operations",
+            "bound_by": "bytes" if by / HBM_BW >=
+            ops_n / FP32_FLOPS else "operations",
             "library_ms": t["torch_sparse_mm"]})
         # the classifying kernel (replaces no TPU kernel): reads the row
         # pointer, writes each row id once and the counts
@@ -2562,7 +2598,7 @@ class Smoke:
             "launches_by_path": classify_paths, "max_abs_err": 0.0,
             "ms": t["classify"], "plain_ms": t["plain_classify"],
             "bound_ms": (4 * (m + 1) + 4 * m + 4 * len(SK.CLASS_NAMES))
-            / HBM_BYTES_PER_S * 1e3,
+            / HBM_BW * 1e3,
             "bound_by": "bytes", "library_ms": None})
         torch.cuda.empty_cache()
 
@@ -3038,8 +3074,8 @@ class Smoke:
                     nbytes += 4 * (x.n_rows + 1) + 8 * int(x.nnz)
         nbytes += sum(4 * (a.n_rows + 1) + 8 * nnz_c for (a, _), nnz_c in
                       zip(pairs, plan.nnz_cs))
-        by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        by_ops = 2 * plan.total_flop / FP32_FLOP_PER_S * 1e3
+        by_bytes = nbytes / HBM_BW * 1e3
+        by_ops = 2 * plan.total_flop / FP32_FLOPS * 1e3
         bound = max(by_bytes, by_ops)
         print(json.dumps({
             "timing": f"batch {label}", "card": self.card,
@@ -3335,9 +3371,9 @@ class Smoke:
               + n * (4 * bm * bn + 4) * bp.nnzb_c
               + 4 * (3 * (gm + 1) + 2 * nnzb))
         ops_n = n * 2 * bp.total_flop * bm * bk * bn
-        bound = max(by / HBM_BYTES_PER_S, ops_n / FP32_FLOP_PER_S) * 1e3
-        bound_by = "bytes" if by / HBM_BYTES_PER_S >= \
-            ops_n / FP32_FLOP_PER_S else "operations"
+        bound = max(by / HBM_BW, ops_n / FP32_FLOPS) * 1e3
+        bound_by = "bytes" if by / HBM_BW >= \
+            ops_n / FP32_FLOPS else "operations"
         print(json.dumps({"timing": f"value fleet {label}",
                           "card": self.card, "members": n,
                           "batched": {"a": n_a > 1, "b": n_b > 1},
@@ -3533,9 +3569,9 @@ class Smoke:
                 del q32, k32, v32
             ops = 4 * LM_HEADS * LM_HEAD_DIM * s * (s + 1) / 2
             by = (q.numel() + k.numel() + v.numel() + out.numel()) * 2
-            bound = max(ops / BF16_FLOP_PER_S, by / HBM_BYTES_PER_S) * 1e3
-            bound_by = "operations" if ops / BF16_FLOP_PER_S >= \
-                by / HBM_BYTES_PER_S else "bytes"
+            bound = max(ops / BF16_FLOPS, by / HBM_BW) * 1e3
+            bound_by = "operations" if ops / BF16_FLOPS >= \
+                by / HBM_BW else "bytes"
             print(json.dumps({
                 "timing": f"flash_fwd bf16 B 1 H {LM_HEADS} Hkv "
                 f"{LM_KV_HEADS} D {LM_HEAD_DIM} S {s} causal",
@@ -3952,9 +3988,9 @@ class Smoke:
                 tri * SSD_HEAD_DIM + 2 * q * SSD_STATE * SSD_HEAD_DIM))
             by = (2 * xd.numel() + Bm.numel() + Cm.numel()) * 2 \
                 + (la.numel() + hT.numel()) * 4
-            bound = max(ops / BF16_FLOP_PER_S, by / HBM_BYTES_PER_S) * 1e3
-            bound_by = "operations" if ops / BF16_FLOP_PER_S >= \
-                by / HBM_BYTES_PER_S else "bytes"
+            bound = max(ops / BF16_FLOPS, by / HBM_BW) * 1e3
+            bound_by = "operations" if ops / BF16_FLOPS >= \
+                by / HBM_BW else "bytes"
             print(json.dumps({
                 "timing": f"ssd_chunk bf16 B 1 nh {SSD_HEADS} hp "
                 f"{SSD_HEAD_DIM} g 1 n {SSD_STATE} S {s} Q {q}",
@@ -4706,6 +4742,187 @@ class Smoke:
         print(f"phase 22: chains ok in {time.perf_counter() - t_phase:.1f} s",
               flush=True)
 
+    # ---- phase 23 ----------------------------------------------------------
+    def race(self, label, a, db, gated: bool) -> dict:
+        """Race ``a @ a`` through ``plan_spgemm(autotune=True)`` on a miss
+        of ``db``: every lane's time, the winner, the heuristic plan's
+        choice, the roofline of the winner.  Every lane that
+        ``autotune.measure._candidates`` names ran (a lane that fails on
+        the card raises); the measured plan's execute launches the
+        winner's kernels, no plain version, and matches the plain version
+        (structure bitwise, values within 1 ulp per accumulated product);
+        a second request is a DB hit that times nothing.  ``gated``: the
+        measured plan's execute is also no slower than AUTOTUNE_SLACK
+        times the heuristic plan's (``benchmarks/bench_autotune.py``'s
+        contract), both timed by the race's own timer."""
+        torch, core, AT = self.torch, self.core, self.autotune
+        heur = core.plan_spgemm(a, a, cache=False)
+        check(heur.provenance == "heuristic",
+              f"{label}: heuristic plan's provenance {heur.provenance}")
+        AT.reset_measure_calls()
+        t0 = time.perf_counter()
+        meas = core.plan_spgemm(a, a, autotune=True, autotune_db=db,
+                                cache=False)
+        torch.cuda.synchronize()
+        race_s = time.perf_counter() - t0
+        calls = AT.measure_call_counts()
+        entry = db.load().get(AT.db_key(a, a))
+        check(meas.provenance == "measured" and calls["db_misses"] == 1
+              and entry is not None and entry["algorithm"] == meas.algorithm,
+              f"{label}: the race persisted no winner ({calls})")
+        lanes = entry["candidates"]
+        want_lanes = {lane[0] for lane in
+                      AT.measure._candidates(a, a, "plus_times", None)}
+        check(set(lanes) == want_lanes and
+              calls["candidates_timed"] == len(want_lanes),
+              f"{label}: lanes {sorted(lanes)} ran, want "
+              f"{sorted(want_lanes)} ({calls})")
+        check(lanes[entry["label"]] == entry["us"] == min(lanes.values()),
+              f"{label}: winner {entry['label']} is not the fastest of "
+              f"{lanes}")
+
+        out, counts = self.counted(lambda: meas.execute(a, a))
+        want: dict = {}
+        for k in AUTOTUNE_KERNELS.get(meas.algorithm, ()):
+            want[k] = 1
+        self.expect(counts, want, f"{label} measured execute")
+        plain, products = self.plain_stage(meas, a, a)
+        err = self.check_stage(f"{label} measured execute", out, plain,
+                               products)
+        del out, plain, products
+
+        AT.reset_measure_calls()
+        again = core.plan_spgemm(a, a, autotune=True, autotune_db=db,
+                                 cache=False)
+        calls = AT.measure_call_counts()
+        check(calls["candidates_timed"] == 0 and calls["db_hits"] == 1 and
+              again.provenance == "measured" and
+              again.algorithm == meas.algorithm and
+              again.table_size == meas.table_size,
+              f"{label}: the repeat request was not a DB hit ({calls})")
+        del again
+
+        row = {"timing": f"measured recipe {label}", "card": self.card,
+               **AT.race_report(heur, lanes), "race_s": race_s,
+               "max_abs_err": err, "roofline": entry["roofline"]}
+        if gated:
+            # the race's timer over AUTOTUNE_GATE_REPS rounds, with a
+            # second copy of the heuristic plan: how far apart it puts
+            # one program, beside the gate's slack
+            t = AT.time_plans({"measured": meas, "heuristic": heur,
+                               "heuristic again": dataclasses.replace(heur)},
+                              a, a, reps=AUTOTUNE_GATE_REPS)
+            ratio = t["measured"] / t["heuristic"]
+            row.update(gate_us=t, gate_ratio=ratio, gate_same_program_spread=
+                       abs(t["heuristic again"] / t["heuristic"] - 1.0))
+            check(ratio <= AUTOTUNE_SLACK,
+                  f"{label}: the measured plan ({meas.algorithm}, "
+                  f"{t['measured']} us) is slower than {AUTOTUNE_SLACK} x "
+                  f"the heuristic plan's ({heur.algorithm}, "
+                  f"{t['heuristic']} us)")
+        print(json.dumps(row), flush=True)
+        del heur, meas
+        core.clear_plan_cache()
+        return row
+
+    def scaled_entry(self, db):
+        """(b): an entry naming ``hash`` at table scale 2 for G500 s16,
+        planned: a DB hit that times nothing, tables the clipped doubles
+        of the scale-1 plan's, the output against the plain version, and
+        both plans' executes and table-class launches."""
+        torch, core, AT = self.torch, self.core, self.autotune
+        from repro_torch.core.recipe import measure_stats
+        from repro_torch.core.schedule import lowest_p2, scale_table_sizes
+        label = f"G500 s{G500_SCALE} ef{EDGE_FACTOR}"
+        g = self.rmat.rmat_csr(G500_SCALE, EDGE_FACTOR, "G500", seed=0,
+                               device=self.dev)
+        base = core.plan_spgemm(g, g, algorithm="hash", cache=False)
+        s = measure_stats(g, g)
+        db.put(AT.db_key(g, g), {
+            "schema": AT.SCHEMA_VERSION, "algorithm": "hash",
+            "table_scale": 2, "label": "hash@t2", "us": 0.0,
+            "candidates": {}, "backend": AT.measure.backend_of(g.device),
+            "x64": False, "stats": {"flop": s.flop, "nnz_a": s.nnz_a,
+                                    "nnz_c": s.nnz_c_est}})
+        AT.reset_measure_calls()
+        t0 = time.perf_counter()
+        plan = core.plan_spgemm(g, g, autotune=True, autotune_db=db,
+                                cache=False)
+        plan_s = time.perf_counter() - t0
+        calls = AT.measure_call_counts()
+        check(calls["candidates_timed"] == 0 and calls["db_hits"] == 1 and
+              plan.provenance == "measured" and plan.algorithm == "hash",
+              f"{label} x2 entry: not a DB hit with nothing timed ({calls}, "
+              f"{plan.algorithm}, {plan.provenance})")
+        size, bins = scale_table_sizes(base.table_size, base.bin_tsize, 2,
+                                       g.n_cols, self.K.CHUNK)
+        check(plan.table_size == size and torch.equal(plan.bin_tsize, bins),
+              f"{label} x2 entry: tables {plan.table_size} "
+              f"{plan.bin_tsize.tolist()}, want {size} {bins.tolist()}")
+        classes = {}
+        for name, p in (("scale 1", base), ("scale 2", plan)):
+            out, counts = self.counted(lambda: p.execute(g, g))
+            self.expect(counts, {"numeric": 1}, f"{label} {name} execute")
+            classes[name] = {k: v for k, v in self.class_counts.items() if v}
+            del out
+        out = plan.execute(g, g)
+        plain, products = self.plain_stage(plan, g, g)
+        err = self.check_stage(f"{label} x2 execute", out, plain, products)
+        del out, plain, products
+        row = {"timing": f"measured recipe {label} x2 tables",
+               "card": self.card, "plan_s": plan_s,
+               "table_size": [base.table_size, plan.table_size],
+               "bin_tsize": [base.bin_tsize.tolist(), plan.bin_tsize.tolist()],
+               "largest_table": lowest_p2(g.n_cols + 1),
+               "class_launches": classes, "max_abs_err": err,
+               "ms": {"scale 1": self.time_ms(lambda: base.execute(g, g)),
+                      "scale 2": self.time_ms(lambda: plan.execute(g, g))}}
+        print(json.dumps(row), flush=True)
+        del base, plan, g
+        core.clear_plan_cache()
+        torch.cuda.empty_cache()
+
+    def measured_recipe(self):
+        """Phase 23: the measured recipe on a fresh DB."""
+        import tempfile
+        import repro_torch.autotune as autotune
+        from repro_torch.data import matrices
+        self.autotune = autotune
+        t_phase = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            db = autotune.PerfDB(str(Path(tmp) / "autotune.json"))
+            for preset, scale in (("ER", ER_SCALE),
+                                  ("G500", AUTOTUNE_G500_SCALE)):
+                a = self.rmat.rmat_csr(scale, EDGE_FACTOR, preset, seed=0,
+                                       device=self.dev)
+                self.race(f"{preset} s{scale} ef{EDGE_FACTOR}", a, db, True)
+                del a
+            self.torch.cuda.empty_cache()
+            self.scaled_entry(db)
+            rows = []
+            for p, m in matrices.suite(divisor=AUTOTUNE_SUITE_DIVISOR,
+                                       max_matrices=AUTOTUNE_SUITE_MATRICES,
+                                       device=self.dev):
+                rows.append(self.race(p.name, m, db, False))
+                del m
+            self.torch.cuda.empty_cache()
+        near = [r["timing"].split()[-1] for r in rows
+                if r["heuristic_us"] is not None
+                and r["heuristic_us"] <= AUTOTUNE_SLACK * r["winner_us"]]
+        names = [row[0] for row in matrices.TABLE2]
+        print(json.dumps({
+            "timing": "measured recipe Table 2 proxies", "card": self.card,
+            "divisor": AUTOTUNE_SUITE_DIVISOR, "raced": len(rows),
+            "not_raced": names[len(rows):],
+            "table4_within_5pct": len(near), "table4_within_5pct_of": near,
+            "scope": "a functional check: at this divisor the lanes time "
+                     "host work an execute, not the algorithms",
+            "winners": {r["timing"].split()[-1]: r["winner"] for r in rows},
+            "s": time.perf_counter() - t_phase}), flush=True)
+        self.core.clear_plan_cache()
+        print(f"phase 23: measured recipe ok in "
+              f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+
 
 def main() -> int:
     import torch
@@ -4716,7 +4933,6 @@ def main() -> int:
         print("chip_smoke: src/repro_torch is missing beside this script",
               file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT / "src"))
     t_start = time.perf_counter()
 
     card = card_line()                                           # phase 1
@@ -4774,6 +4990,7 @@ def main() -> int:
     smoke.serve_ssd(ssd_rows)                                    # phase 20
     smoke.hash_class_times()                                     # phase 21
     smoke.chains()                                               # phase 22
+    smoke.measured_recipe()                                      # phase 23
 
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": smoke.rows}), flush=True)       # phase 15

@@ -28,7 +28,9 @@ value *slots* (:data:`A_SLOT_ALGORITHMS`) would then read the wrong values
 on execute.  So the hop into such a stage is sorted -- at plan time, where
 the stage is planned on the sorted intermediate, and at every execute --
 and the sorted intermediate is canonical: the same positions on every
-call.  Every other hop stays unsorted.  :attr:`ChainPlan.sorted_hops`
+call.  A stage whose route needs a row-sorted A
+(:data:`SORTED_A_ALGORITHMS`: ``heap``) is handed a sorted hop the same
+way.  Every other hop stays unsorted.  :attr:`ChainPlan.sorted_hops`
 records the choice.
 
 On top of the chain plan ride :func:`galerkin` (R.A.P), :func:`gram`
@@ -64,6 +66,12 @@ from .spgemm import finalize
 #: (``esc``, ``heap``, ``hash``, ``hash_vector``, ``hash_jnp``) names A's
 #: slots either, so :func:`plan_batch_power`'s hops all stay unsorted.
 A_SLOT_ALGORITHMS = frozenset({"pb"})
+
+#: Algorithms that need a row-sorted A: ``heap`` merges each row's B rows
+#: in column order and holds both operands to ``sorted_cols``
+#: (``spgemm.spgemm_heap``), so a stage pinned to it after an unsorted
+#: intermediate could not be planned.  The hop into it is sorted too.
+SORTED_A_ALGORITHMS = frozenset({"heap"})
 
 
 def _check_chain_shapes(mats: Sequence[CSR], mask: Optional[CSR]) -> None:
@@ -177,7 +185,8 @@ def plan_chain(mats: Sequence[CSR], *,
     ``sorted_output`` apply to the last stage only; intermediates are
     planned unsorted unless ``sort_intermediates`` (the measured-slower
     control) or the stage they feed names A's value slots
-    (:data:`A_SLOT_ALGORITHMS`).  ``bucket_caps`` p2-rounds every stage's
+    (:data:`A_SLOT_ALGORITHMS`) or needs a sorted A
+    (:data:`SORTED_A_ALGORITHMS`).  ``bucket_caps`` p2-rounds every stage's
     capacities.  Cached under a ``("chain", ...)`` key in the shared plan
     LRU; stage plans are cached on their own too.
     """
@@ -220,7 +229,7 @@ def plan_chain(mats: Sequence[CSR], *,
             if algo == "auto":
                 inspection = inspect_spgemm(cur, mats[k + 1], **kw)
                 algo = inspection["algorithm"]
-            if algo in A_SLOT_ALGORITHMS:
+            if algo in A_SLOT_ALGORITHMS or algo in SORTED_A_ALGORITHMS:
                 hops[-1] = True
                 cur = finalize(cur, True)
         stages.append(plan_spgemm(cur, mats[k + 1], cache=cache,

@@ -145,7 +145,7 @@ class SpGEMMPlan:
     cap_c: int               # exact nnz(C) as a static capacity
     row_cap: int             # heap: max nnz(c_i*)
     k_width: int             # heap: max nnz(a_i*)
-    #: where the choice came from: "explicit" or "heuristic"
+    #: where the choice came from: "explicit", "heuristic" or "measured"
     provenance: str = "explicit"
     #: ``algorithm == "bcsr"`` only: the tile shape the CSR operands are
     #: re-blocked into and the nested block plan
@@ -230,10 +230,18 @@ def inspect_spgemm(a: CSR, b: CSR, *, algorithm: str = "auto",
                    mask: Optional[CSR] = None, complement_mask: bool = False,
                    sorted_output: bool = False,
                    use_case: Optional[str] = None, n_bins: int = 8,
-                   bucket_caps: bool = False, a_row_nnz=None) -> dict:
+                   bucket_caps: bool = False, a_row_nnz=None,
+                   autotune: bool = False, autotune_db=None) -> dict:
     """The structural half of :func:`plan_spgemm`: flop profile and bins,
     table sizes, the exact symbolic phase and the recipe's choice, as a
     dict of the plan's fields (``algorithm`` resolved).
+
+    With ``autotune=True`` an ``"auto"`` request asks the measured recipe
+    (:func:`repro_torch.autotune.measured_recommend`, DB ``autotune_db``)
+    first; its winner is recorded with ``provenance="measured"``, and a
+    winning hash-table scale multiplies ``table_size`` and ``bin_tsize``.
+    A DB that cannot be trusted falls back to the heuristic; on the card a
+    lane whose kernel does not build or launch raises.
 
     Every field is a function of the column *set* of each row, not of the
     order of A's entries in it, so a chain asks a stage's route here
@@ -273,24 +281,45 @@ def inspect_spgemm(a: CSR, b: CSR, *, algorithm: str = "auto",
 
     if algorithm == "heap" and not (a.sorted_cols and b.sorted_cols):
         raise AssertionError("heap path requires sorted inputs")
+    fields = dict(mask=mask, flop=flop, total_flop=total_flop,
+                  flop_cap=flop_cap, offsets=offsets, bin_tsize=bin_tsize,
+                  table_size=table_size, row_nnz_c=row_nnz_c,
+                  indptr_c=indptr_c, nnz_c=nnz_c, cap_c=cap_c,
+                  row_cap=row_cap, k_width=k_width)
     provenance = "explicit"
+    table_scale = 1
     if algorithm == "auto":
         uc = use_case if use_case is not None else \
             ("masked" if mask is not None else "AxA")
-        from .recipe import recommend
-        algorithm, _ = recommend(a, b, sorted_output=sorted_output,
-                                 use_case=uc, semiring=sr.name, mask=mask,
-                                 complement_mask=complement_mask,
-                                 row_nnz_c=row_nnz_c, a_row_nnz=a_row_nnz)
-        provenance = "heuristic"
+        if autotune:
+            from repro_torch.autotune import measured_recommend
+            choice = measured_recommend(
+                a, b, sorted_output=sorted_output, semiring=sr.name,
+                mask=mask, complement_mask=complement_mask,
+                row_nnz_c=row_nnz_c, db=autotune_db, inspection=fields)
+            if choice is not None:
+                algorithm = choice.algorithm
+                table_scale = choice.table_scale
+                provenance = "measured"
+        if algorithm == "auto":      # no autotune, or no measured choice
+            from .recipe import recommend
+            algorithm, _ = recommend(a, b, sorted_output=sorted_output,
+                                     use_case=uc, semiring=sr.name,
+                                     mask=mask,
+                                     complement_mask=complement_mask,
+                                     row_nnz_c=row_nnz_c,
+                                     a_row_nnz=a_row_nnz)
+            provenance = "heuristic"
         if algorithm == "heap" and not (a.sorted_cols and b.sorted_cols):
             # the inputs cannot feed heap; hash keeps the unsorted contract
             algorithm = "hash"
-    return dict(algorithm=algorithm, provenance=provenance, mask=mask,
-                flop=flop, total_flop=total_flop, flop_cap=flop_cap,
-                offsets=offsets, bin_tsize=bin_tsize, table_size=table_size,
-                row_nnz_c=row_nnz_c, indptr_c=indptr_c, nnz_c=nnz_c,
-                cap_c=cap_c, row_cap=row_cap, k_width=k_width)
+    if table_scale != 1 and algorithm in ("hash", "hash_vector"):
+        # the winning table-size variant: the static allocation and the
+        # per-bin sizes scaled together, every size a power of two within
+        # [CHUNK, table_size], the static size capped at p2(n_cols + 1)
+        fields["table_size"], fields["bin_tsize"] = sched.scale_table_sizes(
+            table_size, bin_tsize, table_scale, n, CHUNK)
+    return dict(algorithm=algorithm, provenance=provenance, **fields)
 
 
 def plan_spgemm(a: CSR, b: CSR, *, algorithm: str = "auto",
@@ -299,7 +328,7 @@ def plan_spgemm(a: CSR, b: CSR, *, algorithm: str = "auto",
                 sorted_output: bool = False, use_case: Optional[str] = None,
                 n_bins: int = 8, cache: bool = True,
                 bucket_caps: bool = False, a_row_nnz=None,
-                autotune: bool = False,
+                autotune: bool = False, autotune_db=None,
                 block: Tuple[int, int] = (8, 8),
                 inspection: Optional[dict] = None) -> SpGEMMPlan:
     """Run the whole inspection once and freeze it as a
@@ -316,8 +345,19 @@ def plan_spgemm(a: CSR, b: CSR, *, algorithm: str = "auto",
     :class:`repro_torch.core.bcsr.BCSRPlan`.  ``inspection`` is
     :func:`inspect_spgemm`'s result for the same request on operands with
     the same column sets (a chain's intermediate before its hop is
-    sorted); the plan then skips that half.  ``autotune=True`` is not
-    ported yet and raises.
+    sorted); the plan then skips that half.
+
+    ``autotune=True`` (with ``algorithm="auto"``) resolves the algorithm
+    through the measured recipe instead of Table 4's heuristics: the
+    persistent autotune DB (:mod:`repro_torch.autotune`; ``autotune_db``
+    overrides its path) is consulted under the structure/backend key, a
+    miss times the candidates on the operands' device and keeps the
+    winner, and any DB trouble degrades to the heuristic with a warning.
+    :attr:`SpGEMMPlan.provenance` records where the choice came from
+    (``"measured"``, ``"heuristic"`` or ``"explicit"``), and a winning
+    hash-table scale is applied to the frozen schedule.  Autotuned and
+    heuristic requests are distinct plan-cache entries, and so are
+    autotuned requests against different DB paths.
 
     Caveat of the ``bcsr`` route, as in the reference: its execute
     flattens the block product with ``bcsr_to_csr``, which prunes every
@@ -328,8 +368,6 @@ def plan_spgemm(a: CSR, b: CSR, *, algorithm: str = "auto",
     that cancels only up to rounding can be 0 in one package and not in
     the other.
     """
-    if autotune:
-        raise NotImplementedError("autotune= is not ported yet")
     sr = resolve_semiring(semiring)
     arn_digest = None
     if a_row_nnz is not None:
@@ -337,9 +375,15 @@ def plan_spgemm(a: CSR, b: CSR, *, algorithm: str = "auto",
             np.asarray(torch.as_tensor(a_row_nnz).cpu()).tobytes(),
             digest_size=8).digest()
     block = tuple(block)
+    tuned = autotune
+    if autotune:
+        # the DB's path joins the key: a plan measured against one DB is
+        # not served to a request that names another
+        from repro_torch.autotune import resolve_db
+        tuned = ("autotune", resolve_db(autotune_db).path)
     key = _plan_key(a, b, mask, sr.name, complement_mask, sorted_output,
                     algorithm, use_case, n_bins) + (bucket_caps, arn_digest,
-                                                    block)
+                                                    tuned, block)
     if cache:
         hit = cache_lookup(key, a.device)
         if hit is not None:
@@ -349,7 +393,7 @@ def plan_spgemm(a: CSR, b: CSR, *, algorithm: str = "auto",
         a, b, algorithm=algorithm, semiring=sr, mask=mask,
         complement_mask=complement_mask, sorted_output=sorted_output,
         use_case=use_case, n_bins=n_bins, bucket_caps=bucket_caps,
-        a_row_nnz=a_row_nnz)
+        a_row_nnz=a_row_nnz, autotune=autotune, autotune_db=autotune_db)
     algorithm, mask = ins["algorithm"], ins["mask"]
     bcsr_plan = None
     if algorithm == "bcsr":

@@ -12,8 +12,9 @@ The decision table and its thresholds are copied verbatim: they are
 Table 4's, calibrated on KNL, and the reference's block-density and
 propagation-blocking rows stay in place so both packages choose alike.
 :func:`aggregate_stats` folds a fleet's member statistics into the one
-the batched planner (``core.batch``) chooses from.  The measured
-(autotune) mode is not ported yet.
+the batched planner (``core.batch``) chooses from.  ``recommend(mode=
+"measured")`` delegates to :mod:`repro_torch.autotune`, which times the
+candidates on the operands' device and keeps the winners.
 """
 from __future__ import annotations
 
@@ -288,21 +289,39 @@ def recommend(a: CSR, b: CSR, sorted_output: bool = False,
               mask: CSR | None = None,
               complement_mask: bool = False,
               row_nnz_c=None, a_row_nnz=None,
-              mode: str = "heuristic") -> tuple[str, SpGEMMStats]:
+              mode: str = "heuristic", db=None) -> tuple[str, SpGEMMStats]:
     """Measure stats and choose -- returns ``(algorithm, stats)``.
+
+    ``mode="heuristic"`` (default) is Table 4's decision tree: no
+    measurement, deterministic.  ``mode="measured"`` consults the
+    persistent autotune DB (:mod:`repro_torch.autotune`) under the
+    ``(structure digests, backend, value width)`` key: a hit returns the
+    recorded winner with no microbenchmark; a miss times every candidate
+    on the operands' device and keeps the winner; a drifted entry is
+    measured again; a DB that cannot be trusted degrades to the heuristic
+    with a warning, never an error.  ``db`` is a path or a
+    :class:`repro_torch.autotune.PerfDB` (default path when ``None``).
 
     ``row_nnz_c`` takes the symbolic phase's exact per-row counts (the
     planner passes them); ``a_row_nnz`` is the mid-chain hook.
     """
-    if mode != "heuristic":
-        raise NotImplementedError(
-            f"recipe mode {mode!r} (autotune) is not ported yet")
+    assert mode in ("heuristic", "measured"), mode
     probe_blocks = _resolve_probe_blocks(probe_blocks, a, semiring, mask,
                                          use_case, a_row_nnz)
     stats = measure_stats(a, b, row_nnz_c=row_nnz_c,
                           probe_blocks=probe_blocks, mask=mask,
                           complement_mask=complement_mask,
                           a_row_nnz=a_row_nnz)
+    if mode == "measured":
+        # imported lazily: the autotuner times things, and loads only
+        # when asked for
+        from repro_torch.autotune import measured_recommend
+        choice = measured_recommend(
+            a, b, sorted_output=sorted_output, semiring=semiring,
+            mask=mask, complement_mask=complement_mask, stats=stats,
+            row_nnz_c=row_nnz_c, db=db)
+        if choice is not None:
+            return choice.algorithm, stats
     return choose_algorithm_from_stats(stats, sorted_output, use_case,
                                        semiring=semiring), stats
 

@@ -156,6 +156,20 @@ def bin_table_sizes(tsize: torch.Tensor, n_cols: int, table_size: int,
     return torch.clamp(lowest_p2_arr(t), max(floor, 1), table_size)
 
 
+def scale_table_sizes(table_size: int, bin_tsize: torch.Tensor, scale: int,
+                      n_cols: int, floor: int):
+    """``(table_size, bin_tsize)`` of a x``scale`` hash-table variant (the
+    measured recipe's winning table scale): the static size within
+    ``[floor, p2(n_cols + 1)]`` (a table wider than every column is
+    waste), the per-bin sizes scaled in int32 on their device and clipped
+    to ``[floor, table_size]``, so every size stays a power of two within
+    the plan's bounds."""
+    table_size = max(min(table_size * scale, lowest_p2(n_cols + 1)), floor)
+    bin_tsize = torch.clamp(bin_tsize.to(torch.int32) * scale, floor,
+                            table_size)
+    return table_size, bin_tsize
+
+
 #: default propagation-blocking bucket budget: the average number of
 #: partial products a column bucket should hold (the reference's value).
 PB_BUCKET_BUDGET = 2048

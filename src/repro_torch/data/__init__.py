@@ -1,2 +1,2 @@
-"""Data substrate: the R-MAT graph generators."""
-from . import rmat
+"""Data substrate: the R-MAT graph generators and the Table 2 proxies."""
+from . import matrices, rmat

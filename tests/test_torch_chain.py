@@ -329,6 +329,35 @@ def test_slot_order_rule_sorts_the_hop_into_pb():
         assert_csr_equal(chain.execute(r, a, p), good)
 
 
+@pytest.mark.parametrize("last", ("bcsr", "esc", "heap", "dense"))
+def test_slot_order_rule_scrambled_hop_into_other_routes(last):
+    """The routes the rule leaves out of :data:`A_SLOT_ALGORITHMS` read A's
+    entries at execute time, so a hop into them whose slots are scrambled
+    gives the composition.  ``heap`` also needs a row-sorted A, so the hop
+    into it is sorted (:data:`SORTED_A_ALGORITHMS`); the others stay
+    unsorted."""
+    r, a, p = map(to_port, rap(seed=11, scale=6, ef=4))
+    chain = T.plan_galerkin(r, a, p, algorithm=("hash", last), cache=False)
+    assert chain.algorithms == ("hash", last)
+    assert chain.sorted_hops == ((last in tchain.SORTED_A_ALGORITHMS),)
+    assert last not in tchain.A_SLOT_ALGORITHMS
+    want = (r.to_dense().double() @ a.to_dense().double()
+            @ p.to_dense().double())
+    good = chain.execute(r, a, p)
+    assert torch.equal(good.to_dense().double(), want)     # dyadic: exact
+    scrambled = dataclasses.replace(
+        chain, stages=(_Scrambling(chain.stages[0]),) + chain.stages[1:])
+    c = scrambled.execute(r, a, p)
+    assert torch.equal(c.to_dense().double(), want)
+    assert_csr_equal(T.finalize(c, True), T.finalize(good, True))
+    if not chain.sorted_hops[0]:
+        # the stage itself is order-free: handed the scrambled raw
+        # intermediate directly, it computes the same product
+        inter = scramble(chain.stages[0].execute(r, a, sorted_output=False))
+        raw = chain.stages[1].execute(inter, p)
+        assert torch.equal(raw.to_dense().double(), want)
+
+
 def test_slot_order_rule_pinned_pb_and_controls():
     a = trmat.er_csr(10, 8, seed=1, device="cpu")
     r, p = trmat.aggregation_csr(a.n_rows, a.n_rows // 8, seed=1,

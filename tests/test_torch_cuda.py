@@ -2977,3 +2977,154 @@ def test_chain_batch_power_launches_batched_classes(cuda):
     cpu = [on_cpu(b) for b in blocks]
     for b, c in zip(cpu, outs):
         assert_sorted_equal(c, plan_power(b, 3, cache=False).execute(b, b, b))
+
+
+@pytest.mark.gpu
+def test_chain_bcsr_last_stage_after_hash_hop(cuda):
+    """A ``bcsr`` stage re-blocks A's entries by (row, column), so the hash
+    hop into it stays unsorted whatever order the card gives its rows."""
+    from repro_torch.core import plan_galerkin
+    from repro_torch.kernels.spgemm_bcsr import ops as bcsr_ops
+    r, a, p = galerkin_operands(cuda, scale=10)
+    chain = plan_galerkin(r, a, p, algorithm=("hash", "bcsr"), cache=False)
+    assert chain.algorithms == ("hash", "bcsr")
+    assert chain.sorted_hops == (False,)
+    cpu = [on_cpu(x) for x in (r, a, p)]
+    plain = plan_galerkin(*cpu, algorithm=("hash", "bcsr"),
+                          cache=False).execute(*cpu)
+    for _ in range(3):
+        bcsr_ops.reset_kernel_calls()
+        c, counts = chain_launches(lambda: chain.execute(r, a, p))
+        assert counts["numeric"] == 1 and counts["plain"] == 0
+        assert bcsr_ops.kernel_call_counts()["numeric"] == 1
+        assert bcsr_ops.kernel_call_counts()["plain"] == 0
+        assert_sorted_equal(c, plain)
+
+
+# ---- the measured recipe (repro_torch.autotune) on the card ---------------
+
+def _autotune_pair(device):
+    a = operand("ER", 9, 8, True, device)
+    return a, a
+
+
+@pytest.mark.gpu
+def test_autotune_key_names_the_card(cuda):
+    from repro_torch.autotune import db_key
+    a, b = _autotune_pair(cuda)
+    fields = db_key(a, b).split("|")
+    assert fields[7] == f"torch-cuda:{torch.cuda.get_device_name()}"
+    assert fields[8] == "x32"
+    ac = on_cpu(a)
+    # the structure fields are the CPU operands'; only the backend differs
+    cpu_fields = db_key(ac, ac).split("|")
+    assert cpu_fields[7] == "torch-cpu"
+    assert fields[:7] + fields[8:] == cpu_fields[:7] + cpu_fields[8:]
+
+
+@pytest.mark.gpu
+def test_autotune_measures_on_the_card_then_hits(cuda, tmp_path):
+    from repro_torch.autotune import (PerfDB, measure_call_counts,
+                                      measured_recommend,
+                                      reset_measure_calls)
+    from repro_torch.autotune.measure import _candidates
+    from repro_torch.core import plan_spgemm
+    a, b = _autotune_pair(cuda)
+    db = PerfDB(str(tmp_path / "db.json"))
+    reset_measure_calls()
+    choice = measured_recommend(a, b, db=db)
+    lanes = {label for label, _, _ in _candidates(a, b, "plus_times", None)}
+    (entry,) = db.load().values()
+    # the winner is a lane that ran, and its time is the fastest
+    assert choice.source == "measured" and entry["label"] in lanes
+    # every lane ran: on the card a lane that fails raises
+    assert set(entry["candidates"]) == lanes
+    assert entry["candidates"][entry["label"]] == entry["us"] == choice.us
+    assert min(entry["candidates"].values()) == entry["us"] > 0
+    assert measure_call_counts()["candidates_timed"] == \
+        len(entry["candidates"])
+    reset_measure_calls()
+    ops.reset_kernel_calls()
+    plan = plan_spgemm(a, b, autotune=True, autotune_db=db, cache=False)
+    counts = measure_call_counts()
+    assert counts["candidates_timed"] == 0 and counts["db_hits"] == 1
+    assert plan.provenance == "measured"
+    assert plan.algorithm == choice.algorithm
+    # a hit launches no numeric kernel: nothing is timed
+    assert ops.kernel_call_counts()["numeric"] == 0
+    assert ops.kernel_call_counts()["numeric_vector"] == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("oom", (False, True))
+def test_autotune_kernel_failure_on_the_card(cuda, tmp_path, monkeypatch,
+                                             oom):
+    """A hash kernel that fails to launch makes the race raise: no plain
+    lane is measured or served in its place, and nothing is stored.  A
+    kernel lane that runs out of memory drops out with a warning."""
+    from repro_torch.autotune import AutotuneDBWarning, PerfDB
+    from repro_torch.core import plan_spgemm
+    a, b = _autotune_pair(cuda)
+    db = PerfDB(str(tmp_path / "db.json"))
+
+    def broken(*args, **kwargs):
+        if oom:
+            raise torch.cuda.OutOfMemoryError("injected")
+        raise RuntimeError("spgemm_hash launch failed: injected")
+
+    monkeypatch.setattr(K, "numeric_call", broken)
+    if not oom:
+        with pytest.raises(RuntimeError, match="injected"):
+            plan_spgemm(a, b, autotune=True, autotune_db=db, cache=False)
+        assert db.load() == {}
+        return
+    with pytest.warns(AutotuneDBWarning, match="OutOfMemoryError"):
+        plan = plan_spgemm(a, b, autotune=True, autotune_db=db, cache=False)
+    (entry,) = db.load().values()
+    assert not {"hash", "hash@t2", "hash_vector",
+                "hash_vector@t2"} & set(entry["candidates"])
+    assert plan.algorithm == entry["algorithm"] not in ("hash",
+                                                        "hash_vector")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("algorithm", ("hash", "hash_vector"))
+@pytest.mark.parametrize("preset,scale,ef", (("ER", 9, 8), ("G500", 11, 16)))
+def test_autotune_scale2_plan_matches_plain(cuda, tmp_path, algorithm,
+                                            preset, scale, ef):
+    """An entry naming a x2 table gives a plan with the clipped doubled
+    tables (ER's double; G500's already span every column, p2(n + 1), and
+    stay); its kernel output equals the plain version's."""
+    from repro_torch.autotune import PerfDB, SCHEMA_VERSION, db_key
+    from repro_torch.core.schedule import scale_table_sizes
+    from repro_torch.core import plan_spgemm
+    from repro_torch.core.recipe import measure_stats
+    a = operand(preset, scale, ef, True, cuda)
+    db = PerfDB(str(tmp_path / "db.json"))
+    s = measure_stats(a, a)
+    db.put(db_key(a, a), {
+        "schema": SCHEMA_VERSION, "algorithm": algorithm, "table_scale": 2,
+        "us": 1.0, "candidates": {}, "backend": "test", "x64": False,
+        "stats": {"flop": s.flop, "nnz_a": s.nnz_a, "nnz_c": s.nnz_c_est}})
+    base = plan_spgemm(a, a, algorithm=algorithm, cache=False)
+    plan = plan_spgemm(a, a, autotune=True, autotune_db=db, cache=False)
+    assert plan.algorithm == algorithm and plan.provenance == "measured"
+    want_size, want_bins = scale_table_sizes(
+        base.table_size, base.bin_tsize, 2, a.n_cols, K.CHUNK)
+    assert plan.table_size == want_size
+    assert torch.equal(plan.bin_tsize, want_bins)
+    if preset == "ER":
+        assert plan.table_size == 2 * base.table_size
+        assert torch.equal(plan.bin_tsize, 2 * base.bin_tsize)
+    else:
+        assert plan.table_size == base.table_size == 2 * a.n_cols
+        assert torch.equal(plan.bin_tsize, base.bin_tsize)
+    ops.reset_kernel_calls()
+    c = plan.execute(a, a)
+    torch.cuda.synchronize()
+    key = "numeric_vector" if algorithm == "hash_vector" else "numeric"
+    assert ops.kernel_call_counts()[key] == 1
+    ac = on_cpu(a)
+    plain = plan_spgemm(ac, ac, algorithm=algorithm, cache=False).execute(
+        ac, ac)
+    assert_sorted_equal(c, plain)

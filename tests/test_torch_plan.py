@@ -187,10 +187,16 @@ def test_cache_lru_bound_and_restore_refreshes_recency():
     assert tplan.cache_lookup(("spgemm", 12), "meta") is None
 
 
-def test_unported_plan_options_raise():
+def test_unported_plan_options_raise(tmp_path):
+    """Every plan option is ported now: ``autotune=True`` plans through
+    the measured recipe (``tests/test_torch_autotune.py``) and the recipe's
+    measured mode answers; nothing raises "not ported yet"."""
     ta = to_port(jrmat.rmat_csr(5, 4, "G500", seed=0))
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        T.plan_spgemm(ta, ta, cache=False, autotune=True)
+    db = str(tmp_path / "db.json")
+    plan = T.plan_spgemm(ta, ta, cache=False, autotune=True, autotune_db=db)
+    assert plan.provenance == "measured"
+    algo, _ = trecipe.recommend(ta, ta, mode="measured", db=db)
+    assert algo == plan.algorithm
     assert T.plan_spgemm(ta, ta, cache=False,
                          algorithm="bcsr").algorithm == "bcsr"
 
