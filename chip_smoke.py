@@ -306,6 +306,18 @@ Phases; any failure exits non-zero:
      inputs, without the speed gate; one row each (n, nnz, compression,
      heap steps, Table 4's choice and its time, the winner and its) and
      the count on which Table 4's choice is within 5 % of the winner;
+ 24. the static contract checker (``repro_torch.verify``): its layer-1
+     sweep on CUDA tensors (every case's plan VCs hold and its repeat
+     execute's dispatch census meets its budget; each case's census equal
+     to the same case's on CPU tensors; no plain version run on the
+     card), the ``cap_c``, ``bin_tsize`` and ``seg`` twins of card plans
+     rejected, and the lint of the port's surface (0 violations, the
+     waivers listed); its seconds beside the card's name and power limit.
+     Phases 4, 6, 7, 12 and 22 also check ``verify.check_plan_vcs`` on
+     every plan they build (ER s18 and G500 s16 ``plan_spgemm``, the
+     sorted PB plan and its ``plan_pb``, the BCSR plans, the three
+     ``plan_batch`` fleets, the chains, Gram and batched powers) and print
+     the number of VCs and their host ms;
  15. one ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``.
 
 Usage: ``python3 chip_smoke.py`` (one card, no arguments).  A quick first
@@ -590,6 +602,18 @@ class Smoke:
                            mod.kernel_call_counts().items()})
         return out, counts
 
+    def plan_vcs(self, label, plan):
+        """``verify.check_plan_vcs`` on a plan an earlier phase built: every
+        VC must hold; prints their number and the host ms they took."""
+        from repro_torch import verify
+        t0 = time.perf_counter()
+        vcs = verify.check_plan_vcs(plan)
+        ms = (time.perf_counter() - t0) * 1e3
+        bad = [f"{vc.name} ({vc.detail})" for vc in vcs if not vc.ok]
+        check(bool(vcs) and not bad, f"{label}: failing VCs {bad}")
+        print(json.dumps({"timing": f"VCs {label}", "card": self.card,
+                          "vcs": len(vcs), "host_ms": ms}), flush=True)
+
     def time_ms(self, fn, reps: int = REPS, warm: int = 2) -> float:
         torch = self.torch
         for _ in range(warm):
@@ -863,6 +887,7 @@ class Smoke:
               flush=True)
         check(algo in ("hash", "hash_vector"),
               f"{label}: recipe chose {algo}, not the hash family")
+        self.plan_vcs(f"{label} plan_spgemm", plan)
         key = "numeric_vector" if algo == "hash_vector" else "numeric"
         # launches per kernel, per path (counters zeroed before each path)
         paths = {"numeric": {}, "numeric_vector": {}, "symbolic": {}}
@@ -902,6 +927,7 @@ class Smoke:
         other = "hash" if algo == "hash_vector" else "hash_vector"
         okey = "numeric" if key == "numeric_vector" else "numeric_vector"
         plan_o = core.plan_spgemm(a, a, algorithm=other)
+        self.plan_vcs(f"{label} plan_spgemm({other})", plan_o)
         for arr in ("offsets", "bin_tsize", "indptr_c"):
             check(torch.equal(getattr(plan_o, arr), getattr(plan, arr)),
                   f"{label}: {arr} differs between {algo} and {other} plans")
@@ -1295,6 +1321,8 @@ class Smoke:
         self.expect(counts, {}, f"{label} sorted repeat plan")
         check(again[0] is plan and again[1] is p,
               f"{label} sorted: a repeat plan missed the cache")
+        self.plan_vcs(f"{label} plan_spgemm(sorted_output=True)", plan)
+        self.plan_vcs(f"{label} plan_pb", p)
 
         # the output: row-sorted, structure of the sorted hash route
         nnz = int(c.nnz)
@@ -2166,6 +2194,8 @@ class Smoke:
         for f in ("flop", "offsets", "bin_tsize", "row_nnzb_c", "indptr_cb"):
             check(torch.equal(getattr(direct, f), getattr(bp, f)),
                   f"{label}: plan_bcsr {f} differs from the nested plan's")
+        self.plan_vcs(f"{label} plan_spgemm(bcsr)", plan)
+        self.plan_vcs(f"{label} plan_bcsr", direct)
 
         paths = {}
         c, counts = self.counted(lambda: plan.execute(a, a))
@@ -2926,6 +2956,7 @@ class Smoke:
         plan = core.plan_batch(pairs)
         torch.cuda.synchronize()
         plan_s = time.perf_counter() - t0
+        self.plan_vcs(f"{label} plan_batch", plan)
         hash_cls = [c for c in plan.classes if c.hash_sched is not None]
         check(len(hash_cls) == plan.n_classes,
               f"{label}: the recipe chose {sorted(set(plan.algorithms))}, "
@@ -3726,7 +3757,7 @@ class Smoke:
         prefills, decodes = [], []
         inner_prefill, inner_decode = eng._prefill, eng._decode
 
-        def snapshot():
+        def snapshot():  # verify: allow(counter-reset) -- deltas only
             c = ops_mod.kernel_call_counts()
             if variant is not None:
                 c.update(ops_mod.variant_call_counts())
@@ -4124,6 +4155,7 @@ class Smoke:
         gate = torch.from_numpy(gate).long().to(self.dev)
         check(S._pick_chunk(SSD_GATE_LEN, cfg.ssm.chunk) * 2 == SSD_GATE_LEN,
               "phase 20: the gate's prompt is not two chunks")
+        ssd_ops.reset_kernel_calls()
         before = ssd_ops.kernel_call_counts()["ssd_chunk"]
         fma_before = ssd_ops.variant_call_counts()["fma"]
         want, wc = T.prefill(model, gate, cfg32, pctx)
@@ -4236,6 +4268,7 @@ class Smoke:
         record per stage and the dyadic plain composition (``plain_d``:
         one computed before on the same plan arrays)."""
         torch = self.torch
+        self.plan_vcs(label, chain)
         c, counts = self.counted(lambda: chain.execute(*mats))
         self.chain_expect(counts, chain.algorithms, f"{label} execute")
         check(torch.equal(c.indptr, chain.stages[-1].indptr_c) and
@@ -4570,6 +4603,7 @@ class Smoke:
         torch.cuda.synchronize()
         plan_s = time.perf_counter() - t0
         self.repeat_plan(label, plan, lambda: core.plan_gram(a))
+        self.plan_vcs(label, plan)
         prod = plan.product
         print(f"{label}: product {plan.algorithm}, flop {prod.total_flop}, "
               f"nnz(C) {plan.nnz_c} (planned in {plan_s:.2f} s)", flush=True)
@@ -4634,6 +4668,7 @@ class Smoke:
         plan_s = time.perf_counter() - t0
         self.repeat_plan(label, plan,
                          lambda: core.plan_batch_power(mats, k))
+        self.plan_vcs(label, plan)
         classes = [c for st in plan.stages for c in st.classes]
         check(all(c.hash_sched is not None for c in classes),
               f"{label}: a class off the hash kernel: "
@@ -4923,6 +4958,81 @@ class Smoke:
         print(f"phase 23: measured recipe ok in "
               f"{time.perf_counter() - t_phase:.1f} s", flush=True)
 
+    # ---- phase 24 ----------------------------------------------------------
+    def verify(self):
+        """Phase 24: the static contract checker (``repro_torch.verify``)
+        on the card."""
+        torch, core = self.torch, self.core
+        from repro_torch import verify
+        from repro_torch.verify import bounds as vb
+        from repro_torch.verify.census import PLAIN_COUNTERS
+        t_phase = time.perf_counter()
+        core.clear_plan_cache()
+        t0 = time.perf_counter()
+        cases = verify.run_layer1(device="cuda")
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cpu = {c.name: c for c in verify.run_layer1(device="cpu")}
+        cpu_s = time.perf_counter() - t0
+        check([c.name for c in cases] == list(cpu),
+              "phase 24: the card's cases differ from the CPU's")
+        for case in cases:
+            got = case.budget["got"]
+            launched = sum(v for k, v in case.budget["launches"].items()
+                           if k.rsplit(".", 1)[1] not in PLAIN_COUNTERS)
+            check(case.ok, f"phase 24: {case.name}: failing VCs "
+                  f"{[vc.name for vc in case.vcs if not vc.ok]}, budget "
+                  f"{case.budget}")
+            check(got["plain"] == 0, f"phase 24: {case.name} ran a plain "
+                  f"version on the card: {case.budget['launches']}")
+            check(case.census == cpu[case.name].census,
+                  f"phase 24: {case.name}: census on the card "
+                  f"{case.census} differs from the CPU's "
+                  f"{cpu[case.name].census}")
+            check(launched >= case.census["pallas_call"],
+                  f"phase 24: {case.name}: {case.census['pallas_call']} "
+                  f"kernel ops launched {case.budget['launches']}")
+            print(f"phase 24: {case.name}: {len(case.vcs)} VCs hold; kernel "
+                  f"ops {case.census['pallas_call']}, sort "
+                  f"{case.census['sort']}, host reads "
+                  f"{case.census['host_read']}, launches "
+                  f"{case.budget['launches']}; census equal to the CPU's",
+                  flush=True)
+        # broken twins of a card plan are rejected, the plan itself is not
+        a = vb._csr_of(vb._dyadic_dense(16, 12, 0.3, 0), self.dev)
+        b = vb._csr_of(vb._dyadic_dense(12, 10, 0.35, 1), self.dev)
+        plans = {"cap_c": core.plan_spgemm(a, b, algorithm="hash",
+                                           cache=False)}
+        plans["bin_tsize"] = plans["cap_c"]
+        plans["seg"] = core.plan_pb(a, b, n_buckets=4, cache=False)
+        for which, plan in plans.items():
+            check(all(vc.ok for vc in verify.check_plan_vcs(plan)),
+                  f"phase 24: the untouched {which} plan fails its VCs")
+            failed = [vc.name for vc in verify.check_plan_vcs(
+                verify.perturb_plan(plan, which)) if not vc.ok]
+            check(bool(failed), f"phase 24: the {which} twin passed")
+            print(f"phase 24: the {which} twin of a card plan rejected by "
+                  f"{failed}", flush=True)
+        t0 = time.perf_counter()
+        violations, waivers, n_files = verify.run_layer2(str(ROOT))
+        lint_s = time.perf_counter() - t0
+        check(not violations, "phase 24: lint violations "
+              + "; ".join(str(v) for v in violations))
+        for w in waivers:
+            print(f"phase 24: waived {w.path}:{w.line}: [{w.rule}]",
+                  flush=True)
+        seconds = time.perf_counter() - t_phase
+        print(json.dumps({"timing": "phase 24 verify", "card": self.card,
+                          "cases": len(cases), "layer1_cuda_s": card_s,
+                          "layer1_cpu_s": cpu_s, "layer2_s": lint_s,
+                          "lint_files": n_files, "waivers": len(waivers),
+                          "s": seconds}), flush=True)
+        print(f"phase 24: verify ok in {seconds:.1f} s on {self.card}: "
+              f"{len(cases)} layer-1 cases on the card, census equal to "
+              f"the CPU's, no plain version; layer 2 {n_files} files, 0 "
+              f"violations, {len(waivers)} waived", flush=True)
+
 
 def main() -> int:
     import torch
@@ -4991,6 +5101,7 @@ def main() -> int:
     smoke.hash_class_times()                                     # phase 21
     smoke.chains()                                               # phase 22
     smoke.measured_recipe()                                      # phase 23
+    smoke.verify()                                               # phase 24
 
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": smoke.rows}), flush=True)       # phase 15

@@ -62,7 +62,9 @@ def memo_on_versions(obj, name: str, tensors, compute):
     if hit is not None and hit[0] == stamp:
         return hit[1]
     value = compute()
-    object.__setattr__(obj, name, (stamp, value))
+    # ``name`` is a caller's underscore-prefixed memo slot, not a field
+    object.__setattr__(  # verify: allow(frozen-plan-immutability) -- memo
+        obj, name, (stamp, value))
     return value
 
 

@@ -116,7 +116,7 @@ def symbolic(a: CSR, b: CSR, mask: CSR | None = None,
 # Oracle
 # ----------------------------------------------------------------------------
 
-def spgemm_dense(a: CSR, b: CSR, cap_c: int,
+def spgemm_dense(a: CSR, b: CSR, cap_c: int,  # verify: allow(no-densify)
                  semiring: str | Semiring = "plus_times",
                  mask: CSR | None = None,
                  complement_mask: bool = False) -> CSR:

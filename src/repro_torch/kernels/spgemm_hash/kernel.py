@@ -284,10 +284,11 @@ def _fleet(args: dict, strides: dict, *, n: int, m: int, table_size: int,
     strides (absent: 0).  ``n_cols``: the symbolic phase's B width, shared
     by every member, which sizes its bitmap class (``ref.bitmap_above``);
     ``None`` in the numeric phase, which has none."""
-    f = _Fleet()
+    fields = {}
     for name in ARG_NAMES:
-        setattr(f, name, _ptr(args.get(name)))
-        setattr(f, f"{name}_s", strides.get(name, 0))
+        fields[name] = _ptr(args.get(name))
+        fields[f"{name}_s"] = strides.get(name, 0)
+    f = _Fleet(**fields)
     f.out_cols, f.out_vals = _ptr(out_cols), _ptr(out_vals)
     f.row_nnz = _ptr(row_nnz)
     f.cap_c, f.n, f.m = cap_c, n, m

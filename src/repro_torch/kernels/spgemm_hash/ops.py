@@ -47,6 +47,7 @@ import torch
 from repro_torch.core.formats import CSR, prefix_sum
 import repro_torch.core.schedule as sched
 from repro_torch.kernels import _build
+from repro_torch.verify.census import kernel_scope
 from . import kernel as K
 from .kernel import KERNEL_CALLS
 
@@ -223,10 +224,16 @@ def spgemm_hash_batched(a: CSR, b: CSR, cap_c: int, *, vector: bool,
     the class table (``BatchClass.table_size``, used as it is), and
     ``largest`` their largest bin table (``K.fleet_table``), which a plan
     computes once.
+
+    Not a custom op, so the call is one kernel entry of a layer-1 census
+    (:func:`repro_torch.verify.census.kernel_scope`): the ops inside it,
+    the plain version's on CPU tensors, are the kernel's, never the
+    executor's.
     """
     offsets, bin_tsize = schedule
-    return K.batched_numeric_call(
-        offsets, bin_tsize, a.indptr, b.indptr, indptr_c, a.indices,
-        a.data.to(torch.float32), b.indices, b.data.to(torch.float32),
-        n_members=offsets.shape[0], cap_c=cap_c, table_size=table_size,
-        vector=vector, largest=largest)
+    with kernel_scope("spgemm_hash_batched"):
+        return K.batched_numeric_call(
+            offsets, bin_tsize, a.indptr, b.indptr, indptr_c, a.indices,
+            a.data.to(torch.float32), b.indices, b.data.to(torch.float32),
+            n_members=offsets.shape[0], cap_c=cap_c, table_size=table_size,
+            vector=vector, largest=largest)

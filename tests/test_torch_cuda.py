@@ -3128,3 +3128,42 @@ def test_autotune_scale2_plan_matches_plain(cuda, tmp_path, algorithm,
     plain = plan_spgemm(ac, ac, algorithm=algorithm, cache=False).execute(
         ac, ac)
     assert_sorted_equal(c, plain)
+
+
+# ---------------------------------------------------------------------------
+# the static contract checker (repro_torch.verify) on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ("spgemm", "batch", "bcsr", "pb", "chain",
+                                  "gram"))
+def test_verify_layer1_on_the_card(cuda, kind):
+    """Every layer-1 case of ``kind`` holds its VCs and census budget on
+    CUDA tensors, with no plain version run, each kernel op launched its
+    kernel, and each case's census equals the same case's on the CPU (the
+    kernel boundary makes the census device-free)."""
+    from repro_torch.verify import run_layer1
+    cases = run_layer1([kind], device=cuda)
+    cpu = {c.name: c for c in run_layer1([kind], device="cpu")}
+    assert [c.name for c in cases] == list(cpu)
+    for case in cases:
+        assert case.ok, (case.name, case.budget)
+        assert case.budget["got"]["plain"] == 0
+        assert case.census == cpu[case.name].census, case.name
+        launched = sum(v for k, v in case.budget["launches"].items()
+                       if not k.endswith("plain"))
+        assert launched >= case.census["pallas_call"], case.budget
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("which", ("cap_c", "bin_tsize", "seg"))
+def test_verify_rejects_twins_of_card_plans(cuda, which):
+    from repro_torch.core import plan_pb, plan_spgemm
+    from repro_torch.verify import check_plan_vcs, perturb_plan
+    a = operand("ER", 9, 8, True, cuda)
+    if which == "seg":
+        plan = plan_pb(a, a, n_buckets=4, cache=False)
+    else:
+        plan = plan_spgemm(a, a, algorithm="hash", cache=False)
+    assert all(vc.ok for vc in check_plan_vcs(plan))
+    assert any(not vc.ok for vc in check_plan_vcs(perturb_plan(plan, which)))
