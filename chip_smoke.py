@@ -8,9 +8,12 @@ seed 0), then the sorted-output (PB) and block-sparse (BCSR) routes, SpMM,
 the paper's graph workloads, the batched fleet planner and BCSR, PB and
 hash value fleets under ``torch.func.vmap``, then the LM serving path
 (qwen3-0.6b at full width, prefill through the flash-attention kernel;
-mamba2-780m at full width, prefill through the SSD chunk-scan kernel),
-then product chains (R.A.P, A^3, A^T.A, batched powers, MCL), then the
-measured recipe (the autotuner's race of algorithms and its DB), and holds
+mamba2-780m at full width, prefill through the SSD chunk-scan kernel;
+recurrentgemma-9b at full width and depth, its RG-LRU layers scanned in
+PyTorch ops and its local attention through the flash kernel; qwen3-moe-
+30b-a3b at full width and 16 of its 48 layers, the MoE layer in PyTorch
+ops), then product chains (R.A.P, A^3, A^T.A, batched powers, MCL), then
+the measured recipe (the autotuner's race of algorithms and its DB), and holds
 every hand-written kernel against its plain PyTorch version.
 Phases; any failure exits non-zero:
 
@@ -211,7 +214,11 @@ Phases; any failure exits non-zero:
      beside the plain version (at 32,768 head by head, which is also the
      check there), ``scaled_dot_product_attention`` (a yardstick only,
      never on the path) and the operations bound; the float32 kernel
-     timed at S 4,096;
+     timed at S 4,096.  Then the same checks at the attention widths of
+     phases 25 and 26 (``FLASH_SERVE_WIDTHS``: 16 query heads on 1 KV head
+     at head dim 256, and 32 on 4 at 128), causal at (B 1, S 2,048) and (B
+     1, S 1,000), each launch's variant counted, and at S 2,048 bf16 the
+     kernel's, the plain version's and SDPA's times beside the bound;
  18. serving qwen3-0.6b at full width (28 layers, random float32 weights
      from seed 0, bf16 compute, TF32 off) through ``Engine(max_batch=4,
      max_len=4,096)``: 9 requests (six prompts as ``launch/serve.py``
@@ -318,6 +325,38 @@ Phases; any failure exits non-zero:
      sorted PB plan and its ``plan_pb``, the BCSR plans, the three
      ``plan_batch`` fleets, the chains, Gram and batched powers) and print
      the number of VCs and their host ms;
+ 25. serving recurrentgemma-9b at full width and depth (38 layers: 26
+     RG-LRU of width 4,096, 12 local attention with a window of 2,048;
+     random float32 weights from seed 0, bf16 compute) through
+     ``Engine(max_batch=4, max_len=4,096)``, right after phase 20: six
+     prompts as ``launch/serve.py`` draws them and ones of 1,000, 2,048 and
+     3,072 tokens (the last past the window), 16 new tokens each.  Each
+     admission of at most 2,048 tokens launches the tensor-core flash
+     kernel 12 times and its plain version never, the 3,072-token one
+     (``chunked_attention``'s windowed path) and every decode step
+     nothing; every request finishes.  Float32 gates: a 300-token prompt
+     through prefill (the log-depth scan, the CUDA-core flash kernel)
+     against the same tokens fed one at a time through ``decode_step``
+     (the recurrence) from empty caches -- last logits, every RG-LRU
+     layer's state and conv window and every attention layer's K and V
+     within a relative L2 distance of 1e-3 -- then phase 18's greedy-
+     equals-re-prefill check.  Timing line as phase 18's, with the RG-LRU
+     scan's share of the 2,048-token prefill's device time (the profiler's
+     sum over a ``record_function`` range around ``rglru.linear_scan``);
+ 26. serving qwen3-moe-30b-a3b at full width and 16 of its 48 layers
+     (10.59 B float32 parameters, 42.4 GB; all 48 would be 122 GB) through
+     the same engine: six prompts as the launcher draws them and ones of
+     1,000 and 2,048 tokens, 16 new tokens each; each admission launches
+     the tensor-core flash kernel 16 times and no plain version, a decode
+     step nothing, every request finishes.  The assignments the expert
+     capacity drops per admission and per decode step (at batch 4 the
+     capacity is 1 and idle slots compete for it, as in the reference).
+     The float32 greedy-equals-re-prefill gate on a copy with a capacity
+     factor of 16 (cap >= T: nothing dropped, so prefill and decode
+     agree).  Timing line as phase 18's, with the expert FFN's and the
+     expert-weight casts' shares of a decode step's and the 2,048-token
+     prefill's device time (``record_function`` ranges around
+     ``moe._expert_ffn`` and its casts);
  15. one ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``.
 
 Usage: ``python3 chip_smoke.py`` (one card, no arguments).  A quick first
@@ -432,6 +471,41 @@ SSD_REL = 1e-4
 #: 150 steps of mamba2's strongest heads: ~1e-4 relative per term; a wrong
 #: chunk carry, transpose or mask moves them by order 1)
 SSD_LONG, SSD_GATE_LEN, SSD_GATE_REL = (1000, 2048), 300, 1e-3
+
+#: phase 17's attention widths of the two models of phases 25 and 26:
+#: recurrentgemma-9b's local attention (src/repro_torch/configs/
+#: recurrentgemma_9b.py: 16 query heads on 1 KV head, head dim 256) and
+#: qwen3-moe-30b-a3b's (src/repro_torch/configs/qwen3_moe_30b_a3b.py: 32
+#: query heads on 4 KV heads, head dim 128, qk-norm before RoPE); each
+#: checked causal at (B 1, S 2,048) -- the length timed -- and (B 1, S 1,000)
+FLASH_SERVE_WIDTHS = {"recurrentgemma-9b": (16, 1, 256),
+                      "qwen3-moe-30b-a3b": (32, 4, 128)}
+FLASH_SERVE_CHECKS = ((1, 2048, 2048, True), (1, 1000, 1000, True))
+#: phase 25: recurrentgemma-9b at full width and depth (src/repro_torch/
+#: configs/recurrentgemma_9b.py: 38 layers, 26 RG-LRU of width 4,096 and 12
+#: local attention with a window of 2,048; vocab 256,000, tied).  The long
+#: prompts: 1,000 and 2,048 (inside the window: the flash kernel) and 3,072
+#: (past it: chunked_attention's windowed path; 3,072 and not 3,000
+#: because that path, as the reference's, needs a length that is a
+#: multiple of its 512-key chunks past 512).  The float32 gate: a prompt
+#: of RG_GATE_LEN tokens through prefill (the scan, the CUDA-core flash
+#: kernel) against the same tokens fed one at a time through decode_step
+#: (the recurrence, plain attention) from empty caches, as a relative L2
+#: distance of the last logits, every RG-LRU layer's state and conv window
+#: and every attention layer's K and V (the scan's association and the
+#: matmuls' order move them by ~1e-6; a wrong gate, conv tap or carry by
+#: order 1)
+RG_ARCH, RG_LONG, RG_GATE_LEN, RG_GATE_REL = \
+    "recurrentgemma-9b", (1000, 2048, 3072), 300, 1e-3
+#: phase 26: qwen3-moe-30b-a3b at full width (src/repro_torch/configs/
+#: qwen3_moe_30b_a3b.py: d_model 2,048, 128 experts of 768, top-8, vocab
+#: 151,936) and MOE_SERVE_LAYERS of its 48 layers: 10.59 B float32
+#: parameters, 42.4 GB (all 48 would be 122 GB, past the card's 80 GB).
+#: The float32 greedy gate runs on a copy with a capacity factor of
+#: n_experts / top_k = 16, so that no expert drops an assignment (cap >=
+#: T): prefill and decode agree only where nothing is dropped
+MOE_ARCH, MOE_SERVE_LAYERS, MOE_LONG = "qwen3-moe-30b-a3b", 16, (1000, 2048)
+MOE_GATE_CAPACITY = 16.0
 
 #: phase 22: the launch counters each chain-stage algorithm bumps once an
 #: execute; the Galerkin coarsening (aggregation_csr(n, n // 8)); A^3's
@@ -670,12 +744,15 @@ class Smoke:
                  for e in prof.key_averages() if kernel in e.key)
         return us / 1e3 if us else None
 
-    def busy_ms(self, fn, kernel: str, reps: int = 3):
+    def busy_ms(self, fn, kernel: str, reps: int = 3, ranges=()):
         """One call of ``fn``: (median host ms of ``reps`` calls ending in
         a synchronise, device busy ms -- the device events' summed time in
         a ``torch.profiler`` trace of one more call, None if the trace
         holds none --, the number of device events: kernels, copies and
-        fills, and the ms of the kernels whose name holds ``kernel``)."""
+        fills, the ms of the kernels whose name holds ``kernel``, and per
+        name in ``ranges`` -- ``record_function`` ranges that ``fn`` opens
+        -- the device ms of the work launched inside those ranges, summed
+        by the profiler from the ops in them)."""
         from torch.profiler import ProfilerActivity, profile
         torch = self.torch
         host = []
@@ -689,12 +766,22 @@ class Smoke:
                                  ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
+        cuda = torch.autograd.DeviceType.CUDA
+        # a range's own span on the device is no kernel: left out of busy
         kernels = [e for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA]
+                   if e.device_type == cuda and e.name not in ranges]
         busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
         named = sum(e.time_range.elapsed_us() for e in kernels
                     if kernel in e.name) / 1e3
-        return host[len(host) // 2], (busy or None), len(kernels), named
+
+        def device_us(e):
+            t = getattr(e, "device_time_total", None)
+            return e.cuda_time_total if t is None else t
+        in_ranges = {r: sum(device_us(e) for e in prof.events()
+                            if e.name == r and e.device_type != cuda) / 1e3
+                     for r in ranges}
+        return host[len(host) // 2], (busy or None), len(kernels), named, \
+            in_ranges
 
     def sorted_rows(self, cols, vals, indptr, shape):
         c = self.CSR(indptr, cols, vals,
@@ -3492,13 +3579,98 @@ class Smoke:
         _, e = x.float().abs().frexp()
         return (e.float() - 8).exp2()
 
-    def flash_inputs(self, b, sq, skv, dtype, seed):
+    def flash_inputs(self, b, sq, skv, dtype, seed,
+                     widths=(LM_HEADS, LM_KV_HEADS, LM_HEAD_DIM)):
         torch = self.torch
+        h, hkv, d = widths
         g = torch.Generator(self.dev).manual_seed(seed)
         return [torch.randn(s, generator=g, device=self.dev).to(dtype)
-                for s in ((b, LM_HEADS, sq, LM_HEAD_DIM),
-                          (b, LM_KV_HEADS, skv, LM_HEAD_DIM),
-                          (b, LM_KV_HEADS, skv, LM_HEAD_DIM))]
+                for s in ((b, h, sq, d), (b, hkv, skv, d),
+                          (b, hkv, skv, d))]
+
+    def flash_serve_widths(self):
+        """Phase 17, the attention widths of phases 25 and 26
+        (FLASH_SERVE_WIDTHS): float32 through the CUDA-core kernel and
+        bfloat16 through the tensor-core kernel against the plain version
+        (phase 17's tolerances), each launch on the kernel ``FK.variant``
+        names, at FLASH_SERVE_CHECKS; then at bf16 S 2,048 the kernel's,
+        the plain version's and ``scaled_dot_product_attention``'s median
+        CUDA-event times (the last a yardstick only) beside the bound.
+        Returns each arch's row numbers."""
+        torch, FK, ref = self.torch, self.FK, self.fa_ref
+        F = torch.nn.functional
+        rows = {}
+        for arch, (h, hkv, d) in FLASH_SERVE_WIDTHS.items():
+            scale = d ** -0.5
+            errs = {}
+            for dtype in (torch.float32, torch.bfloat16):
+                kind = FK.variant(dtype, d)
+                for i, (b, sq, skv, causal) in enumerate(FLASH_SERVE_CHECKS):
+                    q, k, v = self.flash_inputs(b, sq, skv, dtype, 300 + i,
+                                                (h, hkv, d))
+                    self.fa_ops.reset_kernel_calls()
+                    got = FK.flash_fwd(q, k, v, scale=scale, causal=causal)
+                    variants = self.fa_ops.variant_call_counts()
+                    want = ref.flash_attention_plain(q, k, v, causal=causal,
+                                                     scale=scale)
+                    torch.cuda.synchronize()
+                    what = (f"flash {str(dtype)[6:]} {arch} H {h} Hkv {hkv} "
+                            f"D {d} B {b} Sq {sq} Skv {skv} causal {causal}")
+                    check(variants == {"wgmma": int(kind == "wgmma"),
+                                       "fma": int(kind == "fma")},
+                          f"{what}: launched {variants}, want one {kind}")
+                    check(got.shape == want.shape and got.dtype == dtype and
+                          bool(torch.isfinite(got).all()),
+                          f"{what}: shape, dtype or non-finite values")
+                    dd = (got.float() - want.float()).abs()
+                    err = float(dd.max())
+                    if dtype == torch.float32:
+                        check(err <= FLASH_F32_TOL, f"{what}: max abs diff "
+                              f"{err} > {FLASH_F32_TOL} against the plain "
+                              f"version")
+                    else:
+                        bad = int((dd > self.bf16_ulp(want) + FLASH_F32_TOL)
+                                  .sum())
+                        check(bad == 0, f"{what}: {bad} values past one "
+                              f"bf16 ulp (+ {FLASH_F32_TOL}) of the plain "
+                              f"version (max abs diff {err})")
+                    errs[(dtype, sq)] = err
+                    print(f"phase 17: {what}: {kind} kernel, max abs diff "
+                          f"{err:.3g} to the plain version", flush=True)
+                    del q, k, v, got, want, dd
+            s = FLASH_SERVE_CHECKS[0][1]
+            q, k, v = self.flash_inputs(1, s, s, torch.bfloat16, 400,
+                                        (h, hkv, d))
+            t = {"kernel": self.time_ms(lambda: FK.flash_fwd(
+                q, k, v, scale=scale, causal=True))}
+            out = FK.flash_fwd(q, k, v, scale=scale, causal=True)
+            t["plain"] = self.time_ms(
+                lambda: ref.flash_attention_plain(q, k, v, causal=True,
+                                                  scale=scale),
+                reps=3, warm=1)
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                q, k, v, is_causal=True, enable_gqa=True)
+            t["sdpa"] = self.time_ms(lib)
+            lib_diff = float((lib().float() - out.float()).abs().max())
+            ops = 4 * h * d * s * (s + 1) / 2
+            by = (q.numel() + k.numel() + v.numel() + out.numel()) * 2
+            bound = max(ops / BF16_FLOPS, by / HBM_BW) * 1e3
+            bound_by = "operations" if ops / BF16_FLOPS >= \
+                by / HBM_BW else "bytes"
+            print(json.dumps({
+                "timing": f"flash_fwd bf16 {arch} B 1 H {h} Hkv {hkv} D {d} "
+                f"S {s} causal", "card": self.card, "ms": t,
+                "bound_ms": bound, "bound_by": bound_by,
+                "tflop_per_s": ops / t["kernel"] / 1e9,
+                "sdpa_tflop_per_s": ops / t["sdpa"] / 1e9,
+                "sdpa_max_abs_diff": lib_diff}), flush=True)
+            rows[arch] = {"ms": t["kernel"], "plain_ms": t["plain"],
+                          "bound_ms": bound, "bound_by": bound_by,
+                          "library_ms": t["sdpa"],
+                          "max_abs_err": errs[(torch.bfloat16, s)]}
+            del q, k, v, out
+            torch.cuda.empty_cache()
+        return rows
 
     def flash_kernel(self):
         """Phase 17: the flash kernels at qwen3-0.6b's widths against their
@@ -3735,23 +3907,36 @@ class Smoke:
         return prompts
 
     def serve_run(self, cfg, model, pctx, prompts, prefix: str, key: str,
-                  ms_name: str, phase: str, variant: str | None = None):
+                  ms_name: str, phase: str, variant: str | None = None,
+                  launches=None, busy_len: int | None = None,
+                  during_run=None, after_call=None, profiled=None,
+                  ranges=()):
         """Serve ``prompts`` (SERVE_NEW new tokens each) through
         ``Engine(max_batch=SERVE_BATCH, max_len=SERVE_MAX_LEN)`` between a
         reset and a read of every launch counter: each admission launches
         the kernel ``key`` (counters under ``prefix``, as :meth:`counted`
-        names them) once per layer and its plain version never, a decode
-        step neither, nothing else runs, and every request finishes; with
-        ``variant``, every launch of an admission ran that kernel variant
-        (the ops module's ``variant_call_counts``).  Then the device's busy
-        share of
-        a decode step at batch SERVE_BATCH and of a prefill of the last
-        prompt (``ms_name``: the kernel's own device ms).  Returns (counts,
-        timing)."""
+        names them) ``launches(prompt length)`` times (default once per
+        layer) and its plain version never, a decode step neither, nothing
+        else runs, and every request finishes; with ``variant``, every
+        launch of an admission ran that kernel variant (the ops module's
+        ``variant_call_counts``).  ``during_run`` (a context manager
+        factory) is entered around the engine's run, and ``after_call(what,
+        n)`` is read after each prefill and decode call (its values go to
+        the timing's ``per_call``).  Then the device's busy share of a
+        decode step at batch SERVE_BATCH and of a prefill of the prompt of
+        ``busy_len`` tokens (default the last; ``ms_name``: the kernel's
+        own device ms), inside ``profiled`` (a context manager factory)
+        with the device ms of each ``record_function`` range in ``ranges``.
+        Returns (counts, timing)."""
+        import contextlib
         torch = self.torch
         from repro_torch.models import transformer as T
         from repro_torch.serve import Engine, Request
         ops_mod = {"flash": self.fa_ops, "ssd": self.ssd_ops}[prefix]
+        launches = launches or (lambda n: cfg.n_layers)
+        during_run = during_run or contextlib.nullcontext
+        profiled = profiled or contextlib.nullcontext
+        per_call = {"prefill": [], "decode": []}
         eng = Engine(cfg, model, pctx, max_batch=SERVE_BATCH,
                      max_len=SERVE_MAX_LEN, device=self.dev)
         prefills, decodes = [], []
@@ -3771,9 +3956,10 @@ class Smoke:
                 torch.cuda.synchronize()
                 ms = (time.perf_counter() - t0) * 1e3
                 after = snapshot()
-                log.append((args[1].shape[1] if what == "prefill"
-                            else eng.active(), ms,
-                            {k: after[k] - before[k] for k in after}))
+                n = args[1].shape[1] if what == "prefill" else eng.active()
+                log.append((n, ms, {k: after[k] - before[k] for k in after}))
+                if after_call is not None:
+                    per_call[what].append([n, after_call(what, n)])
                 return out
             return call
         eng._prefill = timed(inner_prefill, prefills, "prefill")
@@ -3782,16 +3968,18 @@ class Smoke:
             eng.add_request(Request(rid=r, prompt=p,
                                     max_new_tokens=SERVE_NEW))
         t0 = time.perf_counter()
-        done, counts = self.counted(eng.run_to_completion)
+        with during_run():
+            done, counts = self.counted(eng.run_to_completion)
         wall = time.perf_counter() - t0
         n_tok = sum(len(d.out_tokens) for d in done)
-        self.expect(counts, {f"{prefix}_{key}": cfg.n_layers * len(prompts)},
+        self.expect(counts, {f"{prefix}_{key}": sum(launches(p.shape[0])
+                                                    for p in prompts)},
                     f"{phase} {cfg.name} serving")
-        per_admission = {key: cfg.n_layers, "plain": 0}
-        if variant is not None:
-            per_admission.update({v: cfg.n_layers if v == variant else 0
-                                  for v in ops_mod.variant_call_counts()})
         for n, _, c in prefills:
+            per_admission = {key: launches(n), "plain": 0}
+            if variant is not None:
+                per_admission.update({v: launches(n) if v == variant else 0
+                                      for v in ops_mod.variant_call_counts()})
             check(c == per_admission,
                   f"{phase}: the admission of a {n}-token prompt launched "
                   f"{c}, want {per_admission}")
@@ -3813,8 +4001,11 @@ class Smoke:
             "decode_ms_batch4_median": dec4[len(dec4) // 2],
             "decode_steps": len(decodes), "tokens": n_tok, "wall_s": wall,
             "tokens_per_s": n_tok / wall}
+        if after_call is not None:
+            timing["per_call"] = per_call
+        per = sorted({launches(p.shape[0]) for p in prompts})
         print(f"{phase}: served {len(done)} requests, {n_tok} tokens; "
-              f"{cfg.n_layers} {key} launches per admission"
+              f"{' or '.join(map(str, per))} {key} launches per admission"
               + (f", all on the {variant} kernel" if variant else "")
               + f", none per decode step ({counts[f'{prefix}_{key}']} in "
               f"all)", flush=True)
@@ -3824,19 +4015,26 @@ class Smoke:
                                torch.bfloat16, self.dev)
         tok = torch.zeros((SERVE_BATCH, 1), dtype=torch.long,
                           device=self.dev)
-        n_long = prompts[-1].shape[0]
+        long_p = prompts[-1] if busy_len is None else \
+            next(p for p in prompts if p.shape[0] == busy_len)
+        n_long = long_p.shape[0]
         pos = torch.full((SERVE_BATCH,), n_long, device=self.dev)
-        long_tok = torch.from_numpy(prompts[-1][None]).long().to(self.dev)
+        long_tok = torch.from_numpy(long_p[None]).long().to(self.dev)
         for name, fn in (
                 ("decode_batch4", lambda: T.decode_step(
                     model, tok, caches, pos, cfg, pctx)),
                 (f"prefill_{n_long}", lambda: T.prefill(
                     model, long_tok, cfg, pctx))):
-            host, busy, n_k, named = self.busy_ms(fn, key)
+            with profiled():
+                host, busy, n_k, named, in_ranges = self.busy_ms(
+                    fn, key, ranges=ranges)
             timing[name] = {"host_ms": host, "device_busy_ms": busy,
                             "device_events": n_k, ms_name: named,
                             "device_idle_share": None if busy is None
                             else 1 - busy / host}
+            for r, ms in in_ranges.items():
+                timing[name][f"{r}_ms"] = ms
+                timing[name][f"{r}_share"] = None if not busy else ms / busy
         del caches
         torch.cuda.empty_cache()
         return counts, timing
@@ -4209,6 +4407,286 @@ class Smoke:
                 "launches": counts["ssd_ssd_chunk"],
                 "launches_per_admission": cfg.n_layers,
                 "launches_per_decode_step": 0, **row})
+
+    # ---- phases 25 and 26 --------------------------------------------------
+    def patched(self, module, name, make):
+        """A context manager factory: ``module.name`` replaced by
+        ``make(original)`` while the context is open."""
+        import contextlib
+
+        @contextlib.contextmanager
+        def ctx():
+            orig = getattr(module, name)
+            setattr(module, name, make(orig))
+            try:
+                yield
+            finally:
+                setattr(module, name, orig)
+        return ctx
+
+    def in_range(self, label):
+        """``make`` for :meth:`patched`: the function inside a
+        ``record_function`` range named ``label``."""
+        from torch.profiler import record_function
+
+        def make(fn):
+            def call(*args, **kw):
+                with record_function(label):
+                    return fn(*args, **kw)
+            return call
+        return make
+
+    def flash_row(self, arch, row, counts, per_admission):
+        self.rows.append({
+            "name": f"flash_fwd[bf16 {arch} S{FLASH_SERVE_CHECKS[0][1]}]",
+            "route": "cuda", "source": FLASH_WGMMA_SOURCE,
+            "replaces": REPLACES["flash_fwd"], "variant": "wgmma",
+            "launches": counts["flash_flash_fwd"],
+            "launches_per_admission": per_admission,
+            "launches_per_decode_step": 0, **row})
+
+    def serve_rglru(self, flash_rows):
+        """Phase 25: serve recurrentgemma-9b at full width and depth
+        (random float32 weights from seed 0, bf16) through ``Engine``: nine
+        requests, every admission of at most the window's 2,048 tokens
+        launching the tensor-core flash kernel once per local-attention
+        layer and no plain version, the 3,072-token admission (past the
+        window) and
+        every decode step launching nothing; the RG-LRU scan's and the
+        flash kernels' shares of a 2,048-token prefill's device time.  Then
+        the float32 gates: prefill (the scan) against token-by-token decode
+        (the recurrence) from empty caches, and greedy decode against
+        re-prefill.  Adds the flash kernel's row at these widths."""
+        torch = self.torch
+        from repro_torch.configs import get
+        from repro_torch.models import rglru as R
+        from repro_torch.models import transformer as T
+        from repro_torch.parallel.sharding import single_device_ctx
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        t_phase = time.perf_counter()
+        cfg = get(RG_ARCH)
+        h, hkv, d = FLASH_SERVE_WIDTHS[RG_ARCH]
+        plan = T.layer_plan(cfg)
+        n_rg = sum(m == "rglru" for m, _ in plan)
+        n_attn = sum(m == "attn_local" for m, _ in plan)
+        check((cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.n_layers, n_rg,
+               n_attn) == (h, hkv, d, 38, 26, 12), f"{RG_ARCH} widths")
+        t0 = time.perf_counter()
+        model = T.init_params(torch.Generator(self.dev).manual_seed(0), cfg)
+        torch.cuda.synchronize()
+        n_params = sum(p.numel() for p in model.parameters())
+        # the config's analytic count leaves out each RG-LRU layer's conv
+        # bias and a_param
+        carried = cfg.param_count() + n_rg * 2 * R.width(cfg)
+        check(n_params == carried, f"{RG_ARCH}: {n_params} parameters, "
+              f"want {carried} (the config's {cfg.param_count()} + conv "
+              f"biases and a_param)")
+        print(f"phase 25: {RG_ARCH} at full width and depth ({n_rg} RG-LRU "
+              f"layers of width {R.width(cfg)}, {n_attn} local attention, "
+              f"window {cfg.attn_window}, d_model {cfg.d_model}, vocab "
+              f"{cfg.vocab_size}): {n_params} float32 parameters from seed "
+              f"0 in {time.perf_counter() - t0:.1f} s; compute {cfg.dtype}",
+              flush=True)
+        pctx = single_device_ctx(attn_impl="flash")
+        prompts = self.serve_prompts(cfg, model, pctx, RG_LONG)
+
+        def launches(n):
+            return n_attn if n <= cfg.attn_window else 0
+        counts, timing = self.serve_run(
+            cfg, model, pctx, prompts, "flash", "flash_fwd", "flash_ms",
+            "phase 25", variant="wgmma", launches=launches,
+            busy_len=cfg.attn_window,
+            profiled=self.patched(R, "linear_scan",
+                                  self.in_range("rglru.scan")),
+            ranges=("rglru.scan",))
+        print(json.dumps({"timing": f"{RG_ARCH} serving", "card": self.card,
+                          **timing}), flush=True)
+        pre = timing[f"prefill_{cfg.attn_window}"]
+        if pre["device_busy_ms"]:
+            print(f"phase 25: the {cfg.attn_window}-token prefill: host "
+                  f"{pre['host_ms']:.2f} ms, device busy "
+                  f"{pre['device_busy_ms']:.2f} ms, flash kernels "
+                  f"{pre['flash_ms']:.3f} ms "
+                  f"({pre['flash_ms'] / pre['device_busy_ms']:.1%}), RG-LRU "
+                  f"scan {pre['rglru.scan_ms']:.3f} ms "
+                  f"({pre['rglru.scan_share']:.1%})", flush=True)
+
+        # the gate: float32 prefill (the scan) against the recurrence,
+        # token by token from empty caches
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        gate = np.random.default_rng(RG_GATE_LEN).integers(
+            0, cfg.vocab_size, size=(1, RG_GATE_LEN))
+        gate = torch.from_numpy(gate).long().to(self.dev)
+        self.fa_ops.reset_kernel_calls()
+        want, wc = T.prefill(model, gate, cfg32, pctx)
+        check(self.fa_ops.variant_call_counts() == {"wgmma": 0,
+                                                    "fma": n_attn},
+              "phase 25: the float32 prefill did not launch the CUDA-core "
+              "flash kernel once per attention layer")
+        caches = T.init_caches(cfg32, 1, RG_GATE_LEN + 1, torch.float32,
+                               self.dev)
+        t0 = time.perf_counter()
+        for i in range(RG_GATE_LEN):
+            got, caches = T.decode_step(model, gate[:, i:i + 1], caches,
+                                        torch.tensor(i, device=self.dev),
+                                        cfg32, pctx)
+        torch.cuda.synchronize()
+        rec_s = time.perf_counter() - t0
+        check(self.fa_ops.kernel_call_counts()["flash_fwd"] == n_attn,
+              "phase 25: decode launched the flash kernel")
+
+        def rel(a, b):
+            return float((a - b).norm() / b.norm())
+        logit_rel = rel(want, got)
+        h_rel, conv_rel, kv_rel = [], [], []
+        for w, c in zip(wc, caches):
+            if isinstance(w, R.RGLRUCache):
+                h_rel.append(rel(w.h, c.h))
+                conv_rel.append(rel(w.conv, c.conv))
+            else:
+                kv_rel += [rel(w.k, c.k[:, :, :RG_GATE_LEN]),
+                           rel(w.v, c.v[:, :, :RG_GATE_LEN])]
+        worst = max(logit_rel, *h_rel, *conv_rel, *kv_rel)
+        check(bool(torch.isfinite(want).all()) and worst <= RG_GATE_REL,
+              f"phase 25: float32 prefill against the recurrence over "
+              f"{RG_GATE_LEN} tokens: relative L2 logits {logit_rel}, "
+              f"states up to {max(h_rel)}, conv windows up to "
+              f"{max(conv_rel)}, K/V up to {max(kv_rel)} (limit "
+              f"{RG_GATE_REL})")
+        print(f"phase 25: float32 prefill of {RG_GATE_LEN} tokens (the "
+              f"scan) against {RG_GATE_LEN} decode steps (the recurrence, "
+              f"{rec_s:.1f} s): relative L2 logits {logit_rel:.3g}, RG-LRU "
+              f"states max {max(h_rel):.3g} (layer {int(np.argmax(h_rel))} "
+              f"of {n_rg}), median {float(np.median(h_rel)):.3g}, conv "
+              f"windows max {max(conv_rel):.3g}, attention K/V max "
+              f"{max(kv_rel):.3g} (limit {RG_GATE_REL})", flush=True)
+        del caches, wc, want, got
+
+        # float32 copy: greedy decode equals re-prefill (tests/test_serve.py)
+        self.greedy_equals_reprefill(model, cfg32, pctx, "phase 25")
+        del model
+        torch.cuda.empty_cache()
+        self.flash_row(RG_ARCH, flash_rows[RG_ARCH], counts, n_attn)
+        print(f"phase 25: {time.perf_counter() - t_phase:.1f} s on "
+              f"{self.card}", flush=True)
+
+    def serve_moe(self, flash_rows):
+        """Phase 26: serve qwen3-moe-30b-a3b at full width and
+        MOE_SERVE_LAYERS layers (random float32 weights from seed 0, bf16)
+        through ``Engine``: eight requests, every admission launching the
+        tensor-core flash kernel once per layer and no plain version, a
+        decode step nothing; the assignments the capacity drops per
+        admission and per decode step; the expert-weight casts' and the
+        expert FFN's shares of a 2,048-token prefill's and a decode step's
+        device time.  Then the float32 greedy-equals-re-prefill gate on a
+        copy with a capacity factor of MOE_GATE_CAPACITY.  Adds the flash
+        kernel's row at these widths."""
+        torch = self.torch
+        from repro_torch.configs import get
+        from repro_torch.models import moe as M
+        from repro_torch.models import transformer as T
+        from repro_torch.parallel.sharding import single_device_ctx
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        t_phase = time.perf_counter()
+        full = get(MOE_ARCH)
+        cfg = dataclasses.replace(full, n_layers=MOE_SERVE_LAYERS)
+        h, hkv, d = FLASH_SERVE_WIDTHS[MOE_ARCH]
+        m = cfg.moe
+        check((cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.d_model,
+               m.n_experts, m.top_k, m.d_expert) ==
+              (h, hkv, d, MOE_D_MODEL, MOE_EXPERTS, MOE_TOP_K, 768),
+              f"{MOE_ARCH} widths")
+        t0 = time.perf_counter()
+        model = T.init_params(torch.Generator(self.dev).manual_seed(0), cfg)
+        torch.cuda.synchronize()
+        n_params = sum(p.numel() for p in model.parameters())
+        check(n_params == cfg.param_count(), f"{MOE_ARCH}: {n_params} "
+              f"parameters, the config counts {cfg.param_count()}")
+        print(f"phase 26: {MOE_ARCH} at full width, {cfg.n_layers} of "
+              f"{full.n_layers} layers ({m.n_experts} experts of "
+              f"{m.d_expert}, top-{m.top_k}, capacity factor "
+              f"{m.capacity_factor}, d_model {cfg.d_model}, vocab "
+              f"{cfg.vocab_size}): {n_params} float32 parameters "
+              f"({n_params * 4 / 1e9:.1f} GB; all {full.n_layers} layers: "
+              f"{full.param_count()}) from seed 0 in "
+              f"{time.perf_counter() - t0:.1f} s; compute {cfg.dtype}",
+              flush=True)
+        pctx = single_device_ctx(attn_impl="flash")
+        prompts = self.serve_prompts(cfg, model, pctx, MOE_LONG)
+        drops = []
+
+        def counting(dispatch):
+            def call(*args):
+                buf, slot = dispatch(*args)
+                drops.append((slot < 0).sum())
+                return buf, slot
+            return call
+
+        def dropped(what, n):
+            got = int(torch.stack(drops).sum()) if drops else 0
+            drops.clear()
+            return got
+
+        def ranges(ffn):
+            # the casts _expert_ffn makes, moved into a range of their own
+            # inside the FFN's: the same values, and its own casts no-ops
+            from torch.profiler import record_function
+
+            def call(xb, wg, wi, wo):
+                with record_function("moe.expert_ffn"):
+                    with record_function("moe.expert_cast"):
+                        wg, wi, wo = (w.to(xb.dtype) for w in (wg, wi, wo))
+                    return ffn(xb, wg, wi, wo)
+            return call
+        counts, timing = self.serve_run(
+            cfg, model, pctx, prompts, "flash", "flash_fwd", "flash_ms",
+            "phase 26", variant="wgmma",
+            during_run=self.patched(M, "_dispatch", counting),
+            after_call=dropped,
+            profiled=self.patched(M, "_expert_ffn", ranges),
+            ranges=("moe.expert_ffn", "moe.expert_cast"))
+        per_call = timing["per_call"]
+        per_call["assignments"] = {
+            "prefill": [[n, n * m.top_k * cfg.n_layers, M.capacity(n, cfg)]
+                        for n, _ in per_call["prefill"]],
+            "decode_batch": SERVE_BATCH * m.top_k * cfg.n_layers,
+            "decode_capacity": M.capacity(SERVE_BATCH, cfg)}
+        print(json.dumps({"timing": f"{MOE_ARCH} serving, {cfg.n_layers} "
+                          f"layers", "card": self.card, **timing}),
+              flush=True)
+        dec = [v for _, v in per_call["decode"]]
+        print(f"phase 26: dropped assignments per admission "
+              f"{[[n, v] for n, v in per_call['prefill']]} (of T x "
+              f"{m.top_k} x {cfg.n_layers}); per decode step: median "
+              f"{int(np.median(dec))}, max {max(dec)} of "
+              f"{SERVE_BATCH * m.top_k * cfg.n_layers} at batch "
+              f"{SERVE_BATCH} (capacity {M.capacity(SERVE_BATCH, cfg)}, "
+              f"idle slots compete)", flush=True)
+        for name in ("prefill_2048", "decode_batch4"):
+            t = timing[name]
+            if t["device_busy_ms"]:
+                print(f"phase 26: {name}: host {t['host_ms']:.2f} ms, "
+                      f"device busy {t['device_busy_ms']:.2f} ms, flash "
+                      f"{t['flash_ms']:.3f} ms, expert FFN "
+                      f"{t['moe.expert_ffn_ms']:.3f} ms "
+                      f"({t['moe.expert_ffn_share']:.1%}) of which the "
+                      f"expert-weight casts {t['moe.expert_cast_ms']:.3f} ms "
+                      f"({t['moe.expert_cast_share']:.1%})", flush=True)
+
+        # float32 copy with cap >= T: greedy decode equals re-prefill
+        cfg32 = dataclasses.replace(cfg, dtype="float32", moe=dataclasses
+                                    .replace(m, capacity_factor=
+                                             MOE_GATE_CAPACITY))
+        check(M.capacity(2, cfg32) >= 2 and M.capacity(6, cfg32) >= 6,
+              "phase 26: the gate's copy drops assignments")
+        self.greedy_equals_reprefill(model, cfg32, pctx, "phase 26")
+        del model
+        torch.cuda.empty_cache()
+        self.flash_row(MOE_ARCH, flash_rows[MOE_ARCH], counts, cfg.n_layers)
+        print(f"phase 26: {time.perf_counter() - t_phase:.1f} s on "
+              f"{self.card}", flush=True)
 
     # ---- phase 22 ----------------------------------------------------------
     def chain_expect(self, counts, algorithms, what):
@@ -5095,9 +5573,12 @@ def main() -> int:
     smoke.batch()                                                # phase 12
     smoke.value_fleet()                                          # phase 13
     flash_rows = smoke.flash_kernel()                            # phase 17
+    flash_serve_rows = smoke.flash_serve_widths()
     smoke.serve(flash_rows)                                      # phase 18
     ssd_rows = smoke.ssd_kernel()                                # phase 19
     smoke.serve_ssd(ssd_rows)                                    # phase 20
+    smoke.serve_rglru(flash_serve_rows)                          # phase 25
+    smoke.serve_moe(flash_serve_rows)                            # phase 26
     smoke.hash_class_times()                                     # phase 21
     smoke.chains()                                               # phase 22
     smoke.measured_recipe()                                      # phase 23

@@ -1,3 +1,3 @@
 """The LM stack of the port: layers, GQA attention, the Mamba-2 SSD mixer,
-the unified transformer (attention and SSD mixers, gated MLPs or none; the
-RG-LRU and MoE layers are not ported yet, ROADMAP.md Queue 1 item 6b)."""
+the RG-LRU block, the MoE layer (one device; expert parallelism waits for
+ROADMAP.md Queue 1 item 7) and the unified transformer."""

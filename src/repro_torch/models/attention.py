@@ -9,7 +9,7 @@ sharding constraints.
 Prefill picks its attention from ``pctx.attn_impl`` (window None):
 ``"flash"`` runs the flash kernels' wrapper ``flash_fwd`` on any device
 and at any prompt length -- a CUDA kernel on the card (bf16 at head dims
-64 and 128 on the tensor cores, the rest on the CUDA cores), the plain
+64, 128 and 256 on the tensor cores, the rest on the CUDA cores), the plain
 version on the CPU; ``"full"`` runs ``attention_ref``; ``"chunked"`` and
 windows run ``chunked_attention``.  (The reference's accelerator path
 needs a prompt longer than 128 tokens to be a multiple of 128; off the

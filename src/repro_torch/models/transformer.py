@@ -1,5 +1,5 @@
-"""Unified LM (port of ``repro.models.transformer``): attention and SSD
-architectures.
+"""Unified LM (port of ``repro.models.transformer``): every assigned
+architecture, on one device.
 
 The model is an ``nn.Module`` holding one sub-layer per layer: the
 reference's scan over stacked plan periods (plus unrolled tail layers)
@@ -7,6 +7,7 @@ becomes a Python loop over layers ``0 .. n_layers - 1``, layer ``li``
 running ``cfg.plan[li % cfg.period]``.  Caches are a list of one cache
 per layer: a :class:`~repro_torch.models.attention.KVCache` for an
 attention layer, a :class:`~repro_torch.models.ssm.SSMCache` for an SSD
+layer, a :class:`~repro_torch.models.rglru.RGLRUCache` for an RG-LRU
 layer.
 
 Entry points (``params`` is the :class:`Transformer`):
@@ -16,9 +17,9 @@ Entry points (``params`` is the :class:`Transformer`):
   prefill(params, tokens, cfg, pctx)        -> (last_logits, caches)
   decode_step(params, token, caches, pos, cfg, pctx) -> (logits, caches)
 
-Mixers other than ``attn``/``attn_local``/``ssd`` and MLPs other than
-``swiglu``/``gated_mlp``/``none`` (the RG-LRU and MoE layers) raise
-``NotImplementedError``.
+A mixer or MLP name outside ``MIXERS`` or ``MLPS`` raises
+``NotImplementedError``.  The MoE MLP's aux loss is dropped by serving, as
+in the reference's ``prefill`` and ``decode_step``.
 """
 from __future__ import annotations
 
@@ -28,21 +29,21 @@ from torch import nn
 
 from repro_torch.core.formats import resolve_device
 from repro_torch.parallel.sharding import ParallelCtx
-from . import attention, ssm
+from . import attention, moe, rglru, ssm
 from . import layers as L
 
-MIXERS = ("attn", "attn_local", "ssd")
-MLPS = ("swiglu", "gated_mlp", "none")
+MIXERS = ("attn", "attn_local", "ssd", "rglru")
+MLPS = ("swiglu", "gated_mlp", "moe", "none")
 
 
 def layer_plan(cfg) -> list:
-    """(mixer, mlp) of every layer, checked against what is ported."""
+    """(mixer, mlp) of every layer, checked against the names the port
+    runs."""
     for mixer, mlp in cfg.plan:
         if mixer not in MIXERS or mlp not in MLPS:
             raise NotImplementedError(
-                f"{cfg.name}: sub-layer ({mixer}, {mlp}) is not ported yet; "
-                f"the port runs {MIXERS} x {MLPS} (ROADMAP.md, Queue 1 "
-                f"item 6)")
+                f"{cfg.name}: sub-layer ({mixer}, {mlp}) is unknown; the "
+                f"port runs the mixers {MIXERS} and the MLPs {MLPS}")
     return [cfg.plan[li % cfg.period] for li in range(cfg.n_layers)]
 
 
@@ -60,12 +61,17 @@ class Transformer(nn.Module):
         self.layers = nn.ModuleList(L.Params(p) for p in tree["layers"])
 
 
+#: the mixers whose cache is a fixed-size state (conv window, recurrence)
+RECURRENT = {"ssd": ssm, "rglru": rglru}
+
+
 def _init_sublayer(gen, cfg, mixer: str, mlp: str) -> dict:
     p = {"norm1": L.rmsnorm_init(cfg.d_model, gen.device),
-         "mixer": (ssm if mixer == "ssd" else attention).init(gen, cfg)}
+         "mixer": RECURRENT.get(mixer, attention).init(gen, cfg)}
     if mlp != "none":
         p["norm2"] = L.rmsnorm_init(cfg.d_model, gen.device)
-        p["mlp"] = L.mlp_init(gen, cfg.d_model, cfg.d_ff)
+        p["mlp"] = moe.init(gen, cfg) if mlp == "moe" else \
+            L.mlp_init(gen, cfg.d_model, cfg.d_ff)
     return p
 
 
@@ -116,7 +122,8 @@ def _index(x, i):
 
 
 def init_caches(cfg, batch: int, max_len: int, dtype, device) -> list:
-    return [ssm.init_cache(cfg, batch, dtype, device) if mixer == "ssd"
+    return [RECURRENT[mixer].init_cache(cfg, batch, dtype, device)
+            if mixer in RECURRENT
             else attention.init_cache(cfg, batch, max_len, dtype, device)
             for mixer, _ in layer_plan(cfg)]
 
@@ -125,10 +132,13 @@ def init_caches(cfg, batch: int, max_len: int, dtype, device) -> list:
 # Forward passes
 # ---------------------------------------------------------------------------
 
-def _mlp(p, x, cfg, mlp: str):
+def _mlp(p, x, cfg, pctx, mlp: str):
     if mlp == "none":
         return x
     h = L.rmsnorm(p["norm2"], x, cfg.norm_eps)
+    if mlp == "moe":
+        y, _ = moe.apply(p["mlp"], h, cfg, pctx)     # serving drops aux
+        return x + y
     return x + L.mlp_apply(p["mlp"], h,
                            act=("gelu" if mlp == "gated_mlp" else "silu"))
 
@@ -140,12 +150,12 @@ def prefill(params: Transformer, tokens, cfg, pctx: ParallelCtx):
     caches = []
     for p, (mixer, mlp) in zip(params.layers, layer_plan(cfg)):
         h = L.rmsnorm(p["norm1"], x, cfg.norm_eps)
-        if mixer == "ssd":
-            y, cache = ssm.apply_full(p["mixer"], h, cfg)
+        if mixer in RECURRENT:
+            y, cache = RECURRENT[mixer].apply_full(p["mixer"], h, cfg)
         else:
             y, cache = attention.apply_full(p["mixer"], h, cfg, pctx,
                                             local=(mixer == "attn_local"))
-        x = _mlp(p, x + y, cfg, mlp)
+        x = _mlp(p, x + y, cfg, pctx, mlp)
         caches.append(cache)
     x_last = L.rmsnorm(params.final_norm, x[:, -1:, :], cfg.norm_eps)
     return L.head_apply(params.head, params.embed, x_last, cfg), caches
@@ -161,11 +171,11 @@ def decode_step(params: Transformer, token, caches, pos, cfg,
     for p, cache, (mixer, mlp) in zip(params.layers, caches,
                                       layer_plan(cfg)):
         h = L.rmsnorm(p["norm1"], x, cfg.norm_eps)
-        if mixer == "ssd":
-            y, _ = ssm.apply_decode(p["mixer"], h, cache, cfg)
+        if mixer in RECURRENT:
+            y, _ = RECURRENT[mixer].apply_decode(p["mixer"], h, cache, cfg)
         else:
             y, _ = attention.apply_decode(p["mixer"], h, cache, pos, cfg,
                                           pctx, local=(mixer == "attn_local"))
-        x = _mlp(p, x + y, cfg, mlp)
+        x = _mlp(p, x + y, cfg, pctx, mlp)
     x = L.rmsnorm(params.final_norm, x, cfg.norm_eps)
     return L.head_apply(params.head, params.embed, x, cfg), caches

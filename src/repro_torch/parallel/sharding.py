@@ -4,7 +4,7 @@ The reference's :class:`ParallelCtx` carries a mesh, the sharding rules
 of the TPU pods and the training switches; the port serves on one card,
 so it keeps only the field its model code reads, ``attn_impl``.  Meshes,
 ``safe_pspec``, ``constrain`` and the parameter shardings wait for the
-distributed slice (ROADMAP.md, Queue 1 item 4); ``remat`` and
+distributed slice (ROADMAP.md, Queue 1 item 7); ``remat`` and
 ``scan_unroll`` for the training slice.
 """
 from __future__ import annotations

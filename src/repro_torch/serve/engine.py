@@ -35,8 +35,8 @@ class Request:
 class Engine:
     """Serves ``params`` (a :class:`~repro_torch.models.transformer.
     Transformer` on ``device``, ``cuda`` unless named) with ``max_batch``
-    cache slots of ``max_len`` positions each (an SSD layer's slot is its
-    conv window and state, whatever the length)."""
+    cache slots of ``max_len`` positions each (an SSD or RG-LRU layer's
+    slot is its conv window and state, whatever the length)."""
 
     def __init__(self, cfg, params, pctx: ParallelCtx, *, max_batch: int = 4,
                  max_len: int = 512, seed: int = 0, device=None):
@@ -83,7 +83,9 @@ class Engine:
         # per-slot positions: attention masks/rope use pos[b] (vector pos).
         # Idle slots decode too, as the reference's; nothing that writes is
         # read: KV entries past a slot's position are masked, and the next
-        # insert_slot overwrites an SSD layer's whole conv window and state.
+        # insert_slot overwrites an SSD or RG-LRU layer's whole conv window
+        # and state.  An idle slot's token also competes for MoE expert
+        # capacity, as in the reference.
         logits, self.caches = self._decode(
             self.params, torch.from_numpy(tokens).to(self.device),
             self.caches, torch.from_numpy(self.pos).to(self.device))

@@ -3167,3 +3167,63 @@ def test_verify_rejects_twins_of_card_plans(cuda, which):
         plan = plan_spgemm(a, a, algorithm="hash", cache=False)
     assert all(vc.ok for vc in check_plan_vcs(plan))
     assert any(not vc.ok for vc in check_plan_vcs(perturb_plan(plan, which)))
+
+
+# ---------------------------------------------------------------------------
+# the RG-LRU and MoE layers on the card (plain PyTorch, the reference's jnp)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("stable", (True, False))
+@pytest.mark.parametrize("cap", (1, 2, 160, 2048))
+def test_moe_dispatch_invariants_on_the_card(cuda, stable, cap):
+    """qwen3-moe-30b-a3b's routing (128 experts, top-8) of 2,048 tokens on
+    CUDA tensors: each expert keeps exactly min(count, cap) assignments in
+    its block's first slots, each kept row is its token's features, the
+    rest of the buffer is zero, and the stable sort's slots equal the
+    same dispatch's on the CPU bit for bit."""
+    from repro_torch.models import moe
+    t, e, k, d = 2048, 128, 8, 64
+    g = torch.Generator(cuda).manual_seed(cap)
+    x2 = torch.randn((t, d), generator=g, device=cuda)
+    top_i = torch.rand((t, e), generator=g, device=cuda).topk(k).indices
+    buf, slot = moe._dispatch(x2, top_i, e, cap, stable)
+    torch.cuda.synchronize()
+    counts = torch.bincount(top_i.reshape(-1), minlength=e)
+    kept = torch.bincount(top_i[slot >= 0], minlength=e)
+    assert torch.equal(kept, counts.clamp(max=cap))
+    flat_e, flat_s = top_i.reshape(-1), slot.reshape(-1)
+    rank = flat_s - flat_e * cap
+    ok = flat_s >= 0
+    assert bool(((rank[ok] >= 0) & (rank[ok] < kept[flat_e[ok]])).all())
+    assert torch.unique(flat_s[ok]).numel() == int(ok.sum())
+    tok = torch.arange(t, device=cuda).repeat_interleave(k)
+    assert torch.equal(buf[flat_s[ok]], x2[tok[ok]])
+    filled = torch.zeros(e * cap, dtype=torch.bool, device=cuda)
+    filled[flat_s[ok]] = True
+    assert not bool(buf[~filled].any())
+    if stable:
+        cb, cs = moe._dispatch(x2.cpu(), top_i.cpu(), e, cap, True)
+        assert torch.equal(cs, slot.cpu()) and torch.equal(cb, buf.cpu())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seq", (1, 3, 300, 2048))
+def test_rglru_scan_on_the_card_equals_the_recurrence(cuda, seq):
+    """``linear_scan`` at recurrentgemma's width (4,096) on CUDA tensors
+    against h_t = a_t h_{t-1} + b_t step by step in float64 on the card,
+    within 5e-6 of max |h|, with decays as the gates make them (in (0, 1),
+    many near 1)."""
+    from repro_torch.models import rglru
+    g = torch.Generator(cuda).manual_seed(seq)
+    a = torch.rand((1, seq, 4096), generator=g, device=cuda) ** 0.05
+    b = torch.randn((1, seq, 4096), generator=g, device=cuda)
+    got = rglru.linear_scan(a, b)
+    h = torch.zeros((1, 4096), dtype=torch.float64, device=cuda)
+    want = torch.empty((1, seq, 4096), dtype=torch.float64, device=cuda)
+    for i in range(seq):
+        h = a[:, i].double() * h + b[:, i].double()
+        want[:, i] = h
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    err = float((got.double() - want).abs().max())
+    assert err <= 5e-6 * max(1.0, float(want.abs().max()))

@@ -12,7 +12,12 @@ port runs ``"flash"`` (the flash kernel's plain version on CPU tensors),
 chunk kernel's plain version where the reference runs ``ssd_chunked``.
 Tolerance: float32 logits, activations and
 caches within 1e-4 absolute (matmuls and softmax sum in another order;
-reduced-config logits are O(10)).
+reduced-config logits are O(10)).  recurrentgemma-9b's RG-LRU layers scan
+with ``rglru.linear_scan`` where the reference runs ``associative_scan``
+(another association: a few float32 ulps of |h|, inside the same 1e-4);
+the MoE archs' reduced configs have a capacity factor of 4, so no expert
+drops an assignment and the unstable dispatch sort's order of ties does
+not show in the outputs.
 """
 import dataclasses
 
@@ -36,12 +41,12 @@ from repro_torch.parallel.sharding import single_device_ctx as tctx
 TOL = 1e-4
 DENSE = ["qwen3-0.6b", "granite-8b", "qwen1.5-32b", "phi4-mini-3.8b",
          "chameleon-34b", "musicgen-medium"]
-SERVED = DENSE + ["mamba2-780m"]
-NOT_PORTED = ["recurrentgemma-9b", "qwen3-moe-30b-a3b"]
+SERVED = DENSE + ["mamba2-780m", "recurrentgemma-9b", "qwen3-moe-30b-a3b",
+                  "qwen3-moe-235b-a22b"]
 JPCTX = jctx(remat=False, attn_impl="full")
 IMPLS = ["flash", "full", "chunked"]
 REDRAWN = ("scale", "q_scale", "k_scale", "bq", "bk", "bv", "A_log",
-           "dt_bias", "D", "conv_b", "norm_scale")
+           "dt_bias", "D", "conv_b", "norm_scale", "a_param")
 
 
 def cfgs(arch, **kw):
@@ -75,7 +80,7 @@ def carried(arch, seed=0, **kw):
 
 def jax_layer_caches(caches, cfg):
     """The reference's {"periods", "tail"} caches as one tuple of arrays
-    per layer: (k, v) or (conv, h)."""
+    per layer: (k, v) or (conv, h), SSD or RG-LRU."""
     out = []
     for i in range(cfg.n_full_periods):
         for j in range(cfg.period):
@@ -86,13 +91,17 @@ def jax_layer_caches(caches, cfg):
 
 def carried_count(cfg) -> int:
     """The parameters a model carries: the config's analytic count, which
-    leaves out each SSD layer's conv bias and dt bias, plus those."""
+    leaves out each SSD layer's conv bias and dt bias and each RG-LRU
+    layer's conv bias and ``a_param`` (2 w), plus those."""
     total = cfg.param_count()
     for li in range(cfg.n_layers):
-        if cfg.plan[li % cfg.period][0] == "ssd":
+        mixer = cfg.plan[li % cfg.period][0]
+        if mixer == "ssd":
             s = cfg.ssm
             d_in = s.expand * cfg.d_model
             total += d_in + 2 * s.n_groups * s.d_state + d_in // s.head_dim
+        elif mixer == "rglru":
+            total += 2 * (cfg.rnn_width or cfg.d_model)
     return total
 
 
@@ -298,12 +307,23 @@ def test_flash_prefill_serves_any_length():
         assert all(diff(f, w) < TOL for f, w in zip(c, u))
 
 
-@pytest.mark.parametrize("arch", NOT_PORTED)
-def test_unported_mixers_and_mlps_raise(arch):
-    jcfg, tcfg = cfgs(arch)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        TT.init_params(torch.Generator().manual_seed(0), tcfg)
-    params_np = jax.tree.map(np.asarray,
-                             JT.init_params(jax.random.PRNGKey(0), jcfg))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        TT.load_jax_params(tcfg, params_np, "cpu")
+@pytest.mark.parametrize("where", ["mixer", "mlp"])
+def test_unknown_mixer_or_mlp_raises(where):
+    """Every config's sub-layers are ported; a name in neither
+    ``MIXERS`` nor ``MLPS`` raises from ``layer_plan``, and so from
+    ``init_params``, ``load_jax_params`` and ``init_caches``."""
+    assert set(TT.MIXERS) == set(tconfigs.base.MIXERS)
+    assert set(TT.MLPS) == set(tconfigs.base.MLPS)
+    for arch in tconfigs.ARCHS:
+        TT.layer_plan(tconfigs.get(arch))
+    _, tcfg = cfgs("qwen3-0.6b")
+    plan = (("mamba3", "swiglu"),) if where == "mixer" else \
+        (("attn", "kan"),)
+    bad = dataclasses.replace(tcfg, plan=plan)
+    name = plan[0][0] if where == "mixer" else plan[0][1]
+    with pytest.raises(NotImplementedError, match=name):
+        TT.init_params(torch.Generator().manual_seed(0), bad)
+    with pytest.raises(NotImplementedError, match=name):
+        TT.load_jax_params(bad, {}, "cpu")
+    with pytest.raises(NotImplementedError, match=name):
+        TT.init_caches(bad, 1, 8, torch.float32, "cpu")

@@ -3,15 +3,16 @@ serve``) against ``repro``'s.
 
 The port's ``Engine`` and the reference's serve the same requests (the
 prompt lengths of ``tests/test_serve.py``, prompts from a numpy seed) on
-reduced qwen3-0.6b and reduced mamba2-780m with the reference's weights
-carried across: the same
+reduced qwen3-0.6b, mamba2-780m, recurrentgemma-9b and qwen3-moe-30b-a3b
+with the reference's weights carried across (the MoE config's capacity
+factor of 4 drops no assignment, at prefill or at decode): the same
 requests finish in the same order with the same greedy tokens (float32
 logits agree within 1e-4, far inside these logits' top-2 gaps).  The
 reference serves with ``"full"`` attention; the port with ``"flash"`` (the
 flash kernel's plain version on CPU tensors) and ``"full"``.
-``insert_slot`` writes the same KV and SSM caches as the reference's
-(exactly: it copies).  Sampling draws from a ``torch.Generator``, so only
-greedy and top-k=1 are compared by value.
+``insert_slot`` writes the same KV, SSM and RG-LRU caches as the
+reference's (exactly: it copies).  Sampling draws from a
+``torch.Generator``, so only greedy and top-k=1 are compared by value.
 """
 import dataclasses
 
@@ -274,3 +275,84 @@ def test_launcher_smoke_mamba2_on_cpu(capsys):
     assert launch_serve.main(["--arch", "mamba2-780m", "--smoke",
                               "--device", "cpu"]) == 0
     assert capsys.readouterr().out.startswith("served 8 requests, 128 tokens")
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "qwen3-moe-30b-a3b"])
+def test_launcher_smoke_rglru_and_moe_on_cpu(capsys, arch):
+    """The launcher serves the RG-LRU and MoE archs at reduced sizes:
+    every request finishes with its 16 tokens."""
+    assert launch_serve.main(["--arch", arch, "--smoke",
+                              "--device", "cpu"]) == 0
+    assert capsys.readouterr().out.startswith("served 8 requests, 128 tokens")
+
+
+def reference_layer_cache(caches, cfg, li):
+    """Layer ``li``'s cache in the reference's {"periods", "tail"} caches,
+    as a tuple of arrays."""
+    n_full = cfg.n_full_periods * cfg.period
+    if li < n_full:
+        return tuple(f[li // cfg.period]
+                     for f in caches["periods"][li % cfg.period])
+    return tuple(caches["tail"][li - n_full])
+
+
+@pytest.mark.parametrize("slot,length", [(0, 2), (2, 13)])
+def test_insert_slot_rglru_matches_reference(slot, length):
+    """recurrentgemma's caches: an RG-LRU layer's slot gets the prefill's
+    whole conv window (a prompt shorter than 3 tokens left-padded) and
+    state, a local-attention layer's its KV prefix; other slots and
+    positions keep their bits."""
+    jcfg, tcfg, jp, model = carried("recurrentgemma-9b", seed=4)
+    rng = np.random.default_rng(slot)
+    B, S = 3, 16
+    jbig = JT.init_caches(jcfg, B, S, jnp.float32)
+    jbig = jax.tree.map(
+        lambda a: jnp.asarray(rng.normal(size=a.shape).astype(np.float32)),
+        jbig)
+    tbig = TT.init_caches(tcfg, B, S, torch.float32, "cpu")
+    kinds = set()
+    for li, c in enumerate(tbig):
+        kinds.add(type(c).__name__)
+        for f, w in zip(c, reference_layer_cache(jbig, jcfg, li)):
+            f.copy_(torch.from_numpy(np.array(w)))
+    assert kinds == {"RGLRUCache", "KVCache"}
+    tok = rng.integers(0, jcfg.vocab_size, size=(1, length)).astype(np.int32)
+    _, jsmall = JT.prefill(jp, jnp.asarray(tok), jcfg,
+                           jctx(attn_impl="full"))
+    _, tsmall = TT.prefill(model, torch.from_numpy(tok).long(), tcfg,
+                           tctx(attn_impl="flash"))
+    want = jinsert(jbig, jsmall, slot)
+    got = insert_slot(tbig, tsmall, slot)
+    assert got is tbig                                  # written in place
+    for li, c in enumerate(got):
+        for t, w in zip(c, reference_layer_cache(want, jcfg, li)):
+            w = np.asarray(w)
+            assert np.abs(t.numpy() - w).max() < 1e-4
+            keep = np.ones(t.shape, bool)
+            if t.dim() == 4:                            # k, v
+                keep[slot, :, :length] = False
+            else:                                       # conv, h
+                keep[slot] = False
+            assert np.array_equal(t.numpy()[keep], w[keep])
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "qwen3-moe-30b-a3b"])
+def test_engine_matches_reference_rglru_and_moe(arch):
+    """``test_mamba2_engine_matches_reference``'s requests on reduced
+    recurrentgemma-9b (idle slots decode too; their RG-LRU state is
+    overwritten at the next admission) and reduced qwen3-moe-30b-a3b
+    (idle slots compete for expert capacity, which at a capacity factor
+    of 4 drops nothing)."""
+    jcfg, tcfg, jp, model = carried(arch)
+    jeng = JEngine(jcfg, jp, jctx(remat=False, attn_impl="full"),
+                   max_batch=3, max_len=48)
+    eng = Engine(tcfg, model, tctx(attn_impl="flash"), max_batch=3,
+                 max_len=48, device="cpu")
+    for r, p in enumerate(prompts(jcfg)):
+        jeng.add_request(JRequest(rid=r, prompt=p, max_new_tokens=4 + r))
+        eng.add_request(Request(rid=r, prompt=p, max_new_tokens=4 + r))
+    want, got = served(jeng.run_to_completion()), \
+        served(eng.run_to_completion())
+    assert len(got) == 5
+    assert sorted(len(t) for _, t in got) == [4, 5, 6, 7, 8]
+    assert got == want
